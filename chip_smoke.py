@@ -1,0 +1,374 @@
+"""Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
+
+Phases (any failure raises and the script exits non-zero):
+
+1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
+2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all at once), with the ``-Xptxas -v`` register
+   and spill lines;
+3. each kernel against its plain PyTorch version at the shapes the serving
+   path gives it, from seeded random inputs: the largest difference, and
+   times (CUDA events around each launch with the card kept busy while the
+   host enqueues it, the 50 MB L2 flushed before each, median of the runs)
+   of the kernel, the plain version and one PyTorch call
+   computing the same function as a yardstick, beside the least time the
+   card could take (the larger of bytes over 3.35 TB/s and operations over
+   the peak rate for their type);
+4. the main path: bitnet-730m at full width (24 layers, random weights
+   from a seed, packed to 2 bits) served by
+   ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
+   requests; the launch counters, set to 0 just before, must equal what the
+   engine's stats imply; the served model's logits are held against the
+   plain versions on the CPU at full width and cut depth;
+5. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
+
+Without a CUDA device, or without the rest of the repository beside it, it
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS = {"int8": 1979e12, "f32": 67e12}  # dense int8 tensor / f32 non-tensor
+TLMM_SHAPES = ((1536, 1536), (1536, 4096), (4096, 1536))
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed_ms(torch, fn, flush, reps: int = 15, busy: bool = True) -> float:
+    """Median time of one call between CUDA events, warmed up, with the L2
+    flushed before each call.  With ``busy`` the card is kept busy
+    (``torch.cuda._sleep``) while the host enqueues the events and the call,
+    so the time is the device's alone; without, it includes the host's
+    Python overhead of the call whenever that is longer."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        if busy:
+            torch.cuda._sleep(1_000_000)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def kernel_checks(torch, ops, refs):
+    """Phase 3.  Returns {kernel: entry without launches}."""
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+
+    # B1 — TLMM at decode (M = 4 slots) and prefill (M = 1024 tokens) rows
+    cases = []
+    for m in (4, 1024):
+        for k, n in TLMM_SHAPES:
+            x_q = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            w = torch.randint(0, 256, (k // 4, n), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+            scale = torch.rand((m, 1), generator=gen, device=dev) * 1e-3
+            y = ops["tlmm"](x_q, w, scale)
+            y_ref = refs["tlmm"](x_q, w, scale)
+            torch.cuda.synchronize()
+            if not torch.equal(y, y_ref):
+                raise AssertionError(f"TLMM kernel differs from its plain version at M={m} K={k} N={n}")
+            w_unpacked = refs["unpack"](w)
+            if m > 16:  # torch._int_mm takes M > 16
+                lib = lambda: torch._int_mm(x_q, w_unpacked)  # noqa: E731
+            else:
+                xb, wb = x_q.to(torch.bfloat16), w_unpacked.to(torch.bfloat16)
+                lib = lambda: xb @ wb  # noqa: E731
+            b_ms, b_by = bound(m * k + k * n / 4 + m * 4 + m * n * 4, 2.0 * m * k * n, "int8")
+            cases.append({
+                "shape": f"M={m} K={k} N={n}", "max_abs_err": 0.0,
+                "ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush),
+                "call_ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush, busy=False),
+                "plain_ms": timed_ms(torch, lambda: refs["tlmm"](x_q, w, scale), flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush),
+            })
+    results["tlmm"] = dict(cases[4], cases=cases)  # headline: prefill w_gate/w_up shape
+
+    # B2 — prefill attention, (1, 24, S, 64) f32, causal
+    cases = []
+    for s in (256, 2048):
+        q, k, v = (torch.randn((1, 24, s, 64), generator=gen, device=dev) for _ in range(3))
+        out = ops["prefill"](q, k, v)
+        err = (out - refs["prefill"](q, k, v)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"prefill attention kernel off by {err} at S={s}")
+        b_ms, b_by = bound(4 * q.numel() * 4, 4.0 * 64 * 24 * s * (s + 1) / 2, "f32")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        cases.append({
+            "shape": f"(1,24,{s},64)", "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
+            "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush),
+        })
+    results["prefill_attention"] = dict(cases[1], max_abs_err=max(c["max_abs_err"] for c in cases),
+                                        cases=cases)
+
+    # B3 — decode attention on a strided layer slice of a (4,24,24,2048,64) bf16 cache
+    b, layers, hkv, smax, d = 4, 24, 24, 2048, 64
+    cache_k = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(torch.bfloat16)
+    cache_v = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = cache_k[:, 7], cache_v[:, 7]
+    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    lens_list = [0, 517, 1300, 2048]
+    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    out, l, m = ops["decode"](q, k, v, lengths)
+    out_r, l_r, m_r = refs["decode"](q, k, v, lengths)
+    err = max((out - out_r).abs().max().item(), (m - m_r).abs().max().item(),
+              ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
+    if not err <= 1e-4:
+        raise AssertionError(f"decode attention kernel off by {err}")
+    live = sum(lens_list)
+    nbytes = 2 * live * hkv * d * 2 + q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4
+    b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
+    qb = q.to(torch.bfloat16)
+    mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results["decode_attention"] = {
+        "shape": f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={lens_list} bf16 layer slice",
+        "max_abs_err": err,
+        "ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths), flush),
+        "call_ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths), flush, busy=False),
+        "plain_ms": timed_ms(torch, lambda: refs["decode"](q, k, v, lengths), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timed_ms(torch, lambda: sdpa(qb, k, v, attn_mask=mask), flush),
+    }
+    return results
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention_kernel
+    from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
+    from repro_torch.kernels.tlmm.ops import tlmm_kernel
+    from repro_torch.kernels.tlmm.ref import tlmm_reference
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.ternary import unpack_ternary
+
+    card = smi()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    info = build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
+    for name, rec in info.items():
+        print(f"  {name}: {rec['seconds']:.1f} s{' (cached)' if rec['cached'] else ''}")
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+
+    # ---- 3. kernels against their plain versions
+    ops = {"tlmm": tlmm_kernel, "prefill": prefill_attention_kernel,
+           "decode": decode_attention_kernel}
+    refs = {"tlmm": tlmm_reference, "prefill": prefill_attention_reference,
+            "decode": decode_attention_reference,
+            "unpack": lambda w: unpack_ternary(w).contiguous()}
+    checks = kernel_checks(torch, ops, refs)
+    for name, r in checks.items():
+        for c in r.get("cases", [r]):
+            print(f"kernel {name} {c['shape']}: err {c['max_abs_err']:.3g}  kernel {c['ms']:.4f} ms "
+                  f"(call with host overhead {c['call_ms']:.4f} ms)  "
+                  f"plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})  [{card}]")
+
+    # ---- 4. the main path at full width
+    cfg = get_config("bitnet-730m")
+    n_slots, max_len, max_tokens = 4, 2048, 32
+    prompt_lens = [64, 1536, 300, 900, 128, 1200, 700, 480]
+    eng, stats, wall, launches = serve(cfg, "cuda", n_slots, max_len, prompt_lens, max_tokens)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rng = np.random.default_rng(1)
+
+    for i in range(len(prompt_lens)):
+        req = eng.finished[f"req{i}"]
+        if req.finish_reason != "length" or len(req.out_tokens) != max_tokens:
+            raise AssertionError(f"req{i}: finish {req.finish_reason}, {len(req.out_tokens)} tokens")
+        if not all(0 <= t < cfg.padded_vocab() for t in req.out_tokens):
+            raise AssertionError(f"req{i}: token out of range")
+    per_pass = 7 * cfg.num_layers
+    expect = {"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+              "prefill_attention": cfg.num_layers * stats.swaps,
+              "decode_attention": cfg.num_layers * stats.decode_rounds}
+    if stats.swaps != len(prompt_lens) or launches != expect:
+        raise AssertionError(f"launches {launches} != expected {expect} "
+                             f"({stats.swaps} prefills, {stats.decode_rounds} decode rounds)")
+    hidden = [t.hidden_fraction for t in stats.swap_timings]
+    print(f"main path: bitnet-730m full width, {len(prompt_lens)} requests x {max_tokens} tokens, "
+          f"{n_slots} slots, max_len {max_len}: {stats.swaps} prefills, {stats.decode_rounds} decode "
+          f"rounds, {wall:.2f} s wall  [{card}]")
+    print(f"  TTFT mean {stats.ttft.mean * 1e3:.1f} ms  p50 {stats.ttft.percentile(50) * 1e3:.1f} ms  "
+          f"prefill mean {stats.t_prefill / stats.swaps * 1e3:.1f} ms  [{card}]")
+    print(f"  decode {stats.decode_tput():.1f} tok/s, {stats.decode_round_cost() * 1e3:.2f} ms/round  [{card}]")
+    print(f"  swap: relayout mean {statistics.mean(t.t_relayout for t in stats.swap_timings) * 1e3:.3f} ms, "
+          f"tail mean {statistics.mean(t.t_tail for t in stats.swap_timings) * 1e3:.3f} ms, "
+          f"hidden fraction mean {statistics.mean(hidden):.3f} min {min(hidden):.3f}  [{card}]")
+    print(f"  peak device memory {peak_gib:.2f} GiB  [{card}]")
+    print(f"  launches {launches}")
+
+    wall_p, dev_p, top = profile_decode(torch, eng)
+    if dev_p is None:
+        print("profile: the profiler saw no device time; device busy share not measured")
+    else:
+        print(f"profile: 4 decode rounds (4 slots, 256-token prompts) under torch.profiler: "
+              f"{wall_p * 1e3:.1f} ms wall, {dev_p * 1e3:.1f} ms of kernels, device busy "
+              f"{dev_p / wall_p:.3f}  [{card}]")
+        for name, sec, calls in top:
+            print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
+
+    # the served model against the plain versions on the CPU: full width, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p_gpu = T.convert_for_inference(T.init(cfg2, seed=1, device="cuda"), cfg2)
+    p_cpu = _to_cpu(p_gpu)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 96))).long()
+    lg, kv_g = T.forward_prefill(p_gpu, tokens.cuda(), cfg2, last_pos=80)
+    lc, kv_c = T.forward_prefill(p_cpu, tokens, cfg2, last_pos=80)
+    ref_err = (lg.cpu() - lc).abs().max().item()
+    scale = lc.abs().max().item()
+    if not (torch.isfinite(lg).all() and lg.shape == (1, cfg.padded_vocab()) and ref_err <= 1e-3 * max(scale, 1.0)):
+        raise AssertionError(f"full-width prefill logits differ from the CPU plain path by {ref_err} (max |logit| {scale})")
+    print(f"reference: full-width 2-layer prefill logits vs CPU plain versions: max abs err {ref_err:.3g} "
+          f"(max |logit| {scale:.3g})")
+
+    kernels = []
+    meta = {
+        "tlmm": ("src/repro_torch/csrc/tlmm.cu", "src/repro/kernels/tlmm/kernel.py:79"),
+        "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
+                              "src/repro/kernels/prefill_attention/kernel.py:84"),
+        "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:107"),
+    }
+    for name, (src, replaces) in meta.items():
+        r = checks[name]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": r["shape"], "cases": r.get("cases", [])})
+    print(json.dumps({"kernels": kernels}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serve(cfg, device, n_slots, max_len, prompt_lens, max_tokens):
+    """Drive ``EngineCore`` (pdswap, overlap on) over greedy requests with
+    the given prompt lengths, after a one-request warm-up; the launch
+    counters and the peak-memory statistic are reset just before the run.
+    Returns (engine, stats, wall seconds, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineCore, Request, SamplingParams
+
+    params = T.convert_for_inference(T.init(cfg, seed=0, device=device), cfg)
+    eng = EngineCore(cfg, params, device=device, mode="pdswap", overlap=True,
+                     n_slots=n_slots, max_len=max_len)
+    list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
+    eng.reset_stats()
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(prompt_lens):
+        eng.submit(Request(f"req{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                           max_new=max_tokens))
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = eng.run()
+    if cuda:
+        torch.cuda.synchronize()
+    return eng, stats, time.perf_counter() - t0, dict(COUNTS)
+
+
+def profile_decode(torch, eng, rounds: int = 4):
+    """Device time under ``torch.profiler`` over ``rounds`` decode rounds of
+    4 fresh requests (run after the main path; its counts are already read).
+    Returns (wall s, device kernel s, top kernels [(name, s, calls)]), the
+    device time None when the profiler saw none."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        eng.submit(Request(f"prof{i}", rng.integers(0, 32000, 256).astype(np.int32),
+                           max_new=rounds + 2))
+    eng.step()  # the prefill burst and a first decode round
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run()
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev:
+            rows.append((e.key, dev / 1e6, e.count))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    return wall, (total if rows else None), rows[:8]
+
+
+def _to_cpu(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    return type(tree)(tree.packed.cpu(), tree.scale.cpu())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Phase-specialized programs — the GPU analogue of the paper's
+reconfigurable modules (contribution C1).
+
+``PhaseEngine`` hands out, for one architecture, plain callables keyed as
+the JAX package keys its compiled programs:
+
+  * ``prefill_varlen:{B}x{S}``        — full prefill for a right-padded bucket
+  * ``prefill_split_varlen:{B}x{S}``  — prefill through the LAST layer's attention
+    (``...:tail`` — last FFN + norm + logits, run during the swap)
+  * ``relayout:{B}x{S}->{max_len}``   — the swap itself: prefill-layout KV
+    into the decode cache (layout move + cast + zero padding)
+  * ``decode:{B}x{max_len}``          — the KV-streaming decode step
+
+Weights are never touched by the swap: both phases use the same tensors.
+The port runs the callables eagerly; capturing them as CUDA graphs is
+later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kv_cache import insert_prefill_kv
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass
+class PhaseProgram:
+    name: str
+    fn: Callable
+
+
+class PhaseEngine:
+    """Builds and caches the phase programs for one architecture."""
+
+    def __init__(self, cfg: ModelConfig, *, cache_layout: str = "contiguous",
+                 kv_dtype: str = "fp"):
+        if cache_layout != "contiguous":
+            raise NotImplementedError(f"cache_layout={cache_layout!r}: the paged layout is ROADMAP A8")
+        if kv_dtype != "fp":
+            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: quantized KV is ROADMAP A6")
+        self.cfg = cfg
+        self._programs: Dict[str, PhaseProgram] = {}
+
+    def _program(self, key: str, fn: Callable) -> PhaseProgram:
+        if key not in self._programs:
+            self._programs[key] = PhaseProgram(key, fn)
+        return self._programs[key]
+
+    def prefill_program_varlen(self, batch: int, seq: int) -> PhaseProgram:
+        """``fn(params, tokens, last_pos) -> (logits, kv)`` for right-padded
+        prompts at bucket length ``seq``."""
+        cfg = self.cfg
+
+        def fn(params, tokens, last_pos):
+            return T.forward_prefill(params, tokens, cfg, last_pos=last_pos)
+
+        return self._program(f"prefill_varlen:{batch}x{seq}", fn)
+
+    def prefill_split_programs_varlen(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
+        """(body, tail): the overlap split, the tail taking ``last_pos``."""
+        cfg = self.cfg
+        key = f"prefill_split_varlen:{batch}x{seq}"
+
+        def body_fn(params, tokens):
+            return T.forward_prefill(params, tokens, cfg, split_tail=True)
+
+        def tail_fn(params, x_mid, last_pos):
+            return T.prefill_tail(params, x_mid, cfg, last_pos=last_pos)
+
+        return self._program(key, body_fn), self._program(key + ":tail", tail_fn)
+
+    def prefill_split_programs(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
+        """(body, tail): the overlap split at the last layer's attention."""
+        cfg = self.cfg
+
+        def body_fn(params, tokens):
+            return T.forward_prefill(params, tokens, cfg, split_tail=True)
+
+        def tail_fn(params, x_mid):
+            return T.prefill_tail(params, x_mid, cfg)
+
+        return (self._program(f"prefill_body:{batch}x{seq}", body_fn),
+                self._program(f"prefill_tail:{batch}x{seq}", tail_fn))
+
+    def relayout_program(self, batch: int, seq: int, max_len: int) -> PhaseProgram:
+        """The swap: ``fn(kv, cache, slot)`` moves one prompt's prefill-layout
+        KV (L, 1, Hkv, seq, D) into slot ``slot`` of the batch-leading decode
+        cache in place — layer-major to batch-leading, cast to the cache
+        dtype, rows [seq, max_len) zeroed — and returns the cache."""
+        if batch != 1:
+            raise NotImplementedError("the relayout installs one prompt at a time")
+
+        def fn(kv, cache, slot):
+            return insert_prefill_kv(cache, kv, slot)
+
+        return self._program(f"relayout:{batch}x{seq}->{max_len}", fn)
+
+    def decode_program(self, batch: int, max_len: int) -> PhaseProgram:
+        """``fn(params, token, cache, lengths) -> (logits, cache)``; the cache
+        is updated in place (the JAX program donates it)."""
+        cfg = self.cfg
+
+        def fn(params, token, cache, lengths):
+            return T.decode_step(params, token, cache, lengths, cfg)
+
+        return self._program(f"decode:{batch}x{max_len}", fn)

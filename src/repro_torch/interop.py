@@ -1,0 +1,43 @@
+"""Parameters from the JAX package, as numpy, into the port.
+
+``params_from_numpy(tree, cfg, device)`` takes the JAX package's parameter
+tree after the caller has turned every leaf into a numpy array: nested
+dicts with layer-stacked leaves (leading dim L).  A linear's ``"w"`` entry
+is either
+
+* a packed ternary weight flattened to ``{"packed": (L, K/4, N) uint8,
+  "scale": (L,) f32}`` — it becomes a ``TernaryWeight`` byte for byte; or
+* a latent ``(L, K, N)`` array — packed here by the port's own quantizer
+  when the config is ternary, kept dense otherwise.
+
+The port never sees a JAX type, and imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _convert(node, cfg: ModelConfig, device, key: str = ""):
+    if isinstance(node, dict):
+        if key == "w" and "packed" in node:
+            return TernaryWeight(_tensor(node["packed"], device),
+                                 _tensor(np.asarray(node["scale"], np.float32), device))
+        return {k: _convert(v, cfg, device, k) for k, v in node.items()}
+    t = _tensor(node, device)
+    if key == "w" and cfg.quant.ternary:
+        return quantize_and_pack_stacked(t.float())
+    return t
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The port's params for ``cfg`` on ``device`` (CUDA by default)."""
+    return _convert(tree, cfg, resolve_device(device))

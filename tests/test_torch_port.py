@@ -1,0 +1,132 @@
+"""The PyTorch port on its own: what it imports, where it runs, its launch
+counters, and the pieces of the serving path that need no JAX run."""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serving.core import ModelRunner as JModelRunner
+
+from repro_torch.configs import reduced_config
+from repro_torch.core.swap import SwapTiming
+from repro_torch.kernels import COUNTS, reset_counts
+from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_kernel
+from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_kernel
+from repro_torch.kernels.tlmm.ops import tlmm_kernel, tlmm_matmul
+from repro_torch.models import transformer as T
+from repro_torch.quant.ternary import quantize_and_pack
+from repro_torch.serving import EngineCore, Request, SamplingParams
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.path[:0] = [{src!r}, {root!r}]
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print(len(names), bad)
+        assert not bad, bad
+    """).format(src=str(ROOT / "src"), root=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 20  # every module of the port was imported
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    cfg = reduced_config("bitnet-730m")
+    params = T.convert_for_inference(T.init(cfg, 0, device="cpu"), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EngineCore(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 2, 64)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The launch functions never run a plain version: a CPU tensor is an error."""
+    x_q = torch.zeros((4, 64), dtype=torch.int8)
+    w = quantize_and_pack(torch.randn(64, 32))
+    with pytest.raises(ValueError):
+        tlmm_kernel(x_q, w.packed, torch.ones(4, 1))
+    q = torch.zeros((1, 2, 8, 32))
+    with pytest.raises(ValueError):
+        prefill_attention_kernel(q, q, q)
+    with pytest.raises(ValueError):
+        decode_attention_kernel(torch.zeros((1, 2, 1, 32)), q, q, torch.ones(1, dtype=torch.int32))
+
+
+def test_launch_counters_stay_zero_on_cpu_tensors():
+    reset_counts()
+    cfg = reduced_config("bitnet-730m")
+    params = T.convert_for_inference(T.init(cfg, 1, device="cpu"), cfg)
+    w = quantize_and_pack(torch.randn(64, 32))
+    tlmm_matmul(torch.randn(3, 64), w)
+    q = torch.randn(1, 2, 8, 32)
+    prefill_attention(q, q, q)
+    decode_attention(torch.randn(1, 2, 32), q, q, torch.tensor([5], dtype=torch.int32))
+    eng = EngineCore(cfg, params, n_slots=2, max_len=64, prompt_len=16, device="cpu")
+    outs = list(eng.generate(np.arange(7), max_new=3))
+    assert outs[-1].finished and len(outs[-1].token_ids) == 3
+    assert COUNTS == {"tlmm": 0, "prefill_attention": 0, "decode_attention": 0}
+
+
+def test_bucket_matches_jax_contiguous_buckets():
+    cfg = reduced_config("bitnet-730m")
+    params = T.convert_for_inference(T.init(cfg, 2, device="cpu"), cfg)
+    for max_len, q in [(2048, 32), (100, 16), (64, 16)]:
+        eng = EngineCore(cfg, params, n_slots=1, max_len=max_len, prompt_len=q, device="cpu")
+        jself = SimpleNamespace(cache_layout="contiguous", prompt_len=q, block_size=16,
+                                max_len=max_len)
+        for n in range(1, max_len):
+            assert eng.runner.bucket(n) == JModelRunner.bucket(jself, n), (max_len, q, n)
+
+
+def test_out_of_slice_arguments_raise_not_implemented():
+    cfg = reduced_config("bitnet-730m")
+    params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
+    kw = dict(n_slots=1, max_len=64, device="cpu")
+    for extra in (dict(cache_layout="paged"), dict(kv_dtype="int8"), dict(kv_dtype="int4"),
+                  dict(prefill_chunk=16), dict(spec_decode=2), dict(swap_policy="swap-aware")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            EngineCore(cfg, params, **kw, **extra)
+    eng = EngineCore(cfg, params, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.submit(Request("s", np.arange(4, dtype=np.int32), max_new=2,
+                           params=SamplingParams(temperature=0.7)))
+    with pytest.raises(ValueError, match="never truncated"):
+        eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
+
+
+def test_decode_writes_the_new_token_after_attending_and_clamps_the_row():
+    """The cache is read-only while the layers run; one write per step lands
+    at min(length, Smax - 1), cast to the cache dtype."""
+    cfg = reduced_config("bitnet-730m")
+    params = T.convert_for_inference(T.init(cfg, 4, device="cpu"), cfg)
+    cache = T.init_cache(cfg, 2, 16, device="cpu")
+    lengths = torch.tensor([3, 40], dtype=torch.int32)  # slot 1 parked past the end
+    logits, cache = T.decode_step(params, torch.tensor([1, 2]), cache, lengths, cfg)
+    assert logits.shape == (2, cfg.padded_vocab()) and cache.k.dtype == torch.bfloat16
+    written = cache.k.abs().sum(dim=(1, 2, 4)) > 0  # (B, Smax)
+    assert written[0].nonzero().flatten().tolist() == [3]
+    assert written[1].nonzero().flatten().tolist() == [15]
+
+
+def test_swap_timing_hidden_fraction():
+    t = SwapTiming(t_body=1.0, t_tail=0.5, t_relayout=0.4, t_total_overlapped=1.6)
+    assert t.hidden_fraction == pytest.approx(0.75)
+    assert SwapTiming(t_relayout=0.0).hidden_fraction == 0.0
