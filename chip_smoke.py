@@ -13,14 +13,29 @@ Phases (any failure raises and the script exits non-zero):
    of the kernel, the plain version and one PyTorch call
    computing the same function as a yardstick, beside the least time the
    card could take (the larger of bytes over 3.35 TB/s and operations over
-   the peak rate for their type);
+   the peak rate for their type).  B1-B3 as before; B4 (int8, int4) on a
+   strided layer slice of a (4,24,24,2048,Dp) quantized cache, B5 on a bf16
+   pool of 512 pages of 16 and B6 (int8, int4) on the same pool, walked
+   through shuffled block tables;
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
    requests; the launch counters, set to 0 just before, must equal what the
    engine's stats imply; the served model's logits are held against the
    plain versions on the CPU at full width and cut depth;
-5. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
+5. the other cache options at full width, each serving the same 8 requests
+   (and each driven with the counts set to 0 just before and read just
+   after): (a) contiguous int8, pdswap; (b) contiguous int4, static;
+   (c) paged bf16, 16-token pages, four prompts sharing a 256-token prefix
+   (prefix hits asserted); (d) paged int8; (e) paged int8 on a pool of 150
+   pages, which forces preemption (asserted) and must give (d)'s tokens;
+   (f) the main path's configuration again, so that the paths' times
+   compare with it late in the run as they are.  Each path's decode kernel
+   is launched 24 times a decode round (replay rounds included), the other
+   decode kernels never; each path's decode is profiled; the quantized and
+   paged decode steps are held against the CPU plain versions at full
+   width and cut depth;
+6. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
@@ -38,6 +53,10 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"int8": 1979e12, "f32": 67e12}  # dense int8 tensor / f32 non-tensor
 TLMM_SHAPES = ((1536, 1536), (1536, 4096), (4096, 1536))
+DECODE_LENGTHS = [0, 517, 1300, 2048]
+PROMPT_LENS = [64, 1536, 300, 900, 128, 1200, 700, 480]
+SHARED = (1, 2, 3, 5)  # the prompts of the paged paths that share a 256-token prefix
+SMALL_POOL = 150  # pages: too few for 4 slots of these prompts, so (e) preempts
 
 
 def smi() -> str:
@@ -137,7 +156,7 @@ def kernel_checks(torch, ops, refs):
     cache_v = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(torch.bfloat16)
     k, v = cache_k[:, 7], cache_v[:, 7]
     q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
-    lens_list = [0, 517, 1300, 2048]
+    lens_list = DECODE_LENGTHS
     lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     out, l, m = ops["decode"](q, k, v, lengths)
     out_r, l_r, m_r = refs["decode"](q, k, v, lengths)
@@ -160,6 +179,116 @@ def kernel_checks(torch, ops, refs):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timed_ms(torch, lambda: sdpa(qb, k, v, attn_mask=mask), flush),
     }
+    results.update(quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask))
+    return results
+
+
+def _random_payload(torch, gen, dev, shape, kv_dtype):
+    """A quantized cache's payload and scale plane, made of random bytes and
+    scales in [0.01, 0.03) (dequantized values of order 1)."""
+    d = shape[-1]
+    if kv_dtype == "int4":
+        q = torch.randint(0, 256, shape[:-1] + (d // 2,), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    else:
+        q = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+    return q, torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 0.01
+
+
+def _check_err(name, got, want):
+    out, l, m = got
+    out_r, l_r, m_r = want
+    err = max((out - out_r).abs().max().item(), (m - m_r).abs().max().item(),
+              ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
+    if not err <= 1e-4:
+        raise AssertionError(f"{name} kernel off by {err}")
+    return err
+
+
+def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
+    """B4-B6 at the serving path's shapes: each kernel against its plain
+    version, timed beside its bound and, as a yardstick, SDPA over the dense
+    bf16 view (gathered and dequantized beforehand, outside its time)."""
+    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = q.device
+    b, hkv, _, d = q.shape
+    layers, smax, n_pages, bs, pool_pages = 24, 2048, 128, 16, 512
+    live = sum(DECODE_LENGTHS)
+    used = [-(-n // bs) for n in DECODE_LENGTHS]
+    qb = q.to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    small = q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4  # q in, out/l/m out, lengths
+    results = {}
+
+    def entry(shape, err, run, plain, lib, nbytes):
+        b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
+        return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                "call_ms": timed_ms(torch, run, flush, busy=False),
+                "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed_ms(torch, lib, flush)}
+
+    # B4 — quantized decode attention, strided layer slice of (4,24,24,2048,Dp)
+    cases = []
+    for kv_dtype in ("int8", "int4"):
+        (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, smax, d), kv_dtype)
+                                for _ in range(2))
+        args = (q, kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7], lengths)
+        err = _check_err(f"B4 {kv_dtype}", ops["decode_quant"](*args, kv_dtype=kv_dtype),
+                         refs["decode_quant"](*args, kv_dtype=kv_dtype))
+        kd, vd = (dequantize_kv(p, s_, kv_dtype).to(torch.bfloat16) for p, s_ in
+                  ((args[1], args[2]), (args[3], args[4])))
+        dp = kc.shape[-1]
+        cases.append(entry(
+            f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={DECODE_LENGTHS} {kv_dtype} layer slice",
+            err, lambda: ops["decode_quant"](*args, kv_dtype=kv_dtype),
+            lambda: refs["decode_quant"](*args, kv_dtype=kv_dtype),
+            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small))
+    results["decode_attention_quant"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases),
+                                             cases=cases)
+
+    # block tables: shuffled distinct pages for each sequence's live pages, 0 elsewhere
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
+    tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
+    start = 0
+    for i, u in enumerate(used):
+        tables[i, :u] = perm[start:start + u]
+        start += u
+    small_p = small + sum(used) * 4  # the table entries read
+
+    # B5 — paged decode attention, bf16 pool (512, 24, 24, 16, 64), layer 7
+    pool_k, pool_v = (torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+    args = (q, pool_k[:, 7], pool_v[:, 7], tables, lengths)
+    err = _check_err("B5", ops["paged"](*args), refs["paged"](*args))
+    kd, vd = (gather_pages(p, tables) for p in (args[1], args[2]))
+    results["paged_decode_attention"] = entry(
+        f"B={b} Hkv={hkv} N={pool_pages} bs={bs} P={n_pages} D={d} lengths={DECODE_LENGTHS} "
+        "bf16 pool layer slice, shuffled tables", err, lambda: ops["paged"](*args),
+        lambda: refs["paged"](*args), lambda: sdpa(qb, kd, vd, attn_mask=mask),
+        2 * live * hkv * d * 2 + small_p)
+    del pool_k, pool_v, kd, vd
+
+    # B6 — quantized paged decode attention on the same pool layout
+    cases = []
+    for kv_dtype in ("int8", "int4"):
+        (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (pool_pages, layers, hkv, bs, d),
+                                                kv_dtype) for _ in range(2))
+        args = (q, kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7], tables, lengths)
+        err = _check_err(f"B6 {kv_dtype}", ops["paged_quant"](*args, kv_dtype=kv_dtype),
+                         refs["paged_quant"](*args, kv_dtype=kv_dtype))
+        kd, vd = (dequantize_kv(gather_pages(p, tables), gather_scales(s_, tables), kv_dtype)
+                  .to(torch.bfloat16) for p, s_ in ((args[1], args[2]), (args[3], args[4])))
+        dp = kc.shape[-1]
+        cases.append(entry(
+            f"B={b} Hkv={hkv} N={pool_pages} bs={bs} P={n_pages} D={d} lengths={DECODE_LENGTHS} "
+            f"{kv_dtype} pool layer slice, shuffled tables", err,
+            lambda: ops["paged_quant"](*args, kv_dtype=kv_dtype),
+            lambda: refs["paged_quant"](*args, kv_dtype=kv_dtype),
+            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small_p))
+    results["paged_decode_attention_quant"] = dict(
+        cases[0], max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
     return results
 
 
@@ -174,8 +303,22 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
-    from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_kernel,
+        decode_attention_quant_kernel,
+    )
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_quant_reference,
+        decode_attention_reference,
+    )
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention_kernel,
+        paged_decode_attention_quant_kernel,
+    )
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_quant_reference,
+        paged_decode_attention_reference,
+    )
     from repro_torch.kernels.prefill_attention.ops import prefill_attention_kernel
     from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
     from repro_torch.kernels.tlmm.ops import tlmm_kernel
@@ -199,9 +342,12 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions
     ops = {"tlmm": tlmm_kernel, "prefill": prefill_attention_kernel,
-           "decode": decode_attention_kernel}
+           "decode": decode_attention_kernel, "decode_quant": decode_attention_quant_kernel,
+           "paged": paged_decode_attention_kernel, "paged_quant": paged_decode_attention_quant_kernel}
     refs = {"tlmm": tlmm_reference, "prefill": prefill_attention_reference,
-            "decode": decode_attention_reference,
+            "decode": decode_attention_reference, "decode_quant": decode_attention_quant_reference,
+            "paged": paged_decode_attention_reference,
+            "paged_quant": paged_decode_attention_quant_reference,
             "unpack": lambda w: unpack_ternary(w).contiguous()}
     checks = kernel_checks(torch, ops, refs)
     for name, r in checks.items():
@@ -214,21 +360,20 @@ def main() -> int:
     # ---- 4. the main path at full width
     cfg = get_config("bitnet-730m")
     n_slots, max_len, max_tokens = 4, 2048, 32
-    prompt_lens = [64, 1536, 300, 900, 128, 1200, 700, 480]
-    eng, stats, wall, launches = serve(cfg, "cuda", n_slots, max_len, prompt_lens, max_tokens)
+    prompt_lens = PROMPT_LENS
+    params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
+    prompts = make_prompts(np, cfg, prompt_lens)
+    eng, stats, wall, launches, _ = serve(cfg, params, prompts, max_tokens, n_slots=n_slots,
+                                          max_len=max_len, mode="pdswap", overlap=True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rng = np.random.default_rng(1)
 
-    for i in range(len(prompt_lens)):
-        req = eng.finished[f"req{i}"]
-        if req.finish_reason != "length" or len(req.out_tokens) != max_tokens:
-            raise AssertionError(f"req{i}: finish {req.finish_reason}, {len(req.out_tokens)} tokens")
-        if not all(0 <= t < cfg.padded_vocab() for t in req.out_tokens):
-            raise AssertionError(f"req{i}: token out of range")
+    check_served(eng, cfg, len(prompt_lens), max_tokens)
     per_pass = 7 * cfg.num_layers
-    expect = {"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
-              "prefill_attention": cfg.num_layers * stats.swaps,
-              "decode_attention": cfg.num_layers * stats.decode_rounds}
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+                   "prefill_attention": cfg.num_layers * stats.swaps,
+                   "decode_attention": cfg.num_layers * stats.decode_rounds})
     if stats.swaps != len(prompt_lens) or launches != expect:
         raise AssertionError(f"launches {launches} != expected {expect} "
                              f"({stats.swaps} prefills, {stats.decode_rounds} decode rounds)")
@@ -268,22 +413,45 @@ def main() -> int:
         raise AssertionError(f"full-width prefill logits differ from the CPU plain path by {ref_err} (max |logit| {scale})")
     print(f"reference: full-width 2-layer prefill logits vs CPU plain versions: max abs err {ref_err:.3g} "
           f"(max |logit| {scale:.3g})")
+    del eng
+
+    # ---- 5. the other cache options at full width
+    path_launches = cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots,
+                                       max_len, card)
+    for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+        print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
+              f"max abs err {err:.3g} (max |logit| {scale:.3g})")
+    for name, n in path_launches.items():
+        launches[name] = launches.get(name, 0) + n
 
     kernels = []
-    meta = {
-        "tlmm": ("src/repro_torch/csrc/tlmm.cu", "src/repro/kernels/tlmm/kernel.py:79"),
+    meta = {  # source, the TPU kernel it replaces, the yardstick library call
+        "tlmm": ("src/repro_torch/csrc/tlmm.cu", "src/repro/kernels/tlmm/kernel.py:79",
+                 "torch._int_mm (M > 16) or a bf16 matmul on the unpacked weights"),
         "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
-                              "src/repro/kernels/prefill_attention/kernel.py:84"),
+                              "src/repro/kernels/prefill_attention/kernel.py:84",
+                              "causal SDPA, f32"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention/kernel.py:107"),
+                             "src/repro/kernels/decode_attention/kernel.py:107",
+                             "masked SDPA, bf16"),
+        "decode_attention_quant": ("src/repro_torch/csrc/decode_attention.cu",
+                                   "src/repro/kernels/decode_attention/kernel.py:236",
+                                   "masked SDPA over the dequantized bf16 view (made outside the time)"),
+        "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention/kernel.py:95",
+                                   "masked SDPA over the gathered bf16 view (made outside the time)"),
+        "paged_decode_attention_quant": ("src/repro_torch/csrc/paged_attention.cu",
+                                         "src/repro/kernels/paged_attention/kernel.py:226",
+                                         "masked SDPA over the gathered, dequantized bf16 view "
+                                         "(made outside the time)"),
     }
-    for name, (src, replaces) in meta.items():
+    for name, (src, replaces, library) in meta.items():
         r = checks[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"], "cases": r.get("cases", [])})
+                        "library_call": library, "shape": r["shape"], "cases": r.get("cases", [])})
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -292,37 +460,178 @@ def main() -> int:
     return 0
 
 
-def serve(cfg, device, n_slots, max_len, prompt_lens, max_tokens):
-    """Drive ``EngineCore`` (pdswap, overlap on) over greedy requests with
-    the given prompt lengths, after a one-request warm-up; the launch
-    counters and the peak-memory statistic are reset just before the run.
-    Returns (engine, stats, wall seconds, launches)."""
+def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
+    """The greedy requests' prompts, from seed 0; with ``shared_prefix``, the
+    prompts ``SHARED`` start with the same tokens."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in prompt_lens]
+    if shared_prefix:
+        prefix = rng.integers(0, cfg.vocab_size, shared_prefix).astype(np.int32)
+        for i in SHARED:
+            prompts[i][:shared_prefix] = prefix
+    return prompts
+
+
+def serve(cfg, params, prompts, max_tokens, **engine_kw):
+    """Drive ``EngineCore`` on the card over greedy requests, after a
+    one-request warm-up; the launch counters and the peak-memory statistic
+    are reset just before the run.  Returns (engine, stats, wall seconds,
+    launches, prefill calls, restarts included)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import COUNTS, reset_counts
-    from repro_torch.models import transformer as T
     from repro_torch.serving import EngineCore, Request, SamplingParams
 
-    params = T.convert_for_inference(T.init(cfg, seed=0, device=device), cfg)
-    eng = EngineCore(cfg, params, device=device, mode="pdswap", overlap=True,
-                     n_slots=n_slots, max_len=max_len)
+    eng = EngineCore(cfg, params, device="cuda", **engine_kw)
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
-    rng = np.random.default_rng(0)
-    for i, n in enumerate(prompt_lens):
-        eng.submit(Request(f"req{i}", rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                           max_new=max_tokens))
-    cuda = eng.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(f"req{i}", p, max_new=max_tokens))
+    prefills = []
+    prefill = eng.runner.prefill
+
+    def counted(*args, **kw):
+        logits = prefill(*args, **kw)
+        prefills.append(1)
+        return logits
+
+    eng.runner.prefill = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     stats = eng.run()
-    if cuda:
-        torch.cuda.synchronize()
-    return eng, stats, time.perf_counter() - t0, dict(COUNTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, stats, wall, dict(COUNTS), len(prefills)
+
+
+def check_served(eng, cfg, n_requests, max_tokens):
+    for i in range(n_requests):
+        req = eng.finished[f"req{i}"]
+        if req.finish_reason != "length" or len(req.out_tokens) != max_tokens:
+            raise AssertionError(f"req{i}: finish {req.finish_reason}, {len(req.out_tokens)} tokens")
+        if not all(0 <= t < cfg.padded_vocab() for t in req.out_tokens):
+            raise AssertionError(f"req{i}: token out of range")
+
+
+DECODE_KERNELS = ("decode_attention", "decode_attention_quant", "paged_decode_attention",
+                  "paged_decode_attention_quant")
+
+
+def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, card):
+    """Phase 5: paths (a)-(e).  Returns the launches summed over them."""
+    shared = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)
+    paths = [
+        ("a", "contiguous int8, pdswap", prompts,
+         dict(cache_layout="contiguous", kv_dtype="int8", mode="pdswap")),
+        ("b", "contiguous int4, static", prompts,
+         dict(cache_layout="contiguous", kv_dtype="int4", mode="static")),
+        ("c", "paged bf16, bs 16, full pool, shared prefix, pdswap", shared,
+         dict(cache_layout="paged", kv_dtype="fp", mode="pdswap")),
+        ("d", "paged int8, bs 16, full pool, shared prefix, pdswap", shared,
+         dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")),
+        ("e", f"paged int8, bs 16, {SMALL_POOL}-page pool, shared prefix, pdswap", shared,
+         dict(cache_layout="paged", kv_dtype="int8", mode="pdswap", num_blocks=SMALL_POOL)),
+        # the main path's configuration once more, so that each path's times
+        # compare with it within this run, late in the run as they are
+        ("f", "control: contiguous bf16, pdswap (the main path again)", prompts,
+         dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap")),
+    ]
+    total = {}
+    streams = {}
+    for key, what, ps, kw in paths:
+        eng, st, wall, launches, prefills = serve(cfg, params, ps, max_tokens, n_slots=n_slots,
+                                                  max_len=max_len, block_size=16, **kw)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_served(eng, cfg, len(ps), max_tokens)
+        streams[key] = {r: q.out_tokens for r, q in eng.finished.items()}
+        kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention" + (
+            "" if kw["kv_dtype"] == "fp" else "_quant")
+        steps = st.decode_rounds + st.replayed_tokens
+        expect = {name: 0 for name in DECODE_KERNELS}
+        expect.update({"tlmm": 7 * cfg.num_layers * (prefills + steps),
+                       "prefill_attention": cfg.num_layers * prefills,
+                       kernel: cfg.num_layers * steps})
+        if launches != expect:
+            raise AssertionError(f"path ({key}): launches {launches} != expected {expect} "
+                                 f"({prefills} prefills, {st.decode_rounds} decode rounds, "
+                                 f"{st.replayed_tokens} replayed)")
+        hidden = [t.hidden_fraction for t in st.swap_timings]
+        hid = f"{statistics.mean(hidden):.3f}" if hidden else "n/a (static: no overlapped swap)"
+        kb = eng.kv_bytes()
+        print(f"path ({key}) {what}: {len(ps)} requests x {max_tokens} tokens, {prefills} prefills, "
+              f"{st.decode_rounds} decode rounds, {st.replayed_tokens} replayed, "
+              f"{st.preemptions} preemptions, {st.admission_blocks} admission blocks, "
+              f"prefix hits {st.prefix_hits} misses {st.prefix_misses}, {wall:.2f} s wall  [{card}]")
+        print(f"  TTFT mean {st.ttft.mean * 1e3:.1f} ms  decode {st.decode_tput():.1f} tok/s "
+              f"({st.decode_round_cost() * 1e3:.2f} ms/round)  hidden fraction {hid}  "
+              f"peak device memory {peak_gib:.2f} GiB  [{card}]")
+        print(f"  kv_bytes {kb}")
+        print(f"  launches {launches}")
+        wall_p, dev_p, top = profile_decode(torch, eng)
+        if dev_p is None:
+            print("  profile: the profiler saw no device time; device busy share not measured")
+        else:
+            print(f"  profile: 4 decode rounds (4 slots, 256-token prompts): {wall_p * 1e3:.1f} ms wall, "
+                  f"{dev_p * 1e3:.1f} ms of kernels, device busy {dev_p / wall_p:.3f}  [{card}]")
+            for name, sec, calls in top[:4]:
+                print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
+        if key == "c" and not st.prefix_hits > 0:
+            raise AssertionError("path (c): no prefix-cache hits")
+        if key == "e" and not (st.preemptions > 0 and st.replayed_tokens > 0):
+            raise AssertionError(f"path (e): {st.preemptions} preemptions, "
+                                 f"{st.replayed_tokens} replayed tokens")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng
+    if streams["e"] != streams["d"]:
+        raise AssertionError("path (e): the preempted run's tokens differ from (d)'s")
+    print("path (e): token streams equal (d)'s after preemption and replay")
+    return total
+
+
+def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+    """One decode step of the full-width 2-layer model over a quantized
+    cache (int8, int4) and a paged pool (bf16, int8, int4) holding the same
+    prompt KV, on the card against the CPU plain versions.  Yields (what,
+    max abs err, max |logit|)."""
+    from repro_torch.core.kv_cache import insert_prefill_kv
+    from repro_torch.layers.attention import KVCache, write_prefill_pages_q
+
+    s = kv_c.k.shape[3]  # 96 prompt positions: 6 pages of 16
+    token = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (2,))).long()
+    lengths = torch.tensor([s, 48], dtype=torch.int32)
+    for layout, kv_dtype in (("contiguous", "int8"), ("contiguous", "int4"), ("paged", "fp"),
+                             ("paged", "int8"), ("paged", "int4")):
+        out = []
+        for dev, params in ((p_gpu["emb"].device, p_gpu), ("cpu", p_cpu)):
+            kv = KVCache(*(a.to(dev) for a in kv_c))
+            if layout == "contiguous":
+                cache = T.init_cache(cfg2, 2, 128, kv_dtype=kv_dtype, device=dev)
+                for slot in range(2):
+                    insert_prefill_kv(cache, kv, slot)
+                logits, _ = T.decode_step(params, token.to(dev), cache, lengths.to(dev), cfg2)
+            else:
+                pool = T.init_paged_pool(cfg2, 16, 16, kv_dtype=kv_dtype, device=dev)
+                ids = torch.tensor([9, 3, 14, 0, 7, 11], dtype=torch.int32)
+                pool = KVCache(*(write_prefill_pages_q(p, a, ids, block_size=16)
+                                 for p, a in zip(pool, kv)))
+                # slot 1 shares the prompt's first 3 pages and writes its
+                # new token into a page of its own
+                tables = torch.tensor([[9, 3, 14, 0, 7, 11, 5, 0], [9, 3, 14, 13, 0, 0, 0, 0]],
+                                      dtype=torch.int32, device=dev)
+                logits, _ = T.decode_step_paged(params, token.to(dev), pool, tables,
+                                                lengths.to(dev), cfg2)
+            out.append(logits.float().cpu())
+        err = (out[0] - out[1]).abs().max().item()
+        scale = out[1].abs().max().item()
+        what = f"{layout} {kv_dtype}"
+        if not (torch.isfinite(out[0]).all() and err <= 1e-3 * max(scale, 1.0)):
+            raise AssertionError(f"full-width {what} decode logits differ from the CPU plain path "
+                                 f"by {err} (max |logit| {scale})")
+        yield what, err, scale
 
 
 def profile_decode(torch, eng, rounds: int = 4):

@@ -12,6 +12,8 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.quant.kv_quant import QuantKV, infer_kv_dtype, quantize_kv
+
 
 @dataclasses.dataclass
 class SlotState:
@@ -49,13 +51,24 @@ def insert_prefill_kv(cache, prefill_kv, slot: int):
     """Install a prefilled request's KV into cache slot ``slot``, in place.
 
     cache leaves: (B_slots, L, Hkv, max_len, D), batch-leading, in the cache
-    dtype (bf16 by default); prefill_kv leaves: (L, 1, Hkv, S, D) f32 in
-    prefill layout, S the prompt bucket.  The layer-major
-    -> batch-leading move, the cast to the cache dtype and the zero padding
-    of rows [S, max_len) happen in one pass per leaf — the JAX package's
-    relayout (pad + moveaxis) followed by its slot update."""
+    dtype (bf16 by default) or ``QuantKV``; prefill_kv leaves: (L, 1, Hkv,
+    S, D) f32 in prefill layout, S the prompt bucket.  The layer-major ->
+    batch-leading move, the cast to the cache dtype (or the quantization,
+    from f32) and the padding of rows [S, max_len) happen in one pass per
+    leaf — the JAX package's relayout (pad + moveaxis, quantize on write)
+    followed by its slot update.  Padding rows hold what the zero-padded
+    rows quantize to: payload 0 and scale 1.0."""
     for buf, new in zip(cache, prefill_kv):
         s = new.shape[-2]
-        buf[slot, :, :, :s].copy_(new[:, 0])
-        buf[slot, :, :, s:].zero_()
+        if isinstance(buf, QuantKV):
+            payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+            _install(buf.q, payload, slot, s, 0)
+            _install(buf.scale, scale, slot, s, 1.0)
+        else:
+            _install(buf, new, slot, s, 0)
     return cache
+
+
+def _install(buf: torch.Tensor, new: torch.Tensor, slot: int, s: int, pad) -> None:
+    buf[slot, :, :, :s].copy_(new[:, 0])
+    buf[slot, :, :, s:].fill_(pad)

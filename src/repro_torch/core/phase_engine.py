@@ -8,8 +8,11 @@ the JAX package keys its compiled programs:
   * ``prefill_split_varlen:{B}x{S}``  — prefill through the LAST layer's attention
     (``...:tail`` — last FFN + norm + logits, run during the swap)
   * ``relayout:{B}x{S}->{max_len}``   — the swap itself: prefill-layout KV
-    into the decode cache (layout move + cast + zero padding)
+    into the decode cache (layout move + cast or quantization + padding)
+  * ``page_write:{S}@{bs}``           — the paged swap: prefill-layout KV
+    into the prompt's pages (quantized on write under int8/int4)
   * ``decode:{B}x{max_len}``          — the KV-streaming decode step
+  * ``decode_paged:{B}x{P}``          — the same over the paged pool
 
 Weights are never touched by the swap: both phases use the same tensors.
 The port runs the callables eagerly; capturing them as CUDA graphs is
@@ -22,7 +25,9 @@ from typing import Callable, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import insert_prefill_kv
+from repro_torch.layers.attention import KVCache, write_prefill_pages_q
 from repro_torch.models import transformer as T
+from repro_torch.quant.kv_quant import assert_kv_dtype
 
 
 @dataclasses.dataclass
@@ -36,10 +41,9 @@ class PhaseEngine:
 
     def __init__(self, cfg: ModelConfig, *, cache_layout: str = "contiguous",
                  kv_dtype: str = "fp"):
-        if cache_layout != "contiguous":
-            raise NotImplementedError(f"cache_layout={cache_layout!r}: the paged layout is ROADMAP A8")
-        if kv_dtype != "fp":
-            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: quantized KV is ROADMAP A6")
+        if cache_layout not in ("contiguous", "paged"):
+            raise ValueError(f"cache_layout must be 'contiguous' or 'paged', got {cache_layout!r}")
+        assert_kv_dtype(kv_dtype)
         self.cfg = cfg
         self._programs: Dict[str, PhaseProgram] = {}
 
@@ -88,7 +92,8 @@ class PhaseEngine:
         """The swap: ``fn(kv, cache, slot)`` moves one prompt's prefill-layout
         KV (L, 1, Hkv, seq, D) into slot ``slot`` of the batch-leading decode
         cache in place — layer-major to batch-leading, cast to the cache
-        dtype, rows [seq, max_len) zeroed — and returns the cache."""
+        dtype or quantized from f32, rows [seq, max_len) padded — and
+        returns the cache."""
         if batch != 1:
             raise NotImplementedError("the relayout installs one prompt at a time")
 
@@ -106,3 +111,24 @@ class PhaseEngine:
             return T.decode_step(params, token, cache, lengths, cfg)
 
         return self._program(f"decode:{batch}x{max_len}", fn)
+
+    def paged_decode_program(self, n_slots: int, max_pages: int) -> PhaseProgram:
+        """``fn(params, token, pages, block_tables, lengths) -> (logits,
+        pages)``; the pool is updated in place."""
+        cfg = self.cfg
+
+        def fn(params, token, pages, block_tables, lengths):
+            return T.decode_step_paged(params, token, pages, block_tables, lengths, cfg)
+
+        return self._program(f"decode_paged:{n_slots}x{max_pages}", fn)
+
+    def page_write_program(self, seq: int, block_size: int) -> PhaseProgram:
+        """The paged swap: ``fn(pages, kv, page_ids)`` scatters prefill-layout
+        KV (L, 1, Hkv, seq, D) into the pages ``page_ids`` (ids >= N skipped)
+        in place, quantizing on write under int8/int4, and returns the pool."""
+
+        def fn(pages, kv, page_ids):
+            return KVCache(write_prefill_pages_q(pages.k, kv.k, page_ids, block_size=block_size),
+                           write_prefill_pages_q(pages.v, kv.v, page_ids, block_size=block_size))
+
+        return self._program(f"page_write:{seq}@{block_size}", fn)

@@ -10,6 +10,11 @@ is either
 * a latent ``(L, K, N)`` array — packed here by the port's own quantizer
   when the config is ternary, kept dense otherwise.
 
+``kv_from_numpy(tree, device)`` takes a JAX decode cache or page pool the
+same way: ``{"k": leaf, "v": leaf}``, a leaf being an array or a quantized
+leaf flattened to ``{"q": payload, "scale": scale plane}``; it becomes the
+port's ``KVCache`` of tensors or ``QuantKV`` leaves, byte for byte.
+
 The port never sees a JAX type, and imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -19,11 +24,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.layers.attention import KVCache
+from repro_torch.quant.kv_quant import QuantKV
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which numpy cannot hand to torch
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _convert(node, cfg: ModelConfig, device, key: str = ""):
@@ -41,3 +51,16 @@ def _convert(node, cfg: ModelConfig, device, key: str = ""):
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The port's params for ``cfg`` on ``device`` (CUDA by default)."""
     return _convert(tree, cfg, resolve_device(device))
+
+
+def kv_from_numpy(tree: dict, device=None) -> KVCache:
+    """The port's cache or pool for a JAX one given as numpy, on ``device``
+    (CUDA by default)."""
+    dev = resolve_device(device)
+
+    def leaf(node):
+        if isinstance(node, dict):
+            return QuantKV(_tensor(node["q"], dev), _tensor(node["scale"], dev))
+        return _tensor(node, dev)
+
+    return KVCache(leaf(tree["k"]), leaf(tree["v"]))

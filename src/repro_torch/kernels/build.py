@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  The build happens
 at first use, under ``build/repro_torch/`` at the repository root, keyed by
-a hash of the source, the flags and the compiler path, so an edited source
-rebuilds and an unchanged one is loaded as it is.  ``build_all`` starts one
+a hash of the source with every ``csrc`` header it includes, the flags and
+the compiler path, so an edited source or header rebuilds and an unchanged
+one is loaded as it is.  ``build_all`` starts one
 ``nvcc`` per source at once.  A failed build raises; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -15,16 +16,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
-SOURCES = ("tlmm", "prefill_attention", "decode_attention")
+SOURCES = ("tlmm", "prefill_attention", "decode_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,9 +49,35 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str, csrc: Path = CSRC) -> List[Path]:
+    """``name``.cu and every header it includes with quotes from ``csrc``,
+    transitively, in a fixed order: what its library is built from."""
+    seen: List[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(csrc / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of the source and its headers: an edited header rebuilds."""
+    h = hashlib.sha256()
+    for path in sources_of(name, csrc):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
 def _lib_path(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(source_digest(name).encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.quant.kv_quant import dequantize_kv
+
 NEG_INF = -1e30
 
 
@@ -42,3 +44,22 @@ def decode_attention_reference(
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / torch.clamp(l, min=1e-30)
     return out, l[..., 0], m[..., 0]
+
+
+def decode_attention_quant_reference(
+    q: torch.Tensor,  # (B, Hkv, G, D)
+    k_q: torch.Tensor,  # (B, Hkv, S, Dp) packed payload
+    k_scale: torch.Tensor,  # (B, Hkv, S) f32
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,
+    starts: Optional[torch.Tensor] = None,
+    *,
+    kv_dtype: str,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The quantized walk's plain version: dequantize, then the plain walk
+    above (the JAX package's jnp path does the same)."""
+    k = dequantize_kv(k_q, k_scale, kv_dtype)
+    v = dequantize_kv(v_q, v_scale, kv_dtype)
+    return decode_attention_reference(q, k, v, lengths, starts, sm_scale=sm_scale)

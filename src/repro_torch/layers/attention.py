@@ -6,9 +6,19 @@ One parameter set, two phase-specialized execution paths (the two engines):
   attention kernel (compute-bound engine).
 * ``attention_decode``  — one token against the KV cache through the decode
   attention kernel (bandwidth-bound engine), with per-sequence lengths for
-  continuous batching.  The new token is folded in by an online-softmax
-  merge, so the cache is only read during the layer walk; the caller writes
-  every layer's new token afterwards with one ``scatter_new_tokens``.
+  continuous batching; ``attention_decode_paged`` is the same engine over
+  the paged pool.  The new token is folded in by an online-softmax merge, so
+  the cache is only read during the layer walk; the caller writes every
+  layer's new token afterwards with one scatter (``scatter_new_tokens_q``
+  or ``scatter_new_tokens_paged_q``).
+
+A cache or pool leaf is a bf16/f32 tensor or a ``QuantKV`` (packed payload
++ f32 scale plane): the leaf carries its precision, and every write into a
+quantized leaf quantizes on the way in, from f32.
+
+The JAX package drops out-of-range scatter rows (``mode="drop"``, with the
+pool size as the skip id); torch indexing has no such mode, so the paged
+writers select the rows to keep explicitly.
 
 Projections are TLMM/dense linears — the paper's static region.
 """
@@ -21,14 +31,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
 from repro_torch.layers.linear import linear_apply, linear_init
 from repro_torch.layers.rotary import apply_rope
+from repro_torch.quant.kv_quant import QuantKV, infer_kv_dtype, quantize_kv
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor
+    k: torch.Tensor  # or a QuantKV (payload + scale plane)
     v: torch.Tensor
+
+
+def _kv_leaf_args(k_leaf, v_leaf):
+    """Split a (possibly quantized) K/V leaf pair into the payloads the
+    decode ops take positionally and the scale/dtype keywords."""
+    if isinstance(k_leaf, QuantKV):
+        return k_leaf.q, v_leaf.q, dict(k_scales=k_leaf.scale, v_scales=v_leaf.scale,
+                                         kv_dtype=infer_kv_dtype(k_leaf.q))
+    return k_leaf, v_leaf, {}
 
 
 def attention_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -75,14 +96,83 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def scatter_new_tokens(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Write every layer's new token into the decode cache in one in-place
-    update.  buf: (B, L, Hkv, Smax, D), batch-leading; new: (L, B, Hkv, 1, D).
-    The write lands at ``min(lengths, Smax - 1)``: a full slot (or a parked
-    one) overwrites its last row, as the JAX package's clamped update does."""
-    b, _, _, smax, _ = buf.shape
+    update.  buf: (B, L, Hkv, Smax, D), batch-leading, or its (B, L, Hkv,
+    Smax) scale plane; new: (L, B, Hkv, 1, ·) to match.  The write lands at
+    ``min(lengths, Smax - 1)``: a full slot (or a parked one) overwrites its
+    last row, as the JAX package's clamped update does."""
+    b, _, _, smax = buf.shape[:4]
     idx = torch.clamp(lengths.long(), max=smax - 1)
     rows = torch.arange(b, device=buf.device)
-    buf[rows, :, :, idx] = new[:, :, :, 0, :].permute(1, 0, 2, 3).to(buf.dtype)
+    buf[rows, :, :, idx] = new[:, :, :, 0].transpose(0, 1).to(buf.dtype)
     return buf
+
+
+def scatter_new_tokens_q(buf, new: torch.Tensor, lengths: torch.Tensor):
+    """``scatter_new_tokens`` into a possibly quantized cache leaf: the
+    fresh f32 rows (L, B, Hkv, 1, D) are quantized on the way in, payload
+    and scale plane together."""
+    if not isinstance(buf, QuantKV):
+        return scatter_new_tokens(buf, new, lengths)
+    payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+    return QuantKV(scatter_new_tokens(buf.q, payload, lengths),
+                   scatter_new_tokens(buf.scale, scale, lengths))
+
+
+def scatter_new_tokens_paged(pages: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """Paged analogue of ``scatter_new_tokens``: every layer's new token
+    into its sequence's current page, in place.  pages: (N, L, Hkv, bs, D)
+    or its (N, L, Hkv, bs) scale plane; new: (L, B, Hkv, 1, ·); block_tables
+    (B, P); lengths (B,).  Sequence b's token lands at page
+    ``tables[b, len // bs]``, offset ``len % bs``.  Inactive slots (length 0)
+    write nothing (the JAX package routes them to the dropped id N).
+    Distinct active slots own distinct pages, so no two rows collide."""
+    bs = pages.shape[3]
+    lengths = lengths.long()
+    page_idx = torch.clamp(lengths // bs, max=block_tables.shape[1] - 1)
+    page = torch.gather(block_tables.long(), 1, page_idx[:, None])[:, 0]
+    keep = torch.nonzero(lengths > 0).flatten()
+    newb = new[:, :, :, 0].transpose(0, 1)  # (B, L, Hkv, ·)
+    pages[page[keep], :, :, (lengths % bs)[keep]] = newb[keep].to(pages.dtype)
+    return pages
+
+
+def scatter_new_tokens_paged_q(pages, new: torch.Tensor, block_tables: torch.Tensor,
+                               lengths: torch.Tensor):
+    """``scatter_new_tokens_paged`` into a possibly quantized pool leaf
+    (quantize on write, as ``scatter_new_tokens_q``)."""
+    if not isinstance(pages, QuantKV):
+        return scatter_new_tokens_paged(pages, new, block_tables, lengths)
+    payload, scale = quantize_kv(new, infer_kv_dtype(pages.q))
+    return QuantKV(scatter_new_tokens_paged(pages.q, payload, block_tables, lengths),
+                   scatter_new_tokens_paged(pages.scale, scale, block_tables, lengths))
+
+
+def write_prefill_pages(pages: torch.Tensor, kv: torch.Tensor, page_ids: torch.Tensor, *,
+                        block_size: int) -> torch.Tensor:
+    """Scatter a prefilled request's KV into its pages, in place.  pages:
+    (N, L, Hkv, bs, D) or its (N, L, Hkv, bs) scale plane; kv: prefill
+    layout (L, 1, Hkv, S, ·) with S a multiple of ``block_size``; page_ids
+    (S/bs,) destinations.  Ids >= N (prefix-cache hits, which keep their
+    shared contents, and the bucket's padding pages) are skipped: the JAX
+    package's dropped scatter rows."""
+    n = pages.shape[0]
+    l, _, hkv, s = kv.shape[:4]
+    kb = kv[:, 0].reshape(l, hkv, s // block_size, block_size, *kv.shape[4:])
+    kb = kb.movedim(2, 0)  # (P, L, Hkv, bs, ·)
+    keep = torch.nonzero(page_ids < n).flatten()
+    pages[page_ids.long()[keep].to(pages.device)] = kb[keep.to(kb.device)].to(pages.dtype)
+    return pages
+
+
+def write_prefill_pages_q(pages, kv: torch.Tensor, page_ids: torch.Tensor, *, block_size: int):
+    """``write_prefill_pages`` into a possibly quantized pool leaf: the f32
+    prefill KV is quantized on its way into the pool."""
+    if not isinstance(pages, QuantKV):
+        return write_prefill_pages(pages, kv, page_ids, block_size=block_size)
+    payload, scale = quantize_kv(kv, infer_kv_dtype(pages.q))
+    return QuantKV(write_prefill_pages(pages.q, payload, page_ids, block_size=block_size),
+                   write_prefill_pages(pages.scale, scale, page_ids, block_size=block_size))
 
 
 def _merge_new_token(out_cache, l_cache, m_cache, q, k_new, v_new, sm_scale: float) -> torch.Tensor:
@@ -104,11 +194,13 @@ def _merge_new_token(out_cache, l_cache, m_cache, q, k_new, v_new, sm_scale: flo
     return (out_cache * (alpha * l_cache) + p_new * vn.float()) / torch.clamp(l, min=1e-30)
 
 
-def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
-    """The decode engine: one token (x (B,1,d)) against this layer's cache
-    (k/v (B, Hkv, Smax, D), possibly strided views).  The cache is only read:
-    returns (y, the new token's K/V (B, Hkv, 1, D)); the caller scatters it."""
+def _decode_new_token(params: dict, x: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
+                      attend_cache) -> Tuple[torch.Tensor, KVCache]:
+    """The decode engine's body, shared by both cache layouts: project the
+    one new token, attend over the existing cache through
+    ``attend_cache(qd) -> (out, l, m)``, merge the fresh token in f32 and
+    output-project.  Returns (y, the new token's K/V (B, Hkv, 1, D)); the
+    caller scatters it."""
     _check_slice(cfg)
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
@@ -116,7 +208,35 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
     qd = q.reshape(b, h, hd)
     k_new = k.transpose(1, 2)  # (B, Hkv, 1, D)
     v_new = v.transpose(1, 2)
-    out_c, l_c, m_c = decode_attention(qd, cache.k, cache.v, lengths, return_stats=True)
+    out_c, l_c, m_c = attend_cache(qd)
     out = _merge_new_token(out_c, l_c, m_c, qd, k_new, v_new, 1.0 / math.sqrt(hd)).to(x.dtype)
     y = linear_apply(params["wo"], out.reshape(b, 1, h * hd), cfg.quant)
     return y, KVCache(k_new, v_new)
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """The decode engine: one token (x (B,1,d)) against this layer's cache
+    (leaves (B, Hkv, Smax, ·), possibly strided views, possibly QuantKV).
+    The cache is only read."""
+
+    def attend(qd):
+        k_arr, v_arr, qkw = _kv_leaf_args(cache.k, cache.v)
+        return decode_attention(qd, k_arr, v_arr, lengths, return_stats=True, **qkw)
+
+    return _decode_new_token(params, x, lengths, cfg, attend)
+
+
+def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
+                           block_tables: torch.Tensor, lengths: torch.Tensor,
+                           cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """The decode engine over the paged pool: one token against this
+    layer's pages (N, Hkv, bs, ·), walked through ``block_tables`` (B, P).
+    Same contract as ``attention_decode``."""
+
+    def attend(qd):
+        k_arr, v_arr, qkw = _kv_leaf_args(k_pages, v_pages)
+        return paged_decode_attention(qd, k_arr, v_arr, block_tables, lengths,
+                                      return_stats=True, **qkw)
+
+    return _decode_new_token(params, x, lengths, cfg, attend)

@@ -7,7 +7,11 @@ Entry points:
     KV, or (``split_tail=True``) the hidden state right after the last
     layer's attention, the point where the KV relayout can start;
   * ``prefill_tail``    — the rest: last FFN + norm + logits;
-  * ``decode_step``     — one token against the batch-leading cache.
+  * ``decode_step``     — one token against the batch-leading cache;
+  * ``decode_step_paged`` — one token against the paged pool.
+
+Cache and pool leaves are bf16 tensors, or ``QuantKV`` (packed payload +
+f32 scale plane) under ``kv_dtype`` int8/int4.
 """
 from __future__ import annotations
 
@@ -20,12 +24,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.attention import (
     KVCache,
     attention_decode,
+    attention_decode_paged,
     attention_init,
     attention_prefill,
-    scatter_new_tokens,
+    scatter_new_tokens_paged_q,
+    scatter_new_tokens_q,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norm import apply_norm, rmsnorm_init
+from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 
 LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
@@ -150,41 +157,103 @@ def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
     return _logits(params, _at(x_out, last_pos), cfg)[:, -1, :]
 
 
+def _kv_buffer(shape, dtype, kv_dtype: str, device):
+    """One K or V buffer: a zeroed fp tensor, or a QuantKV of a zeroed
+    payload (int8, or uint8 nibble pairs for int4) and a scale plane of
+    ones, as the JAX package starts them."""
+    assert_kv_dtype(kv_dtype)
+    if kv_dtype == "fp":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    d = shape[-1]
+    if kv_dtype == "int4":
+        if d % 2:
+            raise ValueError(f"head_dim must be even for int4 nibble packing, got {d}")
+        payload = torch.zeros(shape[:-1] + (d // 2,), dtype=torch.uint8, device=device)
+    else:
+        payload = torch.zeros(shape, dtype=torch.int8, device=device)
+    return QuantKV(payload, torch.ones(shape[:-1], dtype=torch.float32, device=device))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                kv_dtype: str = "fp", device=None) -> KVCache:
-    """The batch-leading decode cache (B, L, Hkv, max_len, D), zeroed: all
-    layers' new tokens of one sequence land in one contiguous window."""
-    if kv_dtype != "fp":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: quantized KV is ROADMAP A6")
+    """The batch-leading decode cache (B, L, Hkv, max_len, D): all layers'
+    new tokens of one sequence land in one contiguous window."""
     dev = resolve_device(device)
     shape = (batch, cfg.num_layers, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                   torch.zeros(shape, dtype=dtype, device=dev))
+    return KVCache(_kv_buffer(shape, dtype, kv_dtype, dev), _kv_buffer(shape, dtype, kv_dtype, dev))
 
 
-def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
-                cfg: ModelConfig):
-    """One decode step for every slot: token (B,) int, cache (B, L, Hkv,
-    Smax, D), lengths (B,) int32 tokens already cached.  Returns (logits
-    (B, Vp), cache).
+def init_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+                    kv_dtype: str = "fp", device=None) -> KVCache:
+    """The paged decode cache (N, L, Hkv, block_size, D): the slot axis of
+    ``init_cache`` becomes the page axis, each page layer-complete for
+    ``block_size`` positions.  Ownership lives in ``serving.paging``."""
+    dev = resolve_device(device)
+    shape = (num_blocks, cfg.num_layers, cfg.num_kv_heads, block_size, cfg.head_dim)
+    return KVCache(_kv_buffer(shape, dtype, kv_dtype, dev), _kv_buffer(shape, dtype, kv_dtype, dev))
 
-    The cache is only read while the layers run (each layer attends over
-    its strided slice ``cache[:, li]`` and merges its fresh token in f32);
-    afterwards one ``scatter_new_tokens`` writes all layers' new tokens in
-    place, cast to the cache dtype.  Writing a token before attending would
-    count it twice."""
+
+def _slice_layer(leaf, li: int):
+    """Layer ``li`` (axis 1) of a cache or pool leaf, as a strided view; a
+    QuantKV's payload and scale plane are sliced together."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(leaf.q[:, li], leaf.scale[:, li])
+    return leaf[:, li]
+
+
+def _decode_layers(params: dict, token: torch.Tensor, cfg: ModelConfig, attend_layer):
+    """The layer walk of one decode step: ``attend_layer(lp, h, li)`` runs
+    layer li's attention over the (read-only) cache.  Returns (logits
+    (B, Vp), the new tokens' K and V, each (L, B, Hkv, 1, D))."""
     x = _embed(params, token)[:, None, :]
     tok_k, tok_v = [], []
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
         h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-        attn_out, new_kv = attention_decode(
-            lp["attn"], h, KVCache(cache.k[:, li], cache.v[:, li]), lengths, cfg)
+        attn_out, new_kv = attend_layer(lp["attn"], h, li)
         x = x + attn_out
         h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], h, cfg)
         tok_k.append(new_kv.k)
         tok_v.append(new_kv.v)
-    scatter_new_tokens(cache.k, torch.stack(tok_k), lengths)
-    scatter_new_tokens(cache.v, torch.stack(tok_v), lengths)
-    return _logits(params, x, cfg)[:, 0, :], cache
+    return _logits(params, x, cfg)[:, 0, :], torch.stack(tok_k), torch.stack(tok_v)
+
+
+def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
+                cfg: ModelConfig):
+    """One decode step for every slot: token (B,) int, cache (B, L, Hkv,
+    Smax, ·), lengths (B,) int32 tokens already cached.  Returns (logits
+    (B, Vp), cache).
+
+    The cache is only read while the layers run (each layer attends over
+    its strided slice ``cache[:, li]`` and merges its fresh token in f32);
+    afterwards one ``scatter_new_tokens_q`` per leaf writes all layers' new
+    tokens in place, cast to the cache dtype or quantized from f32.  Writing
+    a token before attending would count it twice."""
+
+    def attend(lp, h, li):
+        layer = KVCache(_slice_layer(cache.k, li), _slice_layer(cache.v, li))
+        return attention_decode(lp, h, layer, lengths, cfg)
+
+    logits, tok_k, tok_v = _decode_layers(params, token, cfg, attend)
+    scatter_new_tokens_q(cache.k, tok_k, lengths)
+    scatter_new_tokens_q(cache.v, tok_v, lengths)
+    return logits, cache
+
+
+def decode_step_paged(params: dict, token: torch.Tensor, pages: KVCache,
+                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig):
+    """One decode step over the paged pool (N, L, Hkv, bs, ·) walked through
+    ``block_tables`` (B, P) int32: the structure of ``decode_step``, with
+    one ``scatter_new_tokens_paged_q`` per leaf writing every layer's token
+    into each sequence's current page.  Slots of length 0 write nothing.
+    Returns (logits (B, Vp), pages)."""
+
+    def attend(lp, h, li):
+        return attention_decode_paged(lp, h, _slice_layer(pages.k, li), _slice_layer(pages.v, li),
+                                      block_tables, lengths, cfg)
+
+    logits, tok_k, tok_v = _decode_layers(params, token, cfg, attend)
+    scatter_new_tokens_paged_q(pages.k, tok_k, block_tables, lengths)
+    scatter_new_tokens_paged_q(pages.v, tok_v, block_tables, lengths)
+    return logits, pages

@@ -1,13 +1,18 @@
 """Step-driven serving core: ``EngineCore.step() -> list[RequestOutput]``.
 
-The port of the JAX package's ``repro.serving.core`` on its main path: the
-contiguous batch-leading KV cache in the cache dtype, monolithic prefill
-(one prompt per swap), greedy decoding, and the two modes —
+The port of the JAX package's ``repro.serving.core``: monolithic prefill
+(one prompt per swap), greedy decoding, the two cache layouts —
+``cache_layout="contiguous"`` (the batch-leading cache, one slot per
+request) or ``"paged"`` (a block pool with prefix caching, copy-on-write
+and preemption by eviction, restarted requests replaying their recorded
+tokens) — each stored as bf16 or quantized to int8/int4 (``kv_dtype``),
+and the two modes —
 
 * ``mode="pdswap"``: prefill split after the last layer's attention, the KV
   relayout overlapped with the prefill tail on a second CUDA stream
   (``overlap=True``) or run after it (``overlap=False``);
-* ``mode="static"``: the unsplit prefill, then the KV install.
+* ``mode="static"``: the unsplit prefill, then the KV install (quantized on
+  write too: storage precision belongs to the cache, not to the phase).
 
 Three layers, as in the JAX package: ``Scheduler`` (FIFO wait queue,
 admission validation, the swap decision through a ``SwapPolicy``),
@@ -15,7 +20,7 @@ admission validation, the swap decision through a ``SwapPolicy``),
 manager, prefill with the swap, decode rounds, argmax), and
 ``OutputProcessor`` (streaming deltas and finish semantics).  The JAX
 package's weighted fair queue with one tenant is exactly FIFO, so a plain
-``deque`` gives the same order.
+``deque`` gives the same order, a preempted request going back to its head.
 
 Arguments outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
@@ -36,16 +41,14 @@ from repro_torch.core.kv_cache import KVSlotManager, insert_prefill_kv
 from repro_torch.core.phase_engine import PhaseEngine
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
 from repro_torch.models import transformer as T
+from repro_torch.quant.kv_quant import QuantKV, payload_bytes, total_nbytes
 from repro_torch.serving.outputs import OutputProcessor, RequestOutput
+from repro_torch.serving.paging import PagedKVCache, PoolExhausted, cdiv
 from repro_torch.serving.policy import DrainPolicy, SchedulerView, SwapPolicy, make_policy
 from repro_torch.serving.sampling import SamplingParams
 
 SWAP_TIMING_WINDOW = 64
 LATENCY_WINDOW = 1024
-
-
-def cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 class LatencyStat:
@@ -75,11 +78,17 @@ class Request:
     request_id: str
     prompt: np.ndarray  # (S,) int32 — any length with S + max_new <= max_len
     max_new: int
+    priority: int = 0  # larger = more important; the lowest is preempted first
     params: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     arrival_time_s: float = 0.0  # first submit, never overwritten (TTFT origin)
+    enqueue_t: float = 0.0  # scheduler-queue entry
     first_token_t: float = 0.0
     finish_reason: Optional[str] = None  # "stop" | "length" once finished
+    # Set on preemption: the restart re-prefills the prompt and replays the
+    # recorded out_tokens through the decode program, which rebuilds the
+    # evicted cache state exactly, so the continuation is unchanged.
+    preempted: bool = False
 
 
 @dataclasses.dataclass
@@ -93,6 +102,14 @@ class EngineStats:
     swap_agg: SwapAggregates = dataclasses.field(default_factory=SwapAggregates)
     t_prefill: float = 0.0
     t_decode: float = 0.0
+    # paged layout
+    prefix_hits: int = 0  # prompt pages served from the prefix cache
+    prefix_misses: int = 0  # full prompt pages that had to be written
+    prefix_hit_tokens: int = 0
+    preemptions: int = 0  # requests evicted to free pool capacity
+    admission_blocks: int = 0  # admissions deferred on pool pressure
+    replayed_tokens: int = 0  # decode steps re-run by preemption restarts
+    t_replay: float = 0.0  # wall time of restarts (kept out of t_prefill/t_decode)
     ttft: LatencyStat = dataclasses.field(default_factory=LatencyStat)
 
     def decode_tput(self) -> float:
@@ -125,6 +142,8 @@ class ModelRunner:
         prompt_len: int = 32,
         mode: str = "pdswap",
         cache_layout: str = "contiguous",
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
         kv_dtype: str = "fp",
         overlap: bool = True,
         prefill_chunk: Optional[int] = None,
@@ -144,29 +163,48 @@ class ModelRunner:
         self.overlap = overlap and mode == "pdswap"
         self.max_len = max_len
         self.prompt_len = prompt_len
+        self.kv_dtype = kv_dtype
+        self.block_size = block_size
         self.slots = KVSlotManager(n_slots)
         self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
         self._bucket_progs: Dict[int, dict] = {}
-        self.decode_prog = self.engine.decode_program(n_slots, max_len)
-        self.cache = T.init_cache(cfg, n_slots, max_len, device=self.device)
+        if cache_layout == "paged":
+            if num_blocks is None:  # full provisioning: every slot can grow to max_len
+                num_blocks = n_slots * cdiv(max_len, block_size)
+            pool = T.init_paged_pool(cfg, num_blocks, block_size, kv_dtype=kv_dtype,
+                                     device=self.device)
+            self.paged: Optional[PagedKVCache] = PagedKVCache(
+                pool, n_slots=n_slots, max_len=max_len, block_size=block_size)
+            self.decode_prog = self.engine.paged_decode_program(n_slots, self.paged.max_pages)
+            self.cache = None
+        else:
+            self.paged = None
+            self.decode_prog = self.engine.decode_program(n_slots, max_len)
+            self.cache = T.init_cache(cfg, n_slots, max_len, kv_dtype=kv_dtype, device=self.device)
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._side_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
     def bucket(self, n: int) -> int:
-        """Prompt bucket for an n-token prompt (right-padded): one quantum
-        steps up to 4 quanta, then quantum x powers of two, clamped to the
-        largest quantum-aligned length <= max_len (a longer prompt takes
-        max_len itself) — the JAX package's contiguous buckets."""
-        q = self.prompt_len
+        """Prompt bucket for an n-token prompt (right-padded), the JAX
+        package's: one quantum (``prompt_len``, or ``block_size`` when
+        paged) steps up to 4 quanta, then quantum x powers of two.  Paged, it
+        is clamped to max_len rounded up to whole pages (the page write
+        needs whole pages); contiguous, to the largest quantum-aligned
+        length <= max_len, a longer prompt taking max_len itself."""
+        paged = self.paged is not None
+        q = self.block_size if paged else self.prompt_len
         b = cdiv(n, q) * q
         if b > 4 * q:
             g = 4 * q
             while g < b:
                 g *= 2
             b = g
-        cap = self.max_len - self.max_len % q
-        b = min(b, cap) if n <= cap else self.max_len
+        if paged:
+            b = min(b, cdiv(self.max_len, q) * q)
+        else:
+            cap = self.max_len - self.max_len % q
+            b = min(b, cap) if n <= cap else self.max_len
         return max(b, q)
 
     def progs(self, bucket: int) -> dict:
@@ -175,25 +213,49 @@ class ModelRunner:
             p: dict = {}
             if self.mode == "pdswap":
                 p["body"], p["tail"] = self.engine.prefill_split_programs_varlen(1, bucket)
-                p["relayout"] = self.engine.relayout_program(1, bucket, self.max_len)
             else:
                 p["full"] = self.engine.prefill_program_varlen(1, bucket)
+            if self.paged is not None:
+                p["write"] = self.engine.page_write_program(bucket, self.block_size)
+            elif self.mode == "pdswap":
+                p["relayout"] = self.engine.relayout_program(1, bucket, self.max_len)
             self._bucket_progs[bucket] = p
         return self._bucket_progs[bucket]
 
-    def prefill(self, req: Request, slot: int, stats: EngineStats) -> torch.Tensor:
+    def restart_headroom_ok(self, req: Request) -> bool:
+        """Admit a restart only when the pool can hold its whole replayed
+        state (prompt + tokens already generated); otherwise two restarts
+        can evict each other during replay for ever."""
+        need = cdiv(len(req.prompt) + len(req.out_tokens) - 1, self.block_size)
+        return self.paged.pool.num_free >= need
+
+    def prefill(self, req: Request, slot: int, stats: EngineStats,
+                resuming: bool = False) -> torch.Tensor:
         """Prefill one admitted request and install its KV into the decode
-        cache (the swap, overlapped in pdswap mode).  Returns the prompt's
-        last-token logits (1, Vp)."""
+        cache or its pages (the swap, overlapped in pdswap mode).  Returns
+        the prompt's last-token logits (1, Vp).  Raises ``PoolExhausted``,
+        with the pool rolled back, when the pages do not fit.  A restart
+        (``resuming``) is charged to ``t_replay``, not to the offered load."""
         n = len(req.prompt)
         bucket = self.bucket(n)
         progs = self.progs(bucket)
+        match = None
+        if self.paged is not None:
+            match = self.paged.allocate_prompt(slot, np.asarray(req.prompt, np.int32))
+            if not resuming:
+                n_full = n // self.block_size
+                stats.prefix_hits += match.cached_pages
+                stats.prefix_misses += n_full - match.cached_pages
+                stats.prefix_hit_tokens += match.cached_pages * self.block_size
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = req.prompt
         tokens = torch.from_numpy(padded).to(self.device)
         last_pos = n - 1
 
         def swap_write(kv):
+            if self.paged is not None:
+                ids = self.paged.page_ids_for_write(match, bucket // self.block_size)
+                return progs["write"].fn(self.paged.kv, kv, ids)
             if self.mode == "pdswap":
                 return progs["relayout"].fn(kv, self.cache, slot)
             return insert_prefill_kv(self.cache, kv, slot)
@@ -204,19 +266,88 @@ class ModelRunner:
                                  lambda p, x: progs["tail"].fn(p, x, last_pos),
                                  swap_write, side_stream=self._side_stream)
             logits, _, timing = ctl.prefill_and_swap(self.params, tokens, overlap=self.overlap)
-            stats.record_swap(timing)
+            if not resuming:
+                stats.record_swap(timing)
         else:
             logits, kv = progs["full"].fn(self.params, tokens, last_pos)
             swap_write(kv)
             _sync(self.device)
-        stats.t_prefill += time.perf_counter() - t0
-        stats.prefill_tokens += n
+        if resuming:
+            stats.t_replay += time.perf_counter() - t0
+        else:
+            stats.t_prefill += time.perf_counter() - t0
+            stats.prefill_tokens += n
+        if match is not None:
+            self.paged.register_prompt_pages(match)
         return logits
 
     def decode_logits(self, lengths: torch.Tensor) -> torch.Tensor:
         """One decode round; updates the cache in place, returns (B, Vp) logits."""
-        logits, self.cache = self.decode_prog.fn(self.params, self.last_tokens, self.cache, lengths)
+        if self.paged is not None:
+            logits, self.paged.kv = self.decode_prog.fn(
+                self.params, self.last_tokens, self.paged.kv, self.paged.block_tables_array(),
+                lengths)
+        else:
+            logits, self.cache = self.decode_prog.fn(self.params, self.last_tokens, self.cache,
+                                                     lengths)
         return logits
+
+    def append_page(self, slot: int, length: int) -> None:
+        """Make position ``length`` writable, forking a shared page.  The
+        fork copies every plane of the page, the scale rows included.
+        Raises ``PoolExhausted`` when the pool cannot grow."""
+        copy = self.paged.ensure_append_page(slot, length)
+        if copy is not None:
+            dst, src = copy
+            for leaf in self.paged.kv:
+                for t in (leaf if isinstance(leaf, QuantKV) else (leaf,)):
+                    t[dst].copy_(t[src])
+
+    def replay(self, slot: int, req: Request, stats: EngineStats) -> bool:
+        """Teacher-force a restart's recorded tokens through the decode
+        program, every other slot at length 0 (its pages untouched), which
+        rebuilds the evicted cache bytes.  Returns False if the pool is
+        short anyway (the admission headroom check reserved the pages); the
+        caller backs off."""
+        p = len(req.prompt)
+        n_slots = len(self.slots.slots)
+        t0 = time.perf_counter()
+        for j, tok in enumerate(req.out_tokens[:-1]):
+            pos = p + j
+            try:
+                copy = self.paged.ensure_append_page(slot, pos)
+            except PoolExhausted:
+                return False
+            assert copy is None  # replay appends past the prompt: no fork
+            tokens = torch.zeros((n_slots,), dtype=torch.int32)
+            tokens[slot] = tok
+            lengths = torch.zeros((n_slots,), dtype=torch.int32)
+            lengths[slot] = pos
+            _, self.paged.kv = self.decode_prog.fn(
+                self.params, tokens.to(self.device), self.paged.kv,
+                self.paged.block_tables_array(), lengths.to(self.device))
+            stats.replayed_tokens += 1
+        _sync(self.device)
+        stats.t_replay += time.perf_counter() - t0
+        return True
+
+    def release(self, slot: int) -> None:
+        self.slots.release(slot)
+        if self.paged is not None:
+            self.paged.release_slot(slot)
+
+    def kv_bytes(self) -> dict:
+        """KV memory: bytes reserved up front, the peak backing live tokens,
+        and the packed payload alone (scale planes excluded)."""
+        if self.paged is not None:
+            return {"allocated": self.paged.pool_bytes(),
+                    "peak_in_use": self.paged.peak_live_pages * self.paged.page_bytes(),
+                    "page_bytes": self.paged.page_bytes(),
+                    "payload": self.paged.num_blocks * self.paged.page_payload_bytes(),
+                    "kv_dtype": self.kv_dtype}
+        nbytes = total_nbytes(self.cache)
+        return {"allocated": nbytes, "peak_in_use": nbytes, "page_bytes": 0,
+                "payload": payload_bytes(self.cache), "kv_dtype": self.kv_dtype}
 
     @staticmethod
     def sample_batch(logits: torch.Tensor) -> torch.Tensor:
@@ -252,12 +383,24 @@ class Scheduler:
             raise ValueError(
                 f"{request.request_id}: prompt ({n} tokens) + max_new ({request.max_new}) "
                 f"exceeds max_len={self.runner.max_len}; prompts are never truncated")
+        paged = self.runner.paged
+        if paged is not None:
+            traj = cdiv(n + request.max_new - 1, self.runner.block_size)
+            if traj > paged.num_blocks:
+                raise ValueError(
+                    f"{request.request_id}: needs {traj} KV pages over its lifetime but the "
+                    f"pool holds {paged.num_blocks}; raise num_blocks or lower max_new")
 
     def submit(self, request: Request) -> None:
         self.validate(request)
+        now = time.perf_counter()
         if request.arrival_time_s == 0.0:
-            request.arrival_time_s = time.perf_counter()
+            request.arrival_time_s = now
+        request.enqueue_t = now
         self.queue.append(request)
+
+    def requeue_head(self, request: Request) -> None:
+        self.queue.appendleft(request)
 
     def enter_prefill_phase(self, stats: EngineStats) -> bool:
         """The swap decision; an empty decoding set always flips."""
@@ -276,6 +419,22 @@ class Scheduler:
         )
         return self.policy.should_prefill(view)
 
+    def pick_victim(self) -> Optional[int]:
+        """The lowest-priority decoding slot, ties broken youngest first."""
+        if not self.inflight:
+            return None
+        return min(self.inflight,
+                   key=lambda s: (self.inflight[s].priority, -self.inflight[s].enqueue_t))
+
+    def preempt(self, slot: int, stats: EngineStats) -> None:
+        """Evict one request: free its pages and requeue it at the head for a
+        restart (re-prefill the prompt, replay the generated tokens)."""
+        req = self.inflight.pop(slot)
+        req.preempted = True
+        self.runner.release(slot)
+        stats.preemptions += 1
+        self.queue.appendleft(req)
+
 
 class EngineCore:
     """The incremental serving core; one ``step()`` = one scheduling quantum.
@@ -293,6 +452,8 @@ class EngineCore:
         prompt_len: int = 32,
         mode: str = "pdswap",
         cache_layout: str = "contiguous",
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
         kv_dtype: str = "fp",
         overlap: bool = True,
         swap_policy: Union[SwapPolicy, str, None] = None,
@@ -303,8 +464,9 @@ class EngineCore:
         self.cfg = cfg
         self.runner = ModelRunner(
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
-            mode=mode, cache_layout=cache_layout, kv_dtype=kv_dtype, overlap=overlap,
-            prefill_chunk=prefill_chunk, spec_decode=spec_decode, device=device)
+            mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
+            kv_dtype=kv_dtype, overlap=overlap, prefill_chunk=prefill_chunk,
+            spec_decode=spec_decode, device=device)
         if swap_policy is None:
             swap_policy = DrainPolicy()
         elif isinstance(swap_policy, str):
@@ -330,15 +492,25 @@ class EngineCore:
         self.stats = EngineStats()
         self.out_proc = OutputProcessor(stats=self.stats)
 
+    def kv_bytes(self) -> dict:
+        return self.runner.kv_bytes()
+
     def step(self) -> List[RequestOutput]:
         """Advance one scheduling quantum: a policy-gated prefill burst
-        (admitting queued requests into free slots, one swap each), then one
-        decode round over the active slots."""
+        (admitting queued requests into free slots, one swap each; paged,
+        an admission the pool cannot hold stops the burst), then one decode
+        round over the active slots."""
         outs: List[RequestOutput] = []
         sched, runner = self.scheduler, self.runner
         if sched.queue and runner.slots.free_slots() and sched.enter_prefill_phase(self.stats):
             while sched.queue and runner.slots.free_slots():
-                outs.append(self._admit_one(sched.queue.popleft()))
+                ok, out = self._admit_one(sched.queue.popleft())
+                if out is not None:
+                    outs.append(out)
+                if not ok:
+                    if not runner.slots.active_slots():
+                        self._unblock_admission_or_raise()
+                    break  # decode to drain capacity, then retry admission
         if sched.inflight:
             outs.extend(self._decode_round())
         if not self.has_unfinished():
@@ -373,30 +545,120 @@ class EngineCore:
                         return
         raise RuntimeError(f"{rid} did not finish within {max_steps} steps")
 
-    def _admit_one(self, req: Request) -> RequestOutput:
+    def _unblock_admission_or_raise(self) -> None:
+        """The queue head failed admission with no slot decoding, so no
+        capacity drains on its own: shed every cached refcount-0 page and
+        let the next step retry, or raise when there is none to shed."""
         runner = self.runner
-        slot = runner.slots.assign(req.request_id, len(req.prompt))
-        logits = runner.prefill(req, slot, self.stats)
-        return self._finish_prefill(req, slot, logits)
+        if runner.paged is not None and runner.paged.pool.evict_all_cached():
+            return
+        head = self.scheduler.queue[0]
+        raise RuntimeError(f"{head.request_id} can never be admitted: needs more pages than the "
+                           f"pool holds ({runner.paged.num_blocks} blocks x "
+                           f"{runner.block_size} tokens)")
 
-    def _finish_prefill(self, req: Request, slot: int, logits) -> RequestOutput:
-        """The prefill produced the first new token: emit it, then either
-        finish the request or hand its slot to the decode rounds."""
+    def _finish_resumed_at_budget(self, req: Request) -> Optional[RequestOutput]:
+        """A restart whose recorded tokens already fill its budget has
+        nothing left to generate: finish it before it takes a slot."""
+        if not (req.preempted and req.out_tokens and len(req.out_tokens) >= req.max_new):
+            return None
+        req.preempted = False
+        out = self.out_proc.finalize_resumed(req)
+        self.finished[req.request_id] = req
+        return out
+
+    def _admit_one(self, req: Request):
+        """Admit one request into a slot.  Returns ``(ok, output)``;
+        ``ok=False`` means the pool could not hold it: it went back to the
+        queue head and the engine decodes to drain capacity first."""
         runner = self.runner
-        tok = runner.sample_first(logits)
-        out = self.out_proc.process_token(req, tok)
-        runner.slots.slots[slot].generated = 1
-        if out.finished:
+        out = self._finish_resumed_at_budget(req)
+        if out is not None:
+            return True, out
+        resuming = req.preempted and bool(req.out_tokens)
+        if runner.paged is not None and resuming and not runner.restart_headroom_ok(req):
+            self._block_admission(req)
+            return False, None
+        slot = runner.slots.assign(req.request_id, len(req.prompt))
+        try:
+            logits = runner.prefill(req, slot, self.stats, resuming=resuming)
+        except PoolExhausted:
+            self._block_admission(req, slot)
+            return False, None
+        return self._finish_prefill(req, slot, logits, resuming)
+
+    def _block_admission(self, req: Request, slot: Optional[int] = None) -> None:
+        """An admission blocked on pool pressure: give the slot back (if one
+        was taken), count the block, requeue the request at the head."""
+        if slot is not None:
+            self.runner.release(slot)
+        self.stats.admission_blocks += 1
+        self.scheduler.requeue_head(req)
+
+    def _finish_prefill(self, req: Request, slot: int, logits, resuming: bool = False):
+        """After the prefill: a restart replays its recorded tokens; a new
+        request emits its first token.  Then the request either finishes or
+        its slot joins the decode rounds.  Returns ``(ok, output)``."""
+        runner = self.runner
+        out = None
+        if resuming:
+            if not runner.replay(slot, req, self.stats):
+                self._block_admission(req, slot)
+                return False, None
+            req.preempted = False
+            tok = req.out_tokens[-1]
+            runner.slots.slots[slot].length = len(req.prompt) + len(req.out_tokens) - 1
+            runner.slots.slots[slot].generated = len(req.out_tokens)
+        else:
+            req.preempted = False
+            tok = runner.sample_first(logits)
+            out = self.out_proc.process_token(req, tok)
+            runner.slots.slots[slot].generated = 1
+        finished = out.finished if out is not None else (
+            runner.slots.slots[slot].generated >= req.max_new)
+        if finished:
+            if out is None:
+                out = self.out_proc.finalize_resumed(req)
             self.finished[req.request_id] = req
-            runner.slots.release(slot)
-            return out
+            runner.release(slot)
+            return True, out
         runner.last_tokens[slot] = tok
         self.scheduler.inflight[slot] = req
-        return out
+        return True, out
+
+    def _grow_slot_page(self, slot: int, length: int) -> None:
+        """Make position ``length`` writable, preempting under pool pressure."""
+        while True:
+            try:
+                self.runner.append_page(slot, length)
+                return
+            except PoolExhausted:
+                victim = self.scheduler.pick_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        "paged KV pool exhausted with nothing left to preempt; "
+                        f"raise num_blocks (have {self.runner.paged.num_blocks})")
+                self.scheduler.preempt(victim, self.stats)
+                if victim == slot:
+                    return  # this very slot was evicted; the round skips it
+
+    def _ensure_append_pages(self) -> None:
+        """Before a decode round, make every active slot's next position
+        writable: grow tables at page boundaries and fork shared pages,
+        preempting the lowest-priority request when the pool cannot."""
+        for slot in self.runner.slots.active_slots():
+            s = self.runner.slots.slots[slot]
+            if s.request_id is None:  # preempted earlier in this loop
+                continue
+            self._grow_slot_page(slot, s.length)
 
     def _decode_round(self) -> List[RequestOutput]:
         runner, stats, sched = self.runner, self.stats, self.scheduler
+        if runner.paged is not None:
+            self._ensure_append_pages()
         active = sorted(sched.inflight)
+        if not active:
+            return []
         lengths = runner.slots.lengths_array(runner.device)
         t0 = time.perf_counter()
         logits = runner.decode_logits(lengths)
@@ -415,7 +677,7 @@ class EngineCore:
             if out.finished:
                 sched.inflight.pop(i)
                 self.finished[req.request_id] = req
-                runner.slots.release(i)
+                runner.release(i)
             outs.append(out)
         runner.last_tokens = next_tokens
         return outs

@@ -56,3 +56,20 @@ class OutputProcessor:
             finished=reason is not None,
             finish_reason=reason,
         )
+
+    @staticmethod
+    def finalize_resumed(req) -> RequestOutput:
+        """Terminal output for a restart that resumes exactly at its budget:
+        every token was streamed before the eviction, so the stream is owed
+        only a zero-delta ``finished`` output and a reason, rebuilt from the
+        recorded tail ("stop" if the last token is a stop token)."""
+        if req.finish_reason is None:
+            stopped = req.out_tokens and req.out_tokens[-1] in req.params.stop_tokens
+            req.finish_reason = "stop" if stopped else "length"
+        return RequestOutput(
+            request_id=req.request_id,
+            new_token_ids=[],
+            token_ids=req.out_tokens,
+            finished=True,
+            finish_reason=req.finish_reason,
+        )

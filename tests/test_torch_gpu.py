@@ -10,13 +10,28 @@ import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.kernels import COUNTS, reset_counts
-from repro_torch.kernels.decode_attention.ops import decode_attention_kernel
-from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_kernel,
+    decode_attention_quant_kernel,
+)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_quant_reference,
+    decode_attention_reference,
+)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention_kernel,
+    paged_decode_attention_quant_kernel,
+)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_decode_attention_quant_reference,
+    paged_decode_attention_reference,
+)
 from repro_torch.kernels.prefill_attention.ops import prefill_attention_kernel
 from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
 from repro_torch.kernels.tlmm.ops import tlmm_kernel
 from repro_torch.kernels.tlmm.ref import tlmm_reference
 from repro_torch.models import transformer as T
+from repro_torch.quant.kv_quant import quantize_kv
 from repro_torch.serving import EngineCore, Request
 
 pytestmark = pytest.mark.gpu
@@ -78,6 +93,115 @@ def test_decode_attention_kernel_on_strided_cache(dtype, g, d):
         assert torch.allclose(l, l_r, rtol=ATTN_TOL, atol=ATTN_TOL)
         assert torch.allclose(m, m_r, rtol=0, atol=ATTN_TOL)
         assert (out[0] == 0).all() and (l[0] == 0).all() and (m[0] == -1e30).all()
+
+
+def _assert_stats_close(got, want):
+    out, l, m = got
+    out_r, l_r, m_r = want
+    assert (out - out_r).abs().max().item() <= ATTN_TOL
+    assert torch.allclose(l, l_r, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert torch.allclose(m, m_r, rtol=0, atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (3, 128)])
+def test_decode_attention_quant_kernel_on_strided_cache(kv_dtype, g, d):
+    """B4 on a layer slice of a quantized (B, L, Hkv, S, Dp) cache and its
+    (B, L, Hkv, S) scale planes, with and without window starts."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d + 1)
+    b, layers, hkv, smax = 4, 3, 2, 300
+    planes = [quantize_kv(torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev),
+                          kv_dtype) for _ in range(2)]
+    (kq, ks), (vq, vs) = ((p[:, 1], sc[:, 1]) for p, sc in planes)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    lengths = torch.tensor([0, 1, 257, smax], dtype=torch.int32, device=dev)
+    for starts in (None, torch.tensor([0, 0, 40, 290], dtype=torch.int32, device=dev)):
+        got = decode_attention_quant_kernel(q, kq, ks, vq, vs, lengths, starts, kv_dtype=kv_dtype)
+        torch.cuda.synchronize()
+        _assert_stats_close(got, decode_attention_quant_reference(q, kq, ks, vq, vs, lengths, starts,
+                                                                  kv_dtype=kv_dtype))
+        assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[2][0] == -1e30).all()
+
+
+def _tables(gen, dev, b, n, n_pages, lengths, bs):
+    """Shuffled, distinct page ids for each sequence's live pages, 0 elsewhere."""
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
+    for i, length in enumerate(lengths):
+        used = -(-length // bs)
+        tables[i, :used] = perm[i * n_pages:i * n_pages + used]
+    return tables
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("g,d,bs", [(1, 64, 16), (2, 32, 8), (4, 128, 16)])
+def test_paged_decode_attention_kernels_on_strided_pool(kv_dtype, g, d, bs):
+    """B5 (bf16/f32) and B6 (int8/int4) on a layer slice of an (N, L, Hkv,
+    bs, ·) pool walked through shuffled tables, and the same bits as the
+    contiguous walk (B3/B4) over the same contents gathered dense."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d + bs)
+    b, layers, hkv, n_pages = 4, 2, 2, 20
+    n = b * n_pages + 5
+    lens = [0, 1, 150, n_pages * bs]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = _tables(gen, dev, b, n, n_pages, lens, bs)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    pools = [torch.randn((n, layers, hkv, bs, d), generator=gen, device=dev) for _ in range(2)]
+    if kv_dtype in ("bf16", "f32"):
+        dt = torch.bfloat16 if kv_dtype == "bf16" else torch.float32
+        kp, vp = (p.to(dt)[:, 1] for p in pools)
+        got = paged_decode_attention_kernel(q, kp, vp, tables, lengths)
+        want = paged_decode_attention_reference(q, kp, vp, tables, lengths)
+        dense = [p[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs, d) for p in (kp, vp)]
+        contiguous = decode_attention_kernel(q, *dense, lengths)
+    else:
+        (kq, ks), (vq, vs) = (quantize_kv(p[:, 1], kv_dtype) for p in pools)
+        got = paged_decode_attention_quant_kernel(q, kq, ks, vq, vs, tables, lengths,
+                                                  kv_dtype=kv_dtype)
+        want = paged_decode_attention_quant_reference(q, kq, ks, vq, vs, tables, lengths,
+                                                      kv_dtype=kv_dtype)
+        dq, dv = (p[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs, -1) for p in (kq, vq))
+        sk, sv = (s[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs) for s in (ks, vs))
+        contiguous = decode_attention_quant_kernel(q, dq.contiguous(), sk, dv.contiguous(), sv,
+                                                   lengths, kv_dtype=kv_dtype)
+    torch.cuda.synchronize()
+    _assert_stats_close(got, want)
+    for a, c in zip(got, contiguous):
+        assert torch.equal(a, c)  # the same walk order in both layouts
+
+
+@pytest.mark.parametrize("layout,kv_dtype,mode,num_blocks",
+                         [("contiguous", "int8", "pdswap", None), ("contiguous", "int4", "static", None),
+                          ("paged", "fp", "pdswap", None), ("paged", "int8", "static", 7)])
+def test_quantized_and_paged_engines_on_cuda_match_cpu(layout, kv_dtype, mode, num_blocks):
+    """Each cache option on the card emits the CPU plain path's tokens, and
+    the decode rounds (replays included) went through that option's kernel."""
+    dev = _cuda()
+    cfg = reduced_config("bitnet-730m", num_layers=3)
+    params_cpu = T.convert_for_inference(T.init(cfg, 5, device="cpu"), cfg)
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (14, 14, 14, 14)]
+    streams = {}
+    for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        eng = EngineCore(cfg, params, n_slots=3, max_len=64, prompt_len=16, mode=mode,
+                         cache_layout=layout, kv_dtype=kv_dtype, block_size=8,
+                         num_blocks=num_blocks, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", p, max_new=10, priority=i))
+        reset_counts()
+        st = eng.run()
+        streams[device] = {r: q.out_tokens for r, q in eng.finished.items()}
+    assert streams["cuda"] == streams["cpu"]
+    kernel = ("paged_" if layout == "paged" else "") + "decode_attention" + (
+        "" if kv_dtype == "fp" else "_quant")
+    rounds = st.decode_rounds + st.replayed_tokens
+    assert COUNTS[kernel] == cfg.num_layers * rounds
+    assert sum(COUNTS.values()) - COUNTS[kernel] - COUNTS["tlmm"] - COUNTS["prefill_attention"] == 0
+    if num_blocks is not None:
+        assert st.preemptions > 0
 
 
 @pytest.mark.parametrize("mode,overlap", [("pdswap", True), ("pdswap", False), ("static", True)])

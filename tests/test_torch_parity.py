@@ -287,8 +287,8 @@ def test_engine_greedy_tokens_match_jax(model, mode, overlap):
 
     prefill, decode_logits = teng.runner.prefill, teng.runner.decode_logits
 
-    def prefill_rec(req, slot, stats):
-        logits = prefill(req, slot, stats)
+    def prefill_rec(req, slot, stats, resuming=False):
+        logits = prefill(req, slot, stats, resuming)
         record(logits, [0])
         return logits
 

@@ -15,7 +15,16 @@ from repro.serving.core import ModelRunner as JModelRunner
 from repro_torch.configs import reduced_config
 from repro_torch.core.swap import SwapTiming
 from repro_torch.kernels import COUNTS, reset_counts
-from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_kernel
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention,
+    decode_attention_kernel,
+    decode_attention_quant_kernel,
+)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention,
+    paged_decode_attention_kernel,
+    paged_decode_attention_quant_kernel,
+)
 from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_kernel
 from repro_torch.kernels.tlmm.ops import tlmm_kernel, tlmm_matmul
 from repro_torch.models import transformer as T
@@ -33,6 +42,10 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        new = set(["repro_torch.quant.kv_quant", "repro_torch.serving.paging",
+                   "repro_torch.kernels.paged_attention.ops",
+                   "repro_torch.kernels.paged_attention.ref"])
+        assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -41,7 +54,7 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
     """).format(src=str(ROOT / "src"), root=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 20  # every module of the port was imported
+    assert int(res.stdout.split()[0]) >= 25  # every module of the port was imported
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -68,6 +81,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         prefill_attention_kernel(q, q, q)
     with pytest.raises(ValueError):
         decode_attention_kernel(torch.zeros((1, 2, 1, 32)), q, q, torch.ones(1, dtype=torch.int32))
+    qg, lengths = torch.zeros((1, 2, 1, 32)), torch.ones(1, dtype=torch.int32)
+    payload, scale = torch.zeros((1, 2, 8, 16), dtype=torch.uint8), torch.ones((1, 2, 8))
+    with pytest.raises(ValueError):
+        decode_attention_quant_kernel(qg, payload, scale, payload, scale, lengths, kv_dtype="int4")
+    tables = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        paged_decode_attention_kernel(qg, q, q, tables, lengths)
+    with pytest.raises(ValueError):
+        paged_decode_attention_quant_kernel(qg, payload, scale, payload, scale, tables, lengths,
+                                            kv_dtype="int4")
 
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
@@ -82,7 +105,17 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     eng = EngineCore(cfg, params, n_slots=2, max_len=64, prompt_len=16, device="cpu")
     outs = list(eng.generate(np.arange(7), max_new=3))
     assert outs[-1].finished and len(outs[-1].token_ids) == 3
-    assert COUNTS == {"tlmm": 0, "prefill_attention": 0, "decode_attention": 0}
+    kv = T.init_paged_pool(cfg, 6, 8, kv_dtype="int4", device="cpu")
+    paged_decode_attention(torch.randn(1, 4, 32), kv.k.q[:, 0], kv.v.q[:, 0],
+                           torch.zeros((1, 2), dtype=torch.int32), torch.tensor([9], dtype=torch.int32),
+                           k_scales=kv.k.scale[:, 0], v_scales=kv.v.scale[:, 0], kv_dtype="int4")
+    eng = EngineCore(cfg, params, n_slots=2, max_len=64, prompt_len=16, cache_layout="paged",
+                     kv_dtype="int8", device="cpu")
+    outs = list(eng.generate(np.arange(7), max_new=3))
+    assert outs[-1].finished and len(outs[-1].token_ids) == 3
+    assert set(COUNTS) == {"tlmm", "prefill_attention", "decode_attention", "decode_attention_quant",
+                           "paged_decode_attention", "paged_decode_attention_quant"}
+    assert all(v == 0 for v in COUNTS.values()), COUNTS
 
 
 def test_bucket_matches_jax_contiguous_buckets():
@@ -100,8 +133,7 @@ def test_out_of_slice_arguments_raise_not_implemented():
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
     kw = dict(n_slots=1, max_len=64, device="cpu")
-    for extra in (dict(cache_layout="paged"), dict(kv_dtype="int8"), dict(kv_dtype="int4"),
-                  dict(prefill_chunk=16), dict(spec_decode=2), dict(swap_policy="swap-aware")):
+    for extra in (dict(prefill_chunk=16), dict(spec_decode=2), dict(swap_policy="swap-aware")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EngineCore(cfg, params, **kw, **extra)
     eng = EngineCore(cfg, params, **kw)
