@@ -13,7 +13,11 @@ Phases (any failure raises and the script exits non-zero):
    of the kernel, the plain version and one PyTorch call
    computing the same function as a yardstick, beside the least time the
    card could take (the larger of bytes over 3.35 TB/s and operations over
-   the peak rate for their type).  B1-B3 as before; B4 (int8, int4) on a
+   the peak rate for their type).  The act-quant kernel bit for bit (an
+   all-zero row, an exact half-way value) at M 4/1024, K 1536/4096; B1 bit
+   for bit, with ``tlmm_matmul`` from f32 activations timed end to end
+   (act-quant + B1); B2 within 1e-4, bound by the 3xTF32 tensor-core rate
+   (its f32-FMA bound beside it); B4 (int8, int4) on a
    strided layer slice of a (4,24,24,2048,Dp) quantized cache, B5 on a bf16
    pool of 512 pages of 16 and B6 (int8, int4) on the same pool, walked
    through shuffled block tables;
@@ -21,8 +25,10 @@ Phases (any failure raises and the script exits non-zero):
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
    requests; the launch counters, set to 0 just before, must equal what the
-   engine's stats imply; the served model's logits are held against the
-   plain versions on the CPU at full width and cut depth;
+   engine's stats imply (act-quant as often as B1); the decode profile
+   (device-side events only: time, busy share, operations a round); the
+   served model's logits are held against the plain versions on the CPU at
+   full width and cut depth;
 5. the other cache options at full width, each serving the same 8 requests
    (and each driven with the counts set to 0 just before and read just
    after): (a) contiguous int8, pdswap; (b) contiguous int4, static;
@@ -51,7 +57,7 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"int8": 1979e12, "f32": 67e12}  # dense int8 tensor / f32 non-tensor
+PEAK_OPS = {"int8": 1979e12, "f32": 67e12, "tf32": 495e12}  # dense int8 / f32 non-tensor / tf32 tensor
 TLMM_SHAPES = ((1536, 1536), (1536, 4096), (4096, 1536))
 DECODE_LENGTHS = [0, 517, 1300, 2048]
 PROMPT_LENS = [64, 1536, 300, 900, 128, 1200, 700, 480]
@@ -99,6 +105,25 @@ def kernel_checks(torch, ops, refs):
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
+    # act-quant — x (M,K) f32 -> x_q int8 and act_scale * beta, bit for bit
+    from repro_torch.quant.act_quant import quantize_activations_int8
+
+    aq = {}
+    beta = torch.tensor(0.037, device=dev)
+    for m in (4, 1024):
+        for k in (1536, 4096):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            x *= 10.0 ** (torch.rand((m, 1), generator=gen, device=dev) * 4 - 2)
+            x[0] = 0.0  # an all-zero row
+            s1 = quantize_activations_int8(x[1:2])[1]  # the row's own scale
+            x[1, 5] = 2.5 * s1[0, 0]  # an exact half-way value
+            got, want = ops["act_quant"](x, beta), refs["act_quant"](x, beta)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"act-quant kernel differs from its plain version at M={m} K={k}")
+            aq[(m, k)] = timed_ms(torch, lambda: ops["act_quant"](x, beta), flush)
+            print(f"kernel act_quant M={m} K={k}: bit-equal, {aq[(m, k)]:.4f} ms")
+
     # B1 — TLMM at decode (M = 4 slots) and prefill (M = 1024 tokens) rows
     cases = []
     for m in (4, 1024):
@@ -119,14 +144,21 @@ def kernel_checks(torch, ops, refs):
             else:
                 xb, wb = x_q.to(torch.bfloat16), w_unpacked.to(torch.bfloat16)
                 lib = lambda: xb @ wb  # noqa: E731
+            # tlmm_matmul end to end from f32 activations: act-quant, then B1
+            tw = refs["ternary"](w, torch.tensor(0.037, device=dev))
+            x = torch.randn((m, k), generator=gen, device=dev)
             b_ms, b_by = bound(m * k + k * n / 4 + m * 4 + m * n * 4, 2.0 * m * k * n, "int8")
-            cases.append({
+            case = {
                 "shape": f"M={m} K={k} N={n}", "max_abs_err": 0.0,
                 "ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush),
-                "call_ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush, busy=False),
+                "kernel_call_ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush, busy=False),
+                "act_quant_ms": aq[(m, k)],
+                "matmul_ms": timed_ms(torch, lambda: ops["matmul"](x, tw), flush),
+                "call_ms": timed_ms(torch, lambda: ops["matmul"](x, tw), flush, busy=False),
                 "plain_ms": timed_ms(torch, lambda: refs["tlmm"](x_q, w, scale), flush),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush),
-            })
+            }
+            cases.append(case)
     results["tlmm"] = dict(cases[4], cases=cases)  # headline: prefill w_gate/w_up shape
 
     # B2 — prefill attention, (1, 24, S, 64) f32, causal
@@ -137,7 +169,9 @@ def kernel_checks(torch, ops, refs):
         err = (out - refs["prefill"](q, k, v)).abs().max().item()
         if not err <= 1e-4:
             raise AssertionError(f"prefill attention kernel off by {err} at S={s}")
-        b_ms, b_by = bound(4 * q.numel() * 4, 4.0 * 64 * 24 * s * (s + 1) / 2, "f32")
+        ops_causal = 4.0 * 64 * 24 * s * (s + 1) / 2
+        # the kernel's products: three TF32 tensor-core passes (3xTF32) a product
+        b_ms, b_by = bound(4 * q.numel() * 4, 3 * ops_causal, "tf32")
         sdpa = torch.nn.functional.scaled_dot_product_attention
         cases.append({
             "shape": f"(1,24,{s},64)", "max_abs_err": err,
@@ -145,6 +179,8 @@ def kernel_checks(torch, ops, refs):
             "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
             "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
             "bound_ms": b_ms, "bound_by": b_by,
+            # the same work on the f32 FMA units
+            "bound_f32_fma_ms": bound(4 * q.numel() * 4, ops_causal, "f32")[0],
             "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush),
         })
     results["prefill_attention"] = dict(cases[1], max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -321,10 +357,11 @@ def main() -> int:
     )
     from repro_torch.kernels.prefill_attention.ops import prefill_attention_kernel
     from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
-    from repro_torch.kernels.tlmm.ops import tlmm_kernel
+    from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel, tlmm_matmul
     from repro_torch.kernels.tlmm.ref import tlmm_reference
     from repro_torch.models import transformer as T
-    from repro_torch.quant.ternary import unpack_ternary
+    from repro_torch.quant.act_quant import quantize_and_fold
+    from repro_torch.quant.ternary import TernaryWeight, unpack_ternary
 
     card = smi()
     print(f"card: {card}")
@@ -341,10 +378,12 @@ def main() -> int:
                 print(f"    {line.strip()}")
 
     # ---- 3. kernels against their plain versions
-    ops = {"tlmm": tlmm_kernel, "prefill": prefill_attention_kernel,
+    ops = {"act_quant": act_quant_kernel, "tlmm": tlmm_kernel, "matmul": tlmm_matmul,
+           "prefill": prefill_attention_kernel,
            "decode": decode_attention_kernel, "decode_quant": decode_attention_quant_kernel,
            "paged": paged_decode_attention_kernel, "paged_quant": paged_decode_attention_quant_kernel}
-    refs = {"tlmm": tlmm_reference, "prefill": prefill_attention_reference,
+    refs = {"act_quant": quantize_and_fold, "tlmm": tlmm_reference,
+            "prefill": prefill_attention_reference, "ternary": TernaryWeight,
             "decode": decode_attention_reference, "decode_quant": decode_attention_quant_reference,
             "paged": paged_decode_attention_reference,
             "paged_quant": paged_decode_attention_quant_reference,
@@ -352,10 +391,13 @@ def main() -> int:
     checks = kernel_checks(torch, ops, refs)
     for name, r in checks.items():
         for c in r.get("cases", [r]):
+            extra = "".join(f"  {key} {c[key]:.4f}" for key in (
+                "act_quant_ms", "matmul_ms", "kernel_call_ms",
+                "bound_f32_fma_ms") if key in c)
             print(f"kernel {name} {c['shape']}: err {c['max_abs_err']:.3g}  kernel {c['ms']:.4f} ms "
                   f"(call with host overhead {c['call_ms']:.4f} ms)  "
                   f"plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
-                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})  [{card}]")
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}){extra}  [{card}]")
 
     # ---- 4. the main path at full width
     cfg = get_config("bitnet-730m")
@@ -372,6 +414,7 @@ def main() -> int:
     per_pass = 7 * cfg.num_layers
     expect = {name: 0 for name in DECODE_KERNELS}
     expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+                   "act_quant": per_pass * (stats.swaps + stats.decode_rounds),
                    "prefill_attention": cfg.num_layers * stats.swaps,
                    "decode_attention": cfg.num_layers * stats.decode_rounds})
     if stats.swaps != len(prompt_lens) or launches != expect:
@@ -390,13 +433,13 @@ def main() -> int:
     print(f"  peak device memory {peak_gib:.2f} GiB  [{card}]")
     print(f"  launches {launches}")
 
-    wall_p, dev_p, top = profile_decode(torch, eng)
+    wall_p, dev_p, top, per_round = profile_decode(torch, eng)
     if dev_p is None:
         print("profile: the profiler saw no device time; device busy share not measured")
     else:
         print(f"profile: 4 decode rounds (4 slots, 256-token prompts) under torch.profiler: "
-              f"{wall_p * 1e3:.1f} ms wall, {dev_p * 1e3:.1f} ms of kernels, device busy "
-              f"{dev_p / wall_p:.3f}  [{card}]")
+              f"{wall_p * 1e3:.1f} ms wall, {per_round:.1f} device operations (kernels, copies, "
+              f"sets) a round, {dev_p * 1e3:.1f} ms of them, device busy {dev_p / wall_p:.3f}  [{card}]")
         for name, sec, calls in top:
             print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
 
@@ -452,6 +495,10 @@ def main() -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "library_call": library, "shape": r["shape"], "cases": r.get("cases", [])})
+        if name == "tlmm":  # the act-quant kernel launched before each B1 (replaces no Pallas kernel)
+            kernels[-1].update(act_quant_ms=r["act_quant_ms"], act_quant_launches=launches["act_quant"])
+        if name == "prefill_attention":
+            kernels[-1]["bound_f32_fma_ms"] = r["bound_f32_fma_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -552,6 +599,7 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         steps = st.decode_rounds + st.replayed_tokens
         expect = {name: 0 for name in DECODE_KERNELS}
         expect.update({"tlmm": 7 * cfg.num_layers * (prefills + steps),
+                       "act_quant": 7 * cfg.num_layers * (prefills + steps),
                        "prefill_attention": cfg.num_layers * prefills,
                        kernel: cfg.num_layers * steps})
         if launches != expect:
@@ -570,12 +618,13 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
               f"peak device memory {peak_gib:.2f} GiB  [{card}]")
         print(f"  kv_bytes {kb}")
         print(f"  launches {launches}")
-        wall_p, dev_p, top = profile_decode(torch, eng)
+        wall_p, dev_p, top, per_round = profile_decode(torch, eng)
         if dev_p is None:
             print("  profile: the profiler saw no device time; device busy share not measured")
         else:
             print(f"  profile: 4 decode rounds (4 slots, 256-token prompts): {wall_p * 1e3:.1f} ms wall, "
-                  f"{dev_p * 1e3:.1f} ms of kernels, device busy {dev_p / wall_p:.3f}  [{card}]")
+                  f"{per_round:.1f} device operations a round, {dev_p * 1e3:.1f} ms of them, "
+                  f"device busy {dev_p / wall_p:.3f}  [{card}]")
             for name, sec, calls in top[:4]:
                 print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
         if key == "c" and not st.prefix_hits > 0:
@@ -637,16 +686,20 @@ def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
 def profile_decode(torch, eng, rounds: int = 4):
     """Device time under ``torch.profiler`` over ``rounds`` decode rounds of
     4 fresh requests (run after the main path; its counts are already read).
-    Returns (wall s, device kernel s, top kernels [(name, s, calls)]), the
-    device time None when the profiler saw none."""
+    Returns (wall s, device s, the top device operations [(name, s, calls)],
+    device operations (kernels, copies, sets) per round), summed over the
+    device-side events only, the device time None when the profiler saw
+    none."""
     import numpy as np
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(2)
+    run = sum(name.startswith("prof") for name in eng.finished) // 4  # fresh request ids
     for i in range(4):
-        eng.submit(Request(f"prof{i}", rng.integers(0, 32000, 256).astype(np.int32),
+        eng.submit(Request(f"prof{run}.{i}", rng.integers(0, 32000, 256).astype(np.int32),
                            max_new=rounds + 2))
     eng.step()  # the prefill burst and a first decode round
     torch.cuda.synchronize()
@@ -657,16 +710,16 @@ def profile_decode(torch, eng, rounds: int = 4):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev:
-            rows.append((e.key, dev / 1e6, e.count))
-    rows.sort(key=lambda r: -r[1])
-    total = sum(r[1] for r in rows)
-    return wall, (total if rows else None), rows[:8]
+    rows = {}  # device-side events only (kernels, copies, sets): name -> [s, count]
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            row = rows.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e6
+            row[1] += 1
+    top = sorted(((name, sec, n) for name, (sec, n) in rows.items()), key=lambda r: -r[1])
+    total = sum(r[1] for r in top)
+    device_ops = sum(r[2] for r in top)
+    return wall, (total if top else None), top[:8], device_ops / rounds
 
 
 def _to_cpu(tree):

@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 COUNTS: Dict[str, int] = {
-    "tlmm": 0, "prefill_attention": 0, "decode_attention": 0,
+    "act_quant": 0, "tlmm": 0, "prefill_attention": 0, "decode_attention": 0,
     "decode_attention_quant": 0, "paged_decode_attention": 0, "paged_decode_attention_quant": 0,
 }
 

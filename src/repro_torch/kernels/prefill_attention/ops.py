@@ -1,7 +1,7 @@
-"""Prefill attention op: the CUDA kernel (``csrc/prefill_attention.cu``)
-on CUDA tensors, the plain version on CPU tensors.  The kernel masks the
-ragged S edge itself and reads q/k/v through their strides, so neither
-padding nor a contiguous copy is made here."""
+"""Prefill attention op: the CUDA kernel (``csrc/prefill_attention.cu``,
+3xTF32 on the tensor cores) on CUDA tensors, the plain version on CPU
+tensors.  The kernel masks the ragged S edge itself and reads q/k/v through
+their strides, so neither padding nor a contiguous copy is made here."""
 from __future__ import annotations
 
 import math
@@ -20,7 +20,7 @@ HEAD_DIMS = (32, 64, 128)
 def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel: q (B,H,S,D), k/v (B,Hkv,S,D), all f32 with
-    unit stride along D -> out (B,H,S,D) f32."""
+    unit stride along D, k/v rows 16-byte aligned -> out (B,H,S,D) f32."""
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:
@@ -31,6 +31,10 @@ def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         if not t.is_cuda or t.dtype != torch.float32 or t.stride(-1) != 1 or t.device != q.device:
             raise ValueError("prefill attention kernel takes f32 CUDA tensors on one device "
                              "with unit stride along head_dim")
+    for t in (k, v):  # K/V rows are copied 16 bytes at a time (cp.async)
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError("prefill attention kernel takes k/v rows 16-byte aligned: "
+                             "a 16-byte aligned base and strides that are multiples of 4")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)

@@ -28,9 +28,10 @@ from repro_torch.kernels.paged_attention.ref import (
 )
 from repro_torch.kernels.prefill_attention.ops import prefill_attention_kernel
 from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
-from repro_torch.kernels.tlmm.ops import tlmm_kernel
+from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel
 from repro_torch.kernels.tlmm.ref import tlmm_reference
 from repro_torch.models import transformer as T
+from repro_torch.quant.act_quant import quantize_activations_int8, quantize_and_fold
 from repro_torch.quant.kv_quant import quantize_kv
 from repro_torch.serving import EngineCore, Request
 
@@ -46,9 +47,43 @@ def _cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1536, 1536), (4, 1536, 4096), (8, 4096, 1536),
-                                   (3, 256, 100), (9, 256, 100), (37, 1536, 1536), (300, 4096, 1536)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [128, 1536, 4096])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 1024])
+def test_act_quant_kernel_bit_exact(m, k, dtype):
+    """x_q and the folded scale bit for bit against the plain version, with
+    row scales over four decades, an all-zero row and exact half-way values."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(m * 13 + k)
+    x = torch.randn((m, k), generator=g, device=dev)
+    x *= 10.0 ** (torch.rand((m, 1), generator=g, device=dev) * 4 - 2)
+    x = x.to(dtype).float()
+    x[0, :] = 0.0
+    if m > 1:
+        _, s = quantize_activations_int8(x[1:2])
+        x[1, 3], x[1, 4] = 0.5 * s[0, 0], -2.5 * s[0, 0]  # exact halves of the row's scale
+    x = x.to(dtype)
+    beta = torch.tensor(0.037, device=dev)
+    x_q, scale = act_quant_kernel(x, beta)
+    torch.cuda.synchronize()
+    x_r, scale_r = quantize_and_fold(x, beta)
+    assert torch.equal(x_q, x_r) and torch.equal(scale, scale_r)
+    assert (x_q[0] == 0).all()
+
+
+@pytest.mark.parametrize("m,k,n",
+                         [(m, 4096, 1536) for m in range(1, 9)]
+                         + [(1, 1536, 1536), (4, 1536, 4096), (8, 1536, 4096), (3, 256, 100), (9, 256, 100),
+                            (16, 1536, 1536), (17, 1536, 1536), (37, 1536, 1536), (200, 1536, 1536),
+                            (300, 4096, 1536), (1024, 1536, 1536), (1024, 1536, 4096),
+                            (2048, 4096, 1536), (5, 132, 40), (70, 132, 136), (40, 272, 256),
+                            (8, 8256, 64)])
 def test_tlmm_kernel_bit_exact(m, k, n):
+    """M <= 8: the cluster split-K kernel; above, the int8 tensor-core
+    kernel, with 64-row tiles (M = 1024, N = 1536) and 128-row tiles
+    (M = 1024, N = 4096).  K = 132 leaves a K tail that fills no MMA step,
+    N = 40 or 100 a ragged column edge; M = 8 at K = 8256 holds more x_q
+    than a split-K block stages and goes to the tensor-core kernel."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
     x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
@@ -60,7 +95,7 @@ def test_tlmm_kernel_bit_exact(m, k, n):
 
 
 @pytest.mark.parametrize("h,hkv,s,d", [(4, 4, 1, 64), (4, 2, 65, 32), (24, 24, 200, 64),
-                                       (2, 1, 130, 128)])
+                                       (2, 1, 130, 128), (24, 24, 256, 64), (24, 24, 2048, 64)])
 def test_prefill_attention_kernel(h, hkv, s, d):
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(s + d)
@@ -199,7 +234,8 @@ def test_quantized_and_paged_engines_on_cuda_match_cpu(layout, kv_dtype, mode, n
         "" if kv_dtype == "fp" else "_quant")
     rounds = st.decode_rounds + st.replayed_tokens
     assert COUNTS[kernel] == cfg.num_layers * rounds
-    assert sum(COUNTS.values()) - COUNTS[kernel] - COUNTS["tlmm"] - COUNTS["prefill_attention"] == 0
+    assert COUNTS["act_quant"] == COUNTS["tlmm"]
+    assert sum(COUNTS.values()) - COUNTS[kernel] - 2 * COUNTS["tlmm"] - COUNTS["prefill_attention"] == 0
     if num_blocks is not None:
         assert st.preemptions > 0
 
@@ -223,6 +259,7 @@ def test_engine_on_cuda_matches_cpu_and_goes_through_the_kernels(mode, overlap):
         streams[device] = {r: q.out_tokens for r, q in eng.finished.items()}
     assert streams["cuda"] == streams["cpu"]
     assert COUNTS["tlmm"] == 7 * cfg.num_layers * (len(prompts) + st.decode_rounds)
+    assert COUNTS["act_quant"] == COUNTS["tlmm"]
     assert COUNTS["prefill_attention"] == cfg.num_layers * len(prompts)
     assert COUNTS["decode_attention"] == cfg.num_layers * st.decode_rounds
 

@@ -18,6 +18,7 @@ import repro.configs as jcfgs
 from repro.kernels.decode_attention.kernel import decode_attention_pallas
 from repro.kernels.prefill_attention.kernel import prefill_attention_pallas
 from repro.kernels.tlmm.kernel import tlmm_pallas
+from repro.kernels.tlmm.ops import tlmm_matmul as j_tlmm_matmul
 from repro.models import transformer as JT
 from repro.quant.act_quant import quantize_activations_int8 as j_act_quant
 from repro.quant.ternary import TernaryWeight as JTernaryWeight
@@ -73,15 +74,35 @@ def test_ternary_packing_bit_exact():
     assert unpack_ternary(torch.tensor([[0xFF]], dtype=torch.uint8)).abs().sum() == 0
 
 
-def test_act_quant_bit_exact():
-    rng = np.random.default_rng(1)
-    x = (rng.normal(size=(37, 96)) * 3).astype(np.float32)
+def _act_rows(rows, k, decades, seed):
+    """Random activations whose per-row absmax spreads over ``decades``
+    decades, with an all-zero token (row 3) and half-way cases (row 5)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(rows, k)) * 3).astype(np.float32)
+    x *= (10.0 ** rng.uniform(-decades / 2, decades / 2, size=(rows, 1))).astype(np.float32)
     x[3, :] = 0.0  # an all-zero token
     x[5, 7] = 127.5 * (np.abs(x[5]).max() / 127.0 + 1e-5)  # a half-way case
-    jq, js = j_act_quant(jnp.asarray(x))
+    s = np.float32(np.float64(np.abs(x[5]).max()) * np.float64(np.float32(1 / 127))
+                   + np.float64(np.float32(1e-5)))  # the row's scale, as jitted
+    x[5, 8], x[5, 9] = np.float32(0.5) * s, np.float32(-2.5) * s  # exact halves
+    return x
+
+
+@pytest.mark.parametrize("rows,k,decades", [(37, 96, 0), (4096, 1536, 4)])
+def test_act_quant_bit_exact(rows, k, decades):
+    """The port's scale is what the JAX package's jitted programs compute
+    (XLA's absmax * f32(1/127) + eps, fused): x_q and scale bit for bit
+    against ``jax.jit``, in every row."""
+    x = _act_rows(rows, k, decades, seed=1)
+    jq, js = jax.jit(j_act_quant)(jnp.asarray(x))
     tq, ts = quantize_activations_int8(torch.from_numpy(x))
-    np.testing.assert_array_equal(np.asarray(jq), tq.numpy())
+    assert (np.asarray(js) != ts.numpy()).sum() == 0
     np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+    np.testing.assert_array_equal(np.asarray(jq), tq.numpy())
+    assert ts[3].item() == np.float32(1e-5) and (tq[3] == 0).all()
+    if rows >= 4096:  # the op-by-op JAX call divides, then adds: other scales
+        _, je = j_act_quant(jnp.asarray(x))
+        assert (np.asarray(je) != np.asarray(js)).sum() > rows // 10
 
 
 # ------------------------------------------------------------------- TLMM --
@@ -94,7 +115,7 @@ def test_tlmm_bit_exact_vs_pallas(m, k, n):
     x = rng.normal(size=(m, k)).astype(np.float32)
     w = rng.normal(size=(k, n)).astype(np.float32)
     jw = j_quantize_and_pack(jnp.asarray(w))
-    jxq, jscale = j_act_quant(jnp.asarray(x))
+    jxq, jscale = jax.jit(j_act_quant)(jnp.asarray(x))
     scale = jscale * jw.scale
     mp = -(-m // 8) * 8
     y_j = tlmm_pallas(jnp.pad(jxq, ((0, mp - m), (0, 0))), jw.packed,
@@ -109,6 +130,20 @@ def test_tlmm_bit_exact_vs_pallas(m, k, n):
     y_r = tlmm_reference(torch.from_numpy(np.asarray(jxq)), tw.packed,
                          torch.from_numpy(np.asarray(scale)))
     np.testing.assert_array_equal(y_r.numpy(), np.asarray(y_j))
+
+
+def test_tlmm_matmul_matches_jitted_jax():
+    """``tlmm_matmul`` from f32 activations against the JAX package's jitted
+    ``tlmm_matmul`` (act-quant, scale fold, TLMM), bit for bit in every row."""
+    rng = np.random.default_rng(11)
+    x = _act_rows(512, 1536, 4, seed=12)
+    w = rng.normal(size=(1536, 256)).astype(np.float32)
+    jw = j_quantize_and_pack(jnp.asarray(w))
+    y_j = jax.jit(lambda a, b: j_tlmm_matmul(a, b, out_dtype=jnp.float32))(jnp.asarray(x), jw)
+    tw = quantize_and_pack(torch.from_numpy(w))
+    tw.scale = torch.tensor(np.float32(jw.scale))  # one absmean, held equal
+    y_t = tlmm_matmul(torch.from_numpy(x), tw)
+    np.testing.assert_array_equal(y_t.numpy(), np.asarray(y_j))
 
 
 # -------------------------------------------------------------- attention --

@@ -26,7 +26,7 @@ from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention_quant_kernel,
 )
 from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_kernel
-from repro_torch.kernels.tlmm.ops import tlmm_kernel, tlmm_matmul
+from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel, tlmm_matmul
 from repro_torch.models import transformer as T
 from repro_torch.quant.ternary import quantize_and_pack
 from repro_torch.serving import EngineCore, Request, SamplingParams
@@ -76,6 +76,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     w = quantize_and_pack(torch.randn(64, 32))
     with pytest.raises(ValueError):
         tlmm_kernel(x_q, w.packed, torch.ones(4, 1))
+    with pytest.raises(ValueError):
+        act_quant_kernel(torch.zeros((4, 64)), w.scale)
     q = torch.zeros((1, 2, 8, 32))
     with pytest.raises(ValueError):
         prefill_attention_kernel(q, q, q)
@@ -91,6 +93,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         paged_decode_attention_quant_kernel(qg, payload, scale, payload, scale, tables, lengths,
                                             kv_dtype="int4")
+
+
+def test_tlmm_wrappers_refuse_empty_rows():
+    """M = 0 is refused before any launch: no kernel writes into an empty y."""
+    w = quantize_and_pack(torch.randn(64, 32))
+    with pytest.raises(ValueError, match="non-empty"):
+        tlmm_kernel(torch.zeros((0, 64), dtype=torch.int8), w.packed, torch.ones(0, 1))
+    with pytest.raises(ValueError, match="M >= 1"):
+        act_quant_kernel(torch.zeros((0, 64)), w.scale)
 
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
@@ -113,7 +124,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
                      kv_dtype="int8", device="cpu")
     outs = list(eng.generate(np.arange(7), max_new=3))
     assert outs[-1].finished and len(outs[-1].token_ids) == 3
-    assert set(COUNTS) == {"tlmm", "prefill_attention", "decode_attention", "decode_attention_quant",
+    assert set(COUNTS) == {"act_quant", "tlmm", "prefill_attention", "decode_attention", "decode_attention_quant",
                            "paged_decode_attention", "paged_decode_attention_quant"}
     assert all(v == 0 for v in COUNTS.values()), COUNTS
 
