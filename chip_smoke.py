@@ -20,13 +20,17 @@ Phases (any failure raises and the script exits non-zero):
    (its f32-FMA bound beside it); B4 (int8, int4) on a
    strided layer slice of a (4,24,24,2048,Dp) quantized cache, B5 on a bf16
    pool of 512 pages of 16 and B6 (int8, int4) on the same pool, walked
-   through shuffled block tables;
+   through shuffled block tables, each run again on the same contents
+   under another page shuffle in a larger pool (NaN or random bytes in the
+   other pages) and held to the same bits, and timed once more with every
+   length 0 (the launch's fixed cost);
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
    requests; the launch counters, set to 0 just before, must equal what the
    engine's stats imply (act-quant as often as B1); the decode profile
-   (device-side events only: time, busy share, operations a round); the
+   (device-side events only: device time a round, busy share, operations
+   a round); the
    served model's logits are held against the plain versions on the CPU at
    full width and cut depth;
 5. the other cache options at full width, each serving the same 8 requests
@@ -241,6 +245,32 @@ def _check_err(name, got, want):
     return err
 
 
+def _moved(torch, gen, planes, tables):
+    """The same contents under another page shuffle, in a pool of another
+    size: each (N, ...) layer slice's pages moved to new ids of an
+    (N + 88)-page pool whose other pages hold NaN or random bytes, and the
+    tables rewritten to match."""
+    n = planes[0].shape[0]
+    ids = torch.randperm(n + 88, generator=gen, device=tables.device)[:n]
+    pools = []
+    for t in planes:
+        if t.dtype.is_floating_point:
+            pool = torch.full((n + 88,) + t.shape[1:], float("nan"), dtype=t.dtype, device=t.device)
+        else:
+            pool = torch.randint(0, 100, (n + 88,) + t.shape[1:], generator=gen, device=t.device,
+                                 dtype=torch.int32).to(t.dtype)
+        pool[ids] = t
+        pools.append(pool)
+    return pools, ids[tables.long()].to(torch.int32)
+
+
+def _check_same_bits(name, got, again):
+    if not all(a.equal(b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} kernel: the same contents under another page placement "
+                             "give other bits")
+    print(f"kernel {name}: the same bits under another page placement in a larger pool")
+
+
 def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
     """B4-B6 at the serving path's shapes: each kernel against its plain
     version, timed beside its bound and, as a yardstick, SDPA over the dense
@@ -258,12 +288,17 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
     small = q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4  # q in, out/l/m out, lengths
     results = {}
 
-    def entry(shape, err, run, plain, lib, nbytes):
+    def entry(shape, err, run, plain, lib, nbytes, empty=None):
+        """The kernel's times; with ``empty``, also the same launch with
+        every length 0 (the fixed cost of the launch, ``empty_ms``)."""
         b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
-        return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
-                "call_ms": timed_ms(torch, run, flush, busy=False),
-                "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": timed_ms(torch, lib, flush)}
+        r = {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+             "call_ms": timed_ms(torch, run, flush, busy=False),
+             "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": timed_ms(torch, lib, flush)}
+        if empty is not None:
+            r["empty_ms"] = timed_ms(torch, empty, flush)
+        return r
 
     # B4 — quantized decode attention, strided layer slice of (4,24,24,2048,Dp)
     cases = []
@@ -292,18 +327,22 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
         tables[i, :u] = perm[start:start + u]
         start += u
     small_p = small + sum(used) * 4  # the table entries read
+    no_lengths = torch.zeros_like(lengths)
 
     # B5 — paged decode attention, bf16 pool (512, 24, 24, 16, 64), layer 7
     pool_k, pool_v = (torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev)
                       .to(torch.bfloat16) for _ in range(2))
     args = (q, pool_k[:, 7], pool_v[:, 7], tables, lengths)
-    err = _check_err("B5", ops["paged"](*args), refs["paged"](*args))
+    got = ops["paged"](*args)
+    err = _check_err("B5", got, refs["paged"](*args))
+    (mk, mv), moved_tables = _moved(torch, gen, (args[1], args[2]), tables)
+    _check_same_bits("B5", got, ops["paged"](q, mk, mv, moved_tables, lengths))
     kd, vd = (gather_pages(p, tables) for p in (args[1], args[2]))
     results["paged_decode_attention"] = entry(
         f"B={b} Hkv={hkv} N={pool_pages} bs={bs} P={n_pages} D={d} lengths={DECODE_LENGTHS} "
         "bf16 pool layer slice, shuffled tables", err, lambda: ops["paged"](*args),
         lambda: refs["paged"](*args), lambda: sdpa(qb, kd, vd, attn_mask=mask),
-        2 * live * hkv * d * 2 + small_p)
+        2 * live * hkv * d * 2 + small_p, empty=lambda: ops["paged"](*args[:4], no_lengths))
     del pool_k, pool_v, kd, vd
 
     # B6 — quantized paged decode attention on the same pool layout
@@ -312,8 +351,11 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
         (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (pool_pages, layers, hkv, bs, d),
                                                 kv_dtype) for _ in range(2))
         args = (q, kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7], tables, lengths)
-        err = _check_err(f"B6 {kv_dtype}", ops["paged_quant"](*args, kv_dtype=kv_dtype),
-                         refs["paged_quant"](*args, kv_dtype=kv_dtype))
+        got = ops["paged_quant"](*args, kv_dtype=kv_dtype)
+        err = _check_err(f"B6 {kv_dtype}", got, refs["paged_quant"](*args, kv_dtype=kv_dtype))
+        moved, moved_tables = _moved(torch, gen, args[1:5], tables)
+        _check_same_bits(f"B6 {kv_dtype}", got, ops["paged_quant"](q, *moved, moved_tables, lengths,
+                                                                   kv_dtype=kv_dtype))
         kd, vd = (dequantize_kv(gather_pages(p, tables), gather_scales(s_, tables), kv_dtype)
                   .to(torch.bfloat16) for p, s_ in ((args[1], args[2]), (args[3], args[4])))
         dp = kc.shape[-1]
@@ -322,7 +364,8 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
             f"{kv_dtype} pool layer slice, shuffled tables", err,
             lambda: ops["paged_quant"](*args, kv_dtype=kv_dtype),
             lambda: refs["paged_quant"](*args, kv_dtype=kv_dtype),
-            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small_p))
+            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small_p,
+            empty=lambda: ops["paged_quant"](*args[:6], no_lengths, kv_dtype=kv_dtype)))
     results["paged_decode_attention_quant"] = dict(
         cases[0], max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
     return results
@@ -393,7 +436,7 @@ def main() -> int:
         for c in r.get("cases", [r]):
             extra = "".join(f"  {key} {c[key]:.4f}" for key in (
                 "act_quant_ms", "matmul_ms", "kernel_call_ms",
-                "bound_f32_fma_ms") if key in c)
+                "bound_f32_fma_ms", "empty_ms") if key in c)
             print(f"kernel {name} {c['shape']}: err {c['max_abs_err']:.3g}  kernel {c['ms']:.4f} ms "
                   f"(call with host overhead {c['call_ms']:.4f} ms)  "
                   f"plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
@@ -439,7 +482,8 @@ def main() -> int:
     else:
         print(f"profile: 4 decode rounds (4 slots, 256-token prompts) under torch.profiler: "
               f"{wall_p * 1e3:.1f} ms wall, {per_round:.1f} device operations (kernels, copies, "
-              f"sets) a round, {dev_p * 1e3:.1f} ms of them, device busy {dev_p / wall_p:.3f}  [{card}]")
+              f"sets) a round, {dev_p * 1e3:.1f} ms of them ({dev_p / 4 * 1e3:.3f} ms device time "
+              f"a round), device busy {dev_p / wall_p:.3f}  [{card}]")
         for name, sec, calls in top:
             print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
 
@@ -499,6 +543,8 @@ def main() -> int:
             kernels[-1].update(act_quant_ms=r["act_quant_ms"], act_quant_launches=launches["act_quant"])
         if name == "prefill_attention":
             kernels[-1]["bound_f32_fma_ms"] = r["bound_f32_fma_ms"]
+        if "empty_ms" in r:  # the same launch with every length 0
+            kernels[-1]["empty_ms"] = r["empty_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -623,7 +669,8 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
             print("  profile: the profiler saw no device time; device busy share not measured")
         else:
             print(f"  profile: 4 decode rounds (4 slots, 256-token prompts): {wall_p * 1e3:.1f} ms wall, "
-                  f"{per_round:.1f} device operations a round, {dev_p * 1e3:.1f} ms of them, "
+                  f"{per_round:.1f} device operations a round, {dev_p * 1e3:.1f} ms of them "
+                  f"({dev_p / 4 * 1e3:.3f} ms device time a round), "
                   f"device busy {dev_p / wall_p:.3f}  [{card}]")
             for name, sec, calls in top[:4]:
                 print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")

@@ -1,5 +1,7 @@
-// The one-query decode attention walk shared by the four decode kernels of
-// the port (decode_attention.cu: B3, B4; paged_attention.cu: B5, B6).
+// The one-query decode attention walk of the contiguous decode kernels
+// (decode_attention.cu: B3 over a bf16/f32 cache, B4 over a quantized one).
+// paged_attention.cu (B5, B6) walks pages with paged_walk.cuh, which uses
+// the element formats of this header.
 //
 // For each sequence b and KV head hk (one 256-thread block each), the walk
 // computes the attention of the G grouped query heads q (B,Hkv,G,D) f32 over
@@ -8,25 +10,20 @@
 // caller uses to fold in the freshly projected token.  An empty range gives
 // out 0, l 0 and m -1e30.
 //
-// It is templated on two things that differ between the kernels:
+// It is templated on two things:
 //
-// * the row source: where the K/V row of position pos lives.  `Strided` is
-//   a slot (b, hk, pos) of a batch-leading cache through its strides (the
-//   per-layer slice cache[:, li] is used where it lies); `Paged` looks the
-//   page up in the block table, table[b, pos / bs] clipped to [0, N-1], at
-//   in-page offset pos % bs, through the pool's (page, head, slot) strides.
+// * the row source, `Strided`: the slot (b, hk, pos) of a batch-leading
+//   cache through its strides (the per-layer slice cache[:, li] is used
+//   where it lies);
 // * the element format: bf16, f32, int8 with an f32 scale per row, or int4
 //   nibble pairs (even index in the low nibble) with an f32 scale per row.
 //   Quantized rows are dequantized in registers as (float)q * scale[row],
 //   the TPU kernels' _dequant_tile; no f32 copy of the cache is ever
 //   written to global memory.
 //
-// Positions are visited in the same order whatever the row source, so the
-// paged and the contiguous walk give the same bits for the same contents.
-//
 // Design (B3's): eight warps take 32-position chunks of [start, length) in
 // turn, so chunks past the length are never read (the TPU kernels' block
-// and page skip).  In a chunk each lane scores one position (16-byte loads
+// skip).  In a chunk each lane scores one position (16-byte loads
 // along its K row, q broadcast from shared memory), the warp reduces max and
 // sum with shuffles, and then each lane owns D/32 output dimensions and
 // accumulates p * V row by row, so V is read with neighbouring lanes on
@@ -138,7 +135,7 @@ struct Int4 {
   }
 };
 
-// ---- row sources: offsets (in storage elements, and in floats for the
+// ---- the row source: offsets (in storage elements, and in floats for the
 // scale planes) of position pos of sequence b, head hk.  Strides are
 // [K payload, V payload, K scale, V scale] x [outer, head, position].
 
@@ -150,18 +147,7 @@ struct Strided {
   }
 };
 
-struct Paged {
-  long long st[4][3];  // outer = page
-  const int* tables;   // (B, P) int32
-  int P, N, bs;
-  __device__ __forceinline__ long long at(int which, int b, int hk, int pos) const {
-    const int page = min(max(tables[static_cast<long long>(b) * P + pos / bs], 0), N - 1);
-    return page * st[which][0] + hk * st[which][1] + (pos % bs) * st[which][2];
-  }
-};
-
 __host__ __device__ __forceinline__ int capacity(const Strided& s) { return s.S; }
-__host__ __device__ __forceinline__ int capacity(const Paged& s) { return s.P * s.bs; }
 
 template <class Fmt, class Src, int D, int MAXG>
 __global__ void __launch_bounds__(kThreads)

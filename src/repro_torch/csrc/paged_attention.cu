@@ -1,5 +1,5 @@
-// Single-token decode attention over the paged KV pool for Hopper: the walk
-// of decode_walk.cuh with each position's row looked up in the block table.
+// Single-token decode attention over the paged KV pool for Hopper: the
+// cluster split walk of paged_walk.cuh.
 //
 // B5 replaces src/repro/kernels/paged_attention/kernel.py ::
 // paged_decode_attention_pallas (_paged_decode_kernel): one layer's pages
@@ -10,47 +10,77 @@
 // nibble pairs, with f32 scale planes (N,Hkv,bs), dequantized in registers.
 //
 // Sequence b's position pos lives at page block_tables[b, pos / bs] (clipped
-// to [0, N-1], as the TPU kernel clips its scalar-prefetched table) at
-// in-page offset pos % bs.  Pages wholly past a sequence's length are never
-// read: the walk stops at the length, so unused table entries (0) are
-// harmless.  What bounds them on the H100: the bytes of the live positions'
-// rows (and scales) over 3.35 TB/s, as for B3/B4; the table reads are
-// cached.  The pool's layer slice pages[:, li] of the (N,L,Hkv,bs,·) pool is
-// read through its strides, never copied.  Prefetching whole pages with
-// cp.async or TMA is later work.
-#include "decode_walk.cuh"
+// to [0, N-1], as the TPU kernel clips its scalar-prefetched table) at slot
+// pos % bs.  Pages wholly outside [start, length) are never read, so unused
+// table entries are harmless.  The pool's layer slice pages[:, li] of the
+// (N,L,Hkv,bs,.) pool is read through its page and head strides, never
+// copied; its slots must be contiguous rows (slot stride = row length, and 1
+// for the scale planes), as in every pool the engine builds.
+//
+// What bounds them on the H100: the bytes of the live pages over 3.35 TB/s.
+// The TPU kernel walks a sequence's pages one grid step after another with
+// the page DMA'd ahead; on this card one (b, hk) walked by one block is a
+// chain of dependent round trips.  So the walk splits each (b, hk) over the
+// 8 blocks of a thread-block cluster, each taking whole pages, reads the
+// table once, stages whole pages in shared memory with cp.async several
+// pages ahead, and merges the blocks' softmax states through distributed
+// shared memory in the same launch (paged_walk.cuh).
+#include "paged_walk.cuh"
 
-using namespace decode_walk;
+using namespace paged_walk;
 
 extern "C" const char* repro_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 // q (B,Hkv,G,D) f32 contiguous; k/v the pages, unit stride along the last
-// dim, 16-byte aligned rows; k_scale/v_scale (N,Hkv,bs) f32 or null
-// (format 0 and 1); block_tables (B,P) int32 contiguous; lengths (B,) int32;
-// starts (B,) int32 or null; strides: 12 values in elements, (page, head,
-// slot) of k, v, k_scale, v_scale; out (B,Hkv,G,D), l and m (B,Hkv,G) f32.
-// format: 0 bf16, 1 f32, 2 int8, 3 int4.
+// dim, contiguous slots, 16-byte aligned rows; k_scale/v_scale (N,Hkv,bs) f32
+// with contiguous slots, or null (format 0 and 1); block_tables (B,P) int32
+// contiguous; lengths (B,) int32; starts (B,) int32 or null; strides: 12
+// values in elements, (page, head, slot) of k, v, k_scale, v_scale; out
+// (B,Hkv,G,D), l and m (B,Hkv,G) f32.  format: 0 bf16, 1 f32, 2 int8, 3 int4.
 static int paged_launch(const void* q, const void* k, const void* k_scale, const void* v,
                         const void* v_scale, const void* block_tables, const void* lengths,
                         const void* starts, void* out, void* l, void* m, int B, int Hkv,
                         int G, int N, int bs, int P, int D, int format,
                         const long long* strides, float sm_scale, void* stream) {
-  Paged src{};
-  for (int i = 0; i < 12; ++i) src.st[i / 3][i % 3] = strides[i];
-  src.tables = static_cast<const int*>(block_tables);
-  src.P = P;
-  src.N = N;
-  src.bs = bs;
-  const Args a{q, k, v, k_scale, v_scale, lengths, starts, out, l, m, B, Hkv, G, sm_scale,
-               static_cast<cudaStream_t>(stream)};
+  static const int kElemBytes[4] = {2, 4, 1, 1};
+  if (format < 0 || format > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const long long row = format == 3 ? D / 2 : D;  // payload elements of a row
+  const bool scaled = format >= 2;
+  if (strides[2] != row || strides[5] != row || (scaled && (strides[8] != 1 || strides[11] != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int eb = kElemBytes[format];
+  Params p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const unsigned char*>(k);
+  p.v = static_cast<const unsigned char*>(v);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.tables = static_cast<const int*>(block_tables);
+  p.lengths = static_cast<const int*>(lengths);
+  p.starts = static_cast<const int*>(starts);
+  p.out = static_cast<float*>(out);
+  p.l = static_cast<float*>(l);
+  p.m = static_cast<float*>(m);
+  for (int i = 0; i < 2; ++i) {
+    p.k_st[i] = strides[i] * eb;
+    p.v_st[i] = strides[3 + i] * eb;
+    p.ks_st[i] = strides[6 + i];
+    p.vs_st[i] = strides[9 + i];
+  }
+  p.Hkv = Hkv;
+  p.G = G;
+  p.N = N;
+  p.P = P;
+  p.bs = bs;
+  p.sm_scale = sm_scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (format) {
-    case 0: return dispatch<Bf16>(D, a, src);
-    case 1: return dispatch<F32>(D, a, src);
-    case 2: return dispatch<Int8>(D, a, src);
-    case 3: return dispatch<Int4>(D, a, src);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return dispatch<decode_walk::Bf16>(D, p, B, s);
+    case 1: return dispatch<decode_walk::F32>(D, p, B, s);
+    case 2: return dispatch<decode_walk::Int8>(D, p, B, s);
+    default: return dispatch<decode_walk::Int4>(D, p, B, s);
   }
 }
 

@@ -5,6 +5,9 @@ plain versions on CPU tensors.
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads one
 layer's pages through their strides: the slice ``pages[:, li]`` of the
 (N, L, Hkv, bs, ·) pool, and of its scale planes, is passed where it lies.
+The kernels copy whole pages, so a page's head slice must be ``bs``
+contiguous rows (and ``bs`` contiguous scales), as in every pool the engine
+builds.
 """
 from __future__ import annotations
 
@@ -38,6 +41,19 @@ def _check_tables(block_tables, b, q):
         raise ValueError("paged decode attention: the block tables must lie on the queries' device")
 
 
+def _check_slots(what, payloads, scales=()):
+    """A page's head slice must be bs contiguous rows: the slot stride is
+    the row length (1 for the scale planes)."""
+    for t in payloads:
+        if t.stride(2) != t.shape[3]:
+            raise ValueError(f"{what} kernel copies whole pages: the slot stride must be the row "
+                             f"length {t.shape[3]}, got {t.stride(2)}")
+    for t in scales:
+        if t.stride(2) != 1:
+            raise ValueError(f"{what} kernel copies whole pages: the scale planes' slot stride "
+                             f"must be 1, got {t.stride(2)}")
+
+
 def _outputs(q):
     b, hkv, g, d = q.shape
     return (torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device),
@@ -48,7 +64,7 @@ def _outputs(q):
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, lengths, starts=None, *,
                                   sm_scale=None):
     """Launch B5: q (B,Hkv,G,D) f32; k/v pages (N,Hkv,bs,D) bf16 or f32 (any
-    page/head/slot strides, unit stride along D, 16-byte aligned rows);
+    page/head strides, contiguous slots, 16-byte aligned rows);
     block_tables (B,P) int32; lengths/starts (B,) int32 -> (out (B,Hkv,G,D),
     l, m (B,Hkv,G)), all f32."""
     b, hkv, g, d = q.shape
@@ -60,6 +76,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, lengths, st
         raise TypeError(f"paged decode attention kernel reads bf16 or f32 pages, "
                         f"got {k_pages.dtype}/{v_pages.dtype}")
     check_walk_operands("paged decode attention", q, lengths, starts, (k_pages, v_pages))
+    _check_slots("paged decode attention", (k_pages, v_pages))
     _check_tables(block_tables, b, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -97,6 +114,7 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
                         f"got {k_pages_q.dtype}/{v_pages_q.dtype}")
     check_walk_operands("quantized paged decode attention", q, lengths, starts,
                         (k_pages_q, v_pages_q), (k_scales, v_scales))
+    _check_slots("quantized paged decode attention", (k_pages_q, v_pages_q), (k_scales, v_scales))
     _check_tables(block_tables, b, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)

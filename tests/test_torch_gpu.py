@@ -159,52 +159,130 @@ def test_decode_attention_quant_kernel_on_strided_cache(kv_dtype, g, d):
         assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[2][0] == -1e30).all()
 
 
-def _tables(gen, dev, b, n, n_pages, lengths, bs):
-    """Shuffled, distinct page ids for each sequence's live pages, 0 elsewhere."""
+PAGED_FORMATS = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _page_contents(gen, dev, kv_dtype, b, n_pages, hkv, bs, d):
+    """Each sequence's pages, dense: the planes [K, V] (B, P, Hkv, bs, Dp),
+    then, quantized, their scale planes [K, V] (B, P, Hkv, bs)."""
+    x = [torch.randn((b, n_pages, hkv, bs, d), generator=gen, device=dev) for _ in range(2)]
+    if kv_dtype in PAGED_FORMATS:
+        return [t.to(PAGED_FORMATS[kv_dtype]) for t in x]
+    pairs = [quantize_kv(t, kv_dtype) for t in x]
+    return [pairs[0][0], pairs[1][0], pairs[0][1], pairs[1][1]]
+
+
+def _garbage(gen, like, nan):
+    """Bits of no meaning shaped as ``like``: NaN (float planes, with
+    ``nan``), else random bytes, or random floats in [0.01, 0.03) (of the
+    order of a scale, so that a clipped table entry that reads them gives
+    values of order 1)."""
+    if like.dtype in (torch.int8, torch.uint8):
+        lo, hi = (-128, 128) if like.dtype == torch.int8 else (0, 256)
+        return torch.randint(lo, hi, like.shape, generator=gen, device=like.device,
+                             dtype=torch.int32).to(like.dtype)
+    if nan:
+        return torch.full_like(like, float("nan"))
+    return (torch.rand(like.shape, generator=gen, device=like.device) * 0.02 + 0.01).to(like.dtype)
+
+
+def _place(gen, planes, lens, bs, n, nan):
+    """A layer-stacked pool of ``n`` pages per plane, (n, 2, ...), whose layer
+    1 holds each sequence's live pages under shuffled distinct ids; the
+    other pages, layer 0 and the table entries past each sequence's live
+    pages hold garbage (table ids from -n to 2n).  Returns the layer-1
+    slices, as the engine passes them, and the (B, P) tables."""
+    b, p = planes[0].shape[:2]
+    dev = planes[0].device
+    pools = [_garbage(gen, torch.empty((n, 2) + t.shape[2:], dtype=t.dtype, device=dev), nan)
+             for t in planes]
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
-    tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
-    for i, length in enumerate(lengths):
+    tables = torch.randint(-n, 2 * n, (b, p), generator=gen, device=dev, dtype=torch.int32)
+    k = 0
+    for i, length in enumerate(lens):
         used = -(-length // bs)
-        tables[i, :used] = perm[i * n_pages:i * n_pages + used]
-    return tables
+        tables[i, :used] = perm[k:k + used]
+        for pool, t in zip(pools, planes):
+            pool[perm[k:k + used].long(), 1] = t[i, :used]
+        k += used
+    return [pool[:, 1] for pool in pools], tables
+
+
+def _paged_walk(kv_dtype, q, pages, tables, lengths, starts, kernel=True):
+    if kv_dtype in PAGED_FORMATS:
+        fn = paged_decode_attention_kernel if kernel else paged_decode_attention_reference
+        return fn(q, *pages, tables, lengths, starts)
+    fn = paged_decode_attention_quant_kernel if kernel else paged_decode_attention_quant_reference
+    kp, vp, ks, vs = pages
+    return fn(q, kp, ks, vp, vs, tables, lengths, starts, kv_dtype=kv_dtype)
+
+
+PAGED_CASES = [(1, 64, 16), (2, 32, 8), (4, 128, 16), (8, 32, 16), (8, 64, 8), (8, 128, 8)]
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "f32", "int8", "int4"])
-@pytest.mark.parametrize("g,d,bs", [(1, 64, 16), (2, 32, 8), (4, 128, 16)])
+@pytest.mark.parametrize("g,d,bs", PAGED_CASES)
 def test_paged_decode_attention_kernels_on_strided_pool(kv_dtype, g, d, bs):
     """B5 (bf16/f32) and B6 (int8/int4) on a layer slice of an (N, L, Hkv,
-    bs, ·) pool walked through shuffled tables, and the same bits as the
-    contiguous walk (B3/B4) over the same contents gathered dense."""
+    bs, ·) pool walked through shuffled tables, against the plain versions:
+    lengths 0, 1 and mid-page, one that gives every rank of the cluster
+    pages, starts that leave ranks with nothing to walk, table entries
+    >= N and negative (clipped), and an all-empty batch."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(g * d + bs)
-    b, layers, hkv, n_pages = 4, 2, 2, 20
+    b, hkv, n_pages = 6, 2, 24
+    cap = n_pages * bs
     n = b * n_pages + 5
-    lens = [0, 1, 150, n_pages * bs]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    tables = _tables(gen, dev, b, n, n_pages, lens, bs)
+    lens = [0, 1, 150, cap, cap - 2 * bs - 3, 37]
+    pages, tables = _place(gen, _page_contents(gen, dev, kv_dtype, b, n_pages, hkv, bs, d),
+                           lens, bs, n, nan=False)
+    tables[2, 1], tables[2, 3] = n + 7, -3  # clipped to N - 1 and 0
     q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
-    pools = [torch.randn((n, layers, hkv, bs, d), generator=gen, device=dev) for _ in range(2)]
-    if kv_dtype in ("bf16", "f32"):
-        dt = torch.bfloat16 if kv_dtype == "bf16" else torch.float32
-        kp, vp = (p.to(dt)[:, 1] for p in pools)
-        got = paged_decode_attention_kernel(q, kp, vp, tables, lengths)
-        want = paged_decode_attention_reference(q, kp, vp, tables, lengths)
-        dense = [p[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs, d) for p in (kp, vp)]
-        contiguous = decode_attention_kernel(q, *dense, lengths)
-    else:
-        (kq, ks), (vq, vs) = (quantize_kv(p[:, 1], kv_dtype) for p in pools)
-        got = paged_decode_attention_quant_kernel(q, kq, ks, vq, vs, tables, lengths,
-                                                  kv_dtype=kv_dtype)
-        want = paged_decode_attention_quant_reference(q, kq, ks, vq, vs, tables, lengths,
-                                                      kv_dtype=kv_dtype)
-        dq, dv = (p[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs, -1) for p in (kq, vq))
-        sk, sv = (s[tables.long()].transpose(1, 2).reshape(b, hkv, n_pages * bs) for s in (ks, vs))
-        contiguous = decode_attention_quant_kernel(q, dq.contiguous(), sk, dv.contiguous(), sv,
-                                                   lengths, kv_dtype=kv_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for starts in (None, torch.tensor([0, 0, 140, 3 * bs + 2, cap - 3 * bs - 1, 36],
+                                      dtype=torch.int32, device=dev)):
+        got = _paged_walk(kv_dtype, q, pages, tables, lengths, starts)
+        torch.cuda.synchronize()
+        _assert_stats_close(got, _paged_walk(kv_dtype, q, pages, tables, lengths, starts,
+                                             kernel=False))
+        assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[2][0] == -1e30).all()
+    for lengths, starts in ((torch.zeros_like(lengths), None), (lengths, lengths)):
+        out, l, m = _paged_walk(kv_dtype, q, pages, tables, lengths, starts)
+        torch.cuda.synchronize()
+        assert (out == 0).all() and (l == 0).all() and (m == -1e30).all()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("g,d,bs", [(1, 64, 16), (2, 32, 8), (8, 128, 16)])
+def test_paged_decode_attention_kernels_give_the_same_bits_wherever_pages_lie(kv_dtype, g, d, bs):
+    """The same contents under a second shuffle of pages, in a pool of
+    another size, with NaN or random bytes in unused pages, in the slots of
+    live pages outside [start, length) and in table entries past the
+    length, give the same bits: the property preemption replay and prefix
+    sharing rely on."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d + bs + 1)
+    b, hkv, n_pages = 5, 2, 24
+    cap = n_pages * bs
+    lens = [0, 1, 150, cap, cap - 2 * bs - 3]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 0, 9, 3 * bs + 2, 0], dtype=torch.int32, device=dev)
+    planes = _page_contents(gen, dev, kv_dtype, b, n_pages, hkv, bs, d)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    pos = torch.arange(cap, device=dev).reshape(1, n_pages, bs)
+    outside = (pos < starts[:, None, None]) | (pos >= lengths[:, None, None])  # (B, P, bs)
+    poisoned = []
+    for t in planes:
+        mask = outside[:, :, None, :, None] if t.dim() == 5 else outside[:, :, None, :]
+        poisoned.append(torch.where(mask, _garbage(gen, t, nan=True), t))
+    first = _paged_walk(kv_dtype, q, *_place(gen, planes, lens, bs, b * n_pages + 5, nan=False),
+                        lengths, starts)
+    second = _paged_walk(kv_dtype, q, *_place(gen, poisoned, lens, bs, 3 * b * n_pages + 11,
+                                              nan=True), lengths, starts)
     torch.cuda.synchronize()
-    _assert_stats_close(got, want)
-    for a, c in zip(got, contiguous):
-        assert torch.equal(a, c)  # the same walk order in both layouts
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert torch.isfinite(first[0]).all()
 
 
 @pytest.mark.parametrize("layout,kv_dtype,mode,num_blocks",

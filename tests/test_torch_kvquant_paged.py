@@ -35,6 +35,10 @@ from repro_torch.interop import kv_from_numpy, params_from_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ref import (
+    paged_decode_attention_split_reference,
+    rank_ranges,
+)
 from repro_torch.models import transformer as T
 from repro_torch.quant import kv_quant as K
 from repro_torch.serving import EngineCore, Request
@@ -165,6 +169,77 @@ def test_paged_decode_attention_plain_vs_pallas(kv_dtype, g):
                                      return_stats=True, k_scales=t(ks)[:, 1],
                                      v_scales=t(vs)[:, 1], kv_dtype=kv_dtype)
     _check_stats(got, want, b, hkv * g, d)
+
+
+@pytest.mark.parametrize("ranks", [1, 3, 8])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+def test_paged_decode_attention_split_reference_vs_pallas(kv_dtype, ranks):
+    """The walk as the CUDA kernels split it (each rank's softmax state over
+    its whole pages of [start, length), merged in rank order) against the
+    paged Pallas kernels: a zero length, a partial page, and starts that
+    leave ranks with nothing to walk."""
+    rng = np.random.default_rng(30 + ranks)
+    b, hkv, g, d, bs, n_pages, n_layers = 4, 2, 2, 32, 8, 8, 2
+    n = b * n_pages + 3
+    q = rng.normal(size=(b, hkv, g, d)).astype(np.float32)
+    lengths = np.array([0, 13, 45, 64], np.int32)
+    starts = np.array([0, 0, 40, 9], np.int32)
+    tables = np.zeros((b, n_pages), np.int32)
+    perm = rng.permutation(n)
+    for i, length in enumerate(lengths):
+        used = -(-int(length) // bs)
+        tables[i, :used] = perm[i * n_pages:i * n_pages + used]
+    t = torch.from_numpy
+    lo, hi = rank_ranges(t(starts), t(lengths), bs, ranks, n_pages * bs)
+    assert ranks == 1 or (hi[:, 2] <= lo[:, 2]).any()  # sequence 2 leaves ranks empty
+    args = (jnp.asarray(q), jnp.asarray(tables), jnp.asarray(lengths), jnp.asarray(starts))
+    if kv_dtype == "fp":
+        pool = [jnp.asarray(rng.normal(size=(n, n_layers, hkv, bs, d)), jnp.bfloat16)
+                for _ in range(2)]
+        kp, vp = (p[:, 1] for p in pool)
+        want = paged_decode_attention_pallas(args[0], kp, vp, *args[1:], interpret=True)
+        tk, tv = (kv_from_numpy({"k": np.asarray(p), "v": np.asarray(p)}, "cpu").k for p in pool)
+        got = paged_decode_attention_split_reference(t(q), tk[:, 1], tv[:, 1], t(tables),
+                                                     t(lengths), t(starts), ranks=ranks)
+    else:
+        (kq, ks), (vq, vs) = (_quant_cache(rng, (n, n_layers, hkv, bs, d), kv_dtype)
+                              for _ in range(2))
+        want = paged_decode_attention_quant_pallas(
+            args[0], jnp.asarray(kq[:, 1]), jnp.asarray(ks[:, 1]), jnp.asarray(vq[:, 1]),
+            jnp.asarray(vs[:, 1]), *args[1:], kv_dtype=kv_dtype, interpret=True)
+        got = paged_decode_attention_split_reference(
+            t(q), t(kq)[:, 1], t(vq)[:, 1], t(tables), t(lengths), t(starts), ranks=ranks,
+            k_scales=t(ks)[:, 1], v_scales=t(vs)[:, 1], kv_dtype=kv_dtype)
+    out, l, m = got
+    h = hkv * g
+    _check_stats((out.reshape(b, h, d), l.reshape(b, h, 1), m.reshape(b, h, 1)), want, b, h, d)
+    assert (out[0] == 0).all() and (l[0] == 0).all() and (m[0] == -1e30).all()
+
+
+@pytest.mark.parametrize("bs", [1, 8, 16])
+def test_rank_ranges_tile_the_window_in_whole_pages(bs):
+    """Each sequence's ranks cover [start, length) once, in rank order; every
+    boundary between two ranks is a page boundary; the ranks that walk
+    nothing come last; no rank takes more than its even share of pages."""
+    rng = np.random.default_rng(bs)
+    n_pages = 12
+    cap = n_pages * bs
+    lengths = torch.from_numpy(rng.integers(-2, cap + 6, 64).astype(np.int32))
+    starts = torch.from_numpy(rng.integers(-3, cap, 64).astype(np.int32))
+    for ranks in (1, 3, 8):
+        lo, hi = rank_ranges(starts, lengths, bs, ranks, cap)
+        for i in range(64):
+            start, length = max(int(starts[i]), 0), min(int(lengths[i]), cap)
+            live = [(int(a), int(z)) for a, z in zip(lo[:, i], hi[:, i]) if z > a]
+            assert all(z <= a for a, z in zip(lo[len(live):, i], hi[len(live):, i]))
+            if length <= start:
+                assert not live
+                continue
+            assert live[0][0] == start and live[-1][1] == length
+            for (_, z), (a, _) in zip(live, live[1:]):
+                assert z == a and a % bs == 0
+            n = -(-length // bs) - start // bs
+            assert all(-(-z // bs) - a // bs <= -(-n // ranks) for a, z in live)
 
 
 # ------------------------------------------------ the swap writes, by bytes --
@@ -514,3 +589,11 @@ def test_library_hash_follows_the_included_headers(tmp_path):
     assert after["paged_attention"] != before["paged_attention"]
     assert after["tlmm"] == before["tlmm"]
     assert after["prefill_attention"] == before["prefill_attention"]
+    # the paged walk's own header rebuilds the paged kernels alone
+    assert "paged_walk.cuh" in [p.name for p in build.sources_of("paged_attention", csrc)]
+    header = csrc / "paged_walk.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    again = {name: build.source_digest(name, csrc) for name in build.SOURCES}
+    assert again["paged_attention"] != after["paged_attention"]
+    for name in ("decode_attention", "tlmm", "prefill_attention"):
+        assert again[name] == after[name]
