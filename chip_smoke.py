@@ -17,13 +17,16 @@ Phases (any failure raises and the script exits non-zero):
    all-zero row, an exact half-way value) at M 4/1024, K 1536/4096; B1 bit
    for bit, with ``tlmm_matmul`` from f32 activations timed end to end
    (act-quant + B1); B2 within 1e-4, bound by the 3xTF32 tensor-core rate
-   (its f32-FMA bound beside it); B4 (int8, int4) on a
-   strided layer slice of a (4,24,24,2048,Dp) quantized cache, B5 on a bf16
-   pool of 512 pages of 16 and B6 (int8, int4) on the same pool, walked
-   through shuffled block tables, each run again on the same contents
-   under another page shuffle in a larger pool (NaN or random bytes in the
-   other pages) and held to the same bits, and timed once more with every
-   length 0 (the launch's fixed cost);
+   (its f32-FMA bound beside it); the four decode walks, all one cluster
+   split walk: B3 (bf16) and B4 (int8, int4) on a strided layer slice of a
+   (4,24,24,2048,·) cache, B5 on a bf16 pool of 512 pages of 16 and B6
+   (int8, int4) on the same pool, walked through shuffled block tables,
+   each run again on the same contents placed elsewhere (B3/B4: another
+   batch index and layer of a cache with a larger Smax; B5/B6: another page
+   shuffle in a larger pool; NaN or random bytes in every other row) and
+   held to the same bits, B3/B4 also on the same rows as shuffled 16-row
+   pages through B5/B6 and held to the same bits, and each timed once more
+   with every length 0 (the launch's fixed cost, ``empty_ms``);
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
@@ -190,36 +193,7 @@ def kernel_checks(torch, ops, refs):
     results["prefill_attention"] = dict(cases[1], max_abs_err=max(c["max_abs_err"] for c in cases),
                                         cases=cases)
 
-    # B3 — decode attention on a strided layer slice of a (4,24,24,2048,64) bf16 cache
-    b, layers, hkv, smax, d = 4, 24, 24, 2048, 64
-    cache_k = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(torch.bfloat16)
-    cache_v = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = cache_k[:, 7], cache_v[:, 7]
-    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
-    lens_list = DECODE_LENGTHS
-    lengths = torch.tensor(lens_list, dtype=torch.int32, device=dev)
-    out, l, m = ops["decode"](q, k, v, lengths)
-    out_r, l_r, m_r = refs["decode"](q, k, v, lengths)
-    err = max((out - out_r).abs().max().item(), (m - m_r).abs().max().item(),
-              ((l - l_r).abs() / l_r.clamp(min=1.0)).max().item())
-    if not err <= 1e-4:
-        raise AssertionError(f"decode attention kernel off by {err}")
-    live = sum(lens_list)
-    nbytes = 2 * live * hkv * d * 2 + q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4
-    b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
-    qb = q.to(torch.bfloat16)
-    mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    results["decode_attention"] = {
-        "shape": f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={lens_list} bf16 layer slice",
-        "max_abs_err": err,
-        "ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths), flush),
-        "call_ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths), flush, busy=False),
-        "plain_ms": timed_ms(torch, lambda: refs["decode"](q, k, v, lengths), flush),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timed_ms(torch, lambda: sdpa(qb, k, v, attn_mask=mask), flush),
-    }
-    results.update(quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask))
+    results.update(decode_walk_checks(torch, ops, refs, flush, gen))
     return results
 
 
@@ -245,6 +219,15 @@ def _check_err(name, got, want):
     return err
 
 
+def _junk(torch, gen, shape, like):
+    """A tensor of ``like``'s dtype and device holding NaN (floats) or random
+    bytes (payloads)."""
+    if like.dtype.is_floating_point:
+        return torch.full(shape, float("nan"), dtype=like.dtype, device=like.device)
+    return torch.randint(0, 100, shape, generator=gen, device=like.device,
+                         dtype=torch.int32).to(like.dtype)
+
+
 def _moved(torch, gen, planes, tables):
     """The same contents under another page shuffle, in a pool of another
     size: each (N, ...) layer slice's pages moved to new ids of an
@@ -254,33 +237,67 @@ def _moved(torch, gen, planes, tables):
     ids = torch.randperm(n + 88, generator=gen, device=tables.device)[:n]
     pools = []
     for t in planes:
-        if t.dtype.is_floating_point:
-            pool = torch.full((n + 88,) + t.shape[1:], float("nan"), dtype=t.dtype, device=t.device)
-        else:
-            pool = torch.randint(0, 100, (n + 88,) + t.shape[1:], generator=gen, device=t.device,
-                                 dtype=torch.int32).to(t.dtype)
+        pool = _junk(torch, gen, (n + 88,) + t.shape[1:], t)
         pool[ids] = t
         pools.append(pool)
     return pools, ids[tables.long()].to(torch.int32)
 
 
-def _check_same_bits(name, got, again):
+def _moved_slot(torch, gen, planes, lengths):
+    """The same contents at another slot placement: each (B, Hkv, S, ...)
+    layer slice's rows [0, length) moved to batch index 2i+1, layer 2 of a
+    (2B+1, 3, Hkv, S+40, ...) cache whose other rows hold NaN or random
+    bytes; returns the strided views the engine would pass."""
+    out = []
+    for t in planes:
+        b, s = t.shape[0], t.shape[2]
+        cache = _junk(torch, gen, (2 * b + 1, 3, t.shape[1], s + 40) + t.shape[3:], t)
+        view = cache[1::2][:b, 2]
+        live = (torch.arange(s, device=t.device)[None, :] < lengths[:, None])[:, None, :]
+        dst = view[:, :, :s]
+        dst.copy_(torch.where(live if t.dim() == 3 else live[..., None], t, dst))
+        out.append(view)
+    return out
+
+
+def _as_pages(torch, gen, planes, bs=16):
+    """The same rows as shuffled ``bs``-row pages: each (B, Hkv, S, ...)
+    layer slice (S a multiple of bs) cut into pages at shuffled ids of a
+    (B*S/bs, Hkv, bs, ...) pool, with the (B, S/bs) tables that find them."""
+    b, hkv, s = planes[0].shape[:3]
+    perm = torch.randperm(b * s // bs, generator=gen, device=planes[0].device)
+    pools = []
+    for t in planes:
+        pages = t.reshape((b, hkv, s // bs, bs) + t.shape[3:]).transpose(1, 2)
+        pool = torch.empty((b * s // bs, hkv, bs) + t.shape[3:], dtype=t.dtype, device=t.device)
+        pool[perm] = pages.reshape((b * s // bs, hkv, bs) + t.shape[3:])
+        pools.append(pool)
+    return pools, perm.to(torch.int32).reshape(b, s // bs)
+
+
+def _check_same_bits(name, got, again, what="under another page placement in a larger pool"):
     if not all(a.equal(b) for a, b in zip(got, again)):
-        raise AssertionError(f"{name} kernel: the same contents under another page placement "
-                             "give other bits")
-    print(f"kernel {name}: the same bits under another page placement in a larger pool")
+        raise AssertionError(f"{name} kernel: the same contents {what} give other bits")
+    print(f"kernel {name}: the same bits {what}")
 
 
-def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
-    """B4-B6 at the serving path's shapes: each kernel against its plain
+def decode_walk_checks(torch, ops, refs, flush, gen):
+    """B3-B6 at the serving path's shapes: each kernel against its plain
     version, timed beside its bound and, as a yardstick, SDPA over the dense
-    bf16 view (gathered and dequantized beforehand, outside its time)."""
+    bf16 view (gathered and dequantized beforehand, outside its time); each
+    run again on the same contents placed elsewhere (same bits asserted),
+    B3/B4 also on the same rows as shuffled 16-row pages through B5/B6 (the
+    same walk: same bits asserted), and timed with every length 0."""
     from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
     from repro_torch.quant.kv_quant import dequantize_kv
 
-    dev = q.device
-    b, hkv, _, d = q.shape
-    layers, smax, n_pages, bs, pool_pages = 24, 2048, 128, 16, 512
+    dev = torch.device("cuda")
+    b, layers, hkv, smax, d = 4, 24, 24, 2048, 64
+    n_pages, bs, pool_pages = 128, 16, 512
+    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    no_lengths = torch.zeros_like(lengths)
+    mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     live = sum(DECODE_LENGTHS)
     used = [-(-n // bs) for n in DECODE_LENGTHS]
     qb = q.to(torch.bfloat16)
@@ -288,17 +305,33 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
     small = q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4  # q in, out/l/m out, lengths
     results = {}
 
-    def entry(shape, err, run, plain, lib, nbytes, empty=None):
-        """The kernel's times; with ``empty``, also the same launch with
-        every length 0 (the fixed cost of the launch, ``empty_ms``)."""
+    def entry(shape, err, run, plain, lib, nbytes, empty):
+        """The kernel's times, and the same launch with every length 0 (the
+        fixed cost of the launch, ``empty_ms``)."""
         b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
-        r = {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
-             "call_ms": timed_ms(torch, run, flush, busy=False),
-             "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": timed_ms(torch, lib, flush)}
-        if empty is not None:
-            r["empty_ms"] = timed_ms(torch, empty, flush)
-        return r
+        return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                "call_ms": timed_ms(torch, run, flush, busy=False),
+                "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed_ms(torch, lib, flush), "empty_ms": timed_ms(torch, empty, flush)}
+
+    # B3 — decode attention on a strided layer slice of a (4,24,24,2048,64) bf16 cache
+    cache_k, cache_v = (torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev)
+                        .to(torch.bfloat16) for _ in range(2))
+    args = (q, cache_k[:, 7], cache_v[:, 7], lengths)
+    got = ops["decode"](*args)
+    err = _check_err("B3", got, refs["decode"](*args))
+    _check_same_bits("B3", got, ops["decode"](q, *_moved_slot(torch, gen, args[1:3], lengths), lengths),
+                     "at another slot placement (batch index, layer, Smax), NaN elsewhere")
+    pages, tables = _as_pages(torch, gen, args[1:3])
+    _check_same_bits("B3", got, ops["paged"](q, *pages, tables, lengths),
+                     "as shuffled 16-row pages through B5")
+    del pages
+    results["decode_attention"] = entry(
+        f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={DECODE_LENGTHS} bf16 layer slice", err,
+        lambda: ops["decode"](*args), lambda: refs["decode"](*args),
+        lambda: sdpa(qb, args[1], args[2], attn_mask=mask), 2 * live * hkv * d * 2 + small,
+        lambda: ops["decode"](*args[:3], no_lengths))
+    del cache_k, cache_v, args
 
     # B4 — quantized decode attention, strided layer slice of (4,24,24,2048,Dp)
     cases = []
@@ -306,8 +339,16 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
         (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, smax, d), kv_dtype)
                                 for _ in range(2))
         args = (q, kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7], lengths)
-        err = _check_err(f"B4 {kv_dtype}", ops["decode_quant"](*args, kv_dtype=kv_dtype),
-                         refs["decode_quant"](*args, kv_dtype=kv_dtype))
+        got = ops["decode_quant"](*args, kv_dtype=kv_dtype)
+        err = _check_err(f"B4 {kv_dtype}", got, refs["decode_quant"](*args, kv_dtype=kv_dtype))
+        _check_same_bits(f"B4 {kv_dtype}", got, ops["decode_quant"](
+            q, *_moved_slot(torch, gen, args[1:5], lengths), lengths, kv_dtype=kv_dtype),
+            "at another slot placement (batch index, layer, Smax), NaN or random bytes elsewhere")
+        (kp, ksp, vp, vsp), tables = _as_pages(torch, gen, args[1:5])
+        _check_same_bits(f"B4 {kv_dtype}", got, ops["paged_quant"](
+            q, kp, ksp, vp, vsp, tables, lengths, kv_dtype=kv_dtype),
+            "as shuffled 16-row pages through B6")
+        del kp, ksp, vp, vsp
         kd, vd = (dequantize_kv(p, s_, kv_dtype).to(torch.bfloat16) for p, s_ in
                   ((args[1], args[2]), (args[3], args[4])))
         dp = kc.shape[-1]
@@ -315,7 +356,8 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
             f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={DECODE_LENGTHS} {kv_dtype} layer slice",
             err, lambda: ops["decode_quant"](*args, kv_dtype=kv_dtype),
             lambda: refs["decode_quant"](*args, kv_dtype=kv_dtype),
-            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small))
+            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small,
+            lambda: ops["decode_quant"](*args[:5], no_lengths, kv_dtype=kv_dtype)))
     results["decode_attention_quant"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases),
                                              cases=cases)
 
@@ -327,7 +369,6 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
         tables[i, :u] = perm[start:start + u]
         start += u
     small_p = small + sum(used) * 4  # the table entries read
-    no_lengths = torch.zeros_like(lengths)
 
     # B5 — paged decode attention, bf16 pool (512, 24, 24, 16, 64), layer 7
     pool_k, pool_v = (torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev)
@@ -342,7 +383,7 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
         f"B={b} Hkv={hkv} N={pool_pages} bs={bs} P={n_pages} D={d} lengths={DECODE_LENGTHS} "
         "bf16 pool layer slice, shuffled tables", err, lambda: ops["paged"](*args),
         lambda: refs["paged"](*args), lambda: sdpa(qb, kd, vd, attn_mask=mask),
-        2 * live * hkv * d * 2 + small_p, empty=lambda: ops["paged"](*args[:4], no_lengths))
+        2 * live * hkv * d * 2 + small_p, lambda: ops["paged"](*args[:4], no_lengths))
     del pool_k, pool_v, kd, vd
 
     # B6 — quantized paged decode attention on the same pool layout
@@ -365,7 +406,7 @@ def quant_and_paged_checks(torch, ops, refs, flush, gen, q, lengths, mask):
             lambda: ops["paged_quant"](*args, kv_dtype=kv_dtype),
             lambda: refs["paged_quant"](*args, kv_dtype=kv_dtype),
             lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small_p,
-            empty=lambda: ops["paged_quant"](*args[:6], no_lengths, kv_dtype=kv_dtype)))
+            lambda: ops["paged_quant"](*args[:6], no_lengths, kv_dtype=kv_dtype)))
     results["paged_decode_attention_quant"] = dict(
         cases[0], max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
     return results
@@ -543,8 +584,8 @@ def main() -> int:
             kernels[-1].update(act_quant_ms=r["act_quant_ms"], act_quant_launches=launches["act_quant"])
         if name == "prefill_attention":
             kernels[-1]["bound_f32_fma_ms"] = r["bound_f32_fma_ms"]
-        if "empty_ms" in r:  # the same launch with every length 0
-            kernels[-1]["empty_ms"] = r["empty_ms"]
+        if "empty_ms" in r:  # the decode walks: the same launch with every length 0
+            kernels[-1].update(empty_ms=r["empty_ms"], design=WALK_DESIGN[name])
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -611,6 +652,14 @@ def check_served(eng, cfg, n_requests, max_tokens):
 
 DECODE_KERNELS = ("decode_attention", "decode_attention_quant", "paged_decode_attention",
                   "paged_decode_attention_quant")
+_SPLIT_WALK = ("one launch a layer: csrc/paged_walk.cuh, 8-block clusters splitting each sequence "
+               "and KV head by whole pages, merged through distributed shared memory; ")
+WALK_DESIGN = {
+    "decode_attention": _SPLIT_WALK + "a slot as 16-row virtual pages, chunks by bulk copies",
+    "decode_attention_quant": _SPLIT_WALK + "a slot as 16-row virtual pages, chunks by bulk copies",
+    "paged_decode_attention": _SPLIT_WALK + "pages through the block table, by cp.async",
+    "paged_decode_attention_quant": _SPLIT_WALK + "pages through the block table, by cp.async",
+}
 
 
 def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, card):

@@ -1,5 +1,5 @@
 // Single-token decode attention over the paged KV pool for Hopper: the
-// cluster split walk of paged_walk.cuh.
+// cluster split walk of paged_walk.cuh over pages.
 //
 // B5 replaces src/repro/kernels/paged_attention/kernel.py ::
 // paged_decode_attention_pallas (_paged_decode_kernel): one layer's pages
@@ -22,9 +22,9 @@
 // the page DMA'd ahead; on this card one (b, hk) walked by one block is a
 // chain of dependent round trips.  So the walk splits each (b, hk) over the
 // 8 blocks of a thread-block cluster, each taking whole pages, reads the
-// table once, stages whole pages in shared memory with cp.async several
-// pages ahead, and merges the blocks' softmax states through distributed
-// shared memory in the same launch (paged_walk.cuh).
+// table once, stages the pages' rows of [start, length) in shared memory
+// with cp.async several pages ahead, and merges the blocks' softmax states
+// through distributed shared memory in the same launch (paged_walk.cuh).
 #include "paged_walk.cuh"
 
 using namespace paged_walk;
@@ -44,13 +44,6 @@ static int paged_launch(const void* q, const void* k, const void* k_scale, const
                         const void* starts, void* out, void* l, void* m, int B, int Hkv,
                         int G, int N, int bs, int P, int D, int format,
                         const long long* strides, float sm_scale, void* stream) {
-  static const int kElemBytes[4] = {2, 4, 1, 1};
-  if (format < 0 || format > 3) return static_cast<int>(cudaErrorInvalidValue);
-  const long long row = format == 3 ? D / 2 : D;  // payload elements of a row
-  const bool scaled = format >= 2;
-  if (strides[2] != row || strides[5] != row || (scaled && (strides[8] != 1 || strides[11] != 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int eb = kElemBytes[format];
   Params p{};
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const unsigned char*>(k);
@@ -63,25 +56,14 @@ static int paged_launch(const void* q, const void* k, const void* k_scale, const
   p.out = static_cast<float*>(out);
   p.l = static_cast<float*>(l);
   p.m = static_cast<float*>(m);
-  for (int i = 0; i < 2; ++i) {
-    p.k_st[i] = strides[i] * eb;
-    p.v_st[i] = strides[3 + i] * eb;
-    p.ks_st[i] = strides[6 + i];
-    p.vs_st[i] = strides[9 + i];
-  }
   p.Hkv = Hkv;
   p.G = G;
   p.N = N;
   p.P = P;
   p.bs = bs;
+  p.cap = P * bs;
   p.sm_scale = sm_scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (format) {
-    case 0: return dispatch<decode_walk::Bf16>(D, p, B, s);
-    case 1: return dispatch<decode_walk::F32>(D, p, B, s);
-    case 2: return dispatch<decode_walk::Int8>(D, p, B, s);
-    default: return dispatch<decode_walk::Int4>(D, p, B, s);
-  }
+  return run<Src::Paged>(format, D, p, strides, B, static_cast<cudaStream_t>(stream));
 }
 
 // B5: format 0 (bf16) or 1 (f32), no scales.

@@ -3,9 +3,11 @@ over a bf16/f32 cache and B4 over a quantized one) on CUDA tensors, their
 plain versions on CPU tensors.
 
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads the
-cache through its strides: the per-layer slice ``cache[:, li]`` of the
-batch-leading (B, L, Hkv, Smax, ·) cache, and of its scale planes, is passed
-where it lies.
+cache through its batch and head strides: the per-layer slice ``cache[:, li]``
+of the batch-leading (B, L, Hkv, Smax, ·) cache, and of its scale planes, is
+passed where it lies.  The kernels stage a slot's rows in runs, so along Smax
+the rows must be contiguous (and the scales), as in every cache the engine
+builds; other strides raise.
 """
 from __future__ import annotations
 
@@ -55,6 +57,20 @@ def check_walk_operands(what: str, q, lengths, starts, payloads, scales=()) -> N
             raise TypeError(f"{what} kernel takes f32 scale planes, got {t.dtype}")
 
 
+def check_contiguous_rows(what: str, payloads, scales=()) -> None:
+    """The walks stage whole runs of rows: along dim 2 (a page's slots, or a
+    slot's positions) the stride must be the row length, and 1 for the
+    scale planes, as in every cache and pool the engine builds."""
+    for t in payloads:
+        if t.stride(2) != t.shape[3]:
+            raise ValueError(f"{what} kernel stages runs of rows: the row stride must be the row "
+                             f"length {t.shape[3]}, got {t.stride(2)}")
+    for t in scales:
+        if t.stride(2) != 1:
+            raise ValueError(f"{what} kernel stages runs of rows: the scale planes' row stride "
+                             f"must be 1, got {t.stride(2)}")
+
+
 def strides_arg(*tensors) -> ctypes.Array:
     """The (outer, head, position) strides of each tensor, in elements, as
     the C entry points take them."""
@@ -69,7 +85,7 @@ def quant_payload_dim(kv_dtype: str, d: int) -> int:
 
 def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None):
     """Launch B3: q (B,Hkv,G,D) f32, k/v (B,Hkv,S,D) bf16 or f32 (any
-    batch/head/position strides, unit stride along D, 16-byte aligned rows),
+    batch/head strides, contiguous rows along S, 16-byte aligned rows),
     lengths/starts (B,) int32 -> (out (B,Hkv,G,D), l, m (B,Hkv,G)), all f32."""
     b, hkv, g, d = q.shape
     s = k.shape[2]
@@ -78,6 +94,7 @@ def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None):
     if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
         raise TypeError(f"decode attention kernel reads bf16 or f32 caches, got {k.dtype}/{v.dtype}")
     check_walk_operands("decode attention", q, lengths, starts, (k, v))
+    check_contiguous_rows("decode attention", (k, v))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     q = q.contiguous()
@@ -100,7 +117,8 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
                                   kv_dtype: str, sm_scale=None):
     """Launch B4: q (B,Hkv,G,D) f32; k_q/v_q the packed payload (B,Hkv,S,Dp),
     int8 (Dp = D) or uint8 int4 nibble pairs (Dp = D/2), strided as B3's
-    cache; k_scale/v_scale (B,Hkv,S) f32, any strides -> (out, l, m) as B3."""
+    cache; k_scale/v_scale (B,Hkv,S) f32, any batch/head strides, unit
+    stride along S -> (out, l, m) as B3."""
     b, hkv, g, d = q.shape
     s = k_q.shape[2]
     dp = quant_payload_dim(kv_dtype, d)
@@ -112,6 +130,7 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
         raise TypeError(f"{kv_dtype} payload must be {PAYLOAD_DTYPES[kv_dtype]}, got {k_q.dtype}/{v_q.dtype}")
     check_walk_operands("quantized decode attention", q, lengths, starts, (k_q, v_q),
                         (k_scale, v_scale))
+    check_contiguous_rows("quantized decode attention", (k_q, v_q), (k_scale, v_scale))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     q = q.contiguous()

@@ -5,9 +5,9 @@ plain versions on CPU tensors.
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads one
 layer's pages through their strides: the slice ``pages[:, li]`` of the
 (N, L, Hkv, bs, ·) pool, and of its scale planes, is passed where it lies.
-The kernels copy whole pages, so a page's head slice must be ``bs``
-contiguous rows (and ``bs`` contiguous scales), as in every pool the engine
-builds.
+The kernels stage a page's rows in one run, so a page's head slice must be
+``bs`` contiguous rows (and ``bs`` contiguous scales), as in every pool the
+engine builds.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.kernels import COUNTS
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (
     PAYLOAD_DTYPES,
+    check_contiguous_rows,
     check_walk_operands,
     quant_payload_dim,
     strides_arg,
@@ -39,19 +40,6 @@ def _check_tables(block_tables, b, q):
                          f"{tuple(block_tables.shape)} {block_tables.dtype}")
     if not block_tables.is_cuda or block_tables.device != q.device:
         raise ValueError("paged decode attention: the block tables must lie on the queries' device")
-
-
-def _check_slots(what, payloads, scales=()):
-    """A page's head slice must be bs contiguous rows: the slot stride is
-    the row length (1 for the scale planes)."""
-    for t in payloads:
-        if t.stride(2) != t.shape[3]:
-            raise ValueError(f"{what} kernel copies whole pages: the slot stride must be the row "
-                             f"length {t.shape[3]}, got {t.stride(2)}")
-    for t in scales:
-        if t.stride(2) != 1:
-            raise ValueError(f"{what} kernel copies whole pages: the scale planes' slot stride "
-                             f"must be 1, got {t.stride(2)}")
 
 
 def _outputs(q):
@@ -76,7 +64,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, lengths, st
         raise TypeError(f"paged decode attention kernel reads bf16 or f32 pages, "
                         f"got {k_pages.dtype}/{v_pages.dtype}")
     check_walk_operands("paged decode attention", q, lengths, starts, (k_pages, v_pages))
-    _check_slots("paged decode attention", (k_pages, v_pages))
+    check_contiguous_rows("paged decode attention", (k_pages, v_pages))
     _check_tables(block_tables, b, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -114,7 +102,8 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
                         f"got {k_pages_q.dtype}/{v_pages_q.dtype}")
     check_walk_operands("quantized paged decode attention", q, lengths, starts,
                         (k_pages_q, v_pages_q), (k_scales, v_scales))
-    _check_slots("quantized paged decode attention", (k_pages_q, v_pages_q), (k_scales, v_scales))
+    check_contiguous_rows("quantized paged decode attention", (k_pages_q, v_pages_q),
+                          (k_scales, v_scales))
     _check_tables(block_tables, b, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)

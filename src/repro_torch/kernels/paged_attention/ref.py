@@ -10,16 +10,19 @@ clip them.
 ``paged_decode_attention_split_reference`` computes the same function the
 way the kernels split it (``csrc/paged_walk.cuh``): the pages holding
 [start, length) shared evenly among the ranks of a cluster, one softmax
-state per rank, merged in rank order.  Only the tests use it.
+state per rank, merged in rank order (``decode_attention_split_reference``
+over the gathered view).  Only the tests use it.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention.ref import NEG_INF, decode_attention_reference
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_reference,
+    decode_attention_split_reference,
+)
 from repro_torch.quant.kv_quant import dequantize_kv
 
 
@@ -77,24 +80,6 @@ def paged_decode_attention_quant_reference(
     return decode_attention_reference(q, k, v, lengths, starts, sm_scale=sm_scale)
 
 
-def rank_ranges(starts: torch.Tensor, lengths: torch.Tensor, bs: int, ranks: int,
-                capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The positions [lo, hi) that each rank of the kernels' cluster walks,
-    each (ranks, B) int64 (empty where hi <= lo): the pages that hold
-    [start, length) split evenly among the ranks in page order, whole pages
-    each, as ``rank_pages`` in ``csrc/paged_walk.cuh``.  A function of
-    (start, length, bs) alone; lengths are clipped to the table's
-    ``capacity`` and starts to 0, as the kernels clip them."""
-    length = lengths.long().clamp(max=capacity)
-    start = starts.long().clamp(min=0)
-    p0 = start // bs
-    n = torch.where(length > start, (length + bs - 1) // bs - p0, torch.zeros_like(p0))
-    per = (n + ranks - 1) // ranks
-    first = p0 + torch.arange(ranks)[:, None] * per
-    npg = torch.minimum(per, p0 + n - first).clamp(min=0)
-    return torch.maximum(start, first * bs), torch.minimum(length, (first + npg) * bs)
-
-
 def paged_decode_attention_split_reference(
     q: torch.Tensor,  # (B, Hkv, G, D)
     k_pages: torch.Tensor,  # (N, Hkv, bs, D), or packed (N, Hkv, bs, Dp)
@@ -110,34 +95,11 @@ def paged_decode_attention_split_reference(
     kv_dtype: str = "fp",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out, l, m) as the plain versions above, computed as the kernels
-    split the walk: each rank's (m, l, acc) over its range of
-    ``rank_ranges``, merged in rank order (m the largest, l and acc each
-    rank's scaled by exp(m_rank - m))."""
+    split the walk: the gathered dense view walked by
+    ``decode_attention_split_reference`` in pages of the pool's ``bs``."""
     k, v = gather_pages(k_pages, block_tables), gather_pages(v_pages, block_tables)
     if kv_dtype != "fp":
-        k = dequantize_kv(k, gather_scales(k_scales, block_tables), kv_dtype)
-        v = dequantize_kv(v, gather_scales(v_scales, block_tables), kv_dtype)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if starts is None:
-        starts = torch.zeros_like(lengths)
-    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * sm_scale
-    pos = torch.arange(k.shape[2])[None, :]
-    lo, hi = rank_ranges(starts, lengths, k_pages.shape[2], ranks, k.shape[2])
-    ms, ls, accs = [], [], []
-    for r in range(ranks):
-        mask = ((pos >= lo[r][:, None]) & (pos < hi[r][:, None]))[:, None, None, :]
-        s = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-        m_r = s.amax(dim=-1)
-        p = torch.where(mask, torch.exp(s - m_r[..., None]), torch.zeros_like(s))
-        ms.append(m_r)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bhgs,bhsd->bhgd", p, v.float()))
-    m = torch.stack(ms).amax(dim=0)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(accs[0])
-    for m_r, l_r, acc_r in zip(ms, ls, accs):
-        f = torch.exp(m_r - m)
-        l = l + l_r * f
-        acc = acc + acc_r * f[..., None]
-    return acc / torch.clamp(l, min=1e-30)[..., None], l, m
+        k_scales, v_scales = (gather_scales(s, block_tables) for s in (k_scales, v_scales))
+    return decode_attention_split_reference(
+        q, k, v, lengths, starts, ranks=ranks, bs=k_pages.shape[2], sm_scale=sm_scale,
+        k_scales=k_scales, v_scales=v_scales, kv_dtype=kv_dtype)

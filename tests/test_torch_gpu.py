@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
-from repro_torch.kernels import COUNTS, reset_counts
+from repro_torch.kernels import COUNTS, build, reset_counts
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention_kernel,
     decode_attention_quant_kernel,
@@ -110,20 +111,50 @@ def test_prefill_attention_kernel(h, hkv, s, d):
     assert (out - ref).abs().max().item() <= ATTN_TOL
 
 
+def _outside(lengths, starts, smax):
+    """(B, smax) bool: the positions outside each sequence's [start, length)."""
+    pos = torch.arange(smax, device=lengths.device)[None, :]
+    lo = torch.zeros_like(lengths) if starts is None else starts
+    return (pos < lo[:, None]) | (pos >= lengths[:, None])
+
+
+def _poisoned(t, outside, gen):
+    """``t`` (B, Hkv, S, ...) with the rows of positions ``outside`` (B, S)
+    replaced by NaN (floats) or random bytes (payloads)."""
+    mask = outside[:, None, :, None] if t.dim() == 4 else outside[:, None, :]
+    if t.dtype in (torch.int8, torch.uint8):
+        lo, hi = (-128, 128) if t.dtype == torch.int8 else (0, 256)
+        junk = torch.randint(lo, hi, t.shape, generator=gen, device=t.device,
+                             dtype=torch.int32).to(t.dtype)
+    else:
+        junk = torch.full_like(t, float("nan"))
+    return torch.where(mask, junk, t)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (3, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (3, 128), (8, 128)])
 def test_decode_attention_kernel_on_strided_cache(dtype, g, d):
+    """B3 on the last layer slice of two (B, L, Hkv, S, D) caches, so that
+    the last slot walked ends where its tensor ends, with S = 300 not a
+    multiple of the walk's 16-row pages, NaN in every row outside
+    [start, length), with and without window starts."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(g * d)
     b, layers, hkv, smax = 4, 3, 2, 300
-    cache = torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(dtype)
-    k, v = cache[:, 1], cache[:, 2]  # strided layer slices, never copied
+    clean = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev).to(dtype)
+             for _ in range(2)]
     q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
     lengths = torch.tensor([0, 1, 257, smax], dtype=torch.int32, device=dev)
     for starts in (None, torch.tensor([0, 0, 40, 290], dtype=torch.int32, device=dev)):
+        caches = [c.clone() for c in clean]
+        for c in caches:  # strided layer slices, never copied
+            c[:, layers - 1] = _poisoned(c[:, layers - 1], _outside(lengths, starts, smax), gen)
+        k, v = (c[:, layers - 1] for c in caches)
         out, l, m = decode_attention_kernel(q, k, v, lengths, starts)
         torch.cuda.synchronize()
-        out_r, l_r, m_r = decode_attention_reference(q, k, v, lengths, starts)
+        out_r, l_r, m_r = decode_attention_reference(q, clean[0][:, layers - 1],
+                                                     clean[1][:, layers - 1], lengths, starts)
+        assert torch.isfinite(out).all() and torch.isfinite(l).all() and torch.isfinite(m).all()
         assert (out - out_r).abs().max().item() <= ATTN_TOL
         assert torch.allclose(l, l_r, rtol=ATTN_TOL, atol=ATTN_TOL)
         assert torch.allclose(m, m_r, rtol=0, atol=ATTN_TOL)
@@ -139,23 +170,29 @@ def _assert_stats_close(got, want):
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
-@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (3, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (3, 128), (8, 128)])
 def test_decode_attention_quant_kernel_on_strided_cache(kv_dtype, g, d):
-    """B4 on a layer slice of a quantized (B, L, Hkv, S, Dp) cache and its
-    (B, L, Hkv, S) scale planes, with and without window starts."""
+    """B4 on the last layer slice of quantized (B, L, Hkv, S, Dp) caches and
+    their (B, L, Hkv, S) scale planes (the last slot walked ends where its
+    tensor ends; S = 300), random bytes and NaN scales in every row outside
+    [start, length), with and without window starts."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(g * d + 1)
     b, layers, hkv, smax = 4, 3, 2, 300
-    planes = [quantize_kv(torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev),
-                          kv_dtype) for _ in range(2)]
-    (kq, ks), (vq, vs) = ((p[:, 1], sc[:, 1]) for p, sc in planes)
+    clean = [t for _ in range(2) for t in
+             quantize_kv(torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev), kv_dtype)]
     q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
     lengths = torch.tensor([0, 1, 257, smax], dtype=torch.int32, device=dev)
     for starts in (None, torch.tensor([0, 0, 40, 290], dtype=torch.int32, device=dev)):
+        planes = [t.clone() for t in clean]
+        for t in planes:
+            t[:, layers - 1] = _poisoned(t[:, layers - 1], _outside(lengths, starts, smax), gen)
+        kq, ks, vq, vs = (t[:, layers - 1] for t in planes)
         got = decode_attention_quant_kernel(q, kq, ks, vq, vs, lengths, starts, kv_dtype=kv_dtype)
         torch.cuda.synchronize()
-        _assert_stats_close(got, decode_attention_quant_reference(q, kq, ks, vq, vs, lengths, starts,
-                                                                  kv_dtype=kv_dtype))
+        assert all(torch.isfinite(t).all() for t in got)
+        _assert_stats_close(got, decode_attention_quant_reference(
+            q, *(t[:, layers - 1] for t in clean), lengths, starts, kv_dtype=kv_dtype))
         assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[2][0] == -1e30).all()
 
 
@@ -215,6 +252,122 @@ def _paged_walk(kv_dtype, q, pages, tables, lengths, starts, kernel=True):
     fn = paged_decode_attention_quant_kernel if kernel else paged_decode_attention_quant_reference
     kp, vp, ks, vs = pages
     return fn(q, kp, ks, vp, vs, tables, lengths, starts, kv_dtype=kv_dtype)
+
+
+def _slot_contents(gen, dev, kv_dtype, b, hkv, smax, d):
+    """A layer's contiguous contents: [K, V] (B, Hkv, S, Dp), then, quantized,
+    their scale planes [K, V] (B, Hkv, S)."""
+    x = [torch.randn((b, hkv, smax, d), generator=gen, device=dev) for _ in range(2)]
+    if kv_dtype in PAGED_FORMATS:
+        return [t.to(PAGED_FORMATS[kv_dtype]) for t in x]
+    pairs = [quantize_kv(t, kv_dtype) for t in x]
+    return [pairs[0][0], pairs[1][0], pairs[0][1], pairs[1][1]]
+
+
+def _slot_walk(kv_dtype, q, planes, lengths, starts):
+    if kv_dtype in PAGED_FORMATS:
+        return decode_attention_kernel(q, *planes, lengths, starts)
+    kq, vq, ks, vs = planes
+    return decode_attention_quant_kernel(q, kq, ks, vq, vs, lengths, starts, kv_dtype=kv_dtype)
+
+
+def _in_cache(gen, planes, batch, layers, layer, smax, every=1, offset=0):
+    """``planes`` placed at layer ``layer`` of (batch, layers, Hkv, smax, ·)
+    caches holding NaN or random bytes elsewhere, sequence i at batch index
+    offset + every * i; returns the strided views the engine would pass."""
+    out = []
+    for t in planes:
+        shape = (batch, layers) + t.shape[1:2] + (smax,) + t.shape[3:]
+        cache = _garbage(gen, torch.empty(shape, dtype=t.dtype, device=t.device), nan=True)
+        view = cache[offset::every][:t.shape[0], layer]
+        view[:, :, :t.shape[2]] = t
+        out.append(view)
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (8, 128)])
+def test_decode_attention_kernels_give_the_same_bits_wherever_the_slot_lies(kv_dtype, g, d):
+    """B3 (bf16/f32) and B4 (int8/int4): the same rows at another batch
+    index, another layer and a larger Smax, with NaN or random bytes in
+    every other row (and in the slots' rows outside [start, length)), give
+    the same bits."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d + 2)
+    b, hkv, smax = 5, 2, 300
+    lengths = torch.tensor([0, 1, 150, smax, 233], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 0, 9, 50, 0], dtype=torch.int32, device=dev)
+    planes = [_poisoned(t, _outside(lengths, starts, smax), gen)
+              for t in _slot_contents(gen, dev, kv_dtype, b, hkv, smax, d)]
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    first = _slot_walk(kv_dtype, q, _in_cache(gen, planes, b, 2, 1, smax), lengths, starts)
+    second = _slot_walk(kv_dtype, q, _in_cache(gen, planes, 2 * b + 1, 3, 0, smax + 37, every=2,
+                                               offset=1), lengths, starts)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    assert all(torch.isfinite(t).all() for t in first)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 32), (8, 128)])
+def test_contiguous_and_paged_walks_give_the_same_bits(kv_dtype, g, d):
+    """The same rows in a contiguous slot (S = 300, not whole pages) and in
+    shuffled 16-row pages of a pool give the same bits: B3 against B5 and
+    B4 against B6, one walk split the same way over both."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d + 3)
+    b, hkv, smax, bs = 5, 2, 300, 16
+    n_pages = -(-smax // bs)
+    lengths = torch.tensor([0, 1, 150, smax, 233], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 0, 9, 50, 0], dtype=torch.int32, device=dev)
+    planes = _slot_contents(gen, dev, kv_dtype, b, hkv, smax, d)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    slot = _slot_walk(kv_dtype, q, planes, lengths, starts)
+    # the slot's rows as (B, P, Hkv, bs, ·) pages, the last one padded
+    paged = []
+    for t in planes:
+        pad = _garbage(gen, torch.empty(t.shape[:2] + (n_pages * bs - smax,) + t.shape[3:],
+                                        dtype=t.dtype, device=dev), nan=True)
+        full = torch.cat([t, pad], dim=2)
+        paged.append(full.reshape(t.shape[:2] + (n_pages, bs) + t.shape[3:]).transpose(1, 2))
+    pages, tables = _place(gen, paged, [n_pages * bs] * b, bs, b * n_pages + 7, nan=True)
+    pool = _paged_walk(kv_dtype, q, pages, tables, lengths, starts)
+    torch.cuda.synchronize()
+    for a, c in zip(slot, pool):
+        assert torch.equal(a, c)
+    assert all(torch.isfinite(t).all() for t in slot)
+
+
+def test_decode_attention_kernels_refuse_rows_that_are_not_contiguous():
+    """B3 and B4 stage a slot's rows in runs: a cache whose position stride
+    is not its row length (the prefill layout (B, S, Hkv, D) seen as
+    (B, Hkv, S, D)), or scale planes whose position stride is not 1, raise
+    before any launch; the C entry point refuses such strides too."""
+    dev = _cuda()
+    b, hkv, smax, d = 2, 2, 64, 64
+    q = torch.randn((b, hkv, 1, d), device=dev)
+    lengths = torch.tensor([5, 64], dtype=torch.int32, device=dev)
+    k = torch.randn((b, smax, hkv, d), device=dev).transpose(1, 2)
+    v = torch.randn((b, hkv, smax, d), device=dev)
+    with pytest.raises(ValueError, match="row stride"):
+        decode_attention_kernel(q, k, v, lengths)
+    with pytest.raises(ValueError, match="row stride"):
+        decode_attention_kernel(q, v, k, lengths)
+    kq, ks = quantize_kv(v, "int8")
+    ks_t = ks.transpose(1, 2).contiguous().transpose(1, 2)  # (B, Hkv, S), position stride Hkv
+    with pytest.raises(ValueError, match="row stride"):
+        decode_attention_quant_kernel(q, kq, ks_t, kq, ks, lengths, kv_dtype="int8")
+    with pytest.raises(ValueError, match="row stride"):
+        decode_attention_quant_kernel(q, k.to(torch.int8), ks, kq, ks, lengths, kv_dtype="int8")
+    out = torch.empty((b, hkv, 1, d), device=dev)
+    l, m = torch.empty((b, hkv, 1), device=dev), torch.empty((b, hkv, 1), device=dev)
+    fn = build.function("decode_attention", "decode_attention_launch", decode_ops._ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), None, out.data_ptr(),
+            l.data_ptr(), m.data_ptr(), b, hkv, 1, smax, d, 0, *k.stride()[:3], *v.stride()[:3],
+            0.125, build.stream_ptr(dev))
+    assert rc == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
 
 
 PAGED_CASES = [(1, 64, 16), (2, 32, 8), (4, 128, 16), (8, 32, 16), (8, 64, 8), (8, 128, 8)]

@@ -18,7 +18,10 @@ import torch
 import repro.configs as jcfgs
 from repro.core.kv_cache import insert_prefill_kv as j_insert_prefill_kv
 from repro.core.phase_engine import PhaseEngine as JPhaseEngine
-from repro.kernels.decode_attention.kernel import decode_attention_quant_pallas
+from repro.kernels.decode_attention.kernel import (
+    decode_attention_pallas,
+    decode_attention_quant_pallas,
+)
 from repro.kernels.paged_attention.kernel import (
     paged_decode_attention_pallas,
     paged_decode_attention_quant_pallas,
@@ -34,11 +37,9 @@ from repro_torch.core.phase_engine import PhaseEngine
 from repro_torch.interop import kv_from_numpy, params_from_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_split_reference, rank_ranges
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-from repro_torch.kernels.paged_attention.ref import (
-    paged_decode_attention_split_reference,
-    rank_ranges,
-)
+from repro_torch.kernels.paged_attention.ref import paged_decode_attention_split_reference
 from repro_torch.models import transformer as T
 from repro_torch.quant import kv_quant as K
 from repro_torch.serving import EngineCore, Request
@@ -214,6 +215,71 @@ def test_paged_decode_attention_split_reference_vs_pallas(kv_dtype, ranks):
     h = hkv * g
     _check_stats((out.reshape(b, h, d), l.reshape(b, h, 1), m.reshape(b, h, 1)), want, b, h, d)
     assert (out[0] == 0).all() and (l[0] == 0).all() and (m[0] == -1e30).all()
+
+
+@pytest.mark.parametrize("ranks", [1, 3, 8])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+def test_decode_attention_split_reference_vs_pallas(kv_dtype, ranks):
+    """The contiguous walk as the CUDA kernels split it (16-row virtual
+    pages of the slot, each rank's softmax state, merged in rank order)
+    against the contiguous Pallas kernels, on a layer slice of a
+    layer-stacked cache whose S = 150 is not whole pages: a zero length, a
+    length that ends in the last partial page, and starts that leave ranks
+    with nothing to walk."""
+    rng = np.random.default_rng(40 + ranks)
+    b, hkv, g, d, s, n_layers = 4, 2, 2, 32, 150, 2
+    q = rng.normal(size=(b, hkv, g, d)).astype(np.float32)
+    lengths = np.array([0, 13, 150, 97], np.int32)
+    starts = np.array([0, 0, 140, 9], np.int32)
+    t = torch.from_numpy
+    lo, hi = rank_ranges(t(starts), t(lengths), 16, ranks, s)
+    assert ranks == 1 or (hi[:, 2] <= lo[:, 2]).any()  # sequence 2 leaves ranks empty
+    args = (jnp.asarray(q), jnp.asarray(lengths), jnp.asarray(starts))
+    if kv_dtype == "fp":
+        cache = [jnp.asarray(rng.normal(size=(b, n_layers, hkv, s, d)), jnp.bfloat16)
+                 for _ in range(2)]
+        want = decode_attention_pallas(args[0], cache[0][:, 1], cache[1][:, 1], *args[1:], bk=32,
+                                       interpret=True)
+        tk, tv = (t(np.asarray(c.astype(jnp.float32))).to(torch.bfloat16) for c in cache)
+        got = decode_attention_split_reference(t(q), tk[:, 1], tv[:, 1], t(lengths), t(starts),
+                                               ranks=ranks)
+    else:
+        (kq, ks), (vq, vs) = (_quant_cache(rng, (b, n_layers, hkv, s, d), kv_dtype)
+                              for _ in range(2))
+        want = decode_attention_quant_pallas(
+            args[0], jnp.asarray(kq[:, 1]), jnp.asarray(ks[:, 1]), jnp.asarray(vq[:, 1]),
+            jnp.asarray(vs[:, 1]), *args[1:], kv_dtype=kv_dtype, bk=32, interpret=True)
+        got = decode_attention_split_reference(
+            t(q), t(kq)[:, 1], t(vq)[:, 1], t(lengths), t(starts), ranks=ranks,
+            k_scales=t(ks)[:, 1], v_scales=t(vs)[:, 1], kv_dtype=kv_dtype)
+    out, l, m = got
+    h = hkv * g
+    _check_stats((out.reshape(b, h, d), l.reshape(b, h, 1), m.reshape(b, h, 1)), want, b, h, d)
+    assert (out[0] == 0).all() and (l[0] == 0).all() and (m[0] == -1e30).all()
+
+
+@pytest.mark.parametrize("bs,cap", [(16, 150), (16, 15), (8, 301)])
+def test_rank_ranges_stop_at_a_capacity_that_is_not_whole_pages(bs, cap):
+    """A contiguous slot's S need not be whole pages: the ranks still cover
+    [start, min(length, S)) once, in whole pages but the last, and no rank's
+    range reaches S (the kernel's last partial page stops within the slot)."""
+    rng = np.random.default_rng(cap)
+    lengths = torch.from_numpy(rng.integers(-2, cap + 40, 64).astype(np.int32))
+    lengths[:4] = torch.tensor([cap, cap + 1, cap - 1, 0], dtype=torch.int32)
+    starts = torch.from_numpy(rng.integers(-3, cap, 64).astype(np.int32))
+    starts[:4] = 0
+    for ranks in (1, 3, 8):
+        lo, hi = rank_ranges(starts, lengths, bs, ranks, cap)
+        assert (hi <= cap).all()
+        for i in range(64):
+            start, length = max(int(starts[i]), 0), min(int(lengths[i]), cap)
+            live = [(int(a), int(z)) for a, z in zip(lo[:, i], hi[:, i]) if z > a]
+            if length <= start:
+                assert not live
+                continue
+            assert live[0][0] == start and live[-1][1] == length
+            for (_, z), (a, _) in zip(live, live[1:]):
+                assert z == a and a % bs == 0
 
 
 @pytest.mark.parametrize("bs", [1, 8, 16])
@@ -589,11 +655,14 @@ def test_library_hash_follows_the_included_headers(tmp_path):
     assert after["paged_attention"] != before["paged_attention"]
     assert after["tlmm"] == before["tlmm"]
     assert after["prefill_attention"] == before["prefill_attention"]
-    # the paged walk's own header rebuilds the paged kernels alone
-    assert "paged_walk.cuh" in [p.name for p in build.sources_of("paged_attention", csrc)]
+    # the walk's own header, which both decode sources launch, rebuilds the
+    # decode kernels alone
+    for name in ("decode_attention", "paged_attention"):
+        assert "paged_walk.cuh" in [p.name for p in build.sources_of(name, csrc)]
     header = csrc / "paged_walk.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     again = {name: build.source_digest(name, csrc) for name in build.SOURCES}
-    assert again["paged_attention"] != after["paged_attention"]
-    for name in ("decode_attention", "tlmm", "prefill_attention"):
+    for name in ("decode_attention", "paged_attention"):
+        assert again[name] != after[name]
+    for name in ("tlmm", "prefill_attention"):
         assert again[name] == after[name]
