@@ -43,12 +43,27 @@ Phases (any failure raises and the script exits non-zero):
    (prefix hits asserted); (d) paged int8; (e) paged int8 on a pool of 150
    pages, which forces preemption (asserted) and must give (d)'s tokens;
    (f) the main path's configuration again, so that the paths' times
-   compare with it late in the run as they are.  Each path's decode kernel
-   is launched 24 times a decode round (replay rounds included), the other
-   decode kernels never; each path's decode is profiled; the quantized and
-   paged decode steps are held against the CPU plain versions at full
-   width and cut depth;
-6. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
+   compare with it late in the run as they are; (g) (d) with the odd
+   requests sampled (temperature 0.8, top-k 50, top-p 0.9, seed 1000 + i),
+   whose greedy requests must give (d)'s tokens and at least one sampled
+   stream another; (h) (g) on 150 pages, preempting, which must give (g)'s
+   tokens, the sampled ones included; (i) (d) with chunked prefill in
+   256-token chunks, one chunk a prompt's 256 tokens and decode rounds
+   between the chunks of the 1536-token prompt asserted, TTFT and the
+   largest inter-token gap printed beside (d)'s; (j) (i) on 150 pages,
+   preempting, which must give (i)'s tokens.  B1 runs 168 times a prefill,
+   chunk, decode round and replayed token, B2 24 times a monolithic
+   prefill (never on (i)/(j)), the path's decode kernel 24 times a decode
+   round (replay rounds included), the other decode kernels never; each
+   path's decode is profiled (sampled requests on (g)/(h), their device
+   operations a round beside (d)'s); the quantized and paged decode steps
+   and a chunked prefill in two chunks are held against the CPU plain
+   versions at full width and cut depth;
+6. abort on a chunked paged int8 engine with 2 slots: a request decoding,
+   one part-way through its chunked prefill and one queued, each ending
+   ``"abort"``, no live page left, and a later request's tokens equal to a
+   fresh engine's;
+7. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
@@ -70,6 +85,7 @@ DECODE_LENGTHS = [0, 517, 1300, 2048]
 PROMPT_LENS = [64, 1536, 300, 900, 128, 1200, 700, 480]
 SHARED = (1, 2, 3, 5)  # the prompts of the paged paths that share a 256-token prefix
 SMALL_POOL = 150  # pages: too few for 4 slots of these prompts, so (e) preempts
+CHUNK = 256  # prefill chunk of paths (i), (j) and the abort phase
 
 
 def smi() -> str:
@@ -489,8 +505,8 @@ def main() -> int:
     prompt_lens = PROMPT_LENS
     params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
     prompts = make_prompts(np, cfg, prompt_lens)
-    eng, stats, wall, launches, _ = serve(cfg, params, prompts, max_tokens, n_slots=n_slots,
-                                          max_len=max_len, mode="pdswap", overlap=True)
+    eng, stats, wall, launches, _, _ = serve(cfg, params, prompts, max_tokens, n_slots=n_slots,
+                                             max_len=max_len, mode="pdswap", overlap=True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rng = np.random.default_rng(1)
 
@@ -549,8 +565,19 @@ def main() -> int:
     for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
               f"max abs err {err:.3g} (max |logit| {scale:.3g})")
-    for name, n in path_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    err, scale = chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens)
+    if not err <= 1e-3 * max(scale, 1.0):
+        raise AssertionError(f"full-width chunked prefill logits differ from the CPU plain path by "
+                             f"{err} (max |logit| {scale})")
+    print(f"reference: full-width 2-layer chunked prefill (2 chunks, int8 cache) logits vs CPU "
+          f"plain versions: max abs err {err:.3g} (max |logit| {scale:.3g})")
+    abort_launches = abort_phase(torch, np, cfg, params, card)
+    if not (abort_launches["tlmm"] and abort_launches["paged_decode_attention_quant"]
+            and not abort_launches["prefill_attention"]):
+        raise AssertionError(f"abort phase: launches {abort_launches}")
+    for part in (path_launches, abort_launches):
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = []
     meta = {  # source, the TPU kernel it replaces, the yardstick library call
@@ -606,11 +633,14 @@ def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
     return prompts
 
 
-def serve(cfg, params, prompts, max_tokens, **engine_kw):
-    """Drive ``EngineCore`` on the card over greedy requests, after a
-    one-request warm-up; the launch counters and the peak-memory statistic
-    are reset just before the run.  Returns (engine, stats, wall seconds,
-    launches, prefill calls, restarts included)."""
+def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
+    """Drive ``EngineCore`` on the card over the requests (greedy, or with
+    ``params_of(i)`` for request i), after a one-request warm-up; the launch
+    counters and the peak-memory statistic are reset just before the run.
+    Returns (engine, stats, wall seconds, launches, monolithic prefill calls
+    with restarts, the run's events: ("chunk", request id) for each prefill
+    chunk, ("round",) for each decode round, ("evict", request id) for each
+    request evicted part-way through its chunked prefill)."""
     import numpy as np
     import torch
 
@@ -621,16 +651,32 @@ def serve(cfg, params, prompts, max_tokens, **engine_kw):
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
     for i, p in enumerate(prompts):
-        eng.submit(Request(f"req{i}", p, max_new=max_tokens))
-    prefills = []
-    prefill = eng.runner.prefill
+        sp = SamplingParams() if params_of is None else params_of(i)
+        eng.submit(Request(f"req{i}", p, max_new=max_tokens, params=sp))
+    prefills, events = [], []
+    runner = eng.runner
+    prefill, chunk, decode = runner.prefill, runner.run_prefill_chunk, runner.decode_logits
+    evict = eng._preempt_prefilling
 
     def counted(*args, **kw):
         logits = prefill(*args, **kw)
         prefills.append(1)
         return logits
 
-    eng.runner.prefill = counted
+    def chunk_logged(req, *args):
+        events.append(("chunk", req.request_id))
+        return chunk(req, *args)
+
+    def round_logged(lengths):
+        events.append(("round",))
+        return decode(lengths)
+
+    def evict_logged(slot):
+        events.append(("evict", eng._prefilling[slot].req.request_id))
+        evict(slot)
+
+    runner.prefill, runner.run_prefill_chunk, runner.decode_logits = counted, chunk_logged, round_logged
+    eng._preempt_prefilling = evict_logged
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -638,7 +684,7 @@ def serve(cfg, params, prompts, max_tokens, **engine_kw):
     stats = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, stats, wall, dict(COUNTS), len(prefills)
+    return eng, stats, wall, dict(COUNTS), len(prefills), events
 
 
 def check_served(eng, cfg, n_requests, max_tokens):
@@ -662,79 +708,216 @@ WALK_DESIGN = {
 }
 
 
+def _sampled(i):
+    """Paths (g)/(h): the even requests greedy, the odd ones sampled."""
+    from repro_torch.serving import SamplingParams
+
+    if i % 2 == 0:
+        return SamplingParams()
+    return SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=1000 + i)
+
+
+def _latency(st):
+    """TTFT p50 / p99 and the largest inter-token gap, ms."""
+    return (st.ttft.percentile(50) * 1e3, st.ttft.percentile(99) * 1e3,
+            st.itl.percentile(100) * 1e3)
+
+
 def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, card):
-    """Phase 5: paths (a)-(e).  Returns the launches summed over them."""
+    """Phase 5: paths (a)-(j).  Returns the launches summed over them."""
     shared = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)
+    paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
     paths = [
         ("a", "contiguous int8, pdswap", prompts,
-         dict(cache_layout="contiguous", kv_dtype="int8", mode="pdswap")),
+         dict(cache_layout="contiguous", kv_dtype="int8", mode="pdswap"), None),
         ("b", "contiguous int4, static", prompts,
-         dict(cache_layout="contiguous", kv_dtype="int4", mode="static")),
+         dict(cache_layout="contiguous", kv_dtype="int4", mode="static"), None),
         ("c", "paged bf16, bs 16, full pool, shared prefix, pdswap", shared,
-         dict(cache_layout="paged", kv_dtype="fp", mode="pdswap")),
-        ("d", "paged int8, bs 16, full pool, shared prefix, pdswap", shared,
-         dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")),
+         dict(cache_layout="paged", kv_dtype="fp", mode="pdswap"), None),
+        ("d", "paged int8, bs 16, full pool, shared prefix, pdswap", shared, paged8, None),
         ("e", f"paged int8, bs 16, {SMALL_POOL}-page pool, shared prefix, pdswap", shared,
-         dict(cache_layout="paged", kv_dtype="int8", mode="pdswap", num_blocks=SMALL_POOL)),
+         dict(paged8, num_blocks=SMALL_POOL), None),
         # the main path's configuration once more, so that each path's times
         # compare with it within this run, late in the run as they are
         ("f", "control: contiguous bf16, pdswap (the main path again)", prompts,
-         dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap")),
+         dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap"), None),
+        ("g", "(d) with the odd requests sampled (T 0.8, top-k 50, top-p 0.9)", shared, paged8,
+         _sampled),
+        ("h", f"(g) on a {SMALL_POOL}-page pool", shared, dict(paged8, num_blocks=SMALL_POOL),
+         _sampled),
+        ("i", f"(d) with chunked prefill, {CHUNK}-token chunks", shared,
+         dict(paged8, prefill_chunk=CHUNK), None),
+        ("j", f"(i) on a {SMALL_POOL}-page pool", shared,
+         dict(paged8, prefill_chunk=CHUNK, num_blocks=SMALL_POOL), None),
     ]
-    total = {}
-    streams = {}
-    for key, what, ps, kw in paths:
-        eng, st, wall, launches, prefills = serve(cfg, params, ps, max_tokens, n_slots=n_slots,
-                                                  max_len=max_len, block_size=16, **kw)
+    total, streams, latency, ops = {}, {}, {}, {}
+    for key, what, ps, kw, params_of in paths:
+        eng, st, wall, launches, prefills, events = serve(
+            cfg, params, ps, max_tokens, params_of, n_slots=n_slots, max_len=max_len,
+            block_size=16, **kw)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check_served(eng, cfg, len(ps), max_tokens)
         streams[key] = {r: q.out_tokens for r, q in eng.finished.items()}
+        latency[key] = _latency(st)  # before the profile adds its requests
         kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention" + (
             "" if kw["kv_dtype"] == "fp" else "_quant")
         steps = st.decode_rounds + st.replayed_tokens
+        passes = prefills + st.prefill_chunks + steps  # each runs the 168 linears once
         expect = {name: 0 for name in DECODE_KERNELS}
-        expect.update({"tlmm": 7 * cfg.num_layers * (prefills + steps),
-                       "act_quant": 7 * cfg.num_layers * (prefills + steps),
+        expect.update({"tlmm": 7 * cfg.num_layers * passes,
+                       "act_quant": 7 * cfg.num_layers * passes,
                        "prefill_attention": cfg.num_layers * prefills,
                        kernel: cfg.num_layers * steps})
         if launches != expect:
             raise AssertionError(f"path ({key}): launches {launches} != expected {expect} "
-                                 f"({prefills} prefills, {st.decode_rounds} decode rounds, "
-                                 f"{st.replayed_tokens} replayed)")
+                                 f"({prefills} prefills, {st.prefill_chunks} chunks, "
+                                 f"{st.decode_rounds} decode rounds, {st.replayed_tokens} replayed)")
         hidden = [t.hidden_fraction for t in st.swap_timings]
-        hid = f"{statistics.mean(hidden):.3f}" if hidden else "n/a (static: no overlapped swap)"
+        hid = (f"{statistics.mean(hidden):.3f}" if hidden
+               else "n/a (no overlapped swap: static, or installed by the chunks)")
         kb = eng.kv_bytes()
         print(f"path ({key}) {what}: {len(ps)} requests x {max_tokens} tokens, {prefills} prefills, "
-              f"{st.decode_rounds} decode rounds, {st.replayed_tokens} replayed, "
-              f"{st.preemptions} preemptions, {st.admission_blocks} admission blocks, "
-              f"prefix hits {st.prefix_hits} misses {st.prefix_misses}, {wall:.2f} s wall  [{card}]")
-        print(f"  TTFT mean {st.ttft.mean * 1e3:.1f} ms  decode {st.decode_tput():.1f} tok/s "
+              f"{st.prefill_chunks} chunks, {st.decode_rounds} decode rounds, "
+              f"{st.replayed_tokens} replayed, {st.preemptions} preemptions, "
+              f"{st.admission_blocks} admission blocks, prefix hits {st.prefix_hits} misses "
+              f"{st.prefix_misses}, {wall:.2f} s wall  [{card}]")
+        p50, p99, itl_max = latency[key]
+        print(f"  TTFT mean {st.ttft.mean * 1e3:.1f} ms p50 {p50:.1f} p99 {p99:.1f}  largest ITL "
+              f"{itl_max:.1f} ms  decode {st.decode_tput():.1f} tok/s "
               f"({st.decode_round_cost() * 1e3:.2f} ms/round)  hidden fraction {hid}  "
               f"peak device memory {peak_gib:.2f} GiB  [{card}]")
         print(f"  kv_bytes {kb}")
         print(f"  launches {launches}")
-        wall_p, dev_p, top, per_round = profile_decode(torch, eng)
+        if key == "c" and not st.prefix_hits > 0:
+            raise AssertionError("path (c): no prefix-cache hits")
+        if key in ("e", "h", "j") and not (st.preemptions > 0 and st.replayed_tokens > 0):
+            raise AssertionError(f"path ({key}): {st.preemptions} preemptions, "
+                                 f"{st.replayed_tokens} replayed tokens")
+        if key == "i":
+            check_chunked(cfg, ps, st, events)
+        if key == "j":
+            evicted = [e for e in events if e[0] == "evict"]
+            print(f"path (j): {len(evicted)} requests evicted part-way through their chunked "
+                  f"prefill, {st.preemptions} preemptions in all")
+        sampled = params_of is not None
+        wall_p, dev_p, top, per_round = profile_decode(torch, eng, sampled=sampled)
+        ops[key] = per_round
         if dev_p is None:
             print("  profile: the profiler saw no device time; device busy share not measured")
         else:
-            print(f"  profile: 4 decode rounds (4 slots, 256-token prompts): {wall_p * 1e3:.1f} ms wall, "
-                  f"{per_round:.1f} device operations a round, {dev_p * 1e3:.1f} ms of them "
+            beside = f" ((d), greedy: {ops['d']:.1f})" if sampled else ""
+            print(f"  profile: 4 decode rounds (4 {'sampled' if sampled else 'greedy'} slots, "
+                  f"256-token prompts): {wall_p * 1e3:.1f} ms wall, {per_round:.1f} device "
+                  f"operations a round{beside}, {dev_p * 1e3:.1f} ms of them "
                   f"({dev_p / 4 * 1e3:.3f} ms device time a round), "
                   f"device busy {dev_p / wall_p:.3f}  [{card}]")
             for name, sec, calls in top[:4]:
                 print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
-        if key == "c" and not st.prefix_hits > 0:
-            raise AssertionError("path (c): no prefix-cache hits")
-        if key == "e" and not (st.preemptions > 0 and st.replayed_tokens > 0):
-            raise AssertionError(f"path (e): {st.preemptions} preemptions, "
-                                 f"{st.replayed_tokens} replayed tokens")
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
         del eng
-    if streams["e"] != streams["d"]:
-        raise AssertionError("path (e): the preempted run's tokens differ from (d)'s")
-    print("path (e): token streams equal (d)'s after preemption and replay")
+    for key, ref in (("e", "d"), ("h", "g"), ("j", "i")):
+        if streams[key] != streams[ref]:
+            raise AssertionError(f"path ({key}): the preempted run's tokens differ from ({ref})'s")
+        print(f"path ({key}): token streams equal ({ref})'s after preemption and replay")
+    if any(streams["g"][f"req{i}"] != streams["d"][f"req{i}"] for i in range(0, len(shared), 2)):
+        raise AssertionError("path (g): a greedy request's tokens differ from (d)'s")
+    moved = sum(streams["g"][f"req{i}"] != streams["d"][f"req{i}"]
+                for i in range(1, len(shared), 2))
+    if not moved:
+        raise AssertionError("path (g): no sampled stream differs from the greedy one")
+    print(f"path (g): the greedy requests give (d)'s tokens; {moved} of {len(shared) // 2} "
+          "sampled streams differ from the greedy stream of their prompt")
+    requests = [f"req{i}" for i in range(len(shared))]
+    same = sum(streams["i"][r] == streams["d"][r] for r in requests)
+    for key in ("d", "i"):
+        p50, p99, itl_max = latency[key]
+        print(f"path ({key}) latency: TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms, largest ITL "
+              f"{itl_max:.1f} ms  [{card}]")
+    print(f"path (i): {same} of {len(requests)} streams equal (d)'s (monolithic prefill runs "
+          "B2, chunks f32 matmuls: equal only to float rounding, not asserted)")
     return total
+
+
+def check_chunked(cfg, prompts, st, events):
+    """Path (i): one chunk a ``CHUNK`` tokens of each prompt, and decode
+    rounds between two chunks of the longest prompt."""
+    want = sum(-(-len(p) // CHUNK) for p in prompts)
+    if st.prefill_chunks != want:
+        raise AssertionError(f"path (i): {st.prefill_chunks} chunks, expected {want}")
+    longest = f"req{max(range(len(prompts)), key=lambda i: len(prompts[i]))}"
+    at = [i for i, e in enumerate(events) if e == ("chunk", longest)]
+    between = sum(e == ("round",) for e in events[at[0]:at[-1]])
+    if not between:
+        raise AssertionError(f"path (i): no decode round between the chunks of {longest}")
+    print(f"path (i): {st.prefill_chunks} chunks (sum of ceil(n / {CHUNK})); {between} decode "
+          f"rounds ran between the {len(at)} chunks of the {len(prompts[int(longest[3:])])}-token "
+          "prompt")
+
+
+def abort_phase(torch, np, cfg, params, card):
+    """A paged int8 engine with chunked prefill and 2 slots at full width:
+    one request aborted while decoding, one part-way through its chunked
+    prefill, one queued; each ends with ``finish_reason == "abort"``, no
+    page stays live, and a request served afterwards gives the tokens it
+    gives in a fresh engine.  Returns its launches."""
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.serving import EngineCore, Request
+
+    rng = np.random.default_rng(3)
+    prompts = {rid: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for rid, n in (("a", 300), ("b", 1536), ("c", 128), ("d", 200))}
+    kw = dict(n_slots=2, max_len=2048, cache_layout="paged", kv_dtype="int8", block_size=16,
+              prefill_chunk=CHUNK, device="cuda")
+    eng = EngineCore(cfg, params, **kw)
+    reset_counts()
+    eng.submit(Request("a", prompts["a"], max_new=64))
+    while not eng.scheduler.inflight:
+        eng.step()
+    eng.submit(Request("b", prompts["b"], max_new=8))
+    eng.submit(Request("c", prompts["c"], max_new=8))
+    eng.step()  # b's first chunk, then a decode round for a
+    if [p.req.request_id for p in eng._prefilling.values()] != ["b"] or len(eng.scheduler.queue) != 1:
+        raise AssertionError("abort phase: b is not part-way through its prefill with c queued")
+    where = {"b": "mid-chunked-prefill", "a": "decoding", "c": "queued"}
+    for rid in ("b", "a", "c"):
+        out = eng.abort(rid)
+        if out is None or not out.finished or out.finish_reason != "abort":
+            raise AssertionError(f"abort phase: {rid} ({where[rid]}) gave {out}")
+    live = eng.runner.paged.pool.num_live
+    if live or eng.has_unfinished() or eng.stats.aborts != 3:
+        raise AssertionError(f"abort phase: {live} live pages, aborts {eng.stats.aborts}")
+    after = list(eng.generate(prompts["d"], max_new=16))[-1].token_ids
+    launches = dict(COUNTS)
+    fresh = list(EngineCore(cfg, params, **kw).generate(prompts["d"], max_new=16))[-1].token_ids
+    if after != fresh:
+        raise AssertionError("abort phase: a request after the aborts differs from a fresh engine's")
+    print(f"abort phase: a ({len(eng.finished['a'].out_tokens)} tokens out) decoding, b after "
+          f"1 of 6 chunks, c queued: each finish_reason 'abort'; 0 live pages after; a request "
+          f"served after the aborts gives a fresh engine's 16 tokens  [{card}]")
+    return launches
+
+
+def chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens):
+    """One chunked prefill of the full-width 2-layer model, in two chunks
+    (64 tokens, then 17 padded to 32, at prefix width 64), on the card
+    against the CPU plain versions.  Returns (max abs err, max |logit|)."""
+    from repro_torch.layers.attention import KVCache
+
+    out = []
+    for dev, params in ((p_gpu["emb"].device, p_gpu), ("cpu", p_cpu)):
+        shape = (cfg2.num_layers, 1, cfg2.num_kv_heads, 128, cfg2.head_dim)
+        prefix = KVCache(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+        cache = T.init_cache(cfg2, 1, 128, kv_dtype="int8", device=dev)
+        for start, size, padded, width in ((0, 64, 64, 0), (64, 17, 32, 64)):
+            chunk = torch.zeros((1, padded), dtype=torch.long)
+            chunk[0, :size] = tokens[0, start:start + size]
+            logits, cache, prefix = T.prefill_chunk(params, chunk.to(dev), cache, prefix, 0, start,
+                                                    size - 1, cfg2, prefix_width=width)
+        out.append(logits.float().cpu())
+    if not (torch.isfinite(out[0]).all() and out[0].shape == (1, cfg2.padded_vocab())):
+        raise AssertionError("chunked prefill logits on the card are not finite")
+    return (out[0] - out[1]).abs().max().item(), out[1].abs().max().item()
 
 
 def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
@@ -779,25 +962,29 @@ def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         yield what, err, scale
 
 
-def profile_decode(torch, eng, rounds: int = 4):
+def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
     """Device time under ``torch.profiler`` over ``rounds`` decode rounds of
-    4 fresh requests (run after the main path; its counts are already read).
-    Returns (wall s, device s, the top device operations [(name, s, calls)],
-    device operations (kernels, copies, sets) per round), summed over the
-    device-side events only, the device time None when the profiler saw
-    none."""
+    4 fresh requests (greedy, or all sampled), once all 4 decode (run after
+    the path; its counts are already read).  Returns (wall s, device s, the
+    top device operations [(name, s, calls)], device operations (kernels,
+    copies, sets) per round), summed over the device-side events only, the
+    device time None when the profiler saw none."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request
+    from repro_torch.serving import Request, SamplingParams
 
     rng = np.random.default_rng(2)
     run = sum(name.startswith("prof") for name in eng.finished) // 4  # fresh request ids
     for i in range(4):
+        sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=2000 + i) if sampled
+              else SamplingParams())
         eng.submit(Request(f"prof{run}.{i}", rng.integers(0, 32000, 256).astype(np.int32),
-                           max_new=rounds + 2))
-    eng.step()  # the prefill burst and a first decode round
+                           max_new=rounds + 8, params=sp))
+    eng.step()  # the prefill burst (or the first chunk) and a first decode round
+    while eng.scheduler.queue or eng._prefilling:  # chunked: one prompt a step
+        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

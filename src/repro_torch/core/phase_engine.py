@@ -13,6 +13,10 @@ the JAX package keys its compiled programs:
     into the prompt's pages (quantized on write under int8/int4)
   * ``decode:{B}x{max_len}``          — the KV-streaming decode step
   * ``decode_paged:{B}x{P}``          — the same over the paged pool
+  * ``prefill_chunk:{C}+{W}@{B}x{max_len}`` — one C-token prompt chunk over a
+    W-wide prefix, installed into the decode cache (chunked prefill)
+  * ``prefill_chunk_paged:{C}+{W}@{P}x{bs}`` — the same into the prompt's pages
+  * ``sampler:{B}``                   — the per-slot token sampler
 
 Weights are never touched by the swap: both phases use the same tensors.
 The port runs the callables eagerly; capturing them as CUDA graphs is
@@ -25,6 +29,7 @@ from typing import Callable, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import insert_prefill_kv
+from repro_torch.core.sampling import sample_tokens
 from repro_torch.layers.attention import KVCache, write_prefill_pages_q
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_quant import assert_kv_dtype
@@ -132,3 +137,40 @@ class PhaseEngine:
                            write_prefill_pages_q(pages.v, kv.v, page_ids, block_size=block_size))
 
         return self._program(f"page_write:{seq}@{block_size}", fn)
+
+    def prefill_chunk_program(self, chunk: int, n_slots: int, max_len: int,
+                              prefix_width: int) -> PhaseProgram:
+        """Chunked prefill against the contiguous cache: ``fn(params, tokens
+        (1, C), cache, prefix, slot, prefix_len, last_pos) -> (logits, cache,
+        prefix)``, cache and f32 prefix mirror updated in place.  The install
+        is part of the program: the fabric can flip back to decode after
+        every chunk."""
+        cfg = self.cfg
+
+        def fn(params, tokens, cache, prefix, slot, prefix_len, last_pos):
+            return T.prefill_chunk(params, tokens, cache, prefix, slot, prefix_len, last_pos, cfg,
+                                   prefix_width=prefix_width)
+
+        return self._program(f"prefill_chunk:{chunk}+{prefix_width}@{n_slots}x{max_len}", fn)
+
+    def paged_prefill_chunk_program(self, chunk: int, max_pages: int, block_size: int,
+                                    prefix_width: int) -> PhaseProgram:
+        """Chunked prefill against the paged pool: ``fn(params, tokens (1, C),
+        pages, prefix, page_ids (C/bs,), prefix_len, last_pos) -> (logits,
+        pages, prefix)``; C must be whole pages."""
+        if chunk % block_size:
+            raise ValueError(f"a chunk of {chunk} tokens is not whole pages of {block_size}")
+        cfg = self.cfg
+
+        def fn(params, tokens, pages, prefix, page_ids, prefix_len, last_pos):
+            return T.prefill_chunk_paged(params, tokens, pages, prefix, page_ids, prefix_len,
+                                         last_pos, cfg, prefix_width=prefix_width)
+
+        return self._program(f"prefill_chunk_paged:{chunk}+{prefix_width}@{max_pages}x{block_size}",
+                             fn)
+
+    def sampler_program(self, batch: int) -> PhaseProgram:
+        """The per-slot sampler, the decode epilogue: ``fn(logits, seeds,
+        steps, temps, top_ks, top_ps) -> tokens`` on the logits' device; slot
+        i draws with ``fold_in(PRNGKey(seeds[i]), steps[i])``."""
+        return self._program(f"sampler:{batch}", sample_tokens)

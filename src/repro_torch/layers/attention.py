@@ -3,7 +3,9 @@
 One parameter set, two phase-specialized execution paths (the two engines):
 
 * ``attention_prefill`` — the whole prompt through the causal prefill
-  attention kernel (compute-bound engine).
+  attention kernel (compute-bound engine); ``attention_prefill_chunk`` is
+  the same engine run one bounded chunk at a time (chunked prefill), the
+  chunk attending the prefix already prefilled plus itself.
 * ``attention_decode``  — one token against the KV cache through the decode
   attention kernel (bandwidth-bound engine), with per-sequence lengths for
   continuous batching; ``attention_decode_paged`` is the same engine over
@@ -92,6 +94,66 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     y = linear_apply(params["wo"], y, cfg.quant)
     return y, (kt, vt)
+
+
+def attention_prefill_chunk(params: dict, x: torch.Tensor, k_prefix: torch.Tensor,
+                            v_prefix: torch.Tensor, prefix_len: int, cfg: ModelConfig,
+                            positions: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Chunked-prefill attention: x (B, C, d), one chunk of the prompt at
+    global positions ``prefix_len + [0, C)``; k_prefix/v_prefix (B, Hkv, W,
+    D) the f32 mirror of the prompt's KV, valid in [0, prefix_len) and
+    garbage beyond.  Query q may attend prefix key i < prefix_len and chunk
+    keys at or before it.  Plain f32 matmuls and a softmax over the scores
+    masked with -1e30, as the JAX package computes it (it has no kernel for
+    this path).  Returns (y, (k, v)) with the chunk's K/V (B, Hkv, C, D)."""
+    _check_slice(cfg)
+    b, c, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cap = k_prefix.shape[2]
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kk = torch.cat([k_prefix.float(), kt.float()], dim=2)
+    vv = torch.cat([v_prefix.float(), vt.float()], dim=2)
+    if h > hkv:
+        kk = kk.repeat_interleave(h // hkv, dim=1)
+        vv = vv.repeat_interleave(h // hkv, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kk) * (1.0 / math.sqrt(hd))
+    dev = x.device
+    qpos = prefix_len + torch.arange(c, device=dev)[:, None]
+    kpos = torch.cat([torch.arange(cap, device=dev), prefix_len + torch.arange(c, device=dev)])
+    valid = torch.cat([torch.arange(cap, device=dev) < prefix_len,
+                       torch.ones((c,), dtype=torch.bool, device=dev)])
+    mask = valid[None, :] & (qpos >= kpos[None, :])
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vv).to(x.dtype)
+    y = linear_apply(params["wo"], out.transpose(1, 2).reshape(b, c, h * hd), cfg.quant)
+    return y, (kt, vt)
+
+
+def write_chunk_kv(buf: torch.Tensor, new: torch.Tensor, slot: int, start: int) -> torch.Tensor:
+    """Install one prefill chunk's KV into slot ``slot`` of the contiguous
+    decode cache at rows [start, start + C), in place.  buf: (B, L, Hkv,
+    Smax, D), or its (B, L, Hkv, Smax) scale plane (the JAX package's
+    ``write_chunk_scales``); new: (L, 1, Hkv, C, ·) to match.  The JAX
+    package's ``dynamic_update_slice`` would shift a write that overflows;
+    here it is refused."""
+    c, smax = new.shape[3], buf.shape[3]
+    if start + c > smax:
+        raise ValueError(f"chunk rows [{start}, {start + c}) overflow the cache's {smax} rows")
+    buf[slot, :, :, start:start + c] = new[:, 0].to(buf.dtype)
+    return buf
+
+
+def write_chunk_kv_q(buf, new: torch.Tensor, slot: int, start: int):
+    """``write_chunk_kv`` into a possibly quantized cache leaf: the chunk's
+    f32 rows are quantized on the way in, payload and scale plane together.
+    The scales are per token, so a chunk writes the bytes the whole prompt's
+    quantization would."""
+    if not isinstance(buf, QuantKV):
+        return write_chunk_kv(buf, new, slot, start)
+    payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+    return QuantKV(write_chunk_kv(buf.q, payload, slot, start),
+                   write_chunk_kv(buf.scale, scale, slot, start))
 
 
 def scatter_new_tokens(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

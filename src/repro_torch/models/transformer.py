@@ -7,6 +7,8 @@ Entry points:
     KV, or (``split_tail=True``) the hidden state right after the last
     layer's attention, the point where the KV relayout can start;
   * ``prefill_tail``    — the rest: last FFN + norm + logits;
+  * ``prefill_chunk`` / ``prefill_chunk_paged`` — one bounded chunk of a
+    prompt, its KV installed into the decode cache or its pages;
   * ``decode_step``     — one token against the batch-leading cache;
   * ``decode_step_paged`` — one token against the paged pool.
 
@@ -27,8 +29,11 @@ from repro_torch.layers.attention import (
     attention_decode_paged,
     attention_init,
     attention_prefill,
+    attention_prefill_chunk,
     scatter_new_tokens_paged_q,
     scatter_new_tokens_q,
+    write_chunk_kv_q,
+    write_prefill_pages_q,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norm import apply_norm, rmsnorm_init
@@ -155,6 +160,77 @@ def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
     h2 = apply_norm(last["ln2"], x_mid, cfg.norm, cfg.norm_eps)
     x_out = x_mid + mlp_apply(last["mlp"], h2, cfg)
     return _logits(params, _at(x_out, last_pos), cfg)[:, -1, :]
+
+
+def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len: int,
+                        cfg: ModelConfig, prefix_width: Optional[int] = None):
+    """One prompt chunk (1, C) through the layer stack, each layer attending
+    over the f32 ``prefix`` mirror (L, 1, Hkv, Cap, D) of the prompt's KV,
+    valid in [0, prefix_len), plus the chunk itself.  Returns (hidden
+    (1, C, d), the chunk's K and V (L, 1, Hkv, C, D), the mirror with the
+    chunk written at [prefix_len, prefix_len + C) in place).
+
+    ``prefix_width`` cuts the mirror the attention sees to its first
+    positions, so a short prompt's chunks do not attend over its whole
+    capacity.  The mirror holds f32 values, not the (possibly quantized)
+    cache bytes: the chunk then computes what the whole-prompt prefill
+    would, and the per-token quantization on write stores the same bytes."""
+    _check_family(cfg)
+    b, c = tokens.shape
+    cap = prefix.k.shape[3]
+    if prefix_len + c > cap:
+        raise ValueError(f"chunk rows [{prefix_len}, {prefix_len + c}) overflow the mirror's {cap}")
+    x = _embed(params, tokens)
+    positions = (prefix_len + torch.arange(c, device=tokens.device)).expand(b, c)
+    width = cap if prefix_width is None else min(prefix_width, cap)
+    ks, vs = [], []
+    for li in range(cfg.num_layers):
+        lp = layer_params(params["layers"], li)
+        h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        attn_out, (k, v) = attention_prefill_chunk(
+            lp["attn"], h, prefix.k[li, :, :, :width], prefix.v[li, :, :, :width], prefix_len,
+            cfg, positions)
+        x = x + attn_out
+        h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h, cfg)
+        ks.append(k)
+        vs.append(v)
+    tok_k, tok_v = torch.stack(ks), torch.stack(vs)
+    prefix.k[:, :, :, prefix_len:prefix_len + c] = tok_k
+    prefix.v[:, :, :, prefix_len:prefix_len + c] = tok_v
+    return x, tok_k, tok_v, prefix
+
+
+def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KVCache, slot: int,
+                  prefix_len: int, last_pos: int, cfg: ModelConfig,
+                  prefix_width: Optional[int] = None):
+    """One right-padded chunk (1, C) of a prompt installed into slot
+    ``slot`` of the contiguous cache at [prefix_len, prefix_len + C)
+    (quantized on write under int8/int4).  Returns (logits (1, Vp) of
+    chunk-local ``last_pos``, cache, prefix), cache and mirror updated in
+    place.  Chunk boundaries are a pure function of the prompt length and
+    the chunk size, so a restart re-prefills through the same chunks."""
+    x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
+                                                  prefix_width)
+    write_chunk_kv_q(cache.k, tok_k, slot, prefix_len)
+    write_chunk_kv_q(cache.v, tok_v, slot, prefix_len)
+    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], cache, prefix
+
+
+def prefill_chunk_paged(params: dict, tokens: torch.Tensor, pages: KVCache, prefix: KVCache,
+                        page_ids: torch.Tensor, prefix_len: int, last_pos: int, cfg: ModelConfig,
+                        prefix_width: Optional[int] = None):
+    """``prefill_chunk`` into the paged pool: the chunk (C a multiple of
+    the page size, starting on a page boundary) writes whole pages
+    ``page_ids`` (C / bs,); ids >= N (prefix-cache hits, padding) are
+    skipped.  Returns (logits (1, Vp), pages, prefix)."""
+    leaf = pages.k.q if isinstance(pages.k, QuantKV) else pages.k
+    bs = leaf.shape[3]
+    x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
+                                                  prefix_width)
+    write_prefill_pages_q(pages.k, tok_k, page_ids, block_size=bs)
+    write_prefill_pages_q(pages.v, tok_v, page_ids, block_size=bs)
+    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], pages, prefix
 
 
 def _kv_buffer(shape, dtype, kv_dtype: str, device):

@@ -1,7 +1,11 @@
 """Step-driven serving core: ``EngineCore.step() -> list[RequestOutput]``.
 
-The port of the JAX package's ``repro.serving.core``: monolithic prefill
-(one prompt per swap), greedy decoding, the two cache layouts —
+The port of the JAX package's ``repro.serving.core``: prefill monolithic
+(one prompt per swap) or chunked (``prefill_chunk=N``: at most one N-token
+chunk of pending prefill a step, then a decode round, so a long prompt no
+longer stalls every active stream for its whole prefill), per-request
+sampling (temperature, top-k, top-p, with keys ``fold_in(PRNGKey(seed),
+token index)`` drawn on the device), abort, the two cache layouts —
 ``cache_layout="contiguous"`` (the batch-leading cache, one slot per
 request) or ``"paged"`` (a block pool with prefix caching, copy-on-write
 and preemption by eviction, restarted requests replaying their recorded
@@ -16,11 +20,18 @@ and the two modes —
 
 Three layers, as in the JAX package: ``Scheduler`` (FIFO wait queue,
 admission validation, the swap decision through a ``SwapPolicy``),
-``ModelRunner`` (phase programs, prompt buckets, the cache and slot
-manager, prefill with the swap, decode rounds, argmax), and
-``OutputProcessor`` (streaming deltas and finish semantics).  The JAX
-package's weighted fair queue with one tenant is exactly FIFO, so a plain
-``deque`` gives the same order, a preempted request going back to its head.
+``ModelRunner`` (phase programs, prompt and chunk buckets, the cache and
+slot manager, per-slot sampling state in device tensors, prefill with the
+swap, decode rounds, the sampler), and ``OutputProcessor`` (streaming
+deltas and finish semantics).  The JAX package's weighted fair queue with
+one tenant is exactly FIFO, so a plain ``deque`` gives the same order, a
+preempted request going back to its head.
+
+Replay after preemption is exact under sampling too: the key of a draw
+depends only on the seed and the token's index, and a restart rebuilds the
+cache by teacher-forcing its recorded tokens.  Chunk boundaries depend only
+on the prompt length and the chunk size, so a restart re-prefills through
+the same chunks.
 
 Arguments outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
@@ -43,7 +54,8 @@ from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_quant import QuantKV, payload_bytes, total_nbytes
 from repro_torch.serving.outputs import OutputProcessor, RequestOutput
-from repro_torch.serving.paging import PagedKVCache, PoolExhausted, cdiv
+from repro_torch.layers.attention import KVCache
+from repro_torch.serving.paging import PagedKVCache, PoolExhausted, PrefixMatch, cdiv
 from repro_torch.serving.policy import DrainPolicy, SchedulerView, SwapPolicy, make_policy
 from repro_torch.serving.sampling import SamplingParams
 
@@ -72,6 +84,11 @@ class LatencyStat:
     def percentile(self, q: float) -> float:
         return float(np.percentile(np.asarray(self._win), q)) if self._win else 0.0
 
+    def snapshot(self) -> dict:
+        """JSON-serializable summary (seconds)."""
+        return {"count": self.count, "mean": self.mean,
+                "p50": self.percentile(50), "p95": self.percentile(95)}
+
 
 @dataclasses.dataclass
 class Request:
@@ -84,11 +101,36 @@ class Request:
     arrival_time_s: float = 0.0  # first submit, never overwritten (TTFT origin)
     enqueue_t: float = 0.0  # scheduler-queue entry
     first_token_t: float = 0.0
-    finish_reason: Optional[str] = None  # "stop" | "length" once finished
+    last_emit_t: float = 0.0  # the previous delta's emit time (ITL)
+    queue_wait_s: Optional[float] = None  # arrival to first successful admission
+    done_t: float = 0.0
+    finish_reason: Optional[str] = None  # "stop" | "length" | "abort" once finished
     # Set on preemption: the restart re-prefills the prompt and replays the
     # recorded out_tokens through the decode program, which rebuilds the
     # evicted cache state exactly, so the continuation is unchanged.
     preempted: bool = False
+
+
+@dataclasses.dataclass
+class PrefillProgress:
+    """One partially prefilled request (chunked prefill).  ``sizes`` (the
+    real chunk sizes, in order) depend only on the prompt length and the
+    chunk size.  A paged prompt holds all its pages from admission on
+    (``match``); each chunk writes its own span of them."""
+
+    req: Request
+    slot: int
+    resuming: bool  # a restart with recorded tokens: replay them after prefill
+    restarted: bool  # any restart (even mid-prefill, with no tokens yet): its
+    # prefill is recompute (t_replay), never offered load
+    sizes: List[int]
+    ci: int = 0  # next chunk
+    pos: int = 0  # tokens already prefilled
+    match: Optional[PrefixMatch] = None
+
+    @property
+    def remaining_chunks(self) -> int:
+        return len(self.sizes) - self.ci
 
 
 @dataclasses.dataclass
@@ -97,6 +139,8 @@ class EngineStats:
     decode_tokens: int = 0
     decode_rounds: int = 0
     swaps: int = 0
+    prefill_bursts: int = 0  # prefill phases entered (fabric flips, not swaps)
+    prefill_chunks: int = 0  # chunks run (0 when prefill is monolithic)
     swap_timings: Deque[SwapTiming] = dataclasses.field(
         default_factory=lambda: deque(maxlen=SWAP_TIMING_WINDOW))
     swap_agg: SwapAggregates = dataclasses.field(default_factory=SwapAggregates)
@@ -110,10 +154,29 @@ class EngineStats:
     admission_blocks: int = 0  # admissions deferred on pool pressure
     replayed_tokens: int = 0  # decode steps re-run by preemption restarts
     t_replay: float = 0.0  # wall time of restarts (kept out of t_prefill/t_decode)
+    # speculative decoding (ROADMAP A.4): stay 0 until it is ported
+    draft_tokens: int = 0
+    accepted_tokens: int = 0
+    verify_rounds: int = 0
+    slot_rounds: int = 0  # active slots summed over decode rounds
+    decode_ctx_tokens: int = 0  # context tokens attended, summed over slot-rounds
+    # client-visible latency (bounded windows): arrival to first admission,
+    # arrival to first token, the gap between a request's deltas
+    queue_wait: LatencyStat = dataclasses.field(default_factory=LatencyStat)
     ttft: LatencyStat = dataclasses.field(default_factory=LatencyStat)
+    itl: LatencyStat = dataclasses.field(default_factory=LatencyStat)
+    aborts: int = 0  # requests cancelled while queued or in flight
+    sheds: int = 0  # SLO admission control (ROADMAP A10): stays 0
 
     def decode_tput(self) -> float:
         return self.decode_tokens / self.t_decode if self.t_decode else 0.0
+
+    def acceptance_rate(self) -> float:
+        return self.accepted_tokens / self.draft_tokens if self.draft_tokens else 0.0
+
+    def tokens_per_round(self) -> float:
+        """Tokens emitted a slot a decode round (1.0 without speculation)."""
+        return self.decode_tokens / self.slot_rounds if self.slot_rounds else 0.0
 
     def decode_round_cost(self) -> float:
         return self.t_decode / self.decode_rounds if self.decode_rounds else 0.0
@@ -122,6 +185,32 @@ class EngineStats:
         self.swaps += 1
         self.swap_timings.append(timing)
         self.swap_agg.update(timing)
+
+    def snapshot(self) -> dict:
+        """One JSON-serializable stats block with the JAX package's keys:
+        the counters, the derived rates and the latency summaries."""
+        counters = (
+            "prefill_tokens", "decode_tokens", "decode_rounds", "swaps",
+            "prefill_bursts", "prefill_chunks", "t_prefill", "t_decode",
+            "prefix_hits", "prefix_misses", "prefix_hit_tokens",
+            "preemptions", "admission_blocks", "replayed_tokens", "t_replay",
+            "draft_tokens", "accepted_tokens", "verify_rounds", "slot_rounds",
+            "decode_ctx_tokens", "aborts", "sheds",
+        )
+        snap = {k: getattr(self, k) for k in counters}
+        snap.update(
+            decode_tput=self.decode_tput(),
+            decode_round_cost=self.decode_round_cost(),
+            spec_acceptance_rate=self.acceptance_rate(),
+            spec_tokens_per_round=self.tokens_per_round(),
+            swap_agg={"count": self.swap_agg.count,
+                      "mean_exposed_cost_s": self.swap_agg.mean_cost,
+                      "mean_hidden_fraction": self.swap_agg.mean_hidden_fraction},
+            queue_wait_s=self.queue_wait.snapshot(),
+            ttft_s=self.ttft.snapshot(),
+            itl_s=self.itl.snapshot(),
+        )
+        return snap
 
 
 def _sync(device: torch.device) -> None:
@@ -152,10 +241,14 @@ class ModelRunner:
     ):
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
-        if prefill_chunk is not None:
-            raise NotImplementedError("prefill_chunk: chunked prefill is ROADMAP A9")
         if spec_decode:
-            raise NotImplementedError("spec_decode: speculative decoding is ROADMAP A9")
+            raise NotImplementedError("spec_decode: speculative decoding is ROADMAP A.4")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            if cache_layout == "paged" and prefill_chunk % block_size:
+                raise ValueError(f"prefill_chunk ({prefill_chunk}) must be a multiple of "
+                                 f"block_size ({block_size}): each chunk writes whole pages")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -165,9 +258,11 @@ class ModelRunner:
         self.prompt_len = prompt_len
         self.kv_dtype = kv_dtype
         self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
         self.slots = KVSlotManager(n_slots)
         self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
         self._bucket_progs: Dict[int, dict] = {}
+        self._chunk_progs: Dict[tuple, object] = {}
         if cache_layout == "paged":
             if num_blocks is None:  # full provisioning: every slot can grow to max_len
                 num_blocks = n_slots * cdiv(max_len, block_size)
@@ -184,6 +279,26 @@ class ModelRunner:
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._side_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # Chunked prefill keeps an f32 mirror (L, 1, Hkv, Cap, D) of the
+        # in-flight prompt's KV, so every chunk attends the values the
+        # whole-prompt prefill would (see transformer._prefill_chunk_body);
+        # one buffer, since one chunked prefill runs at a time.
+        self.chunk_prefix: Optional[KVCache] = None
+        self.chunk_cap = None
+        if prefill_chunk is not None:
+            self.chunk_cap = (cdiv(max_len, block_size) * block_size
+                              if cache_layout == "paged" else max_len)
+            shape = (cfg.num_layers, 1, cfg.num_kv_heads, self.chunk_cap, cfg.head_dim)
+            self.chunk_prefix = KVCache(torch.zeros(shape, device=self.device),
+                                        torch.zeros(shape, device=self.device))
+        # Per-slot sampling state on the device, written in place: set at
+        # admission, and the step (the token index) before each sampled round.
+        dev = self.device
+        self._seeds = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        self._temps = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+        self._top_ks = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        self._top_ps = torch.ones((n_slots,), dtype=torch.float32, device=dev)
+        self._steps = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
 
     def bucket(self, n: int) -> int:
         """Prompt bucket for an n-token prompt (right-padded), the JAX
@@ -221,6 +336,78 @@ class ModelRunner:
                 p["relayout"] = self.engine.relayout_program(1, bucket, self.max_len)
             self._bucket_progs[bucket] = p
         return self._bucket_progs[bucket]
+
+    def chunk_sizes(self, n: int) -> List[int]:
+        """Real chunk sizes of an n-token prompt: full chunks, then the rest."""
+        c = self.prefill_chunk
+        return [c] * (n // c) + ([n % c] if n % c else [])
+
+    def chunk_bucket(self, size: int, start: int) -> int:
+        """A chunk's padded length: every full chunk shares one shape; the
+        tail rounds up to the layout's quantum (a page, or ``prompt_len``
+        capped by the chunk), clamped contiguous to ``max_len - start`` so
+        that the install stays inside the cache."""
+        c = self.prefill_chunk
+        if size == c:
+            return c
+        if self.paged is not None:
+            return cdiv(size, self.block_size) * self.block_size
+        q = max(1, min(self.prompt_len, c))
+        return max(min(cdiv(size, q) * q, self.max_len - start), size)
+
+    def prefix_width(self, start: int) -> int:
+        """The prefix a chunk starting at ``start`` attends: 0 for the first
+        chunk, else the chunk size doubled until it covers ``start``,
+        clamped to the mirror's capacity."""
+        if start == 0:
+            return 0
+        g = self.prefill_chunk
+        while g < start:
+            g *= 2
+        return min(g, self.chunk_cap)
+
+    def chunk_prog(self, padded: int, prefix_width: int):
+        key = (padded, prefix_width)
+        if key not in self._chunk_progs:
+            if self.paged is not None:
+                prog = self.engine.paged_prefill_chunk_program(
+                    padded, self.paged.max_pages, self.block_size, prefix_width)
+            else:
+                prog = self.engine.prefill_chunk_program(
+                    padded, len(self.slots.slots), self.max_len, prefix_width)
+            self._chunk_progs[key] = prog
+        return self._chunk_progs[key]
+
+    def run_prefill_chunk(self, req: Request, slot: int, start: int, size: int,
+                          match: Optional[PrefixMatch], restarted: bool,
+                          stats: EngineStats) -> torch.Tensor:
+        """Run one chunk [start, start + size) of a request's prefill and
+        install its KV (quantized on write).  Returns the chunk's
+        last-token logits (1, Vp), which only the final chunk's caller uses.
+        A restart's chunks are charged to ``t_replay``."""
+        padded = self.chunk_bucket(size, start)
+        prog = self.chunk_prog(padded, self.prefix_width(start))
+        buf = np.zeros((1, padded), np.int64)
+        buf[0, :size] = req.prompt[start:start + size]
+        tokens = torch.from_numpy(buf).to(self.device)
+        t0 = time.perf_counter()
+        if self.paged is not None:
+            # start is page-aligned; prefix-cache hits and padding pages
+            # carry the skip id and are left out
+            ids = self.paged.page_ids_for_write(match, padded // self.block_size,
+                                                first_page=start // self.block_size)
+            logits, self.paged.kv, self.chunk_prefix = prog.fn(
+                self.params, tokens, self.paged.kv, self.chunk_prefix, ids, start, size - 1)
+        else:
+            logits, self.cache, self.chunk_prefix = prog.fn(
+                self.params, tokens, self.cache, self.chunk_prefix, slot, start, size - 1)
+        _sync(self.device)
+        if restarted:
+            stats.t_replay += time.perf_counter() - t0
+        else:
+            stats.t_prefill += time.perf_counter() - t0
+        stats.prefill_chunks += 1
+        return logits
 
     def restart_headroom_ok(self, req: Request) -> bool:
         """Admit a restart only when the pool can hold its whole replayed
@@ -349,15 +536,40 @@ class ModelRunner:
         return {"allocated": nbytes, "peak_in_use": nbytes, "page_bytes": 0,
                 "payload": payload_bytes(self.cache), "kv_dtype": self.kv_dtype}
 
-    @staticmethod
-    def sample_batch(logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next token for every slot, (B,) int32 (first max on ties)."""
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    def set_slot_sampling(self, slot: int, req: Request) -> None:
+        p = req.params
+        self._seeds[slot] = p.seed32
+        self._temps[slot] = p.temperature
+        self._top_ks[slot] = p.top_k
+        self._top_ps[slot] = p.top_p
 
-    @staticmethod
-    def sample_first(logits: torch.Tensor) -> int:
+    def sample_batch(self, logits: torch.Tensor, inflight: Dict[int, Request]) -> torch.Tensor:
+        """Next token for every slot, (B,) int32, on the device.  An
+        all-greedy batch takes the argmax (first max on ties); otherwise the
+        whole batch goes through the sampler program, greedy slots taking
+        the argmax inside it, slot i drawing its token ``len(out_tokens)``."""
+        if all(r.params.greedy for r in inflight.values()):
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        steps = torch.zeros((len(self.slots.slots),), dtype=torch.int32)
+        for s, r in inflight.items():
+            steps[s] = len(r.out_tokens)
+        self._steps.copy_(steps)
+        prog = self.engine.sampler_program(len(self.slots.slots))
+        return prog.fn(logits, self._seeds, self._steps, self._temps, self._top_ks, self._top_ps)
+
+    def sample_first(self, logits: torch.Tensor, req: Request) -> int:
         """The prompt's first generated token, from the prefill logits."""
-        return int(torch.argmax(logits[0]))
+        if req.params.greedy:
+            return int(torch.argmax(logits[0]))
+        p, dev = req.params, self.device
+        tok = self.engine.sampler_program(1).fn(
+            logits[:1],
+            torch.tensor([p.seed32], dtype=torch.int32, device=dev),
+            torch.tensor([len(req.out_tokens)], dtype=torch.int32, device=dev),
+            torch.tensor([p.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([p.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([p.top_p], dtype=torch.float32, device=dev))
+        return int(tok[0])
 
 
 class Scheduler:
@@ -370,12 +582,8 @@ class Scheduler:
         self.inflight: Dict[int, Request] = {}
 
     def validate(self, request: Request) -> None:
-        p = request.params
-        if not p.greedy or p.top_k or p.top_p < 1.0:
-            raise NotImplementedError(
-                f"{request.request_id}: sampled decoding (temperature/top-k/top-p) is ROADMAP A7")
-        if p.max_tokens is not None:
-            request.max_new = p.max_tokens
+        if request.params.max_tokens is not None:
+            request.max_new = request.params.max_tokens
         n = int(len(request.prompt))
         if n < 1:
             raise ValueError(f"{request.request_id}: empty prompt")
@@ -402,8 +610,18 @@ class Scheduler:
     def requeue_head(self, request: Request) -> None:
         self.queue.appendleft(request)
 
-    def enter_prefill_phase(self, stats: EngineStats) -> bool:
-        """The swap decision; an empty decoding set always flips."""
+    def remove_queued(self, request_id: str) -> Optional[Request]:
+        """Take a request out of the wait queue (abort); None if not queued."""
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                return req
+        return None
+
+    def enter_prefill_phase(self, stats: EngineStats, *, pending_chunks: int = 0) -> bool:
+        """The swap decision; an empty decoding set always flips.  Under
+        chunked prefill ``pending_chunks`` tells the policy how many chunks
+        the partially prefilled request still owes."""
         active = len(self.inflight)
         if active == 0:
             return True
@@ -414,6 +632,7 @@ class Scheduler:
             active_slots=active,
             swap_cost=stats.swap_agg.mean_cost,
             decode_round_cost=stats.decode_round_cost(),
+            pending_chunks=pending_chunks,
             oldest_wait_s=(time.perf_counter() - head.arrival_time_s
                            if head is not None and head.arrival_time_s else 0.0),
         )
@@ -467,6 +686,9 @@ class EngineCore:
             mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
             kv_dtype=kv_dtype, overlap=overlap, prefill_chunk=prefill_chunk,
             spec_decode=spec_decode, device=device)
+        # slot -> the partially prefilled request (chunked prefill); in
+        # admission order
+        self._prefilling: Dict[int, PrefillProgress] = {}
         if swap_policy is None:
             swap_policy = DrainPolicy()
         elif isinstance(swap_policy, str):
@@ -487,22 +709,56 @@ class EngineCore:
     def has_unfinished(self) -> bool:
         return bool(self.scheduler.queue or self.runner.slots.active_slots())
 
+    def abort(self, request_id: str) -> Optional[RequestOutput]:
+        """Cancel a request wherever it is — queued, part-way through a
+        chunked prefill, or decoding — and release its slot and pages
+        (shared prefix pages only lose a reference).  Returns the terminal
+        zero-delta output (``finish_reason="abort"``), or None when the id
+        is unknown or already finished.  Call between steps."""
+        req = self.scheduler.remove_queued(request_id)
+        if req is None:
+            for slot, prog in list(self._prefilling.items()):
+                if prog.req.request_id == request_id:
+                    del self._prefilling[slot]
+                    self.runner.release(slot)
+                    req = prog.req
+                    break
+        if req is None:
+            for slot, r in list(self.scheduler.inflight.items()):
+                if r.request_id == request_id:
+                    self.scheduler.inflight.pop(slot)
+                    self.runner.release(slot)
+                    req = r
+                    break
+        if req is None:
+            return None
+        self.stats.aborts += 1
+        out = self.out_proc.finalize_aborted(req)
+        self.finished[req.request_id] = req
+        return out
+
     def reset_stats(self) -> None:
         """Fresh ``EngineStats`` (e.g. after a warm-up pass)."""
         self.stats = EngineStats()
         self.out_proc = OutputProcessor(stats=self.stats)
+        self.scheduler.policy.reset()
 
     def kv_bytes(self) -> dict:
         return self.runner.kv_bytes()
 
     def step(self) -> List[RequestOutput]:
-        """Advance one scheduling quantum: a policy-gated prefill burst
-        (admitting queued requests into free slots, one swap each; paged,
-        an admission the pool cannot hold stops the burst), then one decode
-        round over the active slots."""
+        """Advance one scheduling quantum, then run one decode round over
+        the decoding slots.  Monolithic prefill: a policy-gated burst
+        admitting queued requests into free slots, one swap each (paged, an
+        admission the pool cannot hold stops the burst).  Chunked prefill:
+        at most one chunk — the partially prefilled request's next, else the
+        queue head's first — so decode rounds run between the chunks."""
         outs: List[RequestOutput] = []
         sched, runner = self.scheduler, self.runner
-        if sched.queue and runner.slots.free_slots() and sched.enter_prefill_phase(self.stats):
+        if runner.prefill_chunk is not None:
+            outs.extend(self._chunked_prefill_quantum())
+        elif sched.queue and runner.slots.free_slots() and sched.enter_prefill_phase(self.stats):
+            admitted = 0
             while sched.queue and runner.slots.free_slots():
                 ok, out = self._admit_one(sched.queue.popleft())
                 if out is not None:
@@ -511,6 +767,9 @@ class EngineCore:
                     if not runner.slots.active_slots():
                         self._unblock_admission_or_raise()
                     break  # decode to drain capacity, then retry admission
+                admitted += 1
+            if admitted:
+                self.stats.prefill_bursts += 1
         if sched.inflight:
             outs.extend(self._decode_round())
         if not self.has_unfinished():
@@ -557,6 +816,97 @@ class EngineCore:
                            f"pool holds ({runner.paged.num_blocks} blocks x "
                            f"{runner.block_size} tokens)")
 
+    # ------------------------------------------------------ chunked prefill --
+
+    def _pending_chunks(self) -> int:
+        return sum(p.remaining_chunks for p in self._prefilling.values())
+
+    def _chunked_prefill_quantum(self) -> List[RequestOutput]:
+        """At most one chunk, policy-gated: continue the partially prefilled
+        request, or, with none, admit the queue head and run its first
+        chunk.  Each chunk is one fabric flip (``prefill_bursts``)."""
+        sched, runner = self.scheduler, self.runner
+        if self._prefilling:
+            if not sched.enter_prefill_phase(self.stats, pending_chunks=self._pending_chunks()):
+                return []
+            return self._advance_chunk(next(iter(self._prefilling.values())))
+        if not (sched.queue and runner.slots.free_slots()):
+            return []
+        if not sched.enter_prefill_phase(self.stats):
+            return []
+        ok, outs = self._admit_one_chunked(sched.queue.popleft())
+        if not ok and not sched.inflight:
+            self._unblock_admission_or_raise()
+        return outs
+
+    def _admit_one_chunked(self, req: Request):
+        """Take a slot (and, paged, every page of the prompt, so that the
+        chunks write into a fixed plan), then run the first chunk.  Returns
+        ``(ok, outputs)`` with ``_admit_one``'s contract."""
+        runner, stats = self.runner, self.stats
+        out = self._finish_resumed_at_budget(req)
+        if out is not None:
+            return True, [out]
+        resuming = req.preempted and bool(req.out_tokens)
+        restarted = req.preempted  # a mid-prefill eviction restarts with no tokens
+        if runner.paged is not None and resuming and not runner.restart_headroom_ok(req):
+            self._block_admission(req)
+            return False, []
+        slot = runner.slots.assign(req.request_id, len(req.prompt))
+        runner.set_slot_sampling(slot, req)
+        match = None
+        if runner.paged is not None:
+            try:
+                match = runner.paged.allocate_prompt(slot, np.asarray(req.prompt, np.int32))
+            except PoolExhausted:
+                self._block_admission(req, slot)
+                return False, []
+            if not restarted:
+                n_full = len(req.prompt) // runner.block_size
+                stats.prefix_hits += match.cached_pages
+                stats.prefix_misses += n_full - match.cached_pages
+                stats.prefix_hit_tokens += match.cached_pages * runner.block_size
+        if not restarted:  # offered load, charged once: one logical swap a request
+            stats.prefill_tokens += len(req.prompt)
+            stats.swaps += 1
+        self._record_admission(req)
+        # the f32 mirror holds one prompt: one chunked prefill at a time
+        if self._prefilling:
+            raise RuntimeError("a second chunked prefill while one is in flight")
+        prog = PrefillProgress(req, slot, resuming, restarted,
+                               sizes=runner.chunk_sizes(len(req.prompt)), match=match)
+        self._prefilling[slot] = prog
+        return True, self._advance_chunk(prog)
+
+    def _advance_chunk(self, prog: PrefillProgress) -> List[RequestOutput]:
+        """Run one chunk; after the last, finish the prefill (first token or
+        replay) and hand the slot to the decode rounds."""
+        size = prog.sizes[prog.ci]
+        logits = self.runner.run_prefill_chunk(prog.req, prog.slot, prog.pos, size, prog.match,
+                                               prog.restarted, self.stats)
+        prog.ci += 1
+        prog.pos += size
+        self.stats.prefill_bursts += 1
+        if prog.ci < len(prog.sizes):
+            return []
+        del self._prefilling[prog.slot]
+        if self.runner.paged is not None:
+            self.runner.paged.register_prompt_pages(prog.match)
+        _, out = self._finish_prefill(prog.req, prog.slot, logits, prog.resuming)
+        return [out] if out is not None else []
+
+    def _preempt_prefilling(self, slot: int) -> None:
+        """Evict a partially prefilled request (decode growth exhausted the
+        pool with no decoding request left to evict): requeue it for a
+        restart through the same chunks."""
+        prog = self._prefilling.pop(slot)
+        prog.req.preempted = True
+        self.runner.release(slot)
+        self.stats.preemptions += 1
+        self.scheduler.queue.appendleft(prog.req)
+
+    # ----------------------------------------------------------- admission --
+
     def _finish_resumed_at_budget(self, req: Request) -> Optional[RequestOutput]:
         """A restart whose recorded tokens already fill its budget has
         nothing left to generate: finish it before it takes a slot."""
@@ -580,12 +930,21 @@ class EngineCore:
             self._block_admission(req)
             return False, None
         slot = runner.slots.assign(req.request_id, len(req.prompt))
+        runner.set_slot_sampling(slot, req)
         try:
             logits = runner.prefill(req, slot, self.stats, resuming=resuming)
         except PoolExhausted:
             self._block_admission(req, slot)
             return False, None
+        self._record_admission(req)
         return self._finish_prefill(req, slot, logits, resuming)
+
+    def _record_admission(self, req: Request) -> None:
+        """Stamp the queue wait (arrival to first successful admission) once
+        a request: a restart keeps its first stamp."""
+        if req.queue_wait_s is None and req.arrival_time_s:
+            req.queue_wait_s = time.perf_counter() - req.arrival_time_s
+            self.stats.queue_wait.record(req.queue_wait_s)
 
     def _block_admission(self, req: Request, slot: Optional[int] = None) -> None:
         """An admission blocked on pool pressure: give the slot back (if one
@@ -597,8 +956,9 @@ class EngineCore:
 
     def _finish_prefill(self, req: Request, slot: int, logits, resuming: bool = False):
         """After the prefill: a restart replays its recorded tokens; a new
-        request emits its first token.  Then the request either finishes or
-        its slot joins the decode rounds.  Returns ``(ok, output)``."""
+        request (or one evicted mid-prefill) draws its first token.  Then
+        the request either finishes or its slot joins the decode rounds.
+        Returns ``(ok, output)``."""
         runner = self.runner
         out = None
         if resuming:
@@ -611,7 +971,7 @@ class EngineCore:
             runner.slots.slots[slot].generated = len(req.out_tokens)
         else:
             req.preempted = False
-            tok = runner.sample_first(logits)
+            tok = runner.sample_first(logits, req)
             out = self.out_proc.process_token(req, tok)
             runner.slots.slots[slot].generated = 1
         finished = out.finished if out is not None else (
@@ -626,8 +986,12 @@ class EngineCore:
         self.scheduler.inflight[slot] = req
         return True, out
 
+    # --------------------------------------------------------------- decode --
+
     def _grow_slot_page(self, slot: int, length: int) -> None:
-        """Make position ``length`` writable, preempting under pool pressure."""
+        """Make position ``length`` writable, preempting under pool
+        pressure: the lowest-priority decoding request, else a partially
+        prefilled one."""
         while True:
             try:
                 self.runner.append_page(slot, length)
@@ -635,6 +999,10 @@ class EngineCore:
             except PoolExhausted:
                 victim = self.scheduler.pick_victim()
                 if victim is None:
+                    if self._prefilling:
+                        self._preempt_prefilling(min(self._prefilling, key=lambda s: (
+                            self._prefilling[s].req.priority, -self._prefilling[s].req.enqueue_t)))
+                        continue
                     raise RuntimeError(
                         "paged KV pool exhausted with nothing left to preempt; "
                         f"raise num_blocks (have {self.runner.paged.num_blocks})")
@@ -643,12 +1011,13 @@ class EngineCore:
                     return  # this very slot was evicted; the round skips it
 
     def _ensure_append_pages(self) -> None:
-        """Before a decode round, make every active slot's next position
+        """Before a decode round, make every decoding slot's next position
         writable: grow tables at page boundaries and fork shared pages,
-        preempting the lowest-priority request when the pool cannot."""
+        preempting when the pool cannot.  Mid-prefill slots hold their
+        pages already and sit the round out."""
         for slot in self.runner.slots.active_slots():
             s = self.runner.slots.slots[slot]
-            if s.request_id is None:  # preempted earlier in this loop
+            if s.request_id is None or slot in self._prefilling:
                 continue
             self._grow_slot_page(slot, s.length)
 
@@ -659,14 +1028,23 @@ class EngineCore:
         active = sorted(sched.inflight)
         if not active:
             return []
-        lengths = runner.slots.lengths_array(runner.device)
+        lengths = runner.slots.lengths_array()
+        # A mid-prefill slot sits the round out, but the batched program
+        # still writes a row for it: park that write where nothing reads it.
+        # Paged, length 0 writes nothing; contiguous, the write clamps to row
+        # max_len - 1, which live KV never reaches (n + max_new <= max_len).
+        for slot in self._prefilling:
+            lengths[slot] = 0 if runner.paged is not None else runner.max_len
+        lengths = lengths.to(runner.device)
         t0 = time.perf_counter()
         logits = runner.decode_logits(lengths)
-        next_tokens = runner.sample_batch(logits)
+        next_tokens = runner.sample_batch(logits, sched.inflight)
         next_np = next_tokens.cpu().numpy()  # waits for the round
         stats.t_decode += time.perf_counter() - t0
         stats.decode_rounds += 1
         stats.decode_tokens += len(active)
+        stats.slot_rounds += len(active)
+        stats.decode_ctx_tokens += sum(runner.slots.slots[i].length for i in active)
         outs: List[RequestOutput] = []
         for i in active:
             req = sched.inflight[i]

@@ -1,13 +1,23 @@
 """Output side of the serving core: incremental ``RequestOutput`` deltas and
-finish-reason detection (stop token -> ``"stop"``, token budget ->
-``"length"``), TTFT stamping included.  The JAX package's tracer
-calls are not ported yet (observability is ROADMAP A10).
+finish semantics — a stop token (``"stop"``), the token budget
+(``"length"``), or a request removed before it completed (``"abort"``).
+Every emission feeds the engine's client-visible latency aggregates: TTFT on
+a request's first token, the inter-token latency (ITL) on every later one.
+The JAX package's tracer calls are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from typing import List, Optional
+
+
+def _finish(req, reason: str, now: Optional[float] = None) -> None:
+    """Set the finish reason and stamp ``done_t`` once (a request reaching
+    a second finish path keeps its first stamp)."""
+    req.finish_reason = reason
+    if req.done_t == 0.0:
+        req.done_t = time.perf_counter() if now is None else now
 
 
 @dataclasses.dataclass
@@ -25,11 +35,20 @@ class RequestOutput:
 
 class OutputProcessor:
     """Turns sampled tokens into RequestOutputs; owns finish semantics.
-    With ``stats`` (an ``EngineStats``), the first token of a request feeds
-    TTFT (arrival to first token)."""
+    With ``stats`` (an ``EngineStats``), a request's first token feeds TTFT
+    (arrival to first token, queueing included) and every later one ITL
+    (the gap since the request's previous delta)."""
 
     def __init__(self, stats=None):
         self._stats = stats
+
+    def _observe(self, req, now: float) -> None:
+        if req.first_token_t == 0.0:
+            if self._stats is not None and req.arrival_time_s:
+                self._stats.ttft.record(now - req.arrival_time_s)
+        elif self._stats is not None and req.last_emit_t:
+            self._stats.itl.record(now - req.last_emit_t)
+        req.last_emit_t = now
 
     def process_token(self, req, tok: int) -> RequestOutput:
         """Append one token (unless the budget is spent), then decide the
@@ -41,14 +60,15 @@ class OutputProcessor:
             if tok in req.params.stop_tokens:
                 reason = "stop"
         req.out_tokens.extend(kept)
-        if kept and req.first_token_t == 0.0:
-            req.first_token_t = time.perf_counter()
-            if self._stats is not None and req.arrival_time_s:
-                self._stats.ttft.record(req.first_token_t - req.arrival_time_s)
+        now = time.perf_counter()
+        if kept:
+            self._observe(req, now)
+            if req.first_token_t == 0.0:
+                req.first_token_t = now
         if reason is None and len(req.out_tokens) >= req.max_new:
             reason = "length"
         if reason is not None:
-            req.finish_reason = reason
+            _finish(req, reason, now)
         return RequestOutput(
             request_id=req.request_id,
             new_token_ids=kept,
@@ -63,9 +83,10 @@ class OutputProcessor:
         every token was streamed before the eviction, so the stream is owed
         only a zero-delta ``finished`` output and a reason, rebuilt from the
         recorded tail ("stop" if the last token is a stop token)."""
-        if req.finish_reason is None:
-            stopped = req.out_tokens and req.out_tokens[-1] in req.params.stop_tokens
-            req.finish_reason = "stop" if stopped else "length"
+        reason = req.finish_reason or (
+            "stop" if req.out_tokens and req.out_tokens[-1] in req.params.stop_tokens
+            else "length")
+        _finish(req, reason)
         return RequestOutput(
             request_id=req.request_id,
             new_token_ids=[],
@@ -73,3 +94,22 @@ class OutputProcessor:
             finished=True,
             finish_reason=req.finish_reason,
         )
+
+    @staticmethod
+    def finalize_dropped(req, reason: str) -> RequestOutput:
+        """Terminal output for a request removed before it completed: a
+        zero delta, finished, with ``reason``.  Tokens already streamed stand."""
+        req.preempted = False
+        _finish(req, reason)
+        return RequestOutput(
+            request_id=req.request_id,
+            new_token_ids=[],
+            token_ids=req.out_tokens,
+            finished=True,
+            finish_reason=reason,
+        )
+
+    @staticmethod
+    def finalize_aborted(req) -> RequestOutput:
+        """Terminal output for a cancelled request (``finish_reason="abort"``)."""
+        return OutputProcessor.finalize_dropped(req, "abort")

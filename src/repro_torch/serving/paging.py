@@ -321,13 +321,16 @@ class PagedKVCache:
             self._tables_dirty = False
         return self._tables_dev
 
-    def page_ids_for_write(self, match: PrefixMatch, padded_pages: int) -> torch.Tensor:
-        """(padded_pages,) int32 destination pages for the prefill page
-        write, on the host.  Cache-hit pages (shared, already holding these
-        tokens) and the bucket's padding pages get the skip id
+    def page_ids_for_write(self, match: PrefixMatch, padded_pages: int,
+                           first_page: int = 0) -> torch.Tensor:
+        """(padded_pages,) int32 destination pages, on the host, for the
+        page write covering prompt pages [first_page, first_page +
+        padded_pages): the whole prompt for the monolithic swap, one chunk's
+        span for chunked prefill.  Cache-hit pages (shared, already holding
+        these tokens) and the bucket's padding pages get the skip id
         ``num_blocks``, which the write leaves out."""
         ids = np.full((padded_pages,), self.num_blocks, np.int32)
         for i in range(padded_pages):
-            if match.cached_pages <= i < len(match.pages):
-                ids[i] = match.pages[i]
+            if match.cached_pages <= first_page + i < len(match.pages):
+                ids[i] = match.pages[first_page + i]
         return torch.from_numpy(ids)

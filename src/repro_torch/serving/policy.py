@@ -1,13 +1,15 @@
 """Prefill<->decode transition policy (paper §3.4 scheduling).
 
 Policies see an immutable ``SchedulerView`` and decide whether to flip into
-the prefill phase this step.  The port has the paper's own policy,
-``DrainPolicy``; the swap-cost-aware and SLO-aware policies of the JAX
-package are ROADMAP A7/A10.
+the prefill phase this step: ``DrainPolicy`` (the paper's, the default) or
+``SwapCostAwarePolicy`` (defer the flip while the queue is shallow against
+the measured swap cost).  The JAX package's SLO-aware policy is ROADMAP A10.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,11 +18,11 @@ class SchedulerView:
 
     queue_depth: int
     free_slots: int
-    active_slots: int  # slots currently decoding
+    active_slots: int  # slots currently decoding (mid-prefill slots excluded)
     swap_cost: float  # mean exposed swap latency, seconds (0 until measured)
     decode_round_cost: float  # mean decode-round latency, seconds
-    pending_chunks: int = 0
-    oldest_wait_s: float = 0.0
+    pending_chunks: int = 0  # chunks owed to a partially prefilled request
+    oldest_wait_s: float = 0.0  # age of the queue head, seconds
 
 
 class SwapPolicy:
@@ -45,8 +47,55 @@ class DrainPolicy(SwapPolicy):
         return True
 
 
-def make_policy(name: str) -> SwapPolicy:
-    if name == DrainPolicy.name:
-        return DrainPolicy()
-    raise NotImplementedError(
-        f"swap policy {name!r}: the port has 'drain'; the others are ROADMAP A7/A10")
+class SwapCostAwarePolicy(SwapPolicy):
+    """Defer the swap while the queue is shallow relative to its cost: admit
+    when ``queue_depth >= ceil(cost_ratio * swap_cost / decode_round_cost)``
+    (``min_queue`` pins the threshold; ``swap_cost_override`` stands in for
+    the measured cost).  Always admits when nothing decodes, when chunks of
+    an admitted prompt are pending, and after ``max_defer_rounds``
+    deferrals in a row."""
+
+    name = "swap-aware"
+
+    def __init__(self, *, cost_ratio: float = 1.0, max_defer_rounds: int = 8,
+                 min_queue: Optional[int] = None, swap_cost_override: Optional[float] = None):
+        if max_defer_rounds < 1:
+            raise ValueError("max_defer_rounds must be >= 1")
+        self.cost_ratio = cost_ratio
+        self.max_defer_rounds = max_defer_rounds
+        self.min_queue = min_queue
+        self.swap_cost_override = swap_cost_override
+        self._deferred = 0
+
+    def threshold(self, view: SchedulerView) -> int:
+        if self.min_queue is not None:
+            return self.min_queue
+        cost = self.swap_cost_override if self.swap_cost_override is not None else view.swap_cost
+        if view.decode_round_cost <= 0.0:
+            return 1  # no history yet: drain while warming up
+        return max(1, math.ceil(self.cost_ratio * cost / view.decode_round_cost))
+
+    def should_prefill(self, view: SchedulerView) -> bool:
+        # a partially prefilled request holds its slot (and pages) while it
+        # produces nothing: its remaining chunks always continue
+        if (view.pending_chunks > 0 or view.active_slots == 0
+                or self._deferred >= self.max_defer_rounds
+                or view.queue_depth >= self.threshold(view)):
+            self._deferred = 0
+            return True
+        self._deferred += 1
+        return False
+
+    def reset(self) -> None:
+        self._deferred = 0
+
+
+POLICIES = {DrainPolicy.name: DrainPolicy, SwapCostAwarePolicy.name: SwapCostAwarePolicy}
+
+
+def make_policy(name: str, **kwargs) -> SwapPolicy:
+    if name == "slo-aware":
+        raise NotImplementedError("swap policy 'slo-aware': the SLO-aware policy is ROADMAP A10")
+    if name not in POLICIES:
+        raise ValueError(f"unknown swap policy {name!r}; choose from {sorted(POLICIES)}")
+    return POLICIES[name](**kwargs)

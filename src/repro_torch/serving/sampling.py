@@ -1,20 +1,23 @@
 """Per-request sampling parameters for the serving API.
 
-The same dataclass as the JAX package's ``repro.serving.sampling``.  The
-port decodes greedily only: a request with ``temperature > 0`` (or a top-k /
-top-p cut) is refused at submission until the sampler lands (ROADMAP A7).
+The same dataclass as the JAX package's ``repro.serving.sampling``, beside
+the sampler itself (``repro_torch.core.sampling``), re-exported here.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+from repro_torch.core.sampling import filter_logits, sample_tokens  # noqa: F401 (re-export)
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """``temperature == 0`` selects greedy argmax (the default);
     ``stop_tokens`` end generation early (the stop token is kept, finish
-    reason ``"stop"``); ``max_tokens`` overrides the request's ``max_new``."""
+    reason ``"stop"``); ``max_tokens`` overrides the request's ``max_new``.
+    Token ``i`` is drawn with ``fold_in(PRNGKey(seed), i)``, so seeded
+    sampling is the same across runs and across preemption and replay."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -37,3 +40,8 @@ class SamplingParams:
     @property
     def greedy(self) -> bool:
         return self.temperature <= 0.0
+
+    @property
+    def seed32(self) -> int:
+        """The seed folded into the non-negative int32 range the key takes."""
+        return int(self.seed) & 0x7FFFFFFF

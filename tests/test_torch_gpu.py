@@ -34,7 +34,8 @@ from repro_torch.kernels.tlmm.ref import tlmm_reference
 from repro_torch.models import transformer as T
 from repro_torch.quant.act_quant import quantize_activations_int8, quantize_and_fold
 from repro_torch.quant.kv_quant import quantize_kv
-from repro_torch.serving import EngineCore, Request
+from repro_torch.core import sampling as S
+from repro_torch.serving import EngineCore, Request, SamplingParams
 
 pytestmark = pytest.mark.gpu
 
@@ -493,6 +494,60 @@ def test_engine_on_cuda_matches_cpu_and_goes_through_the_kernels(mode, overlap):
     assert COUNTS["act_quant"] == COUNTS["tlmm"]
     assert COUNTS["prefill_attention"] == cfg.num_layers * len(prompts)
     assert COUNTS["decode_attention"] == cfg.num_layers * st.decode_rounds
+
+
+def test_sampler_on_cuda_matches_cpu():
+    """Keys and random bits on the card bit for bit as on the CPU, and the
+    same tokens on 64 seeded rows of vocab 32,256 (greedy and sampled)."""
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    b, v = 64, 32256
+    logits = torch.from_numpy((rng.normal(size=(b, v)) * 3).astype(np.float32))
+    temps = torch.from_numpy(np.where(np.arange(b) % 4 == 0, 0.0,
+                                      rng.uniform(0.3, 1.5, b)).astype(np.float32))
+    top_ks = torch.from_numpy(rng.choice([0, 1, 5, 50, 1000], b).astype(np.int32))
+    top_ps = torch.from_numpy(rng.choice([1.0, 0.9, 0.5, 0.95], b).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 2**31 - 1, b).astype(np.int32))
+    steps = torch.from_numpy(rng.integers(0, 3000, b).astype(np.int32))
+    key = S.fold_in(S.prng_key(seeds), steps)
+    key_gpu = S.fold_in(S.prng_key(seeds.to(dev)), steps.to(dev))
+    for a, g in zip(key, key_gpu):
+        assert torch.equal(a, g.cpu())
+    assert torch.equal(S.random_bits(key, v), S.random_bits(key_gpu, v).cpu())
+    args = (logits, seeds, steps, temps, top_ks, top_ps)
+    want = S.sample_tokens(*args)
+    got = S.sample_tokens(*(a.to(dev) for a in args))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+def test_sampled_chunked_engine_on_cuda_matches_cpu():
+    """Sampled requests through chunked prefill on a paged int8 pool small
+    enough to preempt: the card's streams equal the CPU's; the chunks and
+    the decode rounds went through B1 and B6, and B2 never ran."""
+    dev = _cuda()
+    cfg = reduced_config("bitnet-730m", num_layers=3)
+    params_cpu = T.convert_for_inference(T.init(cfg, 5, device="cpu"), cfg)
+    params_gpu = _to(params_cpu, dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, 14).astype(np.int32) for _ in range(4)]
+    streams = {}
+    for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        eng = EngineCore(cfg, params, n_slots=3, max_len=64, prompt_len=12, mode="static",
+                         cache_layout="paged", kv_dtype="int8", block_size=8, num_blocks=7,
+                         prefill_chunk=8, device=device)
+        for i, p in enumerate(prompts):
+            sp = SamplingParams(temperature=0.8, top_k=64, top_p=0.95, seed=100 + i)
+            eng.submit(Request(f"r{i}", p, max_new=10, priority=i, params=sp))
+        reset_counts()
+        st = eng.run()
+        streams[device] = {r: q.out_tokens for r, q in eng.finished.items()}
+    assert streams["cuda"] == streams["cpu"]
+    assert st.preemptions > 0 and st.prefill_chunks > len(prompts)
+    steps = st.prefill_chunks + st.decode_rounds + st.replayed_tokens
+    assert COUNTS["tlmm"] == COUNTS["act_quant"] == 7 * cfg.num_layers * steps
+    assert COUNTS["paged_decode_attention_quant"] == cfg.num_layers * (
+        st.decode_rounds + st.replayed_tokens)
+    assert COUNTS["prefill_attention"] == 0
 
 
 def _to(tree, dev):

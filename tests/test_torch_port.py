@@ -29,7 +29,7 @@ from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill
 from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel, tlmm_matmul
 from repro_torch.models import transformer as T
 from repro_torch.quant.ternary import quantize_and_pack
-from repro_torch.serving import EngineCore, Request, SamplingParams
+from repro_torch.serving import EngineCore, Request
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -144,13 +144,10 @@ def test_out_of_slice_arguments_raise_not_implemented():
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
     kw = dict(n_slots=1, max_len=64, device="cpu")
-    for extra in (dict(prefill_chunk=16), dict(spec_decode=2), dict(swap_policy="swap-aware")):
+    for extra in (dict(spec_decode=2), dict(swap_policy="slo-aware")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EngineCore(cfg, params, **kw, **extra)
     eng = EngineCore(cfg, params, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(Request("s", np.arange(4, dtype=np.int32), max_new=2,
-                           params=SamplingParams(temperature=0.7)))
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
 
