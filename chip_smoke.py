@@ -30,12 +30,19 @@ Phases (any failure raises and the script exits non-zero):
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
-   requests; the launch counters, set to 0 just before, must equal what the
-   engine's stats imply (act-quant as often as B1); the decode profile
-   (device-side events only: device time a round, busy share, operations
-   a round); the
-   served model's logits are held against the plain versions on the CPU at
-   full width and cut depth;
+   requests, after ``build_serving_grid`` (every reachable program built,
+   the decode, chunk and sampler programs captured as CUDA graphs: its
+   seconds and the pool the graphs reserved are printed); the launch
+   counters, set to 0 just before, must equal what the engine's stats imply
+   (act-quant as often as B1), the graphs' replays adding what their
+   captures counted; the decode profile (device-side events only: device
+   time a round, busy share, operations a round); the served model's logits
+   are held against the plain versions on the CPU at full width and cut
+   depth; then the main path's and (d)'s configurations decode the same 4
+   requests in runs eager, graph, graph, eager (eager: the decode
+   program's ``fn`` in its place), which must give the same tokens, each
+   printing decode ms a round, device ms and operations a round, busy share
+   and peak device memory;
 5. the other cache options at full width, each serving the same 8 requests
    (and each driven with the counts set to 0 just before and read just
    after): (a) contiguous int8, pdswap; (b) contiguous int4, static;
@@ -50,7 +57,8 @@ Phases (any failure raises and the script exits non-zero):
    tokens, the sampled ones included; (i) (d) with chunked prefill in
    256-token chunks, one chunk a prompt's 256 tokens and decode rounds
    between the chunks of the 1536-token prompt asserted, TTFT and the
-   largest inter-token gap printed beside (d)'s; (j) (i) on 150 pages,
+   largest inter-token gap printed beside (d)'s, and one 256-token chunk
+   profiled alone (its device time); (j) (i) on 150 pages,
    preempting, which must give (i)'s tokens.  B1 runs 168 times a prefill,
    chunk, decode round and replayed token, B2 24 times a monolithic
    prefill (never on (i)/(j)), the path's decode kernel 24 times a decode
@@ -505,8 +513,9 @@ def main() -> int:
     prompt_lens = PROMPT_LENS
     params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
     prompts = make_prompts(np, cfg, prompt_lens)
-    eng, stats, wall, launches, _, _ = serve(cfg, params, prompts, max_tokens, n_slots=n_slots,
-                                             max_len=max_len, mode="pdswap", overlap=True)
+    eng, stats, wall, launches, _, _, grid = serve(cfg, params, prompts, max_tokens,
+                                                   n_slots=n_slots, max_len=max_len,
+                                                   mode="pdswap", overlap=True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rng = np.random.default_rng(1)
 
@@ -531,6 +540,7 @@ def main() -> int:
           f"tail mean {statistics.mean(t.t_tail for t in stats.swap_timings) * 1e3:.3f} ms, "
           f"hidden fraction mean {statistics.mean(hidden):.3f} min {min(hidden):.3f}  [{card}]")
     print(f"  peak device memory {peak_gib:.2f} GiB  [{card}]")
+    print(f"  {_grid_line(grid)}  [{card}]")
     print(f"  launches {launches}")
 
     wall_p, dev_p, top, per_round = profile_decode(torch, eng)
@@ -558,6 +568,9 @@ def main() -> int:
     print(f"reference: full-width 2-layer prefill logits vs CPU plain versions: max abs err {ref_err:.3g} "
           f"(max |logit| {scale:.3g})")
     del eng
+
+    # eager against graph decode rounds, in alternation within this run
+    eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card)
 
     # ---- 5. the other cache options at full width
     path_launches = cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots,
@@ -635,12 +648,15 @@ def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
 
 def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
     """Drive ``EngineCore`` on the card over the requests (greedy, or with
-    ``params_of(i)`` for request i), after a one-request warm-up; the launch
-    counters and the peak-memory statistic are reset just before the run.
-    Returns (engine, stats, wall seconds, launches, monolithic prefill calls
-    with restarts, the run's events: ("chunk", request id) for each prefill
-    chunk, ("round",) for each decode round, ("evict", request id) for each
-    request evicted part-way through its chunked prefill)."""
+    ``params_of(i)`` for request i), after ``build_serving_grid`` (every
+    reachable program built, the decode, chunk and sampler programs captured
+    as CUDA graphs) and a one-request warm-up; the launch counters and the
+    peak-memory statistic are reset just before the run.  Returns (engine,
+    stats, wall seconds, launches, monolithic prefill calls with restarts,
+    the run's events: ("chunk", request id) for each prefill chunk,
+    ("round",) for each decode round, ("evict", request id) for each request
+    evicted part-way through its chunked prefill, the grid: its build
+    seconds, graphs and the device memory their pool reserved)."""
     import numpy as np
     import torch
 
@@ -648,6 +664,7 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
     from repro_torch.serving import EngineCore, Request, SamplingParams
 
     eng = EngineCore(cfg, params, device="cuda", **engine_kw)
+    grid = build_grid(torch, eng)
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
     for i, p in enumerate(prompts):
@@ -684,7 +701,27 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
     stats = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, stats, wall, dict(COUNTS), len(prefills), events
+    return eng, stats, wall, dict(COUNTS), len(prefills), events, grid
+
+
+def build_grid(torch, eng):
+    """``eng.build_serving_grid()``: its seconds, the graphs it captured,
+    and the device bytes the allocator holds for their shared pool."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.build_serving_grid()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    graphs = [k for k, p in eng.runner.engine.programs.items() if p.captured is not None]
+    return {"seconds": seconds, "graphs": len(graphs),
+            "pool_bytes": eng.runner.engine.graph_pool_bytes()}
+
+
+def _grid_line(grid):
+    pool = ("not measured" if grid["pool_bytes"] is None
+            else f"{grid['pool_bytes'] / 2**20:.1f} MiB")
+    return (f"serving grid: {grid['graphs']} programs captured as CUDA graphs in "
+            f"{grid['seconds']:.2f} s, their shared pool {pool}")
 
 
 def check_served(eng, cfg, n_requests, max_tokens):
@@ -752,7 +789,7 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
     ]
     total, streams, latency, ops = {}, {}, {}, {}
     for key, what, ps, kw, params_of in paths:
-        eng, st, wall, launches, prefills, events = serve(
+        eng, st, wall, launches, prefills, events, grid = serve(
             cfg, params, ps, max_tokens, params_of, n_slots=n_slots, max_len=max_len,
             block_size=16, **kw)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -787,6 +824,7 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
               f"({st.decode_round_cost() * 1e3:.2f} ms/round)  hidden fraction {hid}  "
               f"peak device memory {peak_gib:.2f} GiB  [{card}]")
         print(f"  kv_bytes {kb}")
+        print(f"  {_grid_line(grid)}  [{card}]")
         print(f"  launches {launches}")
         if key == "c" and not st.prefix_hits > 0:
             raise AssertionError("path (c): no prefix-cache hits")
@@ -795,6 +833,12 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
                                  f"{st.replayed_tokens} replayed tokens")
         if key == "i":
             check_chunked(cfg, ps, st, events)
+            c_wall, c_dev, c_ops = profile_chunk(torch, np, eng)
+            c_dev_s = ("not measured" if c_dev is None else
+                       f"{c_dev * 1e3:.3f} ms of device time, busy {c_dev / c_wall:.3f}")
+            print(f"path (i): one {CHUNK}-token chunk (prefix width {CHUNK}, nothing decoding), "
+                  f"a graph replay: {c_wall * 1e3:.2f} ms wall, {c_dev_s}, {c_ops} device "
+                  f"operations  [{card}]")
         if key == "j":
             evicted = [e for e in events if e[0] == "evict"]
             print(f"path (j): {len(evicted)} requests evicted part-way through their chunked "
@@ -962,6 +1006,37 @@ def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         yield what, err, scale
 
 
+def _device_rows(prof):
+    """Device-side events only (kernels, copies, sets) of a profile: (device
+    seconds or None when there were none, device operations, the largest
+    [(name, s, calls)])."""
+    from torch.autograd import DeviceType
+
+    rows = {}  # name -> [s, count]
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            row = rows.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e6
+            row[1] += 1
+    top = sorted(((name, sec, n) for name, (sec, n) in rows.items()), key=lambda r: -r[1])
+    return (sum(r[1] for r in top) if top else None), sum(r[2] for r in top), top[:8]
+
+
+def _decoding(eng, prompts, tag, max_new, params_of=None):
+    """Submit 4 fresh requests and step until all 4 decode (chunked: one
+    prompt a step); returns their ids."""
+    from repro_torch.serving import Request, SamplingParams
+
+    ids = [f"{tag}.{i}" for i in range(len(prompts))]
+    for i, (rid, p) in enumerate(zip(ids, prompts)):
+        sp = SamplingParams() if params_of is None else params_of(i)
+        eng.submit(Request(rid, p, max_new=max_new, params=sp))
+    eng.step()  # the prefill burst (or the first chunk) and a first decode round
+    while eng.scheduler.queue or eng._prefilling:
+        eng.step()
+    return ids
+
+
 def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
     """Device time under ``torch.profiler`` over ``rounds`` decode rounds of
     4 fresh requests (greedy, or all sampled), once all 4 decode (run after
@@ -970,21 +1045,16 @@ def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
     copies, sets) per round), summed over the device-side events only, the
     device time None when the profiler saw none."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request, SamplingParams
+    from repro_torch.serving import SamplingParams
 
     rng = np.random.default_rng(2)
     run = sum(name.startswith("prof") for name in eng.finished) // 4  # fresh request ids
-    for i in range(4):
-        sp = (SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=2000 + i) if sampled
-              else SamplingParams())
-        eng.submit(Request(f"prof{run}.{i}", rng.integers(0, 32000, 256).astype(np.int32),
-                           max_new=rounds + 8, params=sp))
-    eng.step()  # the prefill burst (or the first chunk) and a first decode round
-    while eng.scheduler.queue or eng._prefilling:  # chunked: one prompt a step
-        eng.step()
+    prompts = [rng.integers(0, 32000, 256).astype(np.int32) for _ in range(4)]
+    sp = (lambda i: SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=2000 + i)
+          ) if sampled else None
+    _decoding(eng, prompts, f"prof{run}", rounds + 8, sp)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -993,16 +1063,106 @@ def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    rows = {}  # device-side events only (kernels, copies, sets): name -> [s, count]
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
-            row = rows.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e6
-            row[1] += 1
-    top = sorted(((name, sec, n) for name, (sec, n) in rows.items()), key=lambda r: -r[1])
-    total = sum(r[1] for r in top)
-    device_ops = sum(r[2] for r in top)
-    return wall, (total if top else None), top[:8], device_ops / rounds
+    dev, ops, top = _device_rows(prof)
+    return wall, dev, top, ops / rounds
+
+
+def profile_chunk(torch, np, eng):
+    """One 256-token prefill chunk alone (the second of a 768-token prompt,
+    prefix width 256, nothing decoding) under ``torch.profiler``, after the
+    path.  Returns (wall s, device s or None, device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    prompt = np.random.default_rng(5).integers(0, 32000, 3 * CHUNK).astype(np.int32)
+    eng.submit(Request("chunkprof", prompt, max_new=2))
+    eng.step()  # the first chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()  # the second chunk; no request decodes yet
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run()
+    dev, ops, _ = _device_rows(prof)
+    return wall, dev, ops
+
+
+class _Eager:
+    """A phase program's eager callable in the program's place."""
+
+    def __init__(self, prog):
+        self.prog = prog
+
+    def __call__(self, *args):
+        return self.prog.fn(*args)
+
+
+def eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card, rounds: int = 8):
+    """The main path's and (d)'s configurations, each one engine with its
+    grid built: runs of 4 fresh greedy requests (the same 256-token
+    prompts) in the order eager, graph, graph, eager — eager with
+    ``prog.fn`` of the decode program in its place — each timing ``rounds``
+    decode rounds on the host clock and ``rounds`` more under the profiler.
+    The four runs must give the same tokens.  Returns {path: {mode: [runs]}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import EngineCore
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).astype(np.int32) for _ in range(4)]
+    out = {}
+    for path, kw in (("main", dict(cache_layout="contiguous", kv_dtype="fp")),
+                     ("d", dict(cache_layout="paged", kv_dtype="int8", block_size=16))):
+        eng = EngineCore(cfg, params, n_slots=n_slots, max_len=max_len, mode="pdswap",
+                         device="cuda", **kw)
+        grid = build_grid(torch, eng)
+        print(f"eager vs graph, path ({path}): {_grid_line(grid)}  [{card}]")
+        graph = eng.runner.decode_prog
+        runs, streams = {"eager": [], "graph": []}, []
+        for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+            eng.runner.decode_prog = _Eager(graph) if mode == "eager" else graph
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ids = _decoding(eng, prompts, f"alt{i}", 2 * rounds + 4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                eng.step()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) / rounds
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for _ in range(rounds):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            eng.run()
+            dev, ops, _ = _device_rows(prof)
+            streams.append([eng.finished[r].out_tokens for r in ids])
+            r = {"decode_ms": host * 1e3, "device_ms": None if dev is None else dev / rounds * 1e3,
+                 "device_ops": ops / rounds, "busy": None if dev is None else dev / wall,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+            runs[mode].append(r)
+            dev_s = "not measured" if dev is None else f"{r['device_ms']:.3f} ms"
+            busy_s = "not measured" if dev is None else (
+                f"{r['busy']:.3f} (device time over wall time of the same profiled rounds; "
+                f"estimate across windows, profiled device time over the unprofiled round: "
+                f"{r['device_ms'] / r['decode_ms']:.3f})")
+            print(f"eager vs graph, path ({path}) run {i + 1} {mode}: decode {r['decode_ms']:.2f} "
+                  f"ms a round (host clock, {rounds} unprofiled rounds), device {dev_s} and "
+                  f"{r['device_ops']:.1f} device operations a round, busy {busy_s}, peak "
+                  f"device memory {r['peak_gib']:.2f} GiB allocated, "
+                  f"{r['peak_reserved_gib']:.2f} GiB reserved  [{card}]")
+        eng.runner.decode_prog = graph
+        if any(s != streams[0] for s in streams):
+            raise AssertionError(f"eager vs graph, path ({path}): the runs' tokens differ")
+        print(f"eager vs graph, path ({path}): the 4 runs give the same tokens")
+        out[path] = runs
+        del eng
+    return out
 
 
 def _to_cpu(tree):

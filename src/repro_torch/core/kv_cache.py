@@ -8,10 +8,12 @@ of different ages batch together.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.staging import StagedTensor
 from repro_torch.quant.kv_quant import QuantKV, infer_kv_dtype, quantize_kv
 
 
@@ -23,8 +25,13 @@ class SlotState:
 
 
 class KVSlotManager:
-    def __init__(self, n_slots: int):
+    """The slots' host state, and their lengths in a static device tensor
+    (``lengths_array``) written in place, so a captured decode program can
+    read them from one address every round."""
+
+    def __init__(self, n_slots: int, device="cpu"):
         self.slots: List[SlotState] = [SlotState() for _ in range(n_slots)]
+        self._lengths = StagedTensor((n_slots,), torch.int32, device)
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.request_id is None]
@@ -43,8 +50,14 @@ class KVSlotManager:
     def release(self, slot: int) -> None:
         self.slots[slot] = SlotState()
 
-    def lengths_array(self, device=None) -> torch.Tensor:
-        return torch.tensor([s.length for s in self.slots], dtype=torch.int32, device=device)
+    def lengths_array(self, overrides: Optional[Dict[int, int]] = None) -> torch.Tensor:
+        """(n_slots,) int32: every slot's length, or ``overrides[slot]``
+        where given, written into the static device tensor, which is
+        returned."""
+        arr = np.array([s.length for s in self.slots], np.int32)
+        for slot, n in (overrides or {}).items():
+            arr[slot] = n
+        return self._lengths.upload(arr)
 
 
 def insert_prefill_kv(cache, prefill_kv, slot: int):

@@ -88,3 +88,4 @@ def tlmm_matmul(x: torch.Tensor, w: TernaryWeight) -> torch.Tensor:
         x_q, scale = quantize_and_fold(x2, w.scale)
         y = tlmm_reference(x_q, w.packed, scale)
     return y.to(x.dtype).reshape(*lead, w.n)
+

@@ -20,7 +20,12 @@ quantized leaf quantizes on the way in, from f32.
 
 The JAX package drops out-of-range scatter rows (``mode="drop"``, with the
 pool size as the skip id); torch indexing has no such mode, so the paged
-writers select the rows to keep explicitly.
+writers point every dropped row at the first kept row's target, with that
+row's value: the duplicate writes are identical, so the result is
+deterministic, and the indices never depend on a host read of which rows
+are live (no ``nonzero``), which keeps the writers inside a CUDA graph.
+The chunk writers take the slot and start as 0-d device tensors, as the
+JAX programs take traced scalars, or as Python ints.
 
 Projections are TLMM/dense linears — the paper's static region.
 """
@@ -130,17 +135,23 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, k_prefix: torch.Tenso
     return y, (kt, vt)
 
 
-def write_chunk_kv(buf: torch.Tensor, new: torch.Tensor, slot: int, start: int) -> torch.Tensor:
+def write_chunk_kv(buf: torch.Tensor, new: torch.Tensor, slot, start) -> torch.Tensor:
     """Install one prefill chunk's KV into slot ``slot`` of the contiguous
     decode cache at rows [start, start + C), in place.  buf: (B, L, Hkv,
     Smax, D), or its (B, L, Hkv, Smax) scale plane (the JAX package's
-    ``write_chunk_scales``); new: (L, 1, Hkv, C, ·) to match.  The JAX
-    package's ``dynamic_update_slice`` would shift a write that overflows;
-    here it is refused."""
+    ``write_chunk_scales``); new: (L, 1, Hkv, C, ·) to match.  ``slot`` and
+    ``start`` are Python ints or 0-d integer tensors on buf's device (the
+    chunk programs' traced scalars): the rows are an index op on device
+    positions either way.  The JAX package's ``dynamic_update_slice`` would
+    shift a write that overflows; here an int start that overflows is
+    refused, and a device start is checked by the caller, which knows it."""
     c, smax = new.shape[3], buf.shape[3]
-    if start + c > smax:
+    if not isinstance(start, torch.Tensor) and start + c > smax:
         raise ValueError(f"chunk rows [{start}, {start + c}) overflow the cache's {smax} rows")
-    buf[slot, :, :, start:start + c] = new[:, 0].to(buf.dtype)
+    rows = start + torch.arange(c, device=buf.device)
+    slots = torch.as_tensor(slot, device=buf.device).long().reshape(1)
+    # advanced indices on axes 0 and 3 put the C rows first: (C, L, Hkv, ·)
+    buf[slots, :, :, rows] = new[:, 0].movedim(2, 0).to(buf.dtype)
     return buf
 
 
@@ -180,6 +191,15 @@ def scatter_new_tokens_q(buf, new: torch.Tensor, lengths: torch.Tensor):
                    scatter_new_tokens(buf.scale, scale, lengths))
 
 
+def _first_kept(keep: torch.Tensor) -> torch.Tensor:
+    """For each row, the row whose write it makes: itself where ``keep``,
+    else the first kept row (row 0 when none is kept).  On the device, with
+    no host read."""
+    rows = torch.arange(keep.shape[0], device=keep.device)
+    first = torch.argmax(keep.to(torch.int32))  # the first maximum: the first kept row
+    return torch.where(keep, rows, first)
+
+
 def scatter_new_tokens_paged(pages: torch.Tensor, new: torch.Tensor, block_tables: torch.Tensor,
                              lengths: torch.Tensor) -> torch.Tensor:
     """Paged analogue of ``scatter_new_tokens``: every layer's new token
@@ -187,15 +207,20 @@ def scatter_new_tokens_paged(pages: torch.Tensor, new: torch.Tensor, block_table
     or its (N, L, Hkv, bs) scale plane; new: (L, B, Hkv, 1, ·); block_tables
     (B, P); lengths (B,).  Sequence b's token lands at page
     ``tables[b, len // bs]``, offset ``len % bs``.  Inactive slots (length 0)
-    write nothing (the JAX package routes them to the dropped id N).
-    Distinct active slots own distinct pages, so no two rows collide."""
+    write nothing (the JAX package routes them to the dropped id N): each
+    repeats the first active slot's write, and with no active slot every
+    row rewrites what the first target holds.  Distinct active slots own
+    distinct pages, so no two differing rows collide."""
     bs = pages.shape[3]
     lengths = lengths.long()
     page_idx = torch.clamp(lengths // bs, max=block_tables.shape[1] - 1)
     page = torch.gather(block_tables.long(), 1, page_idx[:, None])[:, 0]
-    keep = torch.nonzero(lengths > 0).flatten()
-    newb = new[:, :, :, 0].transpose(0, 1)  # (B, L, Hkv, ·)
-    pages[page[keep], :, :, (lengths % bs)[keep]] = newb[keep].to(pages.dtype)
+    active = lengths > 0
+    src = _first_kept(active)
+    page, off = page[src], (lengths % bs)[src]
+    vals = new[:, :, :, 0].transpose(0, 1)[src].to(pages.dtype)  # (B, L, Hkv, ·)
+    vals = torch.where(active.any(), vals, pages[page, :, :, off])
+    pages[page, :, :, off] = vals
     return pages
 
 
@@ -217,13 +242,18 @@ def write_prefill_pages(pages: torch.Tensor, kv: torch.Tensor, page_ids: torch.T
     layout (L, 1, Hkv, S, ·) with S a multiple of ``block_size``; page_ids
     (S/bs,) destinations.  Ids >= N (prefix-cache hits, which keep their
     shared contents, and the bucket's padding pages) are skipped: the JAX
-    package's dropped scatter rows."""
+    package's dropped scatter rows.  A skipped page repeats the first kept
+    page's write; with none kept, page 0 is rewritten with what it holds."""
     n = pages.shape[0]
     l, _, hkv, s = kv.shape[:4]
     kb = kv[:, 0].reshape(l, hkv, s // block_size, block_size, *kv.shape[4:])
-    kb = kb.movedim(2, 0)  # (P, L, Hkv, bs, ·)
-    keep = torch.nonzero(page_ids < n).flatten()
-    pages[page_ids.long()[keep].to(pages.device)] = kb[keep.to(kb.device)].to(pages.dtype)
+    kb = kb.movedim(2, 0).to(pages.device)  # (P, L, Hkv, bs, ·)
+    ids = page_ids.to(pages.device).long()
+    keep = ids < n
+    src = _first_kept(keep)
+    dst = torch.where(keep.any(), ids[src], torch.zeros_like(ids))
+    vals = torch.where(keep.any(), kb[src].to(pages.dtype), pages[dst])
+    pages[dst] = vals
     return pages
 
 

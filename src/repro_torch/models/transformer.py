@@ -120,8 +120,14 @@ def _block_prefill(x, lp, positions, cfg):
     return x + mlp_apply(lp["mlp"], h, cfg), kv
 
 
-def _at(x, last_pos: Optional[int]):
-    return x[:, -1:, :] if last_pos is None else x[:, last_pos:last_pos + 1, :]
+def _at(x, last_pos):
+    """Position ``last_pos`` (default the last) of x (B, S, d) as (B, 1, d);
+    a 0-d device tensor ``last_pos`` selects on the device."""
+    if last_pos is None:
+        return x[:, -1:, :]
+    if isinstance(last_pos, torch.Tensor):
+        return x.index_select(1, last_pos.long().reshape(1))
+    return x[:, last_pos:last_pos + 1, :]
 
 
 def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -162,13 +168,16 @@ def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
     return _logits(params, _at(x_out, last_pos), cfg)[:, -1, :]
 
 
-def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len: int,
+def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len,
                         cfg: ModelConfig, prefix_width: Optional[int] = None):
     """One prompt chunk (1, C) through the layer stack, each layer attending
     over the f32 ``prefix`` mirror (L, 1, Hkv, Cap, D) of the prompt's KV,
     valid in [0, prefix_len), plus the chunk itself.  Returns (hidden
     (1, C, d), the chunk's K and V (L, 1, Hkv, C, D), the mirror with the
-    chunk written at [prefix_len, prefix_len + C) in place).
+    chunk written at [prefix_len, prefix_len + C) in place).  ``prefix_len``
+    is a Python int or a 0-d integer tensor on the tokens' device (the JAX
+    program's traced scalar): the positions, the mask and the mirror write
+    are then index ops on it, and an overflow is the caller's to refuse.
 
     ``prefix_width`` cuts the mirror the attention sees to its first
     positions, so a short prompt's chunks do not attend over its whole
@@ -178,7 +187,7 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
     _check_family(cfg)
     b, c = tokens.shape
     cap = prefix.k.shape[3]
-    if prefix_len + c > cap:
+    if not isinstance(prefix_len, torch.Tensor) and prefix_len + c > cap:
         raise ValueError(f"chunk rows [{prefix_len}, {prefix_len + c}) overflow the mirror's {cap}")
     x = _embed(params, tokens)
     positions = (prefix_len + torch.arange(c, device=tokens.device)).expand(b, c)
@@ -196,19 +205,21 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
         ks.append(k)
         vs.append(v)
     tok_k, tok_v = torch.stack(ks), torch.stack(vs)
-    prefix.k[:, :, :, prefix_len:prefix_len + c] = tok_k
-    prefix.v[:, :, :, prefix_len:prefix_len + c] = tok_v
+    prefix.k.index_copy_(3, positions[0], tok_k)
+    prefix.v.index_copy_(3, positions[0], tok_v)
     return x, tok_k, tok_v, prefix
 
 
-def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KVCache, slot: int,
-                  prefix_len: int, last_pos: int, cfg: ModelConfig,
-                  prefix_width: Optional[int] = None):
+def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KVCache, slot,
+                  prefix_len, last_pos, cfg: ModelConfig, prefix_width: Optional[int] = None):
     """One right-padded chunk (1, C) of a prompt installed into slot
     ``slot`` of the contiguous cache at [prefix_len, prefix_len + C)
     (quantized on write under int8/int4).  Returns (logits (1, Vp) of
     chunk-local ``last_pos``, cache, prefix), cache and mirror updated in
-    place.  Chunk boundaries are a pure function of the prompt length and
+    place.  ``slot``, ``prefix_len`` and ``last_pos`` are Python ints or
+    0-d integer tensors on the device (then nothing depends on their
+    values on the host, and one captured program serves every chunk of its
+    shape).  Chunk boundaries are a pure function of the prompt length and
     the chunk size, so a restart re-prefills through the same chunks."""
     x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
                                                   prefix_width)
@@ -218,7 +229,7 @@ def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KV
 
 
 def prefill_chunk_paged(params: dict, tokens: torch.Tensor, pages: KVCache, prefix: KVCache,
-                        page_ids: torch.Tensor, prefix_len: int, last_pos: int, cfg: ModelConfig,
+                        page_ids: torch.Tensor, prefix_len, last_pos, cfg: ModelConfig,
                         prefix_width: Optional[int] = None):
     """``prefill_chunk`` into the paged pool: the chunk (C a multiple of
     the page size, starting on a page boundary) writes whole pages

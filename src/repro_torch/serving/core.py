@@ -50,6 +50,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import KVSlotManager, insert_prefill_kv
 from repro_torch.core.phase_engine import PhaseEngine
+from repro_torch.core.staging import StagedTensor
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_quant import QuantKV, payload_bytes, total_nbytes
@@ -259,7 +260,7 @@ class ModelRunner:
         self.kv_dtype = kv_dtype
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
-        self.slots = KVSlotManager(n_slots)
+        self.slots = KVSlotManager(n_slots, self.device)
         self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
         self._bucket_progs: Dict[int, dict] = {}
         self._chunk_progs: Dict[tuple, object] = {}
@@ -276,7 +277,9 @@ class ModelRunner:
             self.paged = None
             self.decode_prog = self.engine.decode_program(n_slots, max_len)
             self.cache = T.init_cache(cfg, n_slots, max_len, kv_dtype=kv_dtype, device=self.device)
+        # the inputs of the captured programs, static and written in place
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._replay_in = StagedTensor((2, n_slots), torch.int32, self.device)  # tokens, lengths
         self._side_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         # Chunked prefill keeps an f32 mirror (L, 1, Hkv, Cap, D) of the
@@ -291,6 +294,11 @@ class ModelRunner:
             shape = (cfg.num_layers, 1, cfg.num_kv_heads, self.chunk_cap, cfg.head_dim)
             self.chunk_prefix = KVCache(torch.zeros(shape, device=self.device),
                                         torch.zeros(shape, device=self.device))
+            # a chunk's tokens, its page ids and (slot, prefix_len, last_pos)
+            self._chunk_tokens = StagedTensor((1, self.chunk_cap), torch.int64, self.device)
+            self._chunk_pages = StagedTensor((cdiv(self.chunk_cap, block_size),), torch.int32,
+                                             self.device)
+            self._chunk_scalars = StagedTensor((3,), torch.int32, self.device)
         # Per-slot sampling state on the device, written in place: set at
         # admission, and the step (the token index) before each sampled round.
         dev = self.device
@@ -298,7 +306,8 @@ class ModelRunner:
         self._temps = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
         self._top_ks = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self._top_ps = torch.ones((n_slots,), dtype=torch.float32, device=dev)
-        self._steps = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        self._steps_in = StagedTensor((n_slots,), torch.int32, dev)
+        self._steps = self._steps_in.dev
 
     def bucket(self, n: int) -> int:
         """Prompt bucket for an n-token prompt (right-padded), the JAX
@@ -383,24 +392,34 @@ class ModelRunner:
                           stats: EngineStats) -> torch.Tensor:
         """Run one chunk [start, start + size) of a request's prefill and
         install its KV (quantized on write).  Returns the chunk's
-        last-token logits (1, Vp), which only the final chunk's caller uses.
-        A restart's chunks are charged to ``t_replay``."""
+        last-token logits (1, Vp), which only the final chunk's caller uses
+        (valid until the next chunk).  A restart's chunks are charged to
+        ``t_replay``.  The chunk's tokens, pages and scalars go into static
+        device tensors; its rows are checked here, since the program writes
+        them at a device position."""
         padded = self.chunk_bucket(size, start)
+        if start + padded > self.chunk_cap:
+            raise ValueError(f"chunk rows [{start}, {start + padded}) overflow the cache's "
+                             f"{self.chunk_cap} rows")
         prog = self.chunk_prog(padded, self.prefix_width(start))
-        buf = np.zeros((1, padded), np.int64)
+        buf = np.zeros((1, self.chunk_cap), np.int64)
         buf[0, :size] = req.prompt[start:start + size]
-        tokens = torch.from_numpy(buf).to(self.device)
+        tokens = self._chunk_tokens.upload(buf)[:, :padded]
+        scalars = self._chunk_scalars.upload([slot, start, size - 1])
         t0 = time.perf_counter()
         if self.paged is not None:
             # start is page-aligned; prefix-cache hits and padding pages
             # carry the skip id and are left out
-            ids = self.paged.page_ids_for_write(match, padded // self.block_size,
-                                                first_page=start // self.block_size)
-            logits, self.paged.kv, self.chunk_prefix = prog.fn(
-                self.params, tokens, self.paged.kv, self.chunk_prefix, ids, start, size - 1)
+            n_ids = padded // self.block_size
+            ids = np.full(self._chunk_pages.dev.shape, self.paged.num_blocks, np.int32)
+            ids[:n_ids] = self.paged.page_ids_for_write(
+                match, n_ids, first_page=start // self.block_size).numpy()
+            ids = self._chunk_pages.upload(ids)[:n_ids]
+            logits, _, _ = prog(self.params, tokens, self.paged.kv, self.chunk_prefix, ids,
+                                scalars[1], scalars[2])
         else:
-            logits, self.cache, self.chunk_prefix = prog.fn(
-                self.params, tokens, self.cache, self.chunk_prefix, slot, start, size - 1)
+            logits, _, _ = prog(self.params, tokens, self.cache, self.chunk_prefix, scalars[0],
+                                scalars[1], scalars[2])
         _sync(self.device)
         if restarted:
             stats.t_replay += time.perf_counter() - t0
@@ -408,6 +427,64 @@ class ModelRunner:
             stats.t_prefill += time.perf_counter() - t0
         stats.prefill_chunks += 1
         return logits
+
+    # ---------------------------------------------------- the serving grid --
+
+    def reachable_buckets(self) -> List[int]:
+        """Every prompt bucket a prompt of 1..max_len tokens can take."""
+        return sorted({self.bucket(n) for n in range(1, self.max_len + 1)})
+
+    def reachable_chunk_shapes(self) -> List[tuple]:
+        """Every (padded chunk length, prefix width) pair chunked prefill
+        can ask for, over prompts of 1..max_len tokens."""
+        if self.prefill_chunk is None:
+            return []
+        shapes = set()
+        for n in range(1, self.max_len + 1):
+            start = 0
+            for size in self.chunk_sizes(n):
+                shapes.add((self.chunk_bucket(size, start), self.prefix_width(start)))
+                start += size
+        return sorted(shapes)
+
+    def build_serving_grid(self) -> None:
+        """Build every program the serving grid can reach: each bucket's
+        prefill and swap programs, each chunk shape's program, the samplers
+        (the decode program exists from the start).  On a card, also run
+        each capturable program once on idle inputs, which warms it up and
+        captures its graph, so that no capture lands inside a served
+        request.  Call it before serving: the idle runs write rows no live
+        request owns only while there is none."""
+        if self.slots.active_slots():
+            raise RuntimeError("build the serving grid before any request is admitted")
+        for b in self.reachable_buckets():
+            self.progs(b)
+        shapes = self.reachable_chunk_shapes()
+        for padded, pw in shapes:
+            self.chunk_prog(padded, pw)
+        n = len(self.slots.slots)
+        samplers = [self.engine.sampler_program(n), self.engine.sampler_program(1)]
+        if self.device.type != "cuda":
+            return
+        idle = self.slots.lengths_array({s: 0 for s in range(n)})
+        logits = self._decode(self.last_tokens, idle)  # contiguous: row 0 of every free slot
+        for prog, b in zip(samplers, (n, 1)):
+            prog(torch.zeros_like(logits[:b]), self._seeds[:b], self._steps[:b], self._temps[:b],
+                 self._top_ks[:b], self._top_ps[:b])
+        if shapes:
+            scalars = self._chunk_scalars.upload([0, 0, 0])
+            if self.paged is not None:  # every page id the skip id: no page is written
+                self._chunk_pages.upload(self.paged.num_blocks)
+        for padded, pw in shapes:  # slot 0's rows [0, padded): no live request reads them
+            tokens = self._chunk_tokens.dev[:, :padded]
+            if self.paged is not None:
+                ids = self._chunk_pages.dev[:padded // self.block_size]
+                self.chunk_prog(padded, pw)(self.params, tokens, self.paged.kv, self.chunk_prefix,
+                                            ids, scalars[1], scalars[2])
+            else:
+                self.chunk_prog(padded, pw)(self.params, tokens, self.cache, self.chunk_prefix,
+                                            scalars[0], scalars[1], scalars[2])
+        _sync(self.device)
 
     def restart_headroom_ok(self, req: Request) -> bool:
         """Admit a restart only when the pool can hold its whole replayed
@@ -469,14 +546,16 @@ class ModelRunner:
         return logits
 
     def decode_logits(self, lengths: torch.Tensor) -> torch.Tensor:
-        """One decode round; updates the cache in place, returns (B, Vp) logits."""
+        """One decode round of ``last_tokens``; updates the cache in place,
+        returns (B, Vp) logits (valid until the next round)."""
+        return self._decode(self.last_tokens, lengths)
+
+    def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         if self.paged is not None:
-            logits, self.paged.kv = self.decode_prog.fn(
-                self.params, self.last_tokens, self.paged.kv, self.paged.block_tables_array(),
-                lengths)
+            logits, _ = self.decode_prog(self.params, tokens, self.paged.kv,
+                                         self.paged.block_tables_array(), lengths)
         else:
-            logits, self.cache = self.decode_prog.fn(self.params, self.last_tokens, self.cache,
-                                                     lengths)
+            logits, _ = self.decode_prog(self.params, tokens, self.cache, lengths)
         return logits
 
     def append_page(self, slot: int, length: int) -> None:
@@ -506,13 +585,10 @@ class ModelRunner:
             except PoolExhausted:
                 return False
             assert copy is None  # replay appends past the prompt: no fork
-            tokens = torch.zeros((n_slots,), dtype=torch.int32)
-            tokens[slot] = tok
-            lengths = torch.zeros((n_slots,), dtype=torch.int32)
-            lengths[slot] = pos
-            _, self.paged.kv = self.decode_prog.fn(
-                self.params, tokens.to(self.device), self.paged.kv,
-                self.paged.block_tables_array(), lengths.to(self.device))
+            step = np.zeros((2, n_slots), np.int32)
+            step[:, slot] = tok, pos
+            inputs = self._replay_in.upload(step)
+            self._decode(inputs[0], inputs[1])
             stats.replayed_tokens += 1
         _sync(self.device)
         stats.t_replay += time.perf_counter() - t0
@@ -549,26 +625,24 @@ class ModelRunner:
         whole batch goes through the sampler program, greedy slots taking
         the argmax inside it, slot i drawing its token ``len(out_tokens)``."""
         if all(r.params.greedy for r in inflight.values()):
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        steps = torch.zeros((len(self.slots.slots),), dtype=torch.int32)
+            return torch.argmax(logits, dim=-1)  # one launch after the decode program
+        steps = np.zeros((len(self.slots.slots),), np.int32)
         for s, r in inflight.items():
             steps[s] = len(r.out_tokens)
-        self._steps.copy_(steps)
+        self._steps_in.upload(steps)
         prog = self.engine.sampler_program(len(self.slots.slots))
-        return prog.fn(logits, self._seeds, self._steps, self._temps, self._top_ks, self._top_ps)
+        return prog(logits, self._seeds, self._steps, self._temps, self._top_ks, self._top_ps)
 
-    def sample_first(self, logits: torch.Tensor, req: Request) -> int:
-        """The prompt's first generated token, from the prefill logits."""
+    def sample_first(self, logits: torch.Tensor, slot: int, req: Request) -> int:
+        """The prompt's first generated token, from the prefill logits,
+        drawn with the slot's sampling state (``sampler:1`` on views of the
+        per-slot tensors)."""
         if req.params.greedy:
             return int(torch.argmax(logits[0]))
-        p, dev = req.params, self.device
-        tok = self.engine.sampler_program(1).fn(
-            logits[:1],
-            torch.tensor([p.seed32], dtype=torch.int32, device=dev),
-            torch.tensor([len(req.out_tokens)], dtype=torch.int32, device=dev),
-            torch.tensor([p.temperature], dtype=torch.float32, device=dev),
-            torch.tensor([p.top_k], dtype=torch.int32, device=dev),
-            torch.tensor([p.top_p], dtype=torch.float32, device=dev))
+        one = slice(slot, slot + 1)
+        self._steps[one].fill_(len(req.out_tokens))
+        tok = self.engine.sampler_program(1)(logits[:1], self._seeds[one], self._steps[one],
+                                             self._temps[one], self._top_ks[one], self._top_ps[one])
         return int(tok[0])
 
 
@@ -745,6 +819,12 @@ class EngineCore:
 
     def kv_bytes(self) -> dict:
         return self.runner.kv_bytes()
+
+    def build_serving_grid(self) -> None:
+        """``ModelRunner.build_serving_grid``: every reachable program built
+        and, on a card, captured; the stats are reset after it."""
+        self.runner.build_serving_grid()
+        self.reset_stats()
 
     def step(self) -> List[RequestOutput]:
         """Advance one scheduling quantum, then run one decode round over
@@ -971,7 +1051,7 @@ class EngineCore:
             runner.slots.slots[slot].generated = len(req.out_tokens)
         else:
             req.preempted = False
-            tok = runner.sample_first(logits, req)
+            tok = runner.sample_first(logits, slot, req)
             out = self.out_proc.process_token(req, tok)
             runner.slots.slots[slot].generated = 1
         finished = out.finished if out is not None else (
@@ -1028,14 +1108,12 @@ class EngineCore:
         active = sorted(sched.inflight)
         if not active:
             return []
-        lengths = runner.slots.lengths_array()
         # A mid-prefill slot sits the round out, but the batched program
         # still writes a row for it: park that write where nothing reads it.
         # Paged, length 0 writes nothing; contiguous, the write clamps to row
         # max_len - 1, which live KV never reaches (n + max_new <= max_len).
-        for slot in self._prefilling:
-            lengths[slot] = 0 if runner.paged is not None else runner.max_len
-        lengths = lengths.to(runner.device)
+        park = 0 if runner.paged is not None else runner.max_len
+        lengths = runner.slots.lengths_array({slot: park for slot in self._prefilling})
         t0 = time.perf_counter()
         logits = runner.decode_logits(lengths)
         next_tokens = runner.sample_batch(logits, sched.inflight)
@@ -1057,5 +1135,5 @@ class EngineCore:
                 self.finished[req.request_id] = req
                 runner.release(i)
             outs.append(out)
-        runner.last_tokens = next_tokens
+        runner.last_tokens.copy_(next_tokens)
         return outs

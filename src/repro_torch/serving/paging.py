@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.staging import StagedTensor
 from repro_torch.quant.kv_quant import QuantKV, payload_bytes, total_nbytes
 
 
@@ -213,7 +214,8 @@ class PagedKVCache:
         self.tables: List[List[int]] = [[] for _ in range(n_slots)]
         self.peak_live_pages = 0
         self._tables_dirty = True
-        self._tables_dev: Optional[torch.Tensor] = None
+        # the tables in a static device tensor, written in place on a change
+        self._tables_dev = StagedTensor((n_slots, self.max_pages), torch.int32, self.device)
 
     @property
     def num_blocks(self) -> int:
@@ -311,15 +313,15 @@ class PagedKVCache:
 
     def block_tables_array(self) -> torch.Tensor:
         """(n_slots, max_pages) int32 on the pool's device; unused entries 0
-        (never read: the walk stops at each slot's length).  Rebuilt only
-        after a table changed."""
-        if self._tables_dirty or self._tables_dev is None:
+        (never read: the walk stops at each slot's length).  One static
+        tensor, written in place only after a table changed."""
+        if self._tables_dirty:
             arr = np.zeros((len(self.tables), self.max_pages), np.int32)
             for i, t in enumerate(self.tables):
                 arr[i, :len(t)] = t
-            self._tables_dev = torch.from_numpy(arr).to(self.device)
+            self._tables_dev.upload(arr)
             self._tables_dirty = False
-        return self._tables_dev
+        return self._tables_dev.dev
 
     def page_ids_for_write(self, match: PrefixMatch, padded_pages: int,
                            first_page: int = 0) -> torch.Tensor:

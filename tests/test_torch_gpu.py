@@ -35,6 +35,9 @@ from repro_torch.models import transformer as T
 from repro_torch.quant.act_quant import quantize_activations_int8, quantize_and_fold
 from repro_torch.quant.kv_quant import quantize_kv
 from repro_torch.core import sampling as S
+from repro_torch.core.kv_cache import insert_prefill_kv
+from repro_torch.core.phase_engine import PhaseEngine
+from repro_torch.layers.attention import KVCache, write_prefill_pages_q
 from repro_torch.serving import EngineCore, Request, SamplingParams
 
 pytestmark = pytest.mark.gpu
@@ -556,3 +559,286 @@ def _to(tree, dev):
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     return type(tree)(tree.packed.to(dev), tree.scale.to(dev))
+
+
+# ------------------------------------------------ the phase programs as graphs --
+
+GRAPH_CFG = dict(num_layers=3)
+
+
+def _same(a, b) -> bool:
+    """Bit equality of two tensors or two (possibly quantized) cache trees."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.view(torch.uint8) if a.dim() else a,
+                                                  b.view(torch.uint8) if b.dim() else b)
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
+
+
+def _graph_model(dev):
+    cfg = reduced_config("bitnet-730m", **GRAPH_CFG)
+    return cfg, _to(T.convert_for_inference(T.init(cfg, 5, device="cpu"), cfg), dev)
+
+
+def _filled_cache(cfg, layout, kv_dtype, dev, gen):
+    """Three slots' worth of random prompt KV (32 positions each) in a
+    contiguous cache of 64 rows, or in 12 pages of 8 with the slots' tables."""
+    kv = KVCache(*(torch.randn((cfg.num_layers, 1, cfg.num_kv_heads, 32, cfg.head_dim),
+                               generator=gen, device=dev) for _ in range(2)))
+    if layout == "contiguous":
+        cache = T.init_cache(cfg, 3, 64, kv_dtype=kv_dtype, device=dev)
+        for slot in range(3):
+            insert_prefill_kv(cache, kv, slot)
+        return cache, None
+    pool = T.init_paged_pool(cfg, 16, 8, kv_dtype=kv_dtype, device=dev)
+    tables = torch.tensor([[3, 9, 0, 14, 6, 0, 0, 0], [0, 0, 0, 0, 0, 0, 0, 0],
+                           [2, 5, 11, 1, 15, 0, 0, 0]], dtype=torch.int32, device=dev)
+    for row in (0, 2):
+        ids = tables[row, :4]
+        pool = KVCache(*(write_prefill_pages_q(p, a, ids, block_size=8) for p, a in zip(pool, kv)))
+    return pool, tables
+
+
+def _launches_per_replay(prog, n, run):
+    """COUNTS after ``n`` replays equal n times the captured delta."""
+    reset_counts()
+    for i in range(n):
+        run(i)
+    torch.cuda.synchronize()
+    assert COUNTS == {k: n * v for k, v in prog.captured.launches.items()}
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_decode_graph_replays_the_eager_program_bit_for_bit(layout, kv_dtype):
+    """``decode:{B}x{max_len}`` / ``decode_paged:{B}x{P}``: the capturing
+    call, a replay and replays after the inputs change in place give the
+    eager program's logits and cache bytes bit for bit (one slot inactive);
+    each replay adds the captured launches to COUNTS."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache, tables = _filled_cache(cfg, layout, kv_dtype, dev, gen)
+    mirror = _clone(cache)
+    eng = PhaseEngine(cfg, cache_layout=layout, kv_dtype=kv_dtype)
+    prog = (eng.decode_program(3, 64) if layout == "contiguous"
+            else eng.paged_decode_program(3, 8))
+    tokens = torch.tensor([11, 0, 200], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([32, 0, 32], dtype=torch.int32, device=dev)
+    extra = () if tables is None else (tables,)
+
+    def step(fn, kv):
+        return fn(params, tokens, kv, *extra, lengths)[0].clone()
+
+    for i in range(4):  # the capture, a replay, then replays on new inputs
+        got, want = step(prog, cache), step(prog.fn, mirror)
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(cache, mirror), f"call {i}"
+        tokens.copy_((tokens * 7 + 3) % cfg.vocab_size)
+        lengths.add_(torch.tensor([1, 0, 1], dtype=torch.int32, device=dev))
+    kernel = ("paged_" if layout == "paged" else "") + "decode_attention" + (
+        "" if kv_dtype == "fp" else "_quant")
+    per_pass = 7 * cfg.num_layers
+    assert {k: v for k, v in prog.captured.launches.items() if v} == {
+        "tlmm": per_pass, "act_quant": per_pass, kernel: cfg.num_layers}
+    _launches_per_replay(prog, 3, lambda i: prog(params, tokens, cache, *extra, lengths))
+
+
+def test_sampler_graph_replays_the_eager_program_bit_for_bit():
+    """``sampler:{B}``: replays on logits and steps changed in place give
+    ``sample_tokens``'s tokens; it launches no kernel of the port."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, v = 4, 32256
+    logits = torch.randn((b, v), generator=gen, device=dev) * 3
+    seeds = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=dev)
+    steps = torch.tensor([0, 5, 9, 100], dtype=torch.int32, device=dev)
+    temps = torch.tensor([0.0, 0.8, 1.2, 0.5], device=dev)
+    top_ks = torch.tensor([0, 50, 0, 5], dtype=torch.int32, device=dev)
+    top_ps = torch.tensor([1.0, 0.9, 0.95, 1.0], device=dev)
+    prog = PhaseEngine(reduced_config("bitnet-730m")).sampler_program(b)
+    args = (logits, seeds, steps, temps, top_ks, top_ps)
+    for i in range(4):
+        got = prog(*args).clone()
+        want = S.sample_tokens(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"call {i}"
+        logits.copy_(torch.randn((b, v), generator=gen, device=dev) * 3)
+        steps.add_(1)
+    assert not any(prog.captured.launches.values())
+    _launches_per_replay(prog, 3, lambda i: prog(*args))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_chunk_graph_replays_the_eager_program_bit_for_bit(layout, kv_dtype):
+    """``prefill_chunk`` / ``prefill_chunk_paged`` with 0-d device scalars:
+    the capturing call and replays at other slots, starts, last positions
+    and pages give the eager program's logits, cache and mirror bytes bit
+    for bit; each replay adds its 7 x L linears' launches to COUNTS."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cache, _ = _filled_cache(cfg, layout, kv_dtype, dev, gen)
+    shape = (cfg.num_layers, 1, cfg.num_kv_heads, 64, cfg.head_dim)
+    prefix = KVCache(*(torch.randn(shape, generator=gen, device=dev) for _ in range(2)))
+    mirror, prefix_m = _clone(cache), _clone(prefix)
+    eng = PhaseEngine(cfg, cache_layout=layout, kv_dtype=kv_dtype)
+    prog = (eng.prefill_chunk_program(16, 3, 64, 32) if layout == "contiguous"
+            else eng.paged_prefill_chunk_program(16, 8, 8, 32))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev)
+    scalars = torch.zeros((3,), dtype=torch.int32, device=dev)  # slot, prefix_len, last_pos
+    ids = torch.zeros((2,), dtype=torch.int32, device=dev)
+    # (slot, start, last_pos, page ids): 16 is N, the skip id
+    calls = [(1, 16, 15, (7, 16)), (2, 32, 8, (4, 10)), (0, 0, 3, (16, 16)), (1, 32, 15, (8, 12))]
+    for i, (slot, start, last, pages) in enumerate(calls):
+        scalars.copy_(torch.tensor([slot, start, last], dtype=torch.int32))
+        ids.copy_(torch.tensor(pages, dtype=torch.int32))
+        tokens.copy_(torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev))
+        first = ids if layout == "paged" else scalars[0]
+        got = prog(params, tokens, cache, prefix, first, scalars[1], scalars[2])[0].clone()
+        want = prog.fn(params, tokens, mirror, prefix_m, first, scalars[1], scalars[2])[0]
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(cache, mirror) and _same(prefix, prefix_m), f"call {i}"
+    per_pass = 7 * cfg.num_layers
+    assert {k: v for k, v in prog.captured.launches.items() if v} == {
+        "tlmm": per_pass, "act_quant": per_pass}
+    first = ids if layout == "paged" else scalars[0]
+    _launches_per_replay(prog, 3, lambda i: prog(params, tokens, cache, prefix, first,
+                                                 scalars[1], scalars[2]))
+
+
+def test_no_collection_inside_a_capture_frees_another_graph():
+    """A captured program left in a reference cycle is freed by the
+    collector; a collection inside another program's capture would free
+    its graph, which CUDA refuses while a stream captures.  Here the
+    cycle becomes garbage during the capture, with the collector made to
+    run at nearly every allocation: the capture holds."""
+    import gc
+
+    from repro_torch.core.phase_engine import PhaseProgram
+
+    dev = _cuda()
+    x = torch.arange(8.0, device=dev)
+    old = PhaseProgram("old", lambda t: t + 1, capturable=True)
+    old(x)
+    cycle = [old]
+    cycle.append(cycle)
+    del old
+    calls = []
+
+    def fn(t):  # the second call is the capture: the cycle's last reference goes there
+        nonlocal cycle
+        calls.append(1)
+        if len(calls) == 2:
+            cycle = None
+        return (t * 2).sum(dim=0, keepdim=True)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        prog = PhaseProgram("p", fn, capturable=True)
+        prog(x)
+        got = prog(x).clone()
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert len(calls) == 2 and prog.captured is not None and got.item() == 56.0
+
+
+@pytest.mark.parametrize("layout,chunk", [("contiguous", None), ("paged", 8)])
+def test_serving_grid_on_cuda_captures_and_serves_the_cpu_tokens(layout, chunk):
+    """``build_serving_grid`` captures every capturable program; the engine
+    then serves the CPU's tokens (sampled and greedy), its launches those of
+    the stats."""
+    dev = _cuda()
+    cfg, params_gpu = _graph_model(dev)
+    params_cpu = T.convert_for_inference(T.init(cfg, 5, device="cpu"), cfg)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (14, 30, 9, 21)]
+    streams = {}
+    for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        eng = EngineCore(cfg, params, n_slots=3, max_len=64, prompt_len=16, block_size=8,
+                         cache_layout=layout, kv_dtype="int8", prefill_chunk=chunk, device=device)
+        eng.build_serving_grid()
+        if device == "cuda":
+            progs = eng.runner.engine.programs
+            assert all(p.captured is not None for p in progs.values() if p.capturable)
+            assert {k.split(":")[0] for k, p in progs.items() if p.capturable} >= {
+                "sampler", "decode_paged" if layout == "paged" else "decode"}
+        for i, p in enumerate(prompts):
+            sp = SamplingParams(temperature=0.8, top_k=50, seed=i) if i % 2 else SamplingParams()
+            eng.submit(Request(f"r{i}", p, max_new=8, params=sp))
+        reset_counts()
+        st = eng.run()
+        streams[device] = {r: q.out_tokens for r, q in eng.finished.items()}
+    assert streams["cuda"] == streams["cpu"]
+    passes = st.prefill_chunks + st.decode_rounds + st.replayed_tokens + (
+        0 if chunk else len(prompts))
+    assert COUNTS["tlmm"] == COUNTS["act_quant"] == 7 * cfg.num_layers * passes
+
+
+def test_graph_results_outlive_other_graphs_replays():
+    """Two programs share one pool, the second captured after the first
+    and free to take the first's scratch there.  A replay of either leaves
+    the other's last results intact, in both orders: what a graph returns
+    lies outside the shared pool."""
+    from repro_torch.core.phase_engine import GraphResources, PhaseProgram
+
+    dev = _cuda()
+    shared = GraphResources()
+
+    def scratchy(x):  # two (n,) intermediates, freed at the end of its capture
+        t = x + 1
+        u = t * 2
+        return (u - t).sum(dim=0, keepdim=True)
+
+    first = PhaseProgram("first", scratchy, capturable=True, graphs=shared)
+    second = PhaseProgram("second", lambda y: y * 5, capturable=True, graphs=shared)
+    n = 1 << 20
+    x = torch.ones(n, device=dev)
+    y = torch.full((n,), 3.0, device=dev)
+    first(x)
+    second(y)  # both captured
+    for order in ("second, first", "first, second"):
+        if order == "second, first":
+            b = second(y)
+            a = first(x)
+        else:
+            a = first(x)
+            b = second(y)
+        torch.cuda.synchronize()
+        assert a.tolist() == [2.0 * n] and bool((b == 15.0).all()), order
+
+
+def test_quickstart_on_cuda_holds_the_cpu_port_logits():
+    """The quickstart's greedy decode on the card (latent weights: act_quant
+    with a unit scale, TLMM, beta after, in a captured decode graph): each
+    step's logits lie within ``LOGIT_TOL`` of the CPU port's on the card's
+    tokens, and the quickstart's own check passes.  Prints where the card's
+    tokens part from the JAX quickstart's and both sides' margins there."""
+    from repro_torch.examples import quickstart as Q
+
+    dev = _cuda()
+    cfg = Q.quickstart_config()
+    card, cpu = [], []
+    quiet = lambda *a: None  # noqa: E731
+    toks = Q.run(Q.init_like_jax(cfg, 0, dev), cfg, device=dev, overlap=True, log=quiet,
+                 logits_out=card)
+    want = Q.run(Q.init_like_jax(cfg, 0, "cpu"), cfg, device=torch.device("cpu"),
+                 overlap=True, log=quiet, feed=toks, logits_out=cpu)
+    errs = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+    part = Q.parting(toks, card)
+    where = "none" if part is None else (
+        f"step {part[0]}: card margin {part[1]:.6f}, CPU margin "
+        f"{float(cpu[part[0]][Q.JAX_QUICKSTART_TOKENS[part[0]]] - cpu[part[0]][toks[part[0]]]):.6f}")
+    print(f"quickstart on the card: tokens {toks}, the CPU port's on them {want}; logits "
+          f"max abs error a step {['%.3g' % e for e in errs]}; parting from the JAX "
+          f"quickstart's tokens: {where}")
+    assert max(errs) <= Q.LOGIT_TOL
+    assert Q.main([]) == 0
