@@ -14,8 +14,9 @@ Phases (any failure raises and the script exits non-zero):
    computing the same function as a yardstick, beside the least time the
    card could take (the larger of bytes over 3.35 TB/s and operations over
    the peak rate for their type).  The act-quant kernel bit for bit (an
-   all-zero row, an exact half-way value) at M 4/1024, K 1536/4096; B1 bit
-   for bit, with ``tlmm_matmul`` from f32 activations timed end to end
+   all-zero row, an exact half-way value) at M 4/20/1024, K 1536/4096; B1
+   bit for bit at M 4 (decode), 20 (a verify round: 4 slots x 5 block rows)
+   and 1024, with ``tlmm_matmul`` from f32 activations timed end to end
    (act-quant + B1); B2 within 1e-4, bound by the 3xTF32 tensor-core rate
    (its f32-FMA bound beside it); the four decode walks, all one cluster
    split walk: B3 (bf16) and B4 (int8, int4) on a strided layer slice of a
@@ -26,7 +27,10 @@ Phases (any failure raises and the script exits non-zero):
    shuffle in a larger pool; NaN or random bytes in every other row) and
    held to the same bits, B3/B4 also on the same rows as shuffled 16-row
    pages through B5/B6 and held to the same bits, and each timed once more
-   with every length 0 (the launch's fixed cost, ``empty_ms``);
+   with every length 0 (the launch's fixed cost, ``empty_ms``); B4 and B6
+   (int8) also at a verify round's 20 query rows (row (b, i) over its
+   slot's first length_b + i positions: B4 with ``rows_per_slot`` 5, B6
+   with each table row repeated), the same bits from both;
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
@@ -59,14 +63,24 @@ Phases (any failure raises and the script exits non-zero):
    between the chunks of the 1536-token prompt asserted, TTFT and the
    largest inter-token gap printed beside (d)'s, and one 256-token chunk
    profiled alone (its device time); (j) (i) on 150 pages,
-   preempting, which must give (i)'s tokens.  B1 runs 168 times a prefill,
-   chunk, decode round and replayed token, B2 24 times a monolithic
-   prefill (never on (i)/(j)), the path's decode kernel 24 times a decode
-   round (replay rounds included), the other decode kernels never; each
+   preempting, which must give (i)'s tokens; then speculative decoding,
+   8 requests (4 prompts tiling a 16-token pattern to 256-1024 tokens,
+   greedy, and 4 of (d)'s, sampled as in (g)): (k0) paged int8 without
+   speculation, the control; (k) with ``spec_decode=4``; (l) (k) on 150
+   pages, preempting mid-speculation, every page home after; (m)
+   contiguous int8 with ``spec_decode=4``, each with its drafts, accepted
+   tokens, tokens a slot-round, decode tok/s beside (k0)'s and a profile of
+   4 verify rounds; (k) and (m) must give (k0)'s tokens and (l) (k)'s, or
+   part only where the two tokens' scores lie within ``TIE_TOL`` in both
+   runs (``check_near_ties``, from each round's recorded logits).  B1
+   runs 168 times a prefill, chunk, decode round and replayed token, B2
+   24 times a monolithic prefill (never on (i)/(j)), the path's decode
+   kernel 24 times a decode round (replay rounds included), the other
+   decode kernels never; each
    path's decode is profiled (sampled requests on (g)/(h), their device
-   operations a round beside (d)'s); the quantized and paged decode steps
-   and a chunked prefill in two chunks are held against the CPU plain
-   versions at full width and cut depth;
+   operations a round beside (d)'s); the quantized and paged decode steps,
+   a verify pass on either layout and a chunked prefill in two chunks are
+   held against the CPU plain versions at full width and cut depth;
 6. abort on a chunked paged int8 engine with 2 slots: a request decoding,
    one part-way through its chunked prefill and one queued, each ending
    ``"abort"``, no live page left, and a later request's tokens equal to a
@@ -94,6 +108,10 @@ PROMPT_LENS = [64, 1536, 300, 900, 128, 1200, 700, 480]
 SHARED = (1, 2, 3, 5)  # the prompts of the paged paths that share a 256-token prefix
 SMALL_POOL = 150  # pages: too few for 4 slots of these prompts, so (e) preempts
 CHUNK = 256  # prefill chunk of paths (i), (j) and the abort phase
+SPEC_K = 4  # draft depth of paths (k), (l), (m): verify blocks of W = 5 rows
+TILED = (256, 512, 768, 1024)  # lengths of the spec paths' prompts that tile a 16-token pattern
+VERIFY_BASE = [5, 517, 1300, 2040]  # slot lengths of the walks' verify-row cases
+TIE_TOL = 0.01  # two runs' streams may part only where two tokens' scores lie this close
 
 
 def smi() -> str:
@@ -141,7 +159,7 @@ def kernel_checks(torch, ops, refs):
 
     aq = {}
     beta = torch.tensor(0.037, device=dev)
-    for m in (4, 1024):
+    for m in (4, 4 * (SPEC_K + 1), 1024):
         for k in (1536, 4096):
             x = torch.randn((m, k), generator=gen, device=dev)
             x *= 10.0 ** (torch.rand((m, 1), generator=gen, device=dev) * 4 - 2)
@@ -155,9 +173,10 @@ def kernel_checks(torch, ops, refs):
             aq[(m, k)] = timed_ms(torch, lambda: ops["act_quant"](x, beta), flush)
             print(f"kernel act_quant M={m} K={k}: bit-equal, {aq[(m, k)]:.4f} ms")
 
-    # B1 — TLMM at decode (M = 4 slots) and prefill (M = 1024 tokens) rows
+    # B1 — TLMM at decode (M = 4 slots), verify (M = 4 x 5 block rows) and
+    # prefill (M = 1024 tokens) rows
     cases = []
-    for m in (4, 1024):
+    for m in (4, 4 * (SPEC_K + 1), 1024):
         for k, n in TLMM_SHAPES:
             x_q = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                                 dtype=torch.int32).to(torch.int8)
@@ -170,7 +189,7 @@ def kernel_checks(torch, ops, refs):
             if not torch.equal(y, y_ref):
                 raise AssertionError(f"TLMM kernel differs from its plain version at M={m} K={k} N={n}")
             w_unpacked = refs["unpack"](w)
-            if m > 16:  # torch._int_mm takes M > 16
+            if m > 64:  # prefill rows: the int8 library matmul
                 lib = lambda: torch._int_mm(x_q, w_unpacked)  # noqa: E731
             else:
                 xb, wb = x_q.to(torch.bfloat16), w_unpacked.to(torch.bfloat16)
@@ -190,7 +209,7 @@ def kernel_checks(torch, ops, refs):
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush),
             }
             cases.append(case)
-    results["tlmm"] = dict(cases[4], cases=cases)  # headline: prefill w_gate/w_up shape
+    results["tlmm"] = dict(cases[7], cases=cases)  # headline: prefill w_gate/w_up shape
 
     # B2 — prefill attention, (1, 24, S, 64) f32, causal
     cases = []
@@ -433,7 +452,80 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
             lambda: ops["paged_quant"](*args[:6], no_lengths, kv_dtype=kv_dtype)))
     results["paged_decode_attention_quant"] = dict(
         cases[0], max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
+    for name, case in verify_row_checks(torch, ops, refs, flush, gen).items():
+        r = results[name]
+        r["cases"].append(case)
+        r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
     return results
+
+
+def verify_row_checks(torch, ops, refs, flush, gen):
+    """B4 and B6 (int8) at a verify round's shape: 4 slots x W = 5 block
+    rows, row (b, i) walking [0, VERIFY_BASE[b] + i) of its slot (one launch
+    over all 20 rows: B4 reads slot b // W, B6 each table row W times),
+    against the plain version, B4 and B6 on the same rows as shuffled
+    16-row pages giving the same bits, timed beside SDPA over the dense
+    bf16 view with the 20 rows' masks.  The bound counts each slot's rows
+    read once (its longest row's range) and the operations of every row.
+    Returns {kernel: case}."""
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    b, layers, hkv, smax, d, w = 4, 24, 24, 2048, 64, SPEC_K + 1
+    q = torch.randn((b * w, hkv, 1, d), generator=gen, device=dev)
+    base = torch.tensor(VERIFY_BASE, dtype=torch.int32, device=dev)
+    lengths = (base[:, None] + torch.arange(w, dtype=torch.int32, device=dev)).reshape(-1)
+    no_lengths = torch.zeros_like(lengths)
+    read = sum(VERIFY_BASE) + b * (w - 1)
+    mask = (torch.arange(smax, device=dev)[None, None, :] < lengths.reshape(b, w, 1))[:, None]
+    qb = q.reshape(b, w, hkv, d).transpose(1, 2).to(torch.bfloat16)
+    small = q.numel() * 4 * 2 + 2 * b * w * hkv * 4 + b * w * 4
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, smax, d), "int8")
+                            for _ in range(2))
+    planes = (kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7])
+    got = ops["decode_quant"](q, *planes, lengths, kv_dtype="int8", rows_per_slot=w)
+    repeated = [t.repeat_interleave(w, 0) for t in planes]
+    err = _check_err("B4 int8 verify rows", got,
+                     refs["decode_quant"](q, *repeated, lengths, kv_dtype="int8"))
+    del repeated
+    (kp, ksp, vp, vsp), tables = _as_pages(torch, gen, planes)
+    tables = tables.repeat_interleave(w, 0)
+    got_p = ops["paged_quant"](q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8")
+    _check_same_bits("B4 int8", got, got_p, "at 20 verify rows, as shuffled 16-row pages "
+                     "through B6 with each table row repeated")
+    err_p = _check_err("B6 int8 verify rows", got_p, refs["paged_quant"](
+        q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8"))
+    kd, vd = (dequantize_kv(p, s_, "int8").to(torch.bfloat16)
+              for p, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
+    shape = (f"verify rows: B*W={b * w} query rows (4 slots x {w}), lengths {VERIFY_BASE} + "
+             f"0..{w - 1}, Hkv={hkv} D={d}, int8")
+
+    def case(run, plain, empty, err, nbytes):
+        b_ms, b_by = bound(nbytes, 4.0 * d * hkv * int(lengths.sum()), "f32")
+        return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                "call_ms": timed_ms(torch, run, flush, busy=False),
+                "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed_ms(torch, lambda: sdpa(qb, kd, vd, attn_mask=mask), flush),
+                "empty_ms": timed_ms(torch, empty, flush)}
+
+    nbytes = 2 * read * hkv * (d + 4) + small
+    out = {
+        "decode_attention_quant": case(
+            lambda: ops["decode_quant"](q, *planes, lengths, kv_dtype="int8", rows_per_slot=w),
+            lambda: refs["decode_quant"](q, *(t.repeat_interleave(w, 0) for t in planes), lengths,
+                                         kv_dtype="int8"),
+            lambda: ops["decode_quant"](q, *planes, no_lengths, kv_dtype="int8", rows_per_slot=w),
+            err, nbytes),
+        "paged_decode_attention_quant": case(
+            lambda: ops["paged_quant"](q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8"),
+            lambda: refs["paged_quant"](q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8"),
+            lambda: ops["paged_quant"](q, kp, ksp, vp, vsp, tables, no_lengths, kv_dtype="int8"),
+            err_p, nbytes + 4 * sum(-(-(n + w - 1) // 16) for n in VERIFY_BASE)),
+    }
+    out["decode_attention_quant"]["shape"] += " slot slice (rows_per_slot 5)"
+    out["paged_decode_attention_quant"]["shape"] += " pages, each table row repeated 5 times"
+    return out
 
 
 def main() -> int:
@@ -575,9 +667,17 @@ def main() -> int:
     # ---- 5. the other cache options at full width
     path_launches = cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots,
                                        max_len, card)
+    spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
     for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
               f"max abs err {err:.3g} (max |logit| {scale:.3g})")
+    for name, err, scale in verify_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+        print(f"reference: full-width 2-layer {name} logits vs the CPU port: max abs err "
+              f"{err:.3g} (max |logit| {scale:.3g})")
+    err, scale = verify_against_decode(torch, T, cfg, params, rng)
+    print(f"reference: full-depth int8 verify pass (W={SPEC_K + 1}) vs {SPEC_K + 1} decode steps "
+          f"on the card: the same cache bytes, logits max abs err {err:.3g} (max |logit| "
+          f"{scale:.3g})  [{card}]")
     err, scale = chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens)
     if not err <= 1e-3 * max(scale, 1.0):
         raise AssertionError(f"full-width chunked prefill logits differ from the CPU plain path by "
@@ -588,7 +688,7 @@ def main() -> int:
     if not (abort_launches["tlmm"] and abort_launches["paged_decode_attention_quant"]
             and not abort_launches["prefill_attention"]):
         raise AssertionError(f"abort phase: launches {abort_launches}")
-    for part in (path_launches, abort_launches):
+    for part in (path_launches, spec_launches, abort_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -646,7 +746,7 @@ def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
     return prompts
 
 
-def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
+def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, **engine_kw):
     """Drive ``EngineCore`` on the card over the requests (greedy, or with
     ``params_of(i)`` for request i), after ``build_serving_grid`` (every
     reachable program built, the decode, chunk and sampler programs captured
@@ -656,7 +756,8 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
     the run's events: ("chunk", request id) for each prefill chunk,
     ("round",) for each decode round, ("evict", request id) for each request
     evicted part-way through its chunked prefill, the grid: its build
-    seconds, graphs and the device memory their pool reserved)."""
+    seconds, graphs and the device memory their pool reserved).
+    ``on_engine(eng)`` runs after the warm-up, before the requests."""
     import numpy as np
     import torch
 
@@ -667,6 +768,8 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, **engine_kw):
     grid = build_grid(torch, eng)
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
+    if on_engine is not None:
+        on_engine(eng)
     for i, p in enumerate(prompts):
         sp = SamplingParams() if params_of is None else params_of(i)
         eng.submit(Request(f"req{i}", p, max_new=max_tokens, params=sp))
@@ -883,6 +986,247 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
     return total
 
 
+class TargetRecorder:
+    """Keeps, for every decode and verify round of an engine, a copy of
+    its logits (on the device) and which request and token index each row
+    scores, so that where two runs' streams part the scores behind both
+    tokens can be read back (``check_near_ties``)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.rounds = []  # (logits (B, W, V), {slot: (request id, index of row 0)})
+        runner = eng.runner
+        decode, verify = runner.decode_logits, runner.run_verify
+
+        def decode_logits(lengths):
+            logits = decode(lengths)
+            self._keep(logits[:, None])
+            return logits
+
+        def run_verify(tokens, n_tokens):
+            logits = verify(tokens, n_tokens)
+            self._keep(logits)
+            return logits
+
+        runner.decode_logits, runner.run_verify = decode_logits, run_verify
+
+    def _keep(self, logits):
+        if self.eng is None:  # stopped
+            return
+        rows = {s: (r.request_id, len(r.out_tokens)) for s, r in self.eng.scheduler.inflight.items()}
+        self.rounds.append((logits.clone(), rows))
+
+    def stop(self):
+        """Keep nothing more (the rounds kept so far stay readable)."""
+        self.eng = None
+
+    def row(self, rid, pos):
+        """The logits that token ``pos`` of request ``rid`` was drawn from:
+        the last round whose block covered it (None for a prefill's token)."""
+        for logits, rows in reversed(self.rounds):
+            for slot, (r, first) in rows.items():
+                if r == rid and first <= pos < first + logits.shape[1]:
+                    return logits[slot, pos - first]
+        return None
+
+
+def _margin(torch, row, sp, pos, mine, other):
+    """How far token ``other`` is from being drawn in place of ``mine`` at
+    token index ``pos`` on these logits: greedy, the gap of their logits;
+    sampled, the gap of their perturbed scores (the filtered, scaled logits
+    plus the draw's Gumbel noise), or, where ``other`` lies outside the
+    top-k / top-p support, its scaled logit's distance below the support."""
+    from repro_torch.core import sampling as S
+
+    row = row.float()
+    if sp.greedy:
+        return float(row[mine] - row[other]), "logits"
+    dev = row.device
+    temps = torch.tensor([sp.temperature], device=dev)
+    masked = S.filter_logits(row[None], temps, torch.tensor([sp.top_k], dtype=torch.int32,
+                                                            device=dev),
+                             torch.tensor([sp.top_p], device=dev))[0]
+    if not torch.isfinite(masked[other]):
+        scaled = row / sp.temperature
+        return float(scaled[torch.isfinite(masked)].min() - scaled[other]), "below the support"
+    key = S.fold_in(S.prng_key(torch.tensor([sp.seed32], dtype=torch.int32, device=dev)),
+                    torch.tensor([pos], dtype=torch.int32, device=dev))
+    scores = masked + S.gumbel(S.random_bits(key, row.shape[-1]))[0]
+    return float(scores[mine] - scores[other]), "perturbed scores"
+
+
+def check_near_ties(torch, what, got, want, rec_got, rec_want, params_of):
+    """Two runs' streams ({request id: tokens}) must be equal, or part only
+    at a near tie.  At the first position where a request's streams part:
+    greedy, the two tokens' logits lie within TIE_TOL in both runs; sampled
+    (where a draw can also flip at the top-k / top-p edge), the two runs'
+    logits rows lie within TIE_TOL of each other, so that the same noise
+    decides between nearly equal rows.  The rest of a parted stream is not
+    compared.  Prints each parting (position, tokens, each run's margin
+    and the rows' largest difference) and the largest difference between
+    the two runs' logits on the tokens both gave.  Returns the partings."""
+    parted, agree = [], 0.0
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is None and len(a) != len(b):
+            raise AssertionError(f"{what}: {rid} has {len(a)} tokens against {len(b)}")
+        for p in range(1, len(a) if pos is None else pos):  # token 0 is the prefill's
+            agree = max(agree, float((rec_got.row(rid, p) - rec_want.row(rid, p)).abs().max()))
+        if pos is None:
+            continue
+        rows = rec_got.row(rid, pos), rec_want.row(rid, pos)
+        if rows[0] is None or rows[1] is None:
+            raise AssertionError(f"{what}: {rid} parts at its prefill's token {pos}")
+        diff = float((rows[0] - rows[1]).abs().max())
+        sp = params_of(rid)
+        (m0, how), (m1, _) = (_margin(torch, rows[0], sp, pos, a[pos], b[pos]),
+                              _margin(torch, rows[1], sp, pos, b[pos], a[pos]))
+        print(f"{what}: {rid} parts at token {pos}: {a[pos]} against {b[pos]} "
+              f"({'greedy' if sp.greedy else 'sampled'}); margins ({how}) {m0:.6f} and "
+              f"{m1:.6f}; the runs' logits there {diff:.6f} apart at most")
+        bad = max(m0, m1) > TIE_TOL if sp.greedy else diff > TIE_TOL
+        if bad:
+            raise AssertionError(f"{what}: {rid} parts at token {pos}, not at a near tie "
+                                 f"(margins {m0}, {m1}; logits {diff} apart; limit {TIE_TOL})")
+        parted.append((rid, pos))
+    print(f"{what}: the two runs' logits on the tokens both gave lie within {agree:.3g}")
+    return parted
+
+
+def spec_prompts(np, cfg):
+    """The speculative paths' 8 requests: 4 prompts that each tile a
+    16-token pattern to TILED lengths (the drafter's regime: summarization,
+    code edits) at the even indices, greedy, and the first 4 of (d)'s
+    prompts at the odd, sampled as in (g)."""
+    rng = np.random.default_rng(7)
+    tiled = [np.tile(rng.integers(0, cfg.vocab_size, 16).astype(np.int32), n // 16)
+             for n in TILED]
+    shared = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)[:4]
+    return [p for pair in zip(tiled, shared) for p in pair]
+
+
+def spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card):
+    """Paths (k0)-(m): speculative decoding at full width.  (k0) paged int8
+    on 512 pages without speculation is the control; (k) the same with
+    ``spec_decode=4``; (l) (k) on 150 pages, preempting and replaying
+    mid-speculation, every page home after; (m) contiguous int8 with
+    ``spec_decode=4`` (B4 on the verify rows).  (k), (m) must give (k0)'s
+    tokens and (l) (k)'s, by ``check_near_ties``; each path's launches are
+    checked against its stats (a verify round runs B1 168 times at M = 20
+    and the walk 24 times over 20 rows), and 4 verify rounds of tiled
+    prompts profiled.  Returns the launches summed over the paths."""
+    prompts = spec_prompts(np, cfg)
+    paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
+    paths = [
+        ("k0", "paged int8, 512 pages, no speculation (the control)", paged8),
+        ("k", f"(k0) with spec_decode={SPEC_K}", dict(paged8, spec_decode=SPEC_K)),
+        ("l", f"(k) on a {SMALL_POOL}-page pool", dict(paged8, spec_decode=SPEC_K,
+                                                        num_blocks=SMALL_POOL)),
+        ("m", f"contiguous int8, spec_decode={SPEC_K}",
+         dict(cache_layout="contiguous", kv_dtype="int8", mode="pdswap", spec_decode=SPEC_K)),
+    ]
+    params_of = {f"req{i}": _sampled(i) for i in range(len(prompts))}
+    total, streams, recorders, tput = {}, {}, {}, {}
+    for key, what, kw in paths:
+        rec = []
+        eng, st, wall, launches, prefills, _, grid = serve(
+            cfg, params, prompts, max_tokens, _sampled,
+            on_engine=lambda e: rec.append(TargetRecorder(e)), n_slots=n_slots,
+            max_len=max_len, block_size=16, **kw)
+        check_served(eng, cfg, len(prompts), max_tokens)
+        streams[key] = {f"req{i}": eng.finished[f"req{i}"].out_tokens
+                        for i in range(len(prompts))}  # not the warm-up's
+        recorders[key] = rec[0]
+        rec[0].stop()  # the profile below is not recorded
+        kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention_quant"
+        steps = st.decode_rounds + st.replayed_tokens
+        expect = {name: 0 for name in DECODE_KERNELS}
+        expect.update({"tlmm": 7 * cfg.num_layers * (prefills + steps),
+                       "act_quant": 7 * cfg.num_layers * (prefills + steps),
+                       "prefill_attention": cfg.num_layers * prefills,
+                       kernel: cfg.num_layers * steps})
+        if launches != expect:
+            raise AssertionError(f"path ({key}): launches {launches} != expected {expect} "
+                                 f"({prefills} prefills, {st.decode_rounds} decode rounds of "
+                                 f"which {st.verify_rounds} verify, {st.replayed_tokens} replayed)")
+        tput[key] = (st.decode_tput(), st.decode_round_cost() * 1e3)
+        beside = "" if key == "k0" else (f" (k0: {tput['k0'][0]:.1f} tok/s, "
+                                         f"{tput['k0'][1]:.2f} ms a round)")
+        print(f"path ({key}) {what}: {len(prompts)} requests x {max_tokens} tokens, {prefills} "
+              f"prefills, {st.decode_rounds} decode rounds of which {st.verify_rounds} verify "
+              f"rounds (W={SPEC_K + 1} rows a slot), {st.replayed_tokens} replayed, "
+              f"{st.preemptions} preemptions, {wall:.2f} s wall  [{card}]")
+        print(f"  drafts {st.draft_tokens}, accepted {st.accepted_tokens} "
+              f"(rate {st.acceptance_rate():.3f}), {st.tokens_per_round():.3f} tokens a "
+              f"slot-round; decode {tput[key][0]:.1f} tok/s, {tput[key][1]:.2f} ms a round"
+              f"{beside}  [{card}]")
+        print(f"  {_grid_line(grid)}  [{card}]")
+        print(f"  launches {launches}: B1 and act-quant 168 a prefill and a round (M = 20 "
+              f"on the {st.verify_rounds} verify rounds), {kernel} 24 a round and a replayed "
+              "token (20 query rows on a verify round), as the stats imply")
+        if key in ("k", "l", "m") and not (st.verify_rounds > 0 and st.accepted_tokens > 0):
+            raise AssertionError(f"path ({key}): {st.verify_rounds} verify rounds, "
+                                 f"{st.accepted_tokens} accepted tokens")
+        if key == "l":
+            pool = eng.runner.paged.pool
+            home = len(pool.free_list) + len(pool.evictable)
+            if not (st.preemptions > 0 and st.replayed_tokens > 0 and pool.num_live == 0
+                    and home == pool.num_blocks):
+                raise AssertionError(f"path (l): {st.preemptions} preemptions, "
+                                     f"{st.replayed_tokens} replayed, {pool.num_live} live pages, "
+                                     f"{home} of {pool.num_blocks} home")
+            print(f"path (l): {st.preemptions} preemptions, {st.replayed_tokens} replayed "
+                  f"tokens; every page home after ({home} of {pool.num_blocks})")
+        wall_p, dev_p, ops_p, verify_p, top = profile_verify(torch, np, cfg, eng)
+        kind = "verify" if verify_p else "decode"
+        if dev_p is None:
+            print("  profile: the profiler saw no device time; busy share not measured")
+        else:
+            print(f"  profile: 4 {kind} rounds ({verify_p} verify) of 4 tiled 256-token prompts: "
+                  f"{wall_p * 1e3:.1f} ms wall, {dev_p / 4 * 1e3:.3f} ms device time and "
+                  f"{ops_p:.1f} device operations a round, device busy {dev_p / wall_p:.3f}  "
+                  f"[{card}]")
+            for name, sec, calls in top[:6]:
+                print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng
+    for key, ref in (("k", "k0"), ("l", "k"), ("m", "k0")):
+        parted = check_near_ties(torch, f"path ({key}) against ({ref})", streams[key],
+                                 streams[ref], recorders[key], recorders[ref], params_of.get)
+        print(f"path ({key}): {len(streams[key]) - len(parted)} of {len(streams[key])} streams "
+              f"equal ({ref})'s; {len(parted)} part at a near tie (scores within {TIE_TOL})")
+    return total
+
+
+def profile_verify(torch, np, cfg, eng, rounds: int = 4):
+    """``rounds`` decode quanta of 4 fresh greedy requests whose 256-token
+    prompts tile a 16-token pattern, once all 4 decode, under
+    ``torch.profiler`` (run after the path; its counts are already read).
+    Returns (wall s, device s or None, device operations a round, verify
+    rounds among them, the top device operations [(name, s, calls)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    run = sum(name.startswith("vprof") for name in eng.finished) // 4
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, 16).astype(np.int32), 16)
+               for _ in range(4)]
+    _decoding(eng, prompts, f"vprof{run}", (SPEC_K + 1) * (rounds + 3))
+    torch.cuda.synchronize()
+    before = eng.stats.verify_rounds
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    verify = eng.stats.verify_rounds - before
+    eng.run()
+    dev, ops, top = _device_rows(prof)
+    return wall, dev, ops / rounds, verify, top
+
+
 def check_chunked(cfg, prompts, st, events):
     """Path (i): one chunk a ``CHUNK`` tokens of each prompt, and decode
     rounds between two chunks of the longest prompt."""
@@ -1004,6 +1348,80 @@ def decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
             raise AssertionError(f"full-width {what} decode logits differ from the CPU plain path "
                                  f"by {err} (max |logit| {scale})")
         yield what, err, scale
+
+
+def verify_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+    """One verify pass (W = 5) of the full-width 2-layer model over a
+    contiguous int8 cache and a paged int8 pool holding the same prompt KV,
+    slot 0 with a full block, slot 1 with 3 real rows, on the card against
+    the CPU port on the same weights, cache and tokens, held to
+    ``decode_references``'s tolerance on the real rows.  Yields (what, max
+    abs err, max |logit|)."""
+    from repro_torch.core.kv_cache import insert_prefill_kv
+    from repro_torch.layers.attention import KVCache, write_prefill_pages_q
+
+    s = kv_c.k.shape[3]
+    tokens = torch.from_numpy(rng.integers(0, cfg2.vocab_size, (2, SPEC_K + 1))).int()
+    lengths = torch.tensor([s, 48], dtype=torch.int32)
+    n_tokens = torch.tensor([SPEC_K + 1, 3], dtype=torch.int32)
+    for layout in ("contiguous", "paged"):
+        out = []
+        for dev, params in ((p_gpu["emb"].device, p_gpu), ("cpu", p_cpu)):
+            kv = KVCache(*(a.to(dev) for a in kv_c))
+            args = (tokens.to(dev),)
+            if layout == "contiguous":
+                cache = T.init_cache(cfg2, 2, 128, kv_dtype="int8", device=dev)
+                for slot in range(2):
+                    insert_prefill_kv(cache, kv, slot)
+                logits, _ = T.verify(params, *args, cache, lengths.to(dev), n_tokens.to(dev), cfg2)
+            else:
+                pool = T.init_paged_pool(cfg2, 16, 16, kv_dtype="int8", device=dev)
+                ids = torch.tensor([9, 3, 14, 0, 7, 11], dtype=torch.int32)
+                pool = KVCache(*(write_prefill_pages_q(p, a, ids, block_size=16)
+                                 for p, a in zip(pool, kv)))
+                tables = torch.tensor([[9, 3, 14, 0, 7, 11, 5, 0], [9, 3, 14, 13, 0, 0, 0, 0]],
+                                      dtype=torch.int32, device=dev)
+                logits, _ = T.verify_paged(params, *args, pool, tables, lengths.to(dev),
+                                           n_tokens.to(dev), cfg2)
+            out.append(torch.cat([logits[b, :int(n)].float().cpu()
+                                  for b, n in enumerate(n_tokens)]))
+        err = (out[0] - out[1]).abs().max().item()
+        scale = out[1].abs().max().item()
+        what = f"{layout} int8 verify (W={SPEC_K + 1})"
+        if not (torch.isfinite(out[0]).all() and err <= 1e-3 * max(scale, 1.0)):
+            raise AssertionError(f"full-width {what} logits differ from the CPU port by {err} "
+                                 f"(max |logit| {scale})")
+        yield what, err, scale
+
+
+def verify_against_decode(torch, T, cfg, params, rng):
+    """A verify pass of the full-depth model (W = 5, every row real) over a
+    contiguous int8 cache holding 4 prefilled prompts, against 5 decode
+    steps teacher-forcing the same tokens on a copy of the cache, on the
+    card: the cache bytes equal and each row's logits within 1e-4 (every
+    layer's arithmetic gives decode's bits; the logits product alone runs
+    at M = 20 against M = 4).  Returns (max abs err, max |logit|)."""
+    from repro_torch.core.kv_cache import insert_prefill_kv
+
+    lens = [300, 517, 1300, 900]
+    cache = T.init_cache(cfg, 4, 2048, kv_dtype="int8", device="cuda")
+    for slot, n in enumerate(lens):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
+        insert_prefill_kv(cache, T.forward_prefill(params, toks, cfg)[1], slot)
+    steps = type(cache)(*(type(leaf)(*(t.clone() for t in leaf)) for leaf in cache))
+    w = SPEC_K + 1
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, w))).int().cuda()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    logits, _ = T.verify(params, tokens, cache, lengths,
+                         torch.full((4,), w, dtype=torch.int32, device="cuda"), cfg)
+    seq = torch.stack([T.decode_step(params, tokens[:, i], steps, lengths + i, cfg)[0]
+                       for i in range(w)], dim=1)
+    same = all(torch.equal(a, b) for la, lb in zip(cache, steps) for a, b in zip(la, lb))
+    err = float((logits - seq).abs().max())
+    if not (same and err <= 1e-4 and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"verify against decode steps: cache bytes equal {same}, logits "
+                             f"{err} apart")
+    return err, float(seq.abs().max())
 
 
 def _device_rows(prof):

@@ -17,11 +17,15 @@ as the JAX package keys its compiled programs:
     W-wide prefix, installed into the decode cache (chunked prefill)
   * ``prefill_chunk_paged:{C}+{W}@{P}x{bs}`` — the same into the prompt's pages
   * ``sampler:{B}``                   — the per-slot token sampler
+  * ``verify:{B}x{W}@{max_len}``      — speculative decoding's verify pass: a
+    W = k + 1 token block a slot against the decode cache
+  * ``verify_paged:{B}x{W}@{P}``      — the same over the paged pool
+  * ``block_sampler:{B}x{W}``         — the verify targets' sampler
 
 Weights are never touched by the swap: both phases use the same tensors.
 
 Where the JAX package compiles a program into one executable at its first
-call, the port captures the decode, chunk and sampler programs as one CUDA
+call, the port captures the decode, verify, chunk and sampler programs as one CUDA
 graph each (``PhaseProgram``): on a card the first call runs the program
 eagerly (the warm-up: it builds the kernels and makes their one-time
 settings) and then captures it on a side stream into a memory pool shared
@@ -42,7 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import insert_prefill_kv
-from repro_torch.core.sampling import sample_tokens
+from repro_torch.core.sampling import sample_block_tokens, sample_tokens
 from repro_torch.kernels import COUNTS
 from repro_torch.layers.attention import KVCache, write_prefill_pages_q
 from repro_torch.models import transformer as T
@@ -372,6 +376,41 @@ class PhaseEngine:
 
         return self._program(f"prefill_chunk_paged:{chunk}+{prefix_width}@{max_pages}x{block_size}",
                              fn, capturable=True, pinned=(0, 2, 3))
+
+    def verify_program(self, batch: int, max_len: int, width: int) -> PhaseProgram:
+        """Speculative verify over the contiguous cache: ``fn(params, tokens
+        (B, W), cache, lengths, n_tokens) -> (logits (B, W, Vp), cache)``,
+        the block's rows installed in place.  A decode-phase program like
+        ``decode``, streaming the cache once a round but scoring W = k + 1
+        positions a slot; per-slot draft depth varies through the device
+        tensor ``n_tokens``, so one graph serves every round."""
+        cfg = self.cfg
+
+        def fn(params, tokens, cache, lengths, n_tokens):
+            return T.verify(params, tokens, cache, lengths, n_tokens, cfg)
+
+        return self._program(f"verify:{batch}x{width}@{max_len}", fn, capturable=True,
+                             pinned=(0, 2))
+
+    def paged_verify_program(self, n_slots: int, max_pages: int, width: int) -> PhaseProgram:
+        """Speculative verify over the paged pool: ``fn(params, tokens (B,
+        W), pages, block_tables, lengths, n_tokens) -> (logits (B, W, Vp),
+        pages)``; see ``verify_program``."""
+        cfg = self.cfg
+
+        def fn(params, tokens, pages, block_tables, lengths, n_tokens):
+            return T.verify_paged(params, tokens, pages, block_tables, lengths, n_tokens, cfg)
+
+        return self._program(f"verify_paged:{n_slots}x{width}@{max_pages}", fn, capturable=True,
+                             pinned=(0, 2))
+
+    def block_sampler_program(self, batch: int, width: int) -> PhaseProgram:
+        """The verify targets' sampler: ``fn(logits (B, W, V), seeds, step0s,
+        temps, top_ks, top_ps) -> (B, W) tokens``; position i of slot b draws
+        with ``fold_in(PRNGKey(seeds[b]), step0s[b] + i)``, the key sequential
+        decode uses, so speculation keeps sampled streams unchanged."""
+        return self._program(f"block_sampler:{batch}x{width}", sample_block_tokens,
+                             capturable=True)
 
     def sampler_program(self, batch: int) -> PhaseProgram:
         """The per-slot sampler, the decode epilogue: ``fn(logits, seeds,

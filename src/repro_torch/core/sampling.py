@@ -125,7 +125,7 @@ def sample_block_tokens(logits, seeds, step0s, temps, top_ks, top_ps) -> torch.T
     decode would use."""
     b, w, v = logits.shape
     offs = torch.arange(w, device=logits.device, dtype=step0s.dtype)
-    rep = lambda t: t.repeat_interleave(w)  # noqa: E731
+    rep = lambda t: t[:, None].expand(b, w).reshape(-1)  # noqa: E731
     steps = (step0s[:, None] + offs[None, :]).reshape(-1)
     return sample_tokens(logits.reshape(b * w, v), rep(seeds), steps, rep(temps), rep(top_ks),
                          rep(top_ps)).reshape(b, w)

@@ -9,6 +9,10 @@
 // (B,Hkv,S,Dp), int8 (Dp = D) or int4 nibble pairs (Dp = D/2), with f32
 // scale planes (B,Hkv,S), dequantized in registers on the way to the dot.
 //
+// Query row b reads slot b / rows_per_slot: 1 for decode, the W = k + 1
+// rows of a speculative verify block (each with its own length) otherwise,
+// so a verify round walks all B * W rows in one launch a layer.
+//
 // The cache is read through its (batch, head) strides: the per-layer slice
 // cache[:, li] of the batch-leading (B,L,Hkv,S,.) cache is used where it
 // lies, never copied.  A slot's rows must be contiguous (position stride =
@@ -37,7 +41,9 @@ extern "C" const char* repro_cuda_error_string(int e) {
 static int slot_launch(const void* q, const void* k, const void* k_scale, const void* v,
                        const void* v_scale, const void* lengths, const void* starts, void* out,
                        void* l, void* m, int B, int Hkv, int G, int S, int D, int format,
-                       const long long* strides, float sm_scale, void* stream) {
+                       const long long* strides, int rows_per_slot, float sm_scale,
+                       void* stream) {
+  if (rows_per_slot < 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const unsigned char*>(k);
@@ -53,32 +59,35 @@ static int slot_launch(const void* q, const void* k, const void* k_scale, const 
   p.G = G;
   p.bs = kSlotPage;
   p.cap = S;
+  p.rows_per_slot = rows_per_slot;
   p.sm_scale = sm_scale;
   return run<Src::Slot>(format, D, p, strides, B, static_cast<cudaStream_t>(stream));
 }
 
-// B3.  q (B,Hkv,G,D) f32 contiguous; k/v (B,Hkv,S,D) bf16 (kv_bf16 != 0) or
-// f32 with unit stride along D, 16-byte aligned rows and the given (batch,
-// head, position) strides in elements; lengths (B,) int32; starts (B,) int32
-// or null; out (B,Hkv,G,D), l and m (B,Hkv,G) f32 contiguous.
+// B3.  q (B,Hkv,G,D) f32 contiguous, B query rows; k/v (B/R,Hkv,S,D) bf16
+// (kv_bf16 != 0) or f32 with unit stride along D, 16-byte aligned rows and
+// the given (batch, head, position) strides in elements, R = rows_per_slot;
+// lengths (B,) int32; starts (B,) int32 or null; out (B,Hkv,G,D), l and m
+// (B,Hkv,G) f32 contiguous.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths, const void* starts,
     void* out, void* l, void* m, int B, int Hkv, int G, int S, int D, int kv_bf16,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, float sm_scale, void* stream) {
+    long long vss, int rows_per_slot, float sm_scale, void* stream) {
   const long long strides[12] = {ksb, ksh, kss, vsb, vsh, vss, 0, 0, 0, 0, 0, 0};
   return slot_launch(q, k, nullptr, v, nullptr, lengths, starts, out, l, m, B, Hkv, G, S, D,
-                     kv_bf16 ? 0 : 1, strides, sm_scale, stream);
+                     kv_bf16 ? 0 : 1, strides, rows_per_slot, sm_scale, stream);
 }
 
-// B4.  k/v the packed payload (B,Hkv,S,Dp): int8 (int4 == 0) or uint8
+// B4.  k/v the packed payload (B/R,Hkv,S,Dp): int8 (int4 == 0) or uint8
 // nibble pairs (int4 != 0), unit stride along Dp, 16-byte aligned rows;
-// k_scale/v_scale (B,Hkv,S) f32.  strides: 12 values in elements, (batch,
+// k_scale/v_scale (B/R,Hkv,S) f32.  strides: 12 values in elements, (batch,
 // head, position) of k, v, k_scale, v_scale.  The rest as B3.
 extern "C" int decode_attention_quant_launch(
     const void* q, const void* k, const void* k_scale, const void* v, const void* v_scale,
     const void* lengths, const void* starts, void* out, void* l, void* m, int B, int Hkv,
-    int G, int S, int D, int int4, const long long* strides, float sm_scale, void* stream) {
+    int G, int S, int D, int int4, const long long* strides, int rows_per_slot, float sm_scale,
+    void* stream) {
   return slot_launch(q, k, k_scale, v, v_scale, lengths, starts, out, l, m, B, Hkv, G, S, D,
-                     int4 ? 3 : 2, strides, sm_scale, stream);
+                     int4 ? 3 : 2, strides, rows_per_slot, sm_scale, stream);
 }

@@ -12,11 +12,13 @@
 //  * Paged: position pos is slot pos % bs of page table[b, pos / bs]
 //    (clipped to [0, N-1]) of the pool; page i of a rank lies at
 //    tab[i] * page_stride + hk * head_stride.
-//  * Slot: the (b, hk) slot of the batch-leading contiguous cache, read in
+//  * Slot: the (s, hk) slot of the batch-leading contiguous cache, read in
 //    virtual pages of kSlotPage rows: position pos lies at
-//    b * batch_stride + hk * head_stride + pos * row_bytes.  No table.
-//    Lengths are clipped to the slot's S, which need not be a multiple of
-//    kSlotPage.
+//    s * batch_stride + hk * head_stride + pos * row_bytes, where query row
+//    b reads slot s = b / rows_per_slot (1 for decode; the W rows of a
+//    speculative verify block, each with its own length, share a slot).
+//    No table.  Lengths are clipped to the slot's S, which need not be a
+//    multiple of kSlotPage.
 // In both a page (or a slot) is contiguous rows (row stride = row length,
 // and 1 for the scale planes), as in every cache the engine builds.
 //
@@ -287,6 +289,7 @@ struct Params {
   long long ks_st[2], vs_st[2];  // (page or batch, head) strides of the scale planes, in floats
   int Hkv, G;
   int N, P;                      // Paged: pages of the pool, table columns
+  int rows_per_slot;             // Slot: query rows that read one slot (row b reads b / it)
   int bs;                        // rows of a page (kSlotPage for a slot)
   int cap;                       // positions a sequence can hold: P * bs, or the slot's S
   int cp;                        // pages a chunk holds
@@ -327,6 +330,8 @@ __global__ void __launch_bounds__(kThreads, MAXG * D <= 64 ? kSmBlocks : 1) walk
   // a slot's pages and chunks are known at compile time
   const int bs = kSrc == Src::Slot ? kSlotPage : p.bs;
   const int cp = kSrc == Src::Slot ? chunk_pages<Fmt, D>(kSlotPage) : p.cp;  // pages a chunk holds
+  long long slot = b;  // Slot: the cache slot query row b reads
+  if constexpr (kSrc == Src::Slot) slot = b / p.rows_per_slot;
 
   // q first and (Paged) the table row into L2: neither waits for the length
   const long long bh = static_cast<long long>(b) * p.Hkv + hk;
@@ -400,15 +405,16 @@ __global__ void __launch_bounds__(kThreads, MAXG * D <= 64 ? kSmBlocks : 1) walk
       if (tid == 0) {
         unsigned long long* bar = &bars[rs];
         mbar_expect(bar, 2 * n * RB);
-        bulk_copy(kd, p.k + b * p.k_st[0] + hk * p.k_st[1] + static_cast<long long>(r0) * RB,
+        bulk_copy(kd, p.k + slot * p.k_st[0] + hk * p.k_st[1] + static_cast<long long>(r0) * RB,
                   n * RB, bar);
-        bulk_copy(kd + CR * RB, p.v + b * p.v_st[0] + hk * p.v_st[1] + static_cast<long long>(r0) * RB,
+        bulk_copy(kd + CR * RB,
+                  p.v + slot * p.v_st[0] + hk * p.v_st[1] + static_cast<long long>(r0) * RB,
                   n * RB, bar);
       }
       if constexpr (Fmt::kScaled) {
         float* sd = reinterpret_cast<float*>(dst + 2 * CR * RB) + (r0 - c0);
-        const float* kss = p.k_scale + b * p.ks_st[0] + hk * p.ks_st[1] + r0;
-        const float* vss = p.v_scale + b * p.vs_st[0] + hk * p.vs_st[1] + r0;
+        const float* kss = p.k_scale + slot * p.ks_st[0] + hk * p.ks_st[1] + r0;
+        const float* vss = p.v_scale + slot * p.vs_st[0] + hk * p.vs_st[1] + r0;
         for (int e = tid; e < n; e += kThreads) {
           cp_async4(sd + e, kss + e);
           cp_async4(sd + CR + e, vss + e);

@@ -3,7 +3,9 @@ over a bf16/f32 cache and B4 over a quantized one) on CUDA tensors, their
 plain versions on CPU tensors.
 
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads the
-cache through its batch and head strides: the per-layer slice ``cache[:, li]``
+cache through its batch and head strides (query row b reads cache slot
+``b // rows_per_slot``: the W rows of a speculative verify block share
+their slot): the per-layer slice ``cache[:, li]``
 of the batch-leading (B, L, Hkv, Smax, ·) cache, and of its scale planes, is
 passed where it lies.  The kernels stage a slot's rows in runs, so along Smax
 the rows must be contiguous (and the scales), as in every cache the engine
@@ -24,8 +26,8 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_reference,
 )
 
-_ARGS = ([build.P] * 8 + [build.I] * 6 + [build.I64] * 6 + [build.F, build.P])
-_QUANT_ARGS = ([build.P] * 10 + [build.I] * 6 + [build.P, build.F, build.P])
+_ARGS = ([build.P] * 8 + [build.I] * 6 + [build.I64] * 6 + [build.I, build.F, build.P])
+_QUANT_ARGS = ([build.P] * 10 + [build.I] * 6 + [build.P, build.I, build.F, build.P])
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
 PAYLOAD_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
@@ -83,13 +85,20 @@ def quant_payload_dim(kv_dtype: str, d: int) -> int:
     return d // 2 if kv_dtype == "int4" else d
 
 
-def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None):
-    """Launch B3: q (B,Hkv,G,D) f32, k/v (B,Hkv,S,D) bf16 or f32 (any
+def _check_rows_per_slot(rows_per_slot: int, b: int, slots: int) -> None:
+    if rows_per_slot < 1 or slots * rows_per_slot != b:
+        raise ValueError(f"{b} query rows do not read {slots} slots at {rows_per_slot} rows a slot")
+
+
+def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None, rows_per_slot=1):
+    """Launch B3: q (B,Hkv,G,D) f32, k/v (B/R,Hkv,S,D) bf16 or f32 (any
     batch/head strides, contiguous rows along S, 16-byte aligned rows),
-    lengths/starts (B,) int32 -> (out (B,Hkv,G,D), l, m (B,Hkv,G)), all f32."""
+    R = ``rows_per_slot`` query rows a slot, lengths/starts (B,) int32 ->
+    (out (B,Hkv,G,D), l, m (B,Hkv,G)), all f32."""
     b, hkv, g, d = q.shape
     s = k.shape[2]
-    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
+    _check_rows_per_slot(rows_per_slot, b, k.shape[0])
+    if k.shape[1:] != (hkv, s, d) or v.shape != k.shape:
         raise ValueError(f"decode attention shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if k.dtype not in (torch.bfloat16, torch.float32) or v.dtype != k.dtype:
         raise TypeError(f"decode attention kernel reads bf16 or f32 caches, got {k.dtype}/{v.dtype}")
@@ -107,23 +116,24 @@ def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None):
             None if starts is None else starts.contiguous().data_ptr(),
             out.data_ptr(), l.data_ptr(), m.data_ptr(), b, hkv, g, s, d,
             int(k.dtype == torch.bfloat16), *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale), build.stream_ptr(q.device))
+            int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_launch", "decode_attention")
     COUNTS["decode_attention"] += 1
     return out, l, m
 
 
 def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts=None, *,
-                                  kv_dtype: str, sm_scale=None):
-    """Launch B4: q (B,Hkv,G,D) f32; k_q/v_q the packed payload (B,Hkv,S,Dp),
+                                  kv_dtype: str, sm_scale=None, rows_per_slot=1):
+    """Launch B4: q (B,Hkv,G,D) f32; k_q/v_q the packed payload (B/R,Hkv,S,Dp),
     int8 (Dp = D) or uint8 int4 nibble pairs (Dp = D/2), strided as B3's
-    cache; k_scale/v_scale (B,Hkv,S) f32, any batch/head strides, unit
+    cache; k_scale/v_scale (B/R,Hkv,S) f32, any batch/head strides, unit
     stride along S -> (out, l, m) as B3."""
     b, hkv, g, d = q.shape
     s = k_q.shape[2]
     dp = quant_payload_dim(kv_dtype, d)
-    if (k_q.shape != (b, hkv, s, dp) or v_q.shape != k_q.shape
-            or k_scale.shape != (b, hkv, s) or v_scale.shape != k_scale.shape):
+    _check_rows_per_slot(rows_per_slot, b, k_q.shape[0])
+    if (k_q.shape[1:] != (hkv, s, dp) or v_q.shape != k_q.shape
+            or k_scale.shape != k_q.shape[:3] or v_scale.shape != k_scale.shape):
         raise ValueError(f"quantized decode attention shapes q {tuple(q.shape)} k {tuple(k_q.shape)} "
                          f"v {tuple(v_q.shape)} scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
     if k_q.dtype != PAYLOAD_DTYPES[kv_dtype] or v_q.dtype != k_q.dtype:
@@ -143,7 +153,7 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
             lengths.data_ptr(), None if starts is None else starts.contiguous().data_ptr(),
             out.data_ptr(), l.data_ptr(), m.data_ptr(), b, hkv, g, s, d,
             int(kv_dtype == "int4"), strides_arg(k_q, v_q, k_scale, v_scale),
-            float(sm_scale), build.stream_ptr(q.device))
+            int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_quant_launch", "decode_attention")
     COUNTS["decode_attention_quant"] += 1
     return out, l, m
@@ -161,22 +171,37 @@ def decode_attention(
     k_scales: Optional[torch.Tensor] = None,  # (B, Hkv, S) f32 — quantized cache
     v_scales: Optional[torch.Tensor] = None,
     kv_dtype: str = "fp",
+    rows_per_slot: int = 1,
 ):
     """Attention of one query token per sequence over a masked KV cache;
     ``kv_dtype`` int8/int4 (with the scale planes) reads a quantized cache.
     ``return_stats=True`` also returns the softmax stats (l, m), each
-    (B, H, 1) f32, with the output left in f32, for ``_merge_new_token``."""
+    (B, H, 1) f32, with the output left in f32, for ``_merge_new_token``.
+    With ``rows_per_slot`` R > 1, q holds R rows for each of the cache's
+    B/R slots (row b reads slot b // R, over its own length): a
+    speculative verify block in one launch."""
     b, h, d = q.shape
     hkv = k.shape[1]
     qg = q.float().reshape(b, hkv, h // hkv, d)
+    if kv_dtype != "fp" and (k_scales is None or v_scales is None):
+        raise ValueError("a quantized cache needs its scale planes")
+    if not q.is_cuda and rows_per_slot > 1:  # the plain walk: each row its own slot
+        k, v = k.repeat_interleave(rows_per_slot, 0), v.repeat_interleave(rows_per_slot, 0)
+        if kv_dtype != "fp":
+            k_scales = k_scales.repeat_interleave(rows_per_slot, 0)
+            v_scales = v_scales.repeat_interleave(rows_per_slot, 0)
     if kv_dtype != "fp":
-        if k_scales is None or v_scales is None:
-            raise ValueError("a quantized cache needs its scale planes")
-        walk = decode_attention_quant_kernel if q.is_cuda else decode_attention_quant_reference
-        out, l, m = walk(qg, k, k_scales, v, v_scales, lengths, starts,
-                         kv_dtype=kv_dtype, sm_scale=sm_scale)
+        if q.is_cuda:
+            out, l, m = decode_attention_quant_kernel(
+                qg, k, k_scales, v, v_scales, lengths, starts, kv_dtype=kv_dtype,
+                sm_scale=sm_scale, rows_per_slot=rows_per_slot)
+        else:
+            out, l, m = decode_attention_quant_reference(
+                qg, k, k_scales, v, v_scales, lengths, starts, kv_dtype=kv_dtype,
+                sm_scale=sm_scale)
     elif q.is_cuda:
-        out, l, m = decode_attention_kernel(qg, k, v, lengths, starts, sm_scale=sm_scale)
+        out, l, m = decode_attention_kernel(qg, k, v, lengths, starts, sm_scale=sm_scale,
+                                            rows_per_slot=rows_per_slot)
     else:
         out, l, m = decode_attention_reference(qg, k, v, lengths, starts, sm_scale=sm_scale)
     if return_stats:

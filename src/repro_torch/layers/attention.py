@@ -13,6 +13,14 @@ One parameter set, two phase-specialized execution paths (the two engines):
   the cache is only read during the layer walk; the caller writes every
   layer's new token afterwards with one scatter (``scatter_new_tokens_q``
   or ``scatter_new_tokens_paged_q``).
+* ``attention_verify`` / ``attention_verify_paged`` — the decode engine run
+  W = k + 1 positions a slot (speculative decoding's verify pass): the
+  block's rows are written into this layer's cache first (the
+  ``scatter_verify_*`` writers), then block row i of slot b walks
+  [0, lengths[b] + i) through the same decode kernel, in one launch over
+  all B * W rows, and merges its own fresh token.  Row i thus reads the
+  rows, in the storage precision, that sequential decode reads at position
+  lengths[b] + i, through the same split of the range.
 
 A cache or pool leaf is a bf16/f32 tensor or a ``QuantKV`` (packed payload
 + f32 scale plane): the leaf carries its precision, and every write into a
@@ -20,8 +28,8 @@ quantized leaf quantizes on the way in, from f32.
 
 The JAX package drops out-of-range scatter rows (``mode="drop"``, with the
 pool size as the skip id); torch indexing has no such mode, so the paged
-writers point every dropped row at the first kept row's target, with that
-row's value: the duplicate writes are identical, so the result is
+and verify writers point every dropped row at the first kept row's target,
+with that row's value: the duplicate writes are identical, so the result is
 deterministic, and the indices never depend on a host read of which rows
 are live (no ``nonzero``), which keeps the writers inside a CUDA graph.
 The chunk writers take the slot and start as 0-d device tensors, as the
@@ -32,7 +40,7 @@ Projections are TLMM/dense linears — the paper's static region.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -267,6 +275,139 @@ def write_prefill_pages_q(pages, kv: torch.Tensor, page_ids: torch.Tensor, *, bl
                    write_prefill_pages(pages.scale, scale, page_ids, block_size=block_size))
 
 
+def _block_rows(t: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, ...) -> (B * W, ...): each slot's row repeated for its W block
+    rows, as a view expanded and copied (no repeat count read back)."""
+    return t[:, None].expand(t.shape[0], w, *t.shape[1:]).reshape(t.shape[0] * w, *t.shape[1:])
+
+
+class VerifyTargets(NamedTuple):
+    """Where a verify block's rows land, the same for every layer and leaf:
+    target r receives the values of block row ``src_i[r]`` of slot
+    ``src_b[r]`` at ``(dst0[r], dst1[r])`` — (slot, position) in the cache,
+    (page, in-page offset) in the pool.  A dropped row repeats the first
+    kept row's target and values; ``kept`` (0-d) is False when no row is
+    kept, and every target then rewrites its own contents."""
+
+    dst0: torch.Tensor
+    dst1: torch.Tensor
+    src_b: torch.Tensor
+    src_i: torch.Tensor
+    kept: torch.Tensor
+
+
+def _targets(keep: torch.Tensor, dst0: torch.Tensor, dst1: torch.Tensor, w: int) -> VerifyTargets:
+    src = _first_kept(keep)
+    return VerifyTargets(dst0[src], dst1[src], src // w, src % w, keep.any())
+
+
+def verify_targets(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int, smax: int) -> VerifyTargets:
+    """The contiguous cache's targets: row i of slot b at position
+    ``lengths[b] + i``, kept iff ``i < n_tokens[b]`` and the position lies
+    in the cache (the JAX package drops the others through ``mode="drop"``)."""
+    i = torch.arange(w, device=lengths.device)
+    pos = (lengths.long()[:, None] + i).reshape(-1)
+    keep = (i[None, :] < n_tokens.long()[:, None]).reshape(-1) & (pos < smax)
+    slot = _block_rows(torch.arange(lengths.shape[0], device=lengths.device), w)
+    return _targets(keep, slot, torch.clamp(pos, max=smax - 1), w)
+
+
+def verify_page_targets(block_tables: torch.Tensor, lengths: torch.Tensor, n_tokens: torch.Tensor,
+                        w: int, block_size: int) -> VerifyTargets:
+    """The paged pool's targets: row i of slot b in page ``tables[b,
+    (lengths[b] + i) // bs]`` at offset ``(lengths[b] + i) % bs``, kept iff
+    ``i < n_tokens[b]`` and the slot is active (``lengths[b] > 0``): the
+    engine grows a table only over a slot's real rows."""
+    lengths = lengths.long()
+    i = torch.arange(w, device=lengths.device)
+    pos = lengths[:, None] + i  # (B, W)
+    page_idx = torch.clamp(pos // block_size, max=block_tables.shape[1] - 1)
+    page = torch.gather(block_tables.long(), 1, page_idx).reshape(-1)
+    keep = ((i[None, :] < n_tokens.long()[:, None]) & (lengths[:, None] > 0)).reshape(-1)
+    return _targets(keep, page, (pos % block_size).reshape(-1), w)
+
+
+def write_verify_rows(buf: torch.Tensor, new: torch.Tensor, t: VerifyTargets) -> torch.Tensor:
+    """Write a verify block's rows at their targets, in place.  buf: a
+    (B, L, Hkv, Smax, ·) cache or (N, L, Hkv, bs, ·) pool plane, or a scale
+    plane without the last dim; new: (L, B, Hkv, W, ·) to match.  Distinct
+    kept targets never collide, and the repeats write identical values, so
+    the result is deterministic, with no host read."""
+    vals = new[:, t.src_b, :, t.src_i].to(buf.dtype)  # (R, L, Hkv, ·)
+    buf[t.dst0, :, :, t.dst1] = torch.where(t.kept, vals, buf[t.dst0, :, :, t.dst1])
+    return buf
+
+
+def write_verify_rows_q(buf, new: torch.Tensor, t: VerifyTargets):
+    """``write_verify_rows`` into a possibly quantized leaf: the block's f32
+    rows are quantized on the way in (payload and per-row scale), so a
+    verify round appends the bytes sequential decode appends."""
+    if not isinstance(buf, QuantKV):
+        return write_verify_rows(buf, new, t)
+    payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+    return QuantKV(write_verify_rows(buf.q, payload, t), write_verify_rows(buf.scale, scale, t))
+
+
+def _rows_of(leaf) -> torch.Tensor:
+    return leaf.q if isinstance(leaf, QuantKV) else leaf
+
+
+def scatter_verify_tokens(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
+                          n_tokens: torch.Tensor) -> torch.Tensor:
+    """Write a speculative verify block's KV into the contiguous cache, in
+    place.  buf: (B, L, Hkv, Smax, D), batch-leading; new: (L, B, Hkv, W,
+    D).  Row i of slot b lands at position ``lengths[b] + i`` iff ``i <
+    n_tokens[b]`` (and the position lies in the cache): rows past a slot's
+    real token count (draft padding, a slot sitting the round out) are
+    dropped, so they never touch live KV or the parked-write row ``Smax -
+    1``.  A dropped row repeats the first kept row's write; with none kept,
+    the first target is rewritten with its own contents."""
+    return write_verify_rows(buf, new, verify_targets(lengths, n_tokens, new.shape[3],
+                                                      buf.shape[3]))
+
+
+def scatter_verify_scales(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
+                          n_tokens: torch.Tensor) -> torch.Tensor:
+    """The scale-plane analogue of ``scatter_verify_tokens``: buf (B, L,
+    Hkv, Smax) f32, new (L, B, Hkv, W); the same drop routing."""
+    return scatter_verify_tokens(buf, new, lengths, n_tokens)
+
+
+def scatter_verify_tokens_q(buf, new: torch.Tensor, lengths: torch.Tensor,
+                            n_tokens: torch.Tensor):
+    """``scatter_verify_tokens`` into a possibly quantized cache leaf
+    (quantize on write)."""
+    return write_verify_rows_q(buf, new, verify_targets(lengths, n_tokens, new.shape[3],
+                                                        _rows_of(buf).shape[3]))
+
+
+def scatter_verify_tokens_paged(pages: torch.Tensor, new: torch.Tensor,
+                                block_tables: torch.Tensor, lengths: torch.Tensor,
+                                n_tokens: torch.Tensor) -> torch.Tensor:
+    """Paged analogue of ``scatter_verify_tokens``, in place: pages (N, L,
+    Hkv, bs, D), new (L, B, Hkv, W, D), block_tables (B, P).  Targets and
+    drops as ``verify_page_targets``; live slots own distinct pages, so no
+    two differing rows collide."""
+    return write_verify_rows(pages, new, verify_page_targets(
+        block_tables, lengths, n_tokens, new.shape[3], pages.shape[3]))
+
+
+def scatter_verify_scales_paged(pages: torch.Tensor, new: torch.Tensor,
+                                block_tables: torch.Tensor, lengths: torch.Tensor,
+                                n_tokens: torch.Tensor) -> torch.Tensor:
+    """The scale-plane analogue of ``scatter_verify_tokens_paged``: pages
+    (N, L, Hkv, bs) f32, new (L, B, Hkv, W)."""
+    return scatter_verify_tokens_paged(pages, new, block_tables, lengths, n_tokens)
+
+
+def scatter_verify_tokens_paged_q(pages, new: torch.Tensor, block_tables: torch.Tensor,
+                                  lengths: torch.Tensor, n_tokens: torch.Tensor):
+    """``scatter_verify_tokens_paged`` into a possibly quantized pool leaf
+    (quantize on write)."""
+    return write_verify_rows_q(pages, new, verify_page_targets(
+        block_tables, lengths, n_tokens, new.shape[3], _rows_of(pages).shape[3]))
+
+
 def _merge_new_token(out_cache, l_cache, m_cache, q, k_new, v_new, sm_scale: float) -> torch.Tensor:
     """Fold the freshly projected token's K/V into the attention over the
     cache (online-softmax merge): out_cache (B,H,D) normalized f32, l/m
@@ -286,24 +427,26 @@ def _merge_new_token(out_cache, l_cache, m_cache, q, k_new, v_new, sm_scale: flo
     return (out_cache * (alpha * l_cache) + p_new * vn.float()) / torch.clamp(l, min=1e-30)
 
 
-def _decode_new_token(params: dict, x: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
+def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                       attend_cache) -> Tuple[torch.Tensor, KVCache]:
-    """The decode engine's body, shared by both cache layouts: project the
-    one new token, attend over the existing cache through
-    ``attend_cache(qd) -> (out, l, m)``, merge the fresh token in f32 and
-    output-project.  Returns (y, the new token's K/V (B, Hkv, 1, D)); the
-    caller scatters it."""
+    """The decode engine's body, shared by both cache layouts and by the
+    verify pass: project the W new tokens a sequence (x (B, W, d) at
+    ``positions`` (B, W); W = 1 in decode), attend each over the cache
+    through ``attend_cache(q_rows, k, v) -> (out, l, m)`` (q_rows (B*W, H,
+    D), one row a token; k/v the fresh (B, W, Hkv, D), which the verify pass
+    writes before it walks), merge each row's own fresh token in f32 and
+    output-project.  Returns (y (B, W, d), the new tokens' K/V (B, Hkv, W,
+    D)); in decode the caller scatters them."""
     _check_slice(cfg)
-    b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, lengths[:, None])
-    qd = q.reshape(b, h, hd)
-    k_new = k.transpose(1, 2)  # (B, Hkv, 1, D)
-    v_new = v.transpose(1, 2)
-    out_c, l_c, m_c = attend_cache(qd)
-    out = _merge_new_token(out_c, l_c, m_c, qd, k_new, v_new, 1.0 / math.sqrt(hd)).to(x.dtype)
-    y = linear_apply(params["wo"], out.reshape(b, 1, h * hd), cfg.quant)
-    return y, KVCache(k_new, v_new)
+    b, w = x.shape[:2]
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    qd = q.reshape(b * w, h, hd)
+    out_c, l_c, m_c = attend_cache(qd, k, v)
+    out = _merge_new_token(out_c, l_c, m_c, qd, k.reshape(b * w, hkv, 1, hd),
+                           v.reshape(b * w, hkv, 1, hd), 1.0 / math.sqrt(hd)).to(x.dtype)
+    y = linear_apply(params["wo"], out.reshape(b, w, h * hd), cfg.quant)
+    return y, KVCache(k.transpose(1, 2), v.transpose(1, 2))
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
@@ -312,11 +455,11 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
     (leaves (B, Hkv, Smax, ·), possibly strided views, possibly QuantKV).
     The cache is only read."""
 
-    def attend(qd):
+    def attend(qd, k, v):
         k_arr, v_arr, qkw = _kv_leaf_args(cache.k, cache.v)
         return decode_attention(qd, k_arr, v_arr, lengths, return_stats=True, **qkw)
 
-    return _decode_new_token(params, x, lengths, cfg, attend)
+    return _decode_new_token(params, x, lengths[:, None], cfg, attend)
 
 
 def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
@@ -326,9 +469,92 @@ def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
     layer's pages (N, Hkv, bs, ·), walked through ``block_tables`` (B, P).
     Same contract as ``attention_decode``."""
 
-    def attend(qd):
+    def attend(qd, k, v):
         k_arr, v_arr, qkw = _kv_leaf_args(k_pages, v_pages)
         return paged_decode_attention(qd, k_arr, v_arr, block_tables, lengths,
                                       return_stats=True, **qkw)
 
-    return _decode_new_token(params, x, lengths, cfg, attend)
+    return _decode_new_token(params, x, lengths[:, None], cfg, attend)
+
+
+class VerifyPlan(NamedTuple):
+    """A verify round's bookkeeping, the same for every layer, made once a
+    round: the block rows' positions (B, W), each row's walk length (B * W,)
+    int32, where the rows land, and (paged) each table row W times."""
+
+    positions: torch.Tensor
+    walk: torch.Tensor
+    targets: VerifyTargets
+    tables: Optional[torch.Tensor] = None
+
+
+def _verify_rows(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int) -> torch.Tensor:
+    """The walk length of each block row, (B * W,) int32: row i of slot b
+    walks [0, lengths[b] + i), what sequential decode walks at that
+    position.  A padding row (i >= n_tokens[b]) walks the slot's last real
+    row's range, and a slot sitting the round out (n_tokens 0) its own
+    length, so no row reads past the rows its slot's pages cover; their
+    outputs are garbage that nothing reads."""
+    i = torch.arange(w, device=lengths.device, dtype=lengths.dtype)
+    last = torch.clamp(n_tokens - 1, min=0).to(lengths.dtype)
+    return (lengths[:, None] + torch.minimum(i[None, :], last[:, None])).reshape(-1)
+
+
+def verify_plan(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int, *,
+                smax: Optional[int] = None, block_tables: Optional[torch.Tensor] = None,
+                block_size: Optional[int] = None) -> VerifyPlan:
+    """The plan of a verify round over the contiguous cache (``smax``) or
+    the paged pool (``block_tables``, ``block_size``)."""
+    positions = lengths[:, None] + torch.arange(w, device=lengths.device)
+    walk = _verify_rows(lengths, n_tokens, w)
+    if block_tables is None:
+        return VerifyPlan(positions, walk, verify_targets(lengths, n_tokens, w, smax))
+    return VerifyPlan(positions, walk, verify_page_targets(block_tables, lengths, n_tokens, w,
+                                                           block_size),
+                      _block_rows(block_tables, w))
+
+
+def _layer0(leaf):
+    """The (.., Hkv, S, ·) walk view of a one-layer (.., 1, Hkv, S, ·) view."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(leaf.q[:, 0], leaf.scale[:, 0])
+    return leaf[:, 0]
+
+
+def attention_verify(params: dict, x: torch.Tensor, cache: KVCache, plan: VerifyPlan,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """The speculative verify pass of one layer over the contiguous cache:
+    x (B, W, d), per slot [last token, draft_1..draft_k], block row i at
+    position ``lengths[b] + i``; cache: this layer's leaves as (B, 1, Hkv,
+    Smax, ·) views (possibly QuantKV); ``plan`` the round's
+    ``verify_plan``.  The block's kept rows are written first (quantized on
+    write), then every row walks its range through the decode kernel (one
+    launch, B * W rows) and merges its own fresh token: step for step what
+    decode computes at position ``lengths[b] + i``.  Returns (y (B, W, d),
+    the block's K/V (B, Hkv, W, D), already written)."""
+    w = x.shape[1]
+
+    def attend(qd, k, v):
+        write_verify_rows_q(cache.k, k.transpose(1, 2)[None], plan.targets)
+        write_verify_rows_q(cache.v, v.transpose(1, 2)[None], plan.targets)
+        k_arr, v_arr, qkw = _kv_leaf_args(_layer0(cache.k), _layer0(cache.v))
+        return decode_attention(qd, k_arr, v_arr, plan.walk, return_stats=True,
+                                rows_per_slot=w, **qkw)
+
+    return _decode_new_token(params, x, plan.positions, cfg, attend)
+
+
+def attention_verify_paged(params: dict, x: torch.Tensor, k_pages, v_pages, plan: VerifyPlan,
+                           cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """``attention_verify`` over the paged pool: k_pages/v_pages this
+    layer's (N, 1, Hkv, bs, ·) views; the walk takes each slot's table row
+    once for each of its W block rows (``plan.tables``)."""
+
+    def attend(qd, k, v):
+        write_verify_rows_q(k_pages, k.transpose(1, 2)[None], plan.targets)
+        write_verify_rows_q(v_pages, v.transpose(1, 2)[None], plan.targets)
+        k_arr, v_arr, qkw = _kv_leaf_args(_layer0(k_pages), _layer0(v_pages))
+        return paged_decode_attention(qd, k_arr, v_arr, plan.tables, plan.walk,
+                                      return_stats=True, **qkw)
+
+    return _decode_new_token(params, x, plan.positions, cfg, attend)

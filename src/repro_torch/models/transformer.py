@@ -10,7 +10,10 @@ Entry points:
   * ``prefill_chunk`` / ``prefill_chunk_paged`` — one bounded chunk of a
     prompt, its KV installed into the decode cache or its pages;
   * ``decode_step``     — one token against the batch-leading cache;
-  * ``decode_step_paged`` — one token against the paged pool.
+  * ``decode_step_paged`` — one token against the paged pool;
+  * ``verify`` / ``verify_paged`` — speculative decoding's verify pass: a
+    W = k + 1 token block a slot ([last token, draft_1..draft_k]) scored in
+    one forward against either cache, its rows installed in place.
 
 Cache and pool leaves are bf16 tensors, or ``QuantKV`` (packed payload +
 f32 scale plane) under ``kv_dtype`` int8/int4.
@@ -30,13 +33,16 @@ from repro_torch.layers.attention import (
     attention_init,
     attention_prefill,
     attention_prefill_chunk,
+    attention_verify,
+    attention_verify_paged,
     scatter_new_tokens_paged_q,
     scatter_new_tokens_q,
+    verify_plan,
     write_chunk_kv_q,
     write_prefill_pages_q,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
-from repro_torch.layers.norm import apply_norm, rmsnorm_init
+from repro_torch.layers.norm import apply_norm, apply_norm_blocks, rmsnorm_init
 from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 
@@ -106,8 +112,8 @@ def _embed(params, tokens):
     return params["emb"][tokens]
 
 
-def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
-    x = apply_norm(params["ln_f"], x, cfg.norm, cfg.norm_eps)
+def _logits(params, x, cfg: ModelConfig, norm=apply_norm) -> torch.Tensor:
+    x = norm(params["ln_f"], x, cfg.norm, cfg.norm_eps)
     head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
     return x.float() @ head.float()  # full f32: TF32 is off (see repro_torch)
 
@@ -288,22 +294,33 @@ def _slice_layer(leaf, li: int):
     return leaf[:, li]
 
 
-def _decode_layers(params: dict, token: torch.Tensor, cfg: ModelConfig, attend_layer):
-    """The layer walk of one decode step: ``attend_layer(lp, h, li)`` runs
-    layer li's attention over the (read-only) cache.  Returns (logits
-    (B, Vp), the new tokens' K and V, each (L, B, Hkv, 1, D))."""
-    x = _embed(params, token)[:, None, :]
+def _layer_view(leaf, li: int):
+    """Layer ``li`` of a cache or pool leaf as a one-layer (.., 1, Hkv, ·)
+    view, which a writer of all layers' rows updates in place."""
+    if isinstance(leaf, QuantKV):
+        return QuantKV(leaf.q[:, li:li + 1], leaf.scale[:, li:li + 1])
+    return leaf[:, li:li + 1]
+
+
+def _decode_layers(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attend_layer,
+                   norm=apply_norm):
+    """The layer walk of one decode step over W tokens a sequence (W = 1,
+    or a verify block, which takes ``apply_norm_blocks``):
+    ``attend_layer(lp, h, li)`` runs layer li's attention over the cache.
+    Returns (logits (B, W, Vp), the new tokens' K and V, each (L, B, Hkv,
+    W, D))."""
+    x = _embed(params, tokens)
     tok_k, tok_v = [], []
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+        h = norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
         attn_out, new_kv = attend_layer(lp["attn"], h, li)
         x = x + attn_out
-        h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
+        h = norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], h, cfg)
         tok_k.append(new_kv.k)
         tok_v.append(new_kv.v)
-    return _logits(params, x, cfg)[:, 0, :], torch.stack(tok_k), torch.stack(tok_v)
+    return _logits(params, x, cfg, norm), torch.stack(tok_k), torch.stack(tok_v)
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
@@ -322,10 +339,10 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torc
         layer = KVCache(_slice_layer(cache.k, li), _slice_layer(cache.v, li))
         return attention_decode(lp, h, layer, lengths, cfg)
 
-    logits, tok_k, tok_v = _decode_layers(params, token, cfg, attend)
+    logits, tok_k, tok_v = _decode_layers(params, token[:, None], cfg, attend)
     scatter_new_tokens_q(cache.k, tok_k, lengths)
     scatter_new_tokens_q(cache.v, tok_v, lengths)
-    return logits, cache
+    return logits[:, 0], cache
 
 
 def decode_step_paged(params: dict, token: torch.Tensor, pages: KVCache,
@@ -340,7 +357,54 @@ def decode_step_paged(params: dict, token: torch.Tensor, pages: KVCache,
         return attention_decode_paged(lp, h, _slice_layer(pages.k, li), _slice_layer(pages.v, li),
                                       block_tables, lengths, cfg)
 
-    logits, tok_k, tok_v = _decode_layers(params, token, cfg, attend)
+    logits, tok_k, tok_v = _decode_layers(params, token[:, None], cfg, attend)
     scatter_new_tokens_paged_q(pages.k, tok_k, block_tables, lengths)
     scatter_new_tokens_paged_q(pages.v, tok_v, block_tables, lengths)
-    return logits, pages
+    return logits[:, 0], pages
+
+
+def verify(params: dict, tokens: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
+           n_tokens: torch.Tensor, cfg: ModelConfig):
+    """The speculative verify pass over the contiguous cache: tokens (B, W)
+    int, per slot [last token, draft_1..draft_k]; cache (B, L, Hkv, Smax,
+    ·); lengths (B,) int32 tokens already cached; n_tokens (B,) int32 real
+    rows a slot (draft length + 1; 0 sits the round out).  Returns (logits
+    (B, W, Vp) — every block position's target — and the cache).
+
+    Where the JAX package attends a dense view of the cache extended by the
+    storage-rounded block rows and scatters all layers' rows after its
+    scan, each layer here writes its block rows i < n_tokens[b] into its
+    own slice first (quantized on write; layer li reads only layer li's
+    slice, so the final bytes are the same) and then walks them back
+    through the decode kernel, so row i reads what decode reads at position
+    ``lengths[b] + i``, rounded as the cache stores it; the norms take
+    their statistics at decode's row count (``apply_norm_blocks``).  Rows past
+    n_tokens are dropped and their logits are garbage the engine ignores;
+    rejected rows are rolled back by the slot's length (and, paged, by
+    releasing overshoot pages).  The rows' targets are found once a round
+    (``verify_plan``), not once a layer."""
+    leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
+    plan = verify_plan(lengths, n_tokens, tokens.shape[1], smax=leaf.shape[3])
+
+    def attend(lp, h, li):
+        layer = KVCache(_layer_view(cache.k, li), _layer_view(cache.v, li))
+        return attention_verify(lp, h, layer, plan, cfg)
+
+    return _decode_layers(params, tokens, cfg, attend, apply_norm_blocks)[0], cache
+
+
+def verify_paged(params: dict, tokens: torch.Tensor, pages: KVCache, block_tables: torch.Tensor,
+                 lengths: torch.Tensor, n_tokens: torch.Tensor, cfg: ModelConfig):
+    """``verify`` over the paged pool (N, L, Hkv, bs, ·) walked through
+    ``block_tables`` (B, P) int32: block row i of slot b lands in page
+    ``tables[b, (lengths[b] + i) // bs]``; slots of length 0 write nothing.
+    Returns (logits (B, W, Vp), pages)."""
+    leaf = pages.k.q if isinstance(pages.k, QuantKV) else pages.k
+    plan = verify_plan(lengths, n_tokens, tokens.shape[1], block_tables=block_tables,
+                       block_size=leaf.shape[3])
+
+    def attend(lp, h, li):
+        return attention_verify_paged(lp, h, _layer_view(pages.k, li), _layer_view(pages.v, li),
+                                      plan, cfg)
+
+    return _decode_layers(params, tokens, cfg, attend, apply_norm_blocks)[0], pages

@@ -33,6 +33,15 @@ cache by teacher-forcing its recorded tokens.  Chunk boundaries depend only
 on the prompt length and the chunk size, so a restart re-prefills through
 the same chunks.
 
+Speculative decoding (``spec_decode=k``): each decode round drafts up to k
+tokens a slot by prompt lookup on the host (``serving.spec_decode``), scores
+every slot's [last token, drafts] block in one verify pass, emits the
+longest confirmed draft prefix plus one target token, and rolls the
+rejected rows back (the slot length; paged, the overshoot pages).  Targets
+are what sequential decode would draw at each position (greedy argmax, or
+the same keys), so the streams are those of plain decode.  A round in
+which no slot drafted runs the plain decode program.
+
 Arguments outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -50,6 +59,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import KVSlotManager, insert_prefill_kv
 from repro_torch.core.phase_engine import PhaseEngine
+from repro_torch.core.sampling import accept_length
 from repro_torch.core.staging import StagedTensor
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
 from repro_torch.models import transformer as T
@@ -59,6 +69,7 @@ from repro_torch.layers.attention import KVCache
 from repro_torch.serving.paging import PagedKVCache, PoolExhausted, PrefixMatch, cdiv
 from repro_torch.serving.policy import DrainPolicy, SchedulerView, SwapPolicy, make_policy
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.spec_decode import find_draft
 
 SWAP_TIMING_WINDOW = 64
 LATENCY_WINDOW = 1024
@@ -155,7 +166,7 @@ class EngineStats:
     admission_blocks: int = 0  # admissions deferred on pool pressure
     replayed_tokens: int = 0  # decode steps re-run by preemption restarts
     t_replay: float = 0.0  # wall time of restarts (kept out of t_prefill/t_decode)
-    # speculative decoding (ROADMAP A.4): stay 0 until it is ported
+    # speculative decoding
     draft_tokens: int = 0
     accepted_tokens: int = 0
     verify_rounds: int = 0
@@ -238,12 +249,17 @@ class ModelRunner:
         overlap: bool = True,
         prefill_chunk: Optional[int] = None,
         spec_decode: Optional[int] = None,
+        spec_ngram: int = 3,
         device=None,
     ):
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
-        if spec_decode:
-            raise NotImplementedError("spec_decode: speculative decoding is ROADMAP A.4")
+        if spec_decode == 0:
+            spec_decode = None  # 0 = off, as the JAX package spells it
+        if spec_decode is not None and spec_decode < 1:
+            raise ValueError(f"spec_decode must be >= 1 (or 0/None = off), got {spec_decode}")
+        if spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -260,6 +276,8 @@ class ModelRunner:
         self.kv_dtype = kv_dtype
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
+        self.spec_decode = spec_decode
+        self.spec_ngram = spec_ngram
         self.slots = KVSlotManager(n_slots, self.device)
         self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
         self._bucket_progs: Dict[int, dict] = {}
@@ -280,6 +298,17 @@ class ModelRunner:
         # the inputs of the captured programs, static and written in place
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._replay_in = StagedTensor((2, n_slots), torch.int32, self.device)  # tokens, lengths
+        # Speculative decoding: one verify program of shape (n_slots, k + 1)
+        # serves every round, the draft depth of each slot given by n_tokens.
+        self.verify_prog = None
+        if spec_decode is not None:
+            w = spec_decode + 1
+            self.verify_prog = (
+                self.engine.paged_verify_program(n_slots, self.paged.max_pages, w)
+                if self.paged is not None else self.engine.verify_program(n_slots, max_len, w))
+            # a round's (B, W) block tokens, then its n_tokens column
+            self._verify_in = StagedTensor((n_slots, w + 1), torch.int32, self.device)
+            self._last_in = StagedTensor((n_slots,), torch.int32, self.device)
         self._side_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         # Chunked prefill keeps an f32 mirror (L, 1, Hkv, Cap, D) of the
@@ -450,7 +479,7 @@ class ModelRunner:
     def build_serving_grid(self) -> None:
         """Build every program the serving grid can reach: each bucket's
         prefill and swap programs, each chunk shape's program, the samplers
-        (the decode program exists from the start).  On a card, also run
+        (the decode and verify programs exist from the start).  On a card, also run
         each capturable program once on idle inputs, which warms it up and
         captures its graph, so that no capture lands inside a served
         request.  Call it before serving: the idle runs write rows no live
@@ -464,6 +493,8 @@ class ModelRunner:
             self.chunk_prog(padded, pw)
         n = len(self.slots.slots)
         samplers = [self.engine.sampler_program(n), self.engine.sampler_program(1)]
+        if self.spec_decode is not None:
+            block_sampler = self.engine.block_sampler_program(n, self.spec_decode + 1)
         if self.device.type != "cuda":
             return
         idle = self.slots.lengths_array({s: 0 for s in range(n)})
@@ -471,6 +502,11 @@ class ModelRunner:
         for prog, b in zip(samplers, (n, 1)):
             prog(torch.zeros_like(logits[:b]), self._seeds[:b], self._steps[:b], self._temps[:b],
                  self._top_ks[:b], self._top_ps[:b])
+        if self.spec_decode is not None:  # n_tokens all 0: no row is written
+            logits = self._verify(np.zeros((n, self.spec_decode + 1), np.int32),
+                                  np.zeros((n,), np.int32), idle)
+            block_sampler(torch.zeros_like(logits), self._seeds, self._steps, self._temps,
+                          self._top_ks, self._top_ps)
         if shapes:
             scalars = self._chunk_scalars.upload([0, 0, 0])
             if self.paged is not None:  # every page id the skip id: no page is written
@@ -557,6 +593,71 @@ class ModelRunner:
         else:
             logits, _ = self.decode_prog(self.params, tokens, self.cache, lengths)
         return logits
+
+    # ------------------------------------------------ speculative decoding --
+
+    def draft_for(self, req: Request, slot: int) -> np.ndarray:
+        """The prompt-lookup draft of one decoding slot, its depth
+        ``spec_decode`` clamped to the slot's headroom: at most ``max_new -
+        generated - 1`` drafts are useful (the round's last emitted token
+        never becomes an input, so its KV is never needed), and live verify
+        rows stay at or below ``max_len - 2``, since row ``max_len - 1`` is
+        the parked-write row that live KV never occupies.  With the budget
+        clamp the deepest paged write is position ``prompt + max_new - 2``,
+        inside the pages the admission check reserved."""
+        s = self.slots.slots[slot]
+        k = min(self.spec_decode, req.max_new - s.generated - 1, self.max_len - 2 - s.length)
+        if k <= 0:
+            return np.zeros((0,), np.int32)
+        ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                              np.asarray(req.out_tokens, np.int32)])
+        return find_draft(ctx, k, self.spec_ngram)
+
+    def _verify(self, tokens: np.ndarray, n_tokens: np.ndarray,
+                lengths: torch.Tensor) -> torch.Tensor:
+        w = tokens.shape[1]
+        staged = self._verify_in.upload(np.concatenate([tokens, n_tokens[:, None]], axis=1))
+        if self.paged is not None:
+            logits, _ = self.verify_prog(self.params, staged[:, :w], self.paged.kv,
+                                         self.paged.block_tables_array(), lengths, staged[:, w])
+        else:
+            logits, _ = self.verify_prog(self.params, staged[:, :w], self.cache, lengths,
+                                         staged[:, w])
+        return logits
+
+    def run_verify(self, tokens: np.ndarray, n_tokens: np.ndarray) -> torch.Tensor:
+        """One verify pass: score every slot's block ``tokens`` (B, W) in one
+        forward and install its rows ``i < n_tokens[b]`` in place (quantized
+        on write).  Returns the (B, W, Vp) logits, the per-position targets'
+        (valid until the next round)."""
+        return self._verify(tokens, n_tokens, self.slots.lengths_array())
+
+    def rollback_overshoot(self, slot: int, length: int) -> None:
+        """Roll rejected verify rows back.  Contiguous: nothing to do, the
+        rows past the slot length are never read and are rewritten before
+        the length passes them.  Paged: the overshoot pages go home, so a
+        rejection holds no pool capacity (or copy-on-write fork) across
+        rounds."""
+        if self.paged is not None:
+            self.paged.truncate_slot(slot, length)
+
+    def select_targets(self, logits: torch.Tensor, inflight: Dict[int, Request]) -> torch.Tensor:
+        """The verify targets, (B, W) on the device: what sequential decode
+        would draw at each block position.  An all-greedy batch takes the
+        argmax; otherwise the block sampler, position i of slot s drawing
+        token ``len(out_tokens) + i`` with the sequential stream's key."""
+        if all(r.params.greedy for r in inflight.values()):
+            return torch.argmax(logits, dim=-1)
+        steps = np.zeros((len(self.slots.slots),), np.int32)
+        for s, r in inflight.items():
+            steps[s] = len(r.out_tokens)
+        self._steps_in.upload(steps)
+        prog = self.engine.block_sampler_program(len(self.slots.slots), logits.shape[1])
+        return prog(logits, self._seeds, self._steps, self._temps, self._top_ks, self._top_ps)
+
+    def set_last_tokens(self, tokens: np.ndarray) -> None:
+        """Write every slot's last token (the next round's input) in place."""
+        self.last_tokens.copy_(self._last_in.upload(tokens))
 
     def append_page(self, slot: int, length: int) -> None:
         """Make position ``length`` writable, forking a shared page.  The
@@ -751,7 +852,8 @@ class EngineCore:
         overlap: bool = True,
         swap_policy: Union[SwapPolicy, str, None] = None,
         prefill_chunk: Optional[int] = None,
-        spec_decode: Optional[int] = None,
+        spec_decode: Optional[int] = None,  # draft depth k (None/0: speculation off)
+        spec_ngram: int = 3,  # the drafter's n-gram size
         device=None,
     ):
         self.cfg = cfg
@@ -759,7 +861,7 @@ class EngineCore:
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
             mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
             kv_dtype=kv_dtype, overlap=overlap, prefill_chunk=prefill_chunk,
-            spec_decode=spec_decode, device=device)
+            spec_decode=spec_decode, spec_ngram=spec_ngram, device=device)
         # slot -> the partially prefilled request (chunked prefill); in
         # admission order
         self._prefilling: Dict[int, PrefillProgress] = {}
@@ -1103,6 +1205,14 @@ class EngineCore:
 
     def _decode_round(self) -> List[RequestOutput]:
         runner, stats, sched = self.runner, self.stats, self.scheduler
+        if runner.spec_decode is not None:
+            # the host's prompt lookup first: with a draft anywhere the round
+            # is a verify pass; with none, plain decode emits the same one
+            # token a slot for a k + 1-th of the work
+            drafts = {slot: runner.draft_for(sched.inflight[slot], slot)
+                      for slot in sorted(sched.inflight)}
+            if any(len(d) for d in drafts.values()):
+                return self._verify_round(drafts)
         if runner.paged is not None:
             self._ensure_append_pages()
         active = sorted(sched.inflight)
@@ -1136,4 +1246,81 @@ class EngineCore:
                 runner.release(i)
             outs.append(out)
         runner.last_tokens.copy_(next_tokens)
+        return outs
+
+    def _grow_slot_span(self, slot: int, start: int, count: int) -> None:
+        """Make positions [start, start + count) writable for one slot before
+        a verify round: page growth and copy-on-write forks, preempting under
+        pool pressure as a decode round does.  Stops if the slot itself is
+        evicted."""
+        for pos in range(start, start + count):
+            self._grow_slot_page(slot, pos)
+            if self.runner.slots.slots[slot].request_id is None:
+                return
+
+    def _verify_round(self, drafts: Dict[int, np.ndarray]) -> List[RequestOutput]:
+        """One decode quantum under speculative decoding: the drafts (from
+        ``_decode_round``, which ran plain decode when no slot drafted), one
+        verify pass over every slot's [last token, drafts] block, then each
+        slot accepts its longest confirmed draft prefix plus one target
+        token, and the rejected rows roll back.  Every emitted token is the
+        one sequential decode would give at its position, so replay after
+        preemption needs no speculative state.  The targets are read back
+        once, as a decode round reads back its tokens."""
+        runner, stats, sched = self.runner, self.stats, self.scheduler
+        n_slots = len(runner.slots.slots)
+        w = runner.spec_decode + 1
+        if runner.paged is not None:  # each block's span writable (may preempt)
+            for slot, d in drafts.items():
+                if slot in sched.inflight:
+                    self._grow_slot_span(slot, runner.slots.slots[slot].length, len(d) + 1)
+        active = sorted(sched.inflight)
+        if not active:
+            return []
+        tokens = np.zeros((n_slots, w), np.int32)
+        n_tokens = np.zeros((n_slots,), np.int32)  # mid-prefill and free slots sit out: 0
+        for slot in active:
+            d = drafts[slot]
+            tokens[slot, 0] = sched.inflight[slot].out_tokens[-1]  # the slot's last token
+            tokens[slot, 1:1 + len(d)] = d
+            n_tokens[slot] = 1 + len(d)
+            length = runner.slots.slots[slot].length
+            # live rows stay clear of the parked-write row max_len - 1
+            # (draft_for clamps; this guards the clamp)
+            assert length + n_tokens[slot] - 1 <= runner.max_len - 2, (
+                slot, length, int(n_tokens[slot]), runner.max_len)
+        t0 = time.perf_counter()
+        logits = runner.run_verify(tokens, n_tokens)
+        targets = runner.select_targets(logits, sched.inflight)
+        targets_np = targets.cpu().numpy()  # waits for the round
+        stats.t_decode += time.perf_counter() - t0
+        stats.decode_rounds += 1
+        stats.verify_rounds += 1
+        stats.slot_rounds += len(active)
+        stats.decode_ctx_tokens += sum(runner.slots.slots[i].length for i in active)
+        outs: List[RequestOutput] = []
+        last = np.zeros((n_slots,), np.int32)
+        for slot in active:
+            req = sched.inflight[slot]
+            d = drafts[slot]
+            a = accept_length(d, targets_np[slot, :len(d)])
+            stats.draft_tokens += len(d)
+            stats.accepted_tokens += a
+            # the confirmed prefix and the next target; the output processor
+            # cuts the delta at a stop token or the budget
+            out = self.out_proc.process_tokens(req, [int(t) for t in targets_np[slot, :a + 1]])
+            e = len(out.new_token_ids)
+            s = runner.slots.slots[slot]
+            s.length += e
+            s.generated += e
+            stats.decode_tokens += e
+            last[slot] = out.new_token_ids[-1]
+            if out.finished:
+                sched.inflight.pop(slot)
+                self.finished[req.request_id] = req
+                runner.release(slot)
+            else:
+                runner.rollback_overshoot(slot, s.length)
+            outs.append(out)
+        runner.set_last_tokens(last)
         return outs

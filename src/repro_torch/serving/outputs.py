@@ -51,14 +51,22 @@ class OutputProcessor:
         req.last_emit_t = now
 
     def process_token(self, req, tok: int) -> RequestOutput:
-        """Append one token (unless the budget is spent), then decide the
-        finish state: a stop token takes precedence over the budget."""
+        return self.process_tokens(req, [tok])
+
+    def process_tokens(self, req, toks) -> RequestOutput:
+        """Append a (possibly multi-token) delta and decide the finish state.
+        A speculative verify round yields up to k + 1 tokens at once, scored
+        before either cut was known, so the delta is cut here: first to the
+        budget's headroom, then at the first stop token within it (the stop
+        token itself kept).  A stop token on the budget's last place reports
+        ``"stop"``: stop takes precedence over ``"length"``."""
         kept = []
         reason = None
-        if len(req.out_tokens) < req.max_new:
+        for tok in list(toks)[:max(req.max_new - len(req.out_tokens), 0)]:
             kept.append(int(tok))
             if tok in req.params.stop_tokens:
                 reason = "stop"
+                break
         req.out_tokens.extend(kept)
         now = time.perf_counter()
         if kept:
@@ -113,3 +121,10 @@ class OutputProcessor:
     def finalize_aborted(req) -> RequestOutput:
         """Terminal output for a cancelled request (``finish_reason="abort"``)."""
         return OutputProcessor.finalize_dropped(req, "abort")
+
+    @staticmethod
+    def resume_output(req) -> Optional[RequestOutput]:
+        """Nothing to emit on a restart: the recorded tokens were streamed
+        before the eviction, and the replay rebuilds the state exactly.  A
+        hook for processors that surface resume events."""
+        return None

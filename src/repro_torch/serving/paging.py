@@ -305,6 +305,23 @@ class PagedKVCache:
                 return (new, pid)
         return None
 
+    def truncate_slot(self, slot: int, length: int) -> int:
+        """Speculative rollback: shrink ``slot``'s table to the pages that
+        cover positions [0, length), releasing the overshoot pages a rejected
+        verify block grew.  Returns how many pages were released.  Only
+        trailing pages go, so the shared prefix pages at the front and a
+        copy-on-write fork of the block's first row's page (always a kept
+        position) stay; each table entry holds one reference, dropped here."""
+        keep = cdiv(length, self.block_size)
+        table = self.tables[slot]
+        released = 0
+        while len(table) > keep:
+            self.pool.decref(table.pop())
+            released += 1
+        if released:
+            self._tables_dirty = True
+        return released
+
     def release_slot(self, slot: int) -> None:
         for pid in self.tables[slot]:
             self.pool.decref(pid)

@@ -268,11 +268,17 @@ def _slot_contents(gen, dev, kv_dtype, b, hkv, smax, d):
     return [pairs[0][0], pairs[1][0], pairs[0][1], pairs[1][1]]
 
 
-def _slot_walk(kv_dtype, q, planes, lengths, starts):
+def _slot_walk(kv_dtype, q, planes, lengths, starts, kernel=True, rows_per_slot=1):
     if kv_dtype in PAGED_FORMATS:
-        return decode_attention_kernel(q, *planes, lengths, starts)
+        if not kernel:
+            return decode_attention_reference(q, *planes, lengths, starts)
+        return decode_attention_kernel(q, *planes, lengths, starts, rows_per_slot=rows_per_slot)
     kq, vq, ks, vs = planes
-    return decode_attention_quant_kernel(q, kq, ks, vq, vs, lengths, starts, kv_dtype=kv_dtype)
+    if not kernel:
+        return decode_attention_quant_reference(q, kq, ks, vq, vs, lengths, starts,
+                                                kv_dtype=kv_dtype)
+    return decode_attention_quant_kernel(q, kq, ks, vq, vs, lengths, starts, kv_dtype=kv_dtype,
+                                         rows_per_slot=rows_per_slot)
 
 
 def _in_cache(gen, planes, batch, layers, layer, smax, every=1, offset=0):
@@ -369,7 +375,7 @@ def test_decode_attention_kernels_refuse_rows_that_are_not_contiguous():
     fn = build.function("decode_attention", "decode_attention_launch", decode_ops._ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), None, out.data_ptr(),
             l.data_ptr(), m.data_ptr(), b, hkv, 1, smax, d, 0, *k.stride()[:3], *v.stride()[:3],
-            0.125, build.stream_ptr(dev))
+            1, 0.125, build.stream_ptr(dev))  # one query row a slot
     assert rc == 1  # cudaErrorInvalidValue
     torch.cuda.synchronize()
 
@@ -842,3 +848,176 @@ def test_quickstart_on_cuda_holds_the_cpu_port_logits():
           f"quickstart's tokens: {where}")
     assert max(errs) <= Q.LOGIT_TOL
     assert Q.main([]) == 0
+
+
+# ------------------------------------------------------ speculative decoding --
+
+VERIFY_W = 5  # k + 1 block rows a slot, k = 4
+
+
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 4096), (4096, 1536)])
+def test_tlmm_kernel_bit_exact_at_verify_rows(k, n):
+    """B1 at the verify pass's M = n_slots x (k + 1) = 20 rows (the
+    tensor-core branch), each linear's K x N, bit for bit."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    x_q = torch.randint(-127, 128, (20, k), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+    w = torch.randint(0, 256, (k // 4, n), generator=g, device=dev, dtype=torch.int32).to(torch.uint8)
+    scale = torch.rand((20, 1), generator=g, device=dev) * 1e-2
+    y = tlmm_kernel(x_q, w, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(y, tlmm_reference(x_q, w, scale))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "int4"])
+def test_decode_walks_take_a_verify_block_in_one_launch(kv_dtype):
+    """B3/B4 with ``rows_per_slot`` W: row b reads slot b // W over its own
+    length, giving the bits of the same walk over a cache with each slot
+    repeated W times, and of B5/B6 over the slot's rows as 16-row pages
+    with each table row repeated; the plain version within ATTN_TOL."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, hkv, smax, d, w = 4, 4, 256, 64, VERIFY_W
+    planes = _slot_contents(gen, dev, kv_dtype, b, hkv, smax, d)
+    q = torch.randn((b * w, hkv, 1, d), generator=gen, device=dev)
+    base = torch.tensor([9, 100, 0, 250], dtype=torch.int32, device=dev)
+    lengths = (base[:, None] + torch.arange(w, device=dev, dtype=torch.int32)).reshape(-1)
+    lengths = lengths.clamp(max=smax).to(torch.int32)
+    got = _slot_walk(kv_dtype, q, planes, lengths, None, rows_per_slot=w)
+    repeated = [t.repeat_interleave(w, 0) for t in planes]
+    assert all(torch.equal(x, y) for x, y in zip(got, _slot_walk(kv_dtype, q, repeated, lengths,
+                                                                  None)))
+    pages = [t.reshape(b, hkv, smax // 16, 16, *t.shape[3:]).transpose(1, 2)
+             .reshape(b * smax // 16, hkv, 16, *t.shape[3:]).contiguous() for t in planes]
+    tables = torch.arange(b * smax // 16, dtype=torch.int32, device=dev).reshape(b, -1)
+    tables = tables.repeat_interleave(w, 0)
+    assert all(torch.equal(x, y) for x, y in zip(got, _paged_walk(kv_dtype, q, pages, tables,
+                                                                   lengths, None)))
+    want = _slot_walk(kv_dtype, q, repeated, lengths, None, kernel=False)
+    _assert_stats_close(got, want)
+
+
+def _verify_inputs(cfg, layout, kv_dtype, dev, gen):
+    cache, tables = _filled_cache(cfg, layout, kv_dtype, dev, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (3, VERIFY_W), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lengths = torch.tensor([32, 0, 30], dtype=torch.int32, device=dev)
+    n_tokens = torch.tensor([VERIFY_W, 0, 2], dtype=torch.int32, device=dev)
+    return cache, tables, tokens, lengths, n_tokens
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_verify_graph_replays_the_eager_program_bit_for_bit(layout, kv_dtype):
+    """``verify:{B}x{W}@{max_len}`` / ``verify_paged:{B}x{W}@{P}``: the
+    capturing call, a replay and replays after the inputs change in place
+    (tokens, lengths, draft depths) give the eager program's logits and
+    cache bytes bit for bit; a replay adds the captured launches: B1 and
+    act-quant 7 a layer, the option's walk one a layer over all B x W rows."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cache, tables, tokens, lengths, n_tokens = _verify_inputs(cfg, layout, kv_dtype, dev, gen)
+    mirror = _clone(cache)
+    eng = PhaseEngine(cfg, cache_layout=layout, kv_dtype=kv_dtype)
+    prog = (eng.verify_program(3, 64, VERIFY_W) if layout == "contiguous"
+            else eng.paged_verify_program(3, 8, VERIFY_W))
+    extra = () if tables is None else (tables,)
+
+    def step(fn, kv):
+        return fn(params, tokens, kv, *extra, lengths, n_tokens)[0].clone()
+
+    for i in range(4):
+        got, want = step(prog, cache), step(prog.fn, mirror)
+        torch.cuda.synchronize()
+        assert got.shape == (3, VERIFY_W, cfg.padded_vocab())
+        assert _same(got, want) and _same(cache, mirror), f"call {i}"
+        tokens.copy_((tokens * 7 + 3) % cfg.vocab_size)
+        # other lengths and depths, every block inside its slot's pages
+        lengths.sub_(torch.tensor([3, 0, 2], dtype=torch.int32, device=dev))
+        n_tokens.copy_(torch.tensor([2, 0, VERIFY_W - i], dtype=torch.int32, device=dev))
+    kernel = ("paged_" if layout == "paged" else "") + "decode_attention" + (
+        "" if kv_dtype == "fp" else "_quant")
+    per_pass = 7 * cfg.num_layers
+    assert {k: v for k, v in prog.captured.launches.items() if v} == {
+        "tlmm": per_pass, "act_quant": per_pass, kernel: cfg.num_layers}
+    _launches_per_replay(prog, 2, lambda i: prog(params, tokens, cache, *extra, lengths, n_tokens))
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return type(tree)(*(_tree_to(x, dev) for x in tree))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_verify_on_cuda_holds_the_cpu_port_and_its_decode_steps(layout, kv_dtype):
+    """A verify pass on the card: its logits within the decode tolerance
+    (1e-3 of the largest logit) of the CPU port's on the same weights, cache
+    and tokens; and against W decode steps on the card teacher-forcing the
+    block's tokens (every row real), the same cache bytes and each row's
+    logits within that tolerance (the logits product runs at M = B x W,
+    not B)."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    params_cpu = T.convert_for_inference(T.init(cfg, 5, device="cpu"), cfg)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cache, tables, tokens, lengths, n_tokens = _verify_inputs(cfg, layout, kv_dtype, dev, gen)
+    start = _clone(cache)
+    extra = () if tables is None else (tables,)
+    fn = T.verify_paged if layout == "paged" else T.verify
+    got = fn(params, tokens, cache, *extra, lengths, n_tokens, cfg)[0]
+    want = fn(params_cpu, tokens.cpu(), _tree_to(start, "cpu"), *(t.cpu() for t in extra),
+              lengths.cpu(), n_tokens.cpu(), cfg)[0]
+    tol = 1e-3 * max(want.abs().max().item(), 1.0)
+    for b in range(3):
+        for i in range(int(n_tokens[b])):
+            assert (got[b, i].cpu() - want[b, i]).abs().max().item() <= tol, (b, i)
+    # every row real; paged, slot 1 gets pages of its own (4 and 7 are free)
+    lengths = torch.tensor([32, 9, 30], dtype=torch.int32, device=dev)
+    if tables is not None:
+        extra = (tables.clone(),)
+        extra[0][1] = torch.tensor([4, 7, 8, 10, 12, 13, 0, 0], dtype=torch.int32)
+    mine, steps = _clone(start), _clone(start)
+    logits = fn(params, tokens, mine, *extra, lengths, torch.full_like(n_tokens, VERIFY_W), cfg)[0]
+    step_fn = T.decode_step_paged if layout == "paged" else T.decode_step
+    seq = [step_fn(params, tokens[:, i], steps, *extra, lengths + i, cfg)[0]
+           for i in range(VERIFY_W)]
+    torch.cuda.synchronize()
+    assert _same(mine, steps)
+    assert (logits - torch.stack(seq, 1)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_spec_engine_on_cuda_gives_the_plain_engines_tokens(layout):
+    """A greedy int8 engine with ``spec_decode=4`` on the card, its grid
+    (the verify program and the block sampler among the graphs) built
+    first, against the same engine without speculation: the same tokens,
+    or streams parting only at a near tie (the two tokens' logits within
+    ``chip_smoke.TIE_TOL`` on both sides; the logits product runs at M = 20
+    on a verify round, 4 on a decode round)."""
+    import chip_smoke as C
+
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    rng = np.random.default_rng(9)
+    pattern = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [np.tile(pattern, n // 16) for n in (64, 96)] + [
+        rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 70)]
+    streams, recorders = {}, {}
+    for spec in (None, 4):
+        eng = EngineCore(cfg, params, n_slots=3, max_len=192, block_size=16, cache_layout=layout,
+                         kv_dtype="int8", spec_decode=spec, device=dev)
+        eng.build_serving_grid()
+        progs = eng.runner.engine.programs
+        assert all(p.captured is not None for p in progs.values() if p.capturable)
+        recorders[spec] = C.TargetRecorder(eng)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", p, max_new=24))
+        st = eng.run()
+        streams[spec] = {r: q.out_tokens for r, q in eng.finished.items()}
+    assert f"block_sampler:3x{VERIFY_W}" in progs
+    assert st.verify_rounds > 0 and st.accepted_tokens > 0
+    C.check_near_ties(torch, f"{layout} spec against plain", streams[4], streams[None],
+                      recorders[4], recorders[None], lambda rid: SamplingParams())

@@ -144,9 +144,8 @@ def test_out_of_slice_arguments_raise_not_implemented():
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
     kw = dict(n_slots=1, max_len=64, device="cpu")
-    for extra in (dict(spec_decode=2), dict(swap_policy="slo-aware")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EngineCore(cfg, params, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EngineCore(cfg, params, **kw, swap_policy="slo-aware")
     eng = EngineCore(cfg, params, **kw)
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
