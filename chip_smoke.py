@@ -85,7 +85,25 @@ Phases (any failure raises and the script exits non-zero):
    one part-way through its chunked prefill and one queued, each ending
    ``"abort"``, no live page left, and a later request's tokens equal to a
    fresh engine's;
-7. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
+7. the front end, (n): (i)'s engine with the SLO-aware policy behind
+   ``serve_http`` on 127.0.0.1, its grid built and the tracer on, (d)'s 8
+   prompts posted at once over SSE by two tenants (weights 1 and 3); the
+   streams must be (i)'s or part only at a near tie, ``/stats`` must hold
+   the front end's counters, both tenants and roofline drift on the H100
+   ``ChipSpec``, ``/metrics`` the stats' counters, ``/stats/v2`` its
+   schema, the Chrome trace (``chiprun_out/trace_frontend.json``) one
+   finish a request, the launches those the stats imply; the TTFT a tenant
+   at the client and the decode tok/s beside (i)'s, the gaps between the
+   engine's steps (the front end's own time) from the trace; then a decode
+   profile with the tracer on against one with it off (the same device
+   operations a round), a back-dated request shed, and a drain with grace 0
+   that must cut an open 1,000-token stream with ``"abort"``;
+8. the CLI, (o): ``repro_torch.launch.serve.main`` in batch mode at full
+   width (4 requests of 32 tokens, 8 new, max_len 128, contiguous bf16) on
+   the JAX CLI's latent weights drawn from seed 0 on the card; its printed
+   tokens must equal an ``EngineCore`` run on the same weights, and B1, B2
+   and B3 run as often as the run implies;
+9. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
@@ -563,8 +581,11 @@ def main() -> int:
     from repro_torch.quant.act_quant import quantize_and_fold
     from repro_torch.quant.ternary import TernaryWeight, unpack_ternary
 
+    from repro_torch.common.hardware import H100_SXM
+
     card = smi()
-    print(f"card: {card}")
+    print(f"card: {card}; device memory {torch.cuda.get_device_properties(0).total_memory} bytes "
+          f"(the H100_SXM ChipSpec's hbm_bytes: {H100_SXM.hbm_bytes})")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     # ---- 2. build
@@ -665,8 +686,8 @@ def main() -> int:
     eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card)
 
     # ---- 5. the other cache options at full width
-    path_launches = cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots,
-                                       max_len, card)
+    path_launches, path_i = cache_option_paths(torch, np, cfg, params, prompts, max_tokens,
+                                               n_slots, max_len, card)
     spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
     for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
@@ -688,7 +709,10 @@ def main() -> int:
     if not (abort_launches["tlmm"] and abort_launches["paged_decode_attention_quant"]
             and not abort_launches["prefill_attention"]):
         raise AssertionError(f"abort phase: launches {abort_launches}")
-    for part in (path_launches, spec_launches, abort_launches):
+    front_launches = frontend_phase(torch, np, cfg, params, max_tokens, path_i, card)
+    del path_i
+    cli_launches = cli_phase(torch, np, card)
+    for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -864,7 +888,9 @@ def _latency(st):
 
 
 def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, card):
-    """Phase 5: paths (a)-(j).  Returns the launches summed over them."""
+    """Phase 5: paths (a)-(j).  Returns the launches summed over them, and
+    path (i)'s streams, its ``TargetRecorder``, its TTFT p50/p99 and its
+    decode tok/s (path (n) is held to them)."""
     shared = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)
     paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
     paths = [
@@ -890,11 +916,15 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         ("j", f"(i) on a {SMALL_POOL}-page pool", shared,
          dict(paged8, prefill_chunk=CHUNK, num_blocks=SMALL_POOL), None),
     ]
-    total, streams, latency, ops = {}, {}, {}, {}
+    total, streams, latency, ops, rec = {}, {}, {}, {}, []
     for key, what, ps, kw, params_of in paths:
         eng, st, wall, launches, prefills, events, grid = serve(
-            cfg, params, ps, max_tokens, params_of, n_slots=n_slots, max_len=max_len,
-            block_size=16, **kw)
+            cfg, params, ps, max_tokens, params_of,
+            on_engine=(lambda e: rec.append(TargetRecorder(e))) if key == "i" else None,
+            n_slots=n_slots, max_len=max_len, block_size=16, **kw)
+        if key == "i":
+            rec[0].stop()  # the profiles below are not recorded
+            tput_i = st.decode_tput()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check_served(eng, cfg, len(ps), max_tokens)
         streams[key] = {r: q.out_tokens for r, q in eng.finished.items()}
@@ -983,7 +1013,8 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
               f"{itl_max:.1f} ms  [{card}]")
     print(f"path (i): {same} of {len(requests)} streams equal (d)'s (monolithic prefill runs "
           "B2, chunks f32 matmuls: equal only to float rounding, not asserted)")
-    return total
+    return total, {"streams": {r: t for r, t in streams["i"].items() if r in requests},
+                   "recorder": rec[0], "latency": latency["i"], "tput": tput_i}
 
 
 class TargetRecorder:
@@ -1283,6 +1314,353 @@ def abort_phase(torch, np, cfg, params, card):
     print(f"abort phase: a ({len(eng.finished['a'].out_tokens)} tokens out) decoding, b after "
           f"1 of 6 chunks, c queued: each finish_reason 'abort'; 0 live pages after; a request "
           f"served after the aborts gives a fresh engine's 16 tokens  [{card}]")
+    return launches
+
+
+SLO_LOOSE = dict(ttft_target_s=600.0, itl_target_s=60.0)  # path (n): loose enough that nothing is shed
+TENANTS = (("A", 1.0), ("B", 3.0))  # path (n): request i is sent by TENANTS[i % 2]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def _http(port, method, path, body=b""):
+    """One HTTP exchange on a fresh connection: (status line, headers, body)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(body)}\r\n\r\n"
+                 .encode() + body)
+    await writer.drain()
+    data = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, payload = data.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    return lines[0], {k.strip().lower(): v.strip() for k, _, v in
+                      (ln.partition(":") for ln in lines[1:])}, payload
+
+
+async def _sse(port, spec):
+    """POST /generate and read the stream: (events, seconds from sending to
+    the first event, to the last)."""
+    import asyncio
+
+    body = json.dumps(spec).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    t0 = time.perf_counter()
+    writer.write(f"POST /generate HTTP/1.1\r\nHost: smoke\r\nContent-Length: {len(body)}\r\n\r\n"
+                 .encode() + body)
+    await writer.drain()
+    events, first = [], None
+    while True:
+        line = await asyncio.wait_for(reader.readline(), 600)
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            events.append(json.loads(line[6:]))
+            first = first if first is not None else time.perf_counter() - t0
+    last = time.perf_counter() - t0
+    writer.close()
+    await writer.wait_closed()
+    return events, first, last
+
+
+def frontend_phase(torch, np, cfg, params, max_tokens, path_i, card):
+    """Path (n): (i)'s engine (paged int8, 512 pages, 256-token chunks, 4
+    slots) with the SLO-aware policy behind ``serve_http`` on 127.0.0.1, its
+    grid built and the tracer on.  (d)'s 8 prompts are posted at once over
+    SSE by two tenants (weights 1 and 3).  The streams must be (i)'s or part
+    only at a near tie; /stats must carry the front end's counters, both
+    tenants and roofline drift on the H100 ChipSpec, /metrics the stats'
+    counters, /stats/v2 its schema; the Chrome trace (under chiprun_out/)
+    finishes each request once; the launches are those the stats imply.
+    Then, on the same engine: a decode profile with the tracer on against
+    one with it off (the same device operations a round), a back-dated
+    request shed, and a drain with grace 0 that cuts a 1,000-token stream
+    with "abort".  Returns the session's launches."""
+    import asyncio
+
+    from repro_torch.common.hardware import H100_SXM
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.serve import serve_http
+    from repro_torch.obs.drift import roofline_drift
+    from repro_torch.obs.engine import _STAT_COUNTERS
+    from repro_torch.obs.metrics import PROMETHEUS_CONTENT_TYPE
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.serving import EngineCore, Request, SamplingParams
+    from repro_torch.serving.slo import SLOAwareSwapPolicy, SLOConfig
+
+    eng = EngineCore(cfg, params, n_slots=4, max_len=2048, mode="pdswap", cache_layout="paged",
+                     kv_dtype="int8", block_size=16, num_blocks=512, prefill_chunk=CHUNK,
+                     swap_policy=SLOAwareSwapPolicy(SLOConfig(**SLO_LOOSE)), device="cuda")
+    grid = build_grid(torch, eng)
+    list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
+    eng.reset_stats()
+    rec = TargetRecorder(eng)
+    prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)
+
+    async def session():
+        ready, stop = asyncio.Event(), asyncio.Event()
+        port = _free_port()
+        task = asyncio.create_task(serve_http(eng, SamplingParams(), "127.0.0.1", port,
+                                              ready=ready, stop=stop, grace_s=30.0))
+        await asyncio.wait_for(ready.wait(), 60)
+        t0 = time.perf_counter()
+        runs = await asyncio.gather(*(_sse(port, {
+            "prompt": p.tolist(), "max_new": max_tokens, "request_id": f"req{i}",
+            "tenant": TENANTS[i % 2][0], "weight": TENANTS[i % 2][1]})
+            for i, p in enumerate(prompts)))
+        wall = time.perf_counter() - t0
+        out = {"runs": runs, "wall": wall}
+        for path in ("/stats", "/stats/v2", "/metrics"):
+            status, headers, payload = await _http(port, "GET", path)
+            if not status.startswith("HTTP/1.1 200"):
+                raise AssertionError(f"path (n): GET {path} gave {status}")
+            out[path] = (headers["content-type"], payload.decode())
+        stop.set()
+        out["rc"] = await asyncio.wait_for(task, 120)
+        return out
+
+    TRACER.enable()
+    torch.cuda.synchronize()
+    reset_counts()
+    res = asyncio.run(session())
+    launches = dict(COUNTS)
+    st = eng.stats
+    rec.stop()
+    trace_path = Path("chiprun_out") / "trace_frontend.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    trace = TRACER.export_chrome_trace(str(trace_path))
+    dropped = TRACER.dropped
+    TRACER.disable()
+    TRACER.clear()
+
+    # the streams: whole, finished by length, and (i)'s or parting at a near tie
+    streams, ttft = {}, {t: [] for t, _ in TENANTS}
+    for i, (events, first, last) in enumerate(res["runs"]):
+        rid = f"req{i}"
+        if not events or not events[-1]["finished"] or events[-1]["finish_reason"] != "length":
+            raise AssertionError(f"path (n): {rid} ended with {events[-1:]}")
+        streams[rid] = [t for e in events for t in e["new_token_ids"]]
+        ttft[TENANTS[i % 2][0]].append(first)
+    check_served(eng, cfg, len(prompts), max_tokens)
+    parted = check_near_ties(torch, "path (n) against (i)", streams, path_i["streams"], rec,
+                             path_i["recorder"], lambda rid: SamplingParams())
+    print(f"path (n): {len(streams) - len(parted)} of {len(streams)} streams over HTTP equal "
+          f"(i)'s; {len(parted)} part at a near tie (scores within {TIE_TOL})")
+
+    # /stats, /metrics, /stats/v2
+    stats = json.loads(res["/stats"][1])
+    fe = stats["frontend"]
+    if not (fe["accepted"] == len(prompts) and fe["rejected"] == 0 and fe["open_streams"] == 0
+            and fe["pending"] == 0):
+        raise AssertionError(f"path (n): /stats frontend {fe}")
+    if sorted(stats["tenants"]) != ["A", "B"] or any(
+            stats["tenants"][t]["queue_wait_s"]["count"] != len(prompts) // 2 for t in "AB"):
+        raise AssertionError(f"path (n): /stats tenants {stats['tenants']}")
+    drift = json.loads(json.dumps(roofline_drift(eng, H100_SXM)))
+    if stats["roofline_drift"] != drift or set(drift) != {"prefill", "decode"}:
+        raise AssertionError(f"path (n): /stats roofline_drift {stats['roofline_drift']}")
+    ctype, text = res["/metrics"]
+    metrics = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, value = line.rsplit(" ", 1)
+            metrics[name] = float(value)
+    bad = [(name, metrics.get(name), stats[attr]) for attr, name, _ in _STAT_COUNTERS
+           if metrics.get(name) != float(stats[attr])]
+    if ctype != PROMETHEUS_CONTENT_TYPE or bad or metrics["repro_frontend_accepted_total"] != 8:
+        raise AssertionError(f"path (n): /metrics ({ctype}) differs from /stats: {bad}")
+    v2 = json.loads(res["/stats/v2"][1])
+    if v2.get("schema") != "v2" or v2["counters"]["repro_decode_tokens_total"] != st.decode_tokens:
+        raise AssertionError("path (n): /stats/v2 does not parse to the registry")
+    fins = {}
+    for e in trace["traceEvents"]:
+        if e["name"] == "req.finish":
+            rid = e["args"]["request_id"]
+            fins[rid] = fins.get(rid, 0) + 1
+    if fins != {f"req{i}": 1 for i in range(len(prompts))} or res["rc"] != 0:
+        raise AssertionError(f"path (n): finishes in the trace {fins}, server rc {res['rc']}")
+
+    # the launches the stats imply: 168 B1 a chunk and a round, the walk 24 a round
+    steps = st.decode_rounds + st.replayed_tokens
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 7 * cfg.num_layers * (st.prefill_chunks + steps),
+                   "act_quant": 7 * cfg.num_layers * (st.prefill_chunks + steps),
+                   "prefill_attention": 0, "paged_decode_attention_quant": cfg.num_layers * steps})
+    if launches != expect:
+        raise AssertionError(f"path (n): launches {launches} != expected {expect}")
+
+    i_p50, i_p99, _ = path_i["latency"]
+    print(f"path (n) front end: {len(prompts)} SSE streams x {max_tokens} tokens over HTTP, "
+          f"two tenants (A weight 1, B weight 3), SLO-aware policy (TTFT target "
+          f"{SLO_LOOSE['ttft_target_s']} s, ITL {SLO_LOOSE['itl_target_s']} s), "
+          f"{st.prefill_chunks} chunks, {st.decode_rounds} decode rounds, {st.sheds} shed, "
+          f"{res['wall']:.2f} s wall  [{card}]")
+    print(f"  {_grid_line(grid)}  [{card}]")
+    for k, (t, w) in enumerate(TENANTS):
+        v = sorted(ttft[t])
+        mine = [eng.finished[f"req{i}"] for i in range(k, len(prompts), len(TENANTS))]
+        e = sorted(r.first_token_t - r.arrival_time_s for r in mine)
+        print(f"  tenant {t} (weight {w}): TTFT at the client p50 {statistics.median(v) * 1e3:.1f} "
+              f"ms p99 {float(np.percentile(v, 99)) * 1e3:.1f} ms; the engine's TTFT p50 "
+              f"{statistics.median(e) * 1e3:.1f} ms p99 {float(np.percentile(e, 99)) * 1e3:.1f} "
+              f"ms, queue wait p50 {stats['tenants'][t]['queue_wait_s']['p50'] * 1e3:.1f} ms  "
+              f"[{card}]")
+    print(f"  engine TTFT p50 {st.ttft.percentile(50) * 1e3:.1f} ms p99 "
+          f"{st.ttft.percentile(99) * 1e3:.1f} ms, decode {st.decode_tput():.1f} tok/s "
+          f"({st.decode_round_cost() * 1e3:.2f} ms a round); path (i) in process: TTFT p50 "
+          f"{i_p50:.1f} ms p99 {i_p99:.1f} ms, decode {path_i['tput']:.1f} tok/s  [{card}]")
+    for phase, d in drift.items():
+        print(f"  roofline drift [{phase}] against {H100_SXM.name}: measured "
+              f"{d['measured_s_per_token'] * 1e6:.2f} us/token, bound "
+              f"{d['bound_s_per_token'] * 1e6:.4f} us/token, residency "
+              f"{d['residency_ratio']:.5f}  [{card}]")
+    print(f"  /metrics: {len(_STAT_COUNTERS)} stat counters equal /stats; /stats/v2 parses; "
+          f"trace: {len(trace['traceEvents'])} events ({dropped} dropped) -> "
+          f"{trace_path}, each request finished once")
+    # the front end's own time: the gaps between two engine steps (the
+    # executor hop, routing the deltas, the SSE writes), from the trace
+    steps = sorted((e["ts"], e["dur"]) for e in trace["traceEvents"] if e["name"] == "engine.step")
+    gaps = sorted(b[0] - (a[0] + a[1]) for a, b in zip(steps, steps[1:]))
+    busy = sum(d for _, d in steps)
+    print(f"  front end between steps (trace): {len(steps)} steps, {busy / 1e3:.1f} ms in steps "
+          f"of {(steps[-1][0] + steps[-1][1] - steps[0][0]) / 1e3:.1f} ms, gap median "
+          f"{statistics.median(gaps) / 1e3:.3f} ms p90 {gaps[int(0.9 * len(gaps))] / 1e3:.3f} ms "
+          f"max {gaps[-1] / 1e3:.3f} ms; "
+          f"{sum(e['ph'] != 'M' for e in trace['traceEvents']) / len(steps):.1f} "
+          f"trace events a step  [{card}]")
+    print(f"  launches {launches}")
+
+    # tracing costs no device operation
+    prof = {}
+    for on in (False, True, False, True):
+        if on:
+            TRACER.enable()
+        try:
+            wall_p, dev_p, _, per_round = profile_decode(torch, eng)
+        finally:
+            TRACER.disable()
+            TRACER.clear()
+        prof.setdefault(on, []).append((per_round, wall_p / 4 * 1e3,
+                                        None if dev_p is None else dev_p / 4 * 1e3))
+    if {r[0] for r in prof[True]} != {r[0] for r in prof[False]}:
+        raise AssertionError(f"path (n): device operations a round with the tracer {prof[True]} "
+                             f"against without {prof[False]}")
+    for on in (False, True):
+        print(f"  profile, tracer {'on' if on else 'off'}: " + "; ".join(
+            f"{ops:.1f} device operations, {wall:.2f} ms wall, "
+            + ("device not measured" if dev is None else f"{dev:.3f} ms device") + " a round"
+            for ops, wall, dev in prof[on]) + f"  [{card}]")
+
+    # a back-dated request is shed
+    rng = np.random.default_rng(9)
+    doomed = Request("doomed", rng.integers(0, cfg.vocab_size, 64).astype(np.int32), max_new=4)
+    eng.submit(doomed)
+    doomed.arrival_time_s -= 1e4
+    outs = eng.step()
+    if [(o.request_id, o.finish_reason) for o in outs] != [("doomed", "shed")] or st.sheds != 1:
+        raise AssertionError(f"path (n): the back-dated request gave {outs}, sheds {st.sheds}")
+
+    # a drain with grace 0 cuts an open stream
+    async def drain():
+        ready, stop = asyncio.Event(), asyncio.Event()
+        port = _free_port()
+        task = asyncio.create_task(serve_http(eng, SamplingParams(), "127.0.0.1", port,
+                                              ready=ready, stop=stop, grace_s=0.0))
+        await asyncio.wait_for(ready.wait(), 60)
+        reader = asyncio.create_task(_sse(port, {"prompt": list(range(3, 19)), "max_new": 1000,
+                                                 "request_id": "long"}))
+        while not (eng.scheduler.inflight or reader.done()):
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.2)  # a few rounds of it
+        stop.set()
+        events, _, _ = await asyncio.wait_for(reader, 120)
+        return events, await asyncio.wait_for(task, 120)
+
+    events, rc = asyncio.run(drain())
+    n = sum(len(e["new_token_ids"]) for e in events)
+    if not (events and events[-1]["finish_reason"] == "abort" and 0 < n < 1000 and rc == 0):
+        raise AssertionError(f"path (n): the drain with grace 0 ended the stream with "
+                             f"{events[-1:]} after {n} tokens")
+    live = eng.runner.paged.pool.num_live
+    if live or eng.has_unfinished():
+        raise AssertionError(f"path (n): {live} live pages after the drain")
+    print(f"path (n): a request back-dated by 1e4 s is shed (finish_reason 'shed'); a drain "
+          f"with grace 0 cuts an open 1000-token stream after {n} tokens with 'abort', 0 live "
+          f"pages after  [{card}]")
+    return launches
+
+
+def cli_phase(torch, np, card):
+    """Path (o): ``repro_torch.launch.serve.main`` in batch mode at full
+    width (bitnet-730m, 4 requests of 32 tokens, 8 new, max_len 128,
+    contiguous bf16, pdswap), the JAX CLI's latent weights drawn from
+    ``--seed 0`` on the card.  Its printed tokens must equal an
+    ``EngineCore`` run on the same weights, and it must run B1, B2 and B3
+    as often as its run implies.  Returns its launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch import serve as S
+    from repro_torch.models.jax_init import init_like_jax
+    from repro_torch.serving import EngineCore, SamplingParams
+
+    argv = ["--arch", "bitnet-730m", "--requests", "4", "--prompt-len", "32", "--max-new", "8",
+            "--max-len", "128", "--seed", "0"]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = S.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(COUNTS)
+    text = buf.getvalue()
+    print("path (o): python -m repro_torch.launch.serve " + " ".join(argv) + f"  ({wall:.2f} s "
+          f"wall, weights drawn on the card and the serving grid included)  [{card}]")
+    print("\n".join("  | " + ln for ln in text.strip().splitlines()))
+    printed = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("req-"):
+            rid, _, toks = line.partition(": ")
+            printed[rid] = json.loads(toks.rstrip("."))
+    if rc != 0 or "requests finished : 4/4" not in text or len(printed) != 3:
+        raise AssertionError(f"path (o): rc {rc}, printed {printed}")
+
+    cfg = get_config("bitnet-730m")
+    args = S.parse_args(argv)
+    eng = EngineCore(cfg, init_like_jax(cfg, 0, "cuda", draw_device="cuda"), n_slots=4,
+                     max_len=128, prompt_len=32, device="cuda")
+    for r in S.batch_requests(args, cfg, SamplingParams()):
+        eng.submit(r)
+    eng.run()
+    want = {rid: eng.finished[rid].out_tokens for rid in printed}
+    if printed != want:
+        raise AssertionError(f"path (o): the CLI printed {printed}, an EngineCore on the same "
+                             f"weights gives {want}")
+    # 4 prefills in one burst, 7 decode rounds (the first token is the
+    # prefill's), and the serving grid's one idle decode round
+    passes, rounds = 4 + 7 + 1, 7 + 1
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 7 * cfg.num_layers * passes, "act_quant": 7 * cfg.num_layers * passes,
+                   "prefill_attention": cfg.num_layers * 4,
+                   "decode_attention": cfg.num_layers * rounds})
+    if launches != expect:
+        raise AssertionError(f"path (o): launches {launches} != expected {expect}")
+    print(f"path (o): the CLI's tokens equal an EngineCore run on the same weights; launches "
+          f"{launches} (B1 168 a pass: 4 prefills, 7 decode rounds, the grid's idle round; B2 "
+          f"24 a prefill; B3 24 a round)")
     return launches
 
 

@@ -29,7 +29,7 @@ class KVSlotManager:
     (``lengths_array``) written in place, so a captured decode program can
     read them from one address every round."""
 
-    def __init__(self, n_slots: int, device="cpu"):
+    def __init__(self, n_slots: int, device):
         self.slots: List[SlotState] = [SlotState() for _ in range(n_slots)]
         self._lengths = StagedTensor((n_slots,), torch.int32, device)
 

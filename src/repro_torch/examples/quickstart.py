@@ -28,7 +28,6 @@ to the CPU port's, on the card's tokens, within ``LOGIT_TOL``.
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from typing import List, Optional
 
@@ -37,9 +36,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import reduced_config
 from repro_torch.core.phase_engine import PhaseEngine
-from repro_torch.core.sampling import MASK32, random_bits, threefry2x32
 from repro_torch.core.swap import SwapController
 from repro_torch.models import transformer as T
+from repro_torch.models.jax_init import init_like_jax
 
 PROMPT_LEN, MAX_LEN, N_NEW = 32, 96, 12
 # what ``examples/quickstart.py`` prints on the CPU (jax 0.9); the tests
@@ -47,82 +46,10 @@ PROMPT_LEN, MAX_LEN, N_NEW = 32, 96, 12
 JAX_QUICKSTART_TOKENS = [317, 317, 317, 720, 720, 720, 720, 720, 720, 720, 206, 279]
 # how far the card's logits may lie from the CPU port's on the same tokens
 LOGIT_TOL = 5e-3
-# Giles's single-precision erf_inv polynomial (the one XLA evaluates), in
-# w - 2.5 for w = -log1p(-x^2) < 5, else in sqrt(w) - 3
-_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
-                 -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
-                 -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
 def quickstart_config():
     return reduced_config("bitnet-730m", num_layers=4, d_model=256, vocab_size=1024)
-
-
-def _split(key, n: int):
-    """``jax.random.split(key, n)`` (threefry, partitionable): key i is the
-    threefry of the counter (0, i)."""
-    k0, k1 = key
-    x1 = torch.arange(n, dtype=torch.int64)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(x1), x1)
-    return [(y0[i], y1[i]) for i in range(n)]
-
-
-def _erf_inv(x: torch.Tensor) -> torch.Tensor:
-    w = -torch.log1p(-x * x)
-    small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
-    p = torch.zeros_like(x)
-    for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE):
-        p = torch.where(small, torch.tensor(a), torch.tensor(b)) + p * w
-    return p * x
-
-
-def _normal(key, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``: uniform on
-    [nextafter(-1, 0), 1) from the key's bits, times sqrt(2), through the
-    inverse error function."""
-    n = math.prod(shape)
-    bits = random_bits((key[0].reshape(1), key[1].reshape(1)), n)[0]
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
-    u = torch.maximum(floats * 2.0 + lo, lo)  # (1 - lo) rounds to 2.0 in f32
-    return (_erf_inv(u) * math.sqrt(2)).reshape(shape)
-
-
-def init_like_jax(cfg, seed: int = 0, device=None) -> dict:
-    """The quickstart model's latent f32 weights as the JAX package's
-    ``transformer.init(cfg, PRNGKey(seed), float32)`` draws them (the
-    key-split tree of its init, layer by layer), in the port's layout."""
-    k_emb, k_layers, _ = _split((torch.tensor(0), torch.tensor(seed & MASK32)), 3)
-    d, f = cfg.d_model, cfg.d_ff
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    def lin(key, k, n, scale=None):
-        return {"w": _normal(key, (k, n)) * (1.0 / k ** 0.5 if scale is None else scale)}
-
-    layers = []
-    for kl in _split(k_layers, cfg.num_layers):
-        ka, kf = _split(kl, 2)
-        k1, k2, k3, k4 = _split(ka, 4)
-        m1, m2, m3 = _split(kf, 3)
-        layers.append({
-            "attn": {"wq": lin(k1, d, h * hd), "wk": lin(k2, d, hkv * hd),
-                     "wv": lin(k3, d, hkv * hd), "wo": lin(k4, h * hd, d, 1.0 / (h * hd) ** 0.5)},
-            "ln1": {"scale": torch.ones(d)}, "ln2": {"scale": torch.ones(d)},
-            "mlp": {"w_gate": lin(m1, d, f), "w_up": lin(m2, d, f),
-                    "w_down": lin(m3, f, d, 1.0 / f ** 0.5)},
-        })
-    params = {"emb": _normal(k_emb, (cfg.padded_vocab(), d)) * 0.02,
-              "layers": T._stack(layers), "ln_f": {"scale": torch.ones(d)}}
-    dev = resolve_device(device)
-    return _to(params, dev)
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 def run(params, cfg, *, device, overlap: bool, log=print, feed: Optional[List[int]] = None,

@@ -24,6 +24,10 @@ import torch
 
 KV_DTYPES = ("fp", "int8", "int4")
 
+# bits a cached element takes (fp: the bf16 cache) and a row's scale
+KV_DTYPE_BITS = {"fp": 16, "int8": 8, "int4": 4}
+SCALE_BITS = 32  # one f32 scale a (layer, head, token) row
+
 # symmetric range per dtype: int4 uses [-7, 7] (not -8) so negation is exact
 QMAX = {"int8": 127, "int4": 7}
 

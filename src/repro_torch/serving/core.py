@@ -18,14 +18,20 @@ and the two modes —
 * ``mode="static"``: the unsplit prefill, then the KV install (quantized on
   write too: storage precision belongs to the cache, not to the phase).
 
-Three layers, as in the JAX package: ``Scheduler`` (FIFO wait queue,
-admission validation, the swap decision through a ``SwapPolicy``),
-``ModelRunner`` (phase programs, prompt and chunk buckets, the cache and
-slot manager, per-slot sampling state in device tensors, prefill with the
-swap, decode rounds, the sampler), and ``OutputProcessor`` (streaming
-deltas and finish semantics).  The JAX package's weighted fair queue with
-one tenant is exactly FIFO, so a plain ``deque`` gives the same order, a
-preempted request going back to its head.
+Three layers, as in the JAX package: ``Scheduler`` (the wait queue,
+weighted fair over tenants and exactly FIFO with one, admission validation,
+the swap decision through a ``SwapPolicy``), ``ModelRunner`` (phase
+programs, prompt and chunk buckets, the cache and slot manager, per-slot
+sampling state in device tensors, prefill with the swap, decode rounds, the
+sampler), and ``OutputProcessor`` (streaming deltas and finish semantics).
+The policy's ``should_shed`` (true only in the SLO-aware one) drops queue
+heads that can no longer meet their TTFT target, and its ``prefill_quanta``
+may grant several chunks a step.
+
+The tracer (``obs.trace.TRACER``) records the request lifecycle and the
+engine's spans with host clocks taken where the engine already waits for the
+device (a chunk's synchronize, a prefill's end, a round's token read), so
+tracing adds no device operation.
 
 Replay after preemption is exact under sampling too: the key of a draw
 depends only on the seed and the token's index, and a restart rebuilds the
@@ -41,9 +47,6 @@ rejected rows back (the slot length; paged, the overshoot pages).  Targets
 are what sequential decode would draw at each position (greedy argmax, or
 the same keys), so the streams are those of plain decode.  A round in
 which no slot drafted runs the plain decode program.
-
-Arguments outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -63,43 +66,19 @@ from repro_torch.core.sampling import accept_length
 from repro_torch.core.staging import StagedTensor
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
 from repro_torch.models import transformer as T
+from repro_torch.obs.engine import engine_registry, engine_snapshot, snapshot_v2
+from repro_torch.obs.trace import TRACER
 from repro_torch.quant.kv_quant import QuantKV, payload_bytes, total_nbytes
 from repro_torch.serving.outputs import OutputProcessor, RequestOutput
 from repro_torch.layers.attention import KVCache
+from repro_torch.serving.fair_queue import WeightedFairQueue
 from repro_torch.serving.paging import PagedKVCache, PoolExhausted, PrefixMatch, cdiv
 from repro_torch.serving.policy import DrainPolicy, SchedulerView, SwapPolicy, make_policy
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.slo import LatencyStat
 from repro_torch.serving.spec_decode import find_draft
 
 SWAP_TIMING_WINDOW = 64
-LATENCY_WINDOW = 1024
-
-
-class LatencyStat:
-    """Bounded-window latency aggregate: count/sum forever, percentiles over
-    the last ``window`` samples (seconds)."""
-
-    def __init__(self, window: int = LATENCY_WINDOW):
-        self.count = 0
-        self.total = 0.0
-        self._win: Deque[float] = deque(maxlen=window)
-
-    def record(self, v: float) -> None:
-        self.count += 1
-        self.total += v
-        self._win.append(v)
-
-    @property
-    def mean(self) -> float:
-        return self.total / self.count if self.count else 0.0
-
-    def percentile(self, q: float) -> float:
-        return float(np.percentile(np.asarray(self._win), q)) if self._win else 0.0
-
-    def snapshot(self) -> dict:
-        """JSON-serializable summary (seconds)."""
-        return {"count": self.count, "mean": self.mean,
-                "p50": self.percentile(50), "p95": self.percentile(95)}
 
 
 @dataclasses.dataclass
@@ -109,6 +88,10 @@ class Request:
     max_new: int
     priority: int = 0  # larger = more important; the lowest is preempted first
     params: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    # the wait queue drains per-tenant FIFO lanes in weighted deficit round
+    # robin (serving.fair_queue): one tenant's burst cannot starve the others
+    tenant: str = "default"
+    weight: float = 1.0  # fair-queue share relative to the other tenants
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     arrival_time_s: float = 0.0  # first submit, never overwritten (TTFT origin)
     enqueue_t: float = 0.0  # scheduler-queue entry
@@ -177,8 +160,11 @@ class EngineStats:
     queue_wait: LatencyStat = dataclasses.field(default_factory=LatencyStat)
     ttft: LatencyStat = dataclasses.field(default_factory=LatencyStat)
     itl: LatencyStat = dataclasses.field(default_factory=LatencyStat)
+    # queue wait a tenant (the same windows), beside the fair queue's lane
+    # depths in EngineCore.snapshot()["tenants"]
+    tenant_queue_wait: Dict[str, LatencyStat] = dataclasses.field(default_factory=dict)
     aborts: int = 0  # requests cancelled while queued or in flight
-    sheds: int = 0  # SLO admission control (ROADMAP A10): stays 0
+    sheds: int = 0  # queue heads dropped by SLO admission control
 
     def decode_tput(self) -> float:
         return self.decode_tokens / self.t_decode if self.t_decode else 0.0
@@ -450,11 +436,15 @@ class ModelRunner:
             logits, _, _ = prog(self.params, tokens, self.cache, self.chunk_prefix, scalars[0],
                                 scalars[1], scalars[2])
         _sync(self.device)
+        t1 = time.perf_counter()
         if restarted:
-            stats.t_replay += time.perf_counter() - t0
+            stats.t_replay += t1 - t0
         else:
-            stats.t_prefill += time.perf_counter() - t0
+            stats.t_prefill += t1 - t0
         stats.prefill_chunks += 1
+        if TRACER.enabled:
+            TRACER.complete("prefill.chunk", t0, t1, request_id=req.request_id, start=start,
+                            size=size)
         return logits
 
     # ---------------------------------------------------- the serving grid --
@@ -568,15 +558,22 @@ class ModelRunner:
             logits, _, timing = ctl.prefill_and_swap(self.params, tokens, overlap=self.overlap)
             if not resuming:
                 stats.record_swap(timing)
+            if TRACER.enabled:
+                TRACER.instant("swap", request_id=req.request_id, t_relayout=timing.t_relayout,
+                               hidden_fraction=timing.hidden_fraction)
         else:
             logits, kv = progs["full"].fn(self.params, tokens, last_pos)
             swap_write(kv)
             _sync(self.device)
+        t1 = time.perf_counter()
         if resuming:
-            stats.t_replay += time.perf_counter() - t0
+            stats.t_replay += t1 - t0
         else:
-            stats.t_prefill += time.perf_counter() - t0
+            stats.t_prefill += t1 - t0
             stats.prefill_tokens += n
+        if TRACER.enabled:
+            TRACER.complete("prefill", t0, t1, request_id=req.request_id, tokens=n,
+                            resuming=resuming)
         if match is not None:
             self.paged.register_prompt_pages(match)
         return logits
@@ -692,7 +689,11 @@ class ModelRunner:
             self._decode(inputs[0], inputs[1])
             stats.replayed_tokens += 1
         _sync(self.device)
-        stats.t_replay += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stats.t_replay += t1 - t0
+        if TRACER.enabled:
+            TRACER.complete("replay", t0, t1, request_id=req.request_id,
+                            tokens=max(len(req.out_tokens) - 1, 0))
         return True
 
     def release(self, slot: int) -> None:
@@ -748,12 +749,14 @@ class ModelRunner:
 
 
 class Scheduler:
-    """Admission, the FIFO wait queue, and the swap decision."""
+    """Admission, the wait queue, and the swap decision."""
 
     def __init__(self, runner: ModelRunner, policy: SwapPolicy):
         self.runner = runner
         self.policy = policy
-        self.queue: Deque[Request] = deque()
+        # weighted fair over tenants; with one tenant exactly FIFO, a
+        # requeued request (blocked, preempted) going back to the head
+        self.queue = WeightedFairQueue()
         self.inflight: Dict[int, Request] = {}
 
     def validate(self, request: Request) -> None:
@@ -781,17 +784,15 @@ class Scheduler:
             request.arrival_time_s = now
         request.enqueue_t = now
         self.queue.append(request)
+        if TRACER.enabled:
+            TRACER.instant("req.submit", request_id=request.request_id, tenant=request.tenant)
 
     def requeue_head(self, request: Request) -> None:
         self.queue.appendleft(request)
 
     def remove_queued(self, request_id: str) -> Optional[Request]:
         """Take a request out of the wait queue (abort); None if not queued."""
-        for i, req in enumerate(self.queue):
-            if req.request_id == request_id:
-                del self.queue[i]
-                return req
-        return None
+        return self.queue.remove(request_id)
 
     def enter_prefill_phase(self, stats: EngineStats, *, pending_chunks: int = 0) -> bool:
         """The swap decision; an empty decoding set always flips.  Under
@@ -800,7 +801,7 @@ class Scheduler:
         active = len(self.inflight)
         if active == 0:
             return True
-        head = self.queue[0] if self.queue else None
+        head = self.queue.peek()
         view = SchedulerView(
             queue_depth=len(self.queue),
             free_slots=len(self.runner.slots.free_slots()),
@@ -828,6 +829,8 @@ class Scheduler:
         self.runner.release(slot)
         stats.preemptions += 1
         self.queue.appendleft(req)
+        if TRACER.enabled:
+            TRACER.instant("req.preempt", request_id=req.request_id, slot=slot)
 
 
 class EngineCore:
@@ -871,8 +874,11 @@ class EngineCore:
             swap_policy = make_policy(swap_policy)
         self.scheduler = Scheduler(self.runner, swap_policy)
         self.stats = EngineStats()
+        # a policy that observes the latencies (slo-aware) reads these stats
+        swap_policy.bind(self.stats)
         self.out_proc = OutputProcessor(stats=self.stats)
         self.finished: Dict[str, Request] = {}
+        self._metrics_registry = None
         self._gen_seq = 0
 
     @property
@@ -909,15 +915,43 @@ class EngineCore:
         if req is None:
             return None
         self.stats.aborts += 1
+        if TRACER.enabled:
+            TRACER.instant("req.abort", request_id=request_id)
         out = self.out_proc.finalize_aborted(req)
         self.finished[req.request_id] = req
         return out
 
+    def snapshot(self) -> dict:
+        """The stats block the benchmarks and ``GET /stats`` report
+        (``obs.engine.engine_snapshot``): ``EngineStats.snapshot()``, KV
+        accounting, the tenants' lanes, roofline drift on the port's card,
+        and ``snapshot_sections()``.  Host state and tensor shapes only."""
+        return engine_snapshot(self)
+
+    def snapshot_sections(self) -> dict:
+        """Extra top-level sections of ``snapshot()`` for a subclass to add."""
+        return {}
+
+    def metrics_registry(self):
+        """The typed metrics registry over this engine, built once (every
+        metric is a live view: ``obs.engine.engine_registry``)."""
+        if self._metrics_registry is None:
+            self._metrics_registry = engine_registry(self)
+        return self._metrics_registry
+
+    def snapshot_v2(self) -> dict:
+        """``{"schema": "v2", counters, gauges, histograms}``: the numbers
+        ``GET /metrics`` serves."""
+        return snapshot_v2(self, registry=self.metrics_registry())
+
     def reset_stats(self) -> None:
-        """Fresh ``EngineStats`` (e.g. after a warm-up pass)."""
+        """Fresh ``EngineStats`` (e.g. after a warm-up pass), bound to the
+        output processor and to a policy that observes them."""
         self.stats = EngineStats()
         self.out_proc = OutputProcessor(stats=self.stats)
-        self.scheduler.policy.reset()
+        policy = self.scheduler.policy
+        policy.bind(self.stats)
+        policy.reset()
 
     def kv_bytes(self) -> dict:
         return self.runner.kv_bytes()
@@ -934,11 +968,39 @@ class EngineCore:
         admitting queued requests into free slots, one swap each (paged, an
         admission the pool cannot hold stops the burst).  Chunked prefill:
         at most one chunk — the partially prefilled request's next, else the
-        queue head's first — so decode rounds run between the chunks."""
+        queue head's first — so decode rounds run between the chunks; the
+        policy's ``prefill_quanta`` may grant several back to back.  First
+        the policy's ``should_shed`` drops the queue heads that can no
+        longer meet their TTFT target (``finish_reason="shed"``)."""
+        t_step0 = time.perf_counter() if TRACER.enabled else 0.0
         outs: List[RequestOutput] = []
         sched, runner = self.scheduler, self.runner
+        now = time.perf_counter()
+        while sched.queue:
+            head = sched.queue[0]  # the request popleft returns (fair_queue.peek)
+            if head.out_tokens or head.preempted:
+                break  # a restart awaiting replay is no new admission
+            wait = (now - head.arrival_time_s) if head.arrival_time_s else 0.0
+            if not sched.policy.should_shed(wait):
+                break
+            sched.queue.popleft()
+            self.stats.sheds += 1
+            if TRACER.enabled:
+                TRACER.instant("req.shed", request_id=head.request_id, wait_s=wait)
+            outs.append(self.out_proc.finalize_dropped(head, "shed"))
+            self.finished[head.request_id] = head
         if runner.prefill_chunk is not None:
-            outs.extend(self._chunked_prefill_quantum())
+            ran = 0
+            while True:
+                before = self.stats.prefill_chunks
+                outs.extend(self._chunked_prefill_quantum())
+                if self.stats.prefill_chunks == before:
+                    break  # deferred, blocked, or no prefill pending
+                ran += 1
+                # asked after each chunk: that chunk's should_prefill saw the
+                # current decode set
+                if ran >= max(1, int(sched.policy.prefill_quanta())):
+                    break
         elif sched.queue and runner.slots.free_slots() and sched.enter_prefill_phase(self.stats):
             admitted = 0
             while sched.queue and runner.slots.free_slots():
@@ -956,6 +1018,8 @@ class EngineCore:
             outs.extend(self._decode_round())
         if not self.has_unfinished():
             sched.policy.reset()
+        if TRACER.enabled and t_step0:
+            TRACER.complete("engine.step", t_step0, time.perf_counter(), outputs=len(outs))
         return outs
 
     def run(self, max_rounds: int = 10_000) -> EngineStats:
@@ -1086,6 +1150,9 @@ class EngineCore:
         self.runner.release(slot)
         self.stats.preemptions += 1
         self.scheduler.queue.appendleft(prog.req)
+        if TRACER.enabled:
+            TRACER.instant("req.preempt", request_id=prog.req.request_id, slot=slot,
+                           mid_prefill=True)
 
     # ----------------------------------------------------------- admission --
 
@@ -1127,6 +1194,11 @@ class EngineCore:
         if req.queue_wait_s is None and req.arrival_time_s:
             req.queue_wait_s = time.perf_counter() - req.arrival_time_s
             self.stats.queue_wait.record(req.queue_wait_s)
+            self.stats.tenant_queue_wait.setdefault(req.tenant, LatencyStat()).record(
+                req.queue_wait_s)
+            if TRACER.enabled:
+                TRACER.instant("req.admit", request_id=req.request_id,
+                               queue_wait_s=req.queue_wait_s)
 
     def _block_admission(self, req: Request, slot: Optional[int] = None) -> None:
         """An admission blocked on pool pressure: give the slot back (if one
@@ -1228,11 +1300,14 @@ class EngineCore:
         logits = runner.decode_logits(lengths)
         next_tokens = runner.sample_batch(logits, sched.inflight)
         next_np = next_tokens.cpu().numpy()  # waits for the round
-        stats.t_decode += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stats.t_decode += t1 - t0
         stats.decode_rounds += 1
         stats.decode_tokens += len(active)
         stats.slot_rounds += len(active)
         stats.decode_ctx_tokens += sum(runner.slots.slots[i].length for i in active)
+        if TRACER.enabled:
+            TRACER.complete("decode.round", t0, t1, batch=len(active))
         outs: List[RequestOutput] = []
         for i in active:
             req = sched.inflight[i]
@@ -1293,11 +1368,15 @@ class EngineCore:
         logits = runner.run_verify(tokens, n_tokens)
         targets = runner.select_targets(logits, sched.inflight)
         targets_np = targets.cpu().numpy()  # waits for the round
-        stats.t_decode += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stats.t_decode += t1 - t0
         stats.decode_rounds += 1
         stats.verify_rounds += 1
         stats.slot_rounds += len(active)
         stats.decode_ctx_tokens += sum(runner.slots.slots[i].length for i in active)
+        if TRACER.enabled:
+            TRACER.complete("decode.verify", t0, t1, batch=len(active),
+                            drafted=int(sum(len(drafts[s]) for s in active)))
         outs: List[RequestOutput] = []
         last = np.zeros((n_slots,), np.int32)
         for slot in active:

@@ -3,7 +3,8 @@ finish semantics — a stop token (``"stop"``), the token budget
 (``"length"``), or a request removed before it completed (``"abort"``).
 Every emission feeds the engine's client-visible latency aggregates: TTFT on
 a request's first token, the inter-token latency (ITL) on every later one.
-The JAX package's tracer calls are not ported yet (ROADMAP A10).
+Every finish goes through ``_finish``, which records the tracer's
+exactly-once finish event.
 """
 from __future__ import annotations
 
@@ -11,13 +12,17 @@ import dataclasses
 import time
 from typing import List, Optional
 
+from repro_torch.obs.trace import TRACER
+
 
 def _finish(req, reason: str, now: Optional[float] = None) -> None:
-    """Set the finish reason and stamp ``done_t`` once (a request reaching
-    a second finish path keeps its first stamp)."""
+    """Set the finish reason, stamp ``done_t`` once (a request reaching a
+    second finish path keeps its first stamp), and record the tracer's
+    finish event, which raises on a second finish while tracing."""
     req.finish_reason = reason
     if req.done_t == 0.0:
         req.done_t = time.perf_counter() if now is None else now
+    TRACER.finish(req.request_id, reason)
 
 
 @dataclasses.dataclass

@@ -1,9 +1,10 @@
 """Prefill<->decode transition policy (paper §3.4 scheduling).
 
 Policies see an immutable ``SchedulerView`` and decide whether to flip into
-the prefill phase this step: ``DrainPolicy`` (the paper's, the default) or
+the prefill phase this step: ``DrainPolicy`` (the paper's, the default),
 ``SwapCostAwarePolicy`` (defer the flip while the queue is shallow against
-the measured swap cost).  The JAX package's SLO-aware policy is ROADMAP A10.
+the measured swap cost) or ``serving.slo.SLOAwareSwapPolicy`` (steered by the
+observed latencies, with deadline shedding).
 """
 from __future__ import annotations
 
@@ -32,6 +33,18 @@ class SwapPolicy:
 
     def should_prefill(self, view: SchedulerView) -> bool:
         raise NotImplementedError
+
+    def bind(self, stats) -> None:
+        """Given the engine's ``EngineStats`` (anew after ``reset_stats``);
+        a policy that reads measured latencies keeps them."""
+
+    def prefill_quanta(self) -> int:
+        """Prefill chunks to run back to back this step (chunked prefill)."""
+        return 1
+
+    def should_shed(self, wait_s: float) -> bool:
+        """Whether a queue head that has waited ``wait_s`` is dropped."""
+        return False
 
     def reset(self) -> None:
         """Called when the engine goes idle (no queue, no active slots)."""
@@ -94,8 +107,10 @@ POLICIES = {DrainPolicy.name: DrainPolicy, SwapCostAwarePolicy.name: SwapCostAwa
 
 
 def make_policy(name: str, **kwargs) -> SwapPolicy:
-    if name == "slo-aware":
-        raise NotImplementedError("swap policy 'slo-aware': the SLO-aware policy is ROADMAP A10")
+    if name not in POLICIES:
+        # serving.slo registers its policy when imported; imported here, not
+        # at the top, since it imports this module
+        import repro_torch.serving.slo  # noqa: F401
     if name not in POLICIES:
         raise ValueError(f"unknown swap policy {name!r}; choose from {sorted(POLICIES)}")
     return POLICIES[name](**kwargs)

@@ -1021,3 +1021,84 @@ def test_spec_engine_on_cuda_gives_the_plain_engines_tokens(layout):
     assert st.verify_rounds > 0 and st.accepted_tokens > 0
     C.check_near_ties(torch, f"{layout} spec against plain", streams[4], streams[None],
                       recorders[4], recorders[None], lambda rid: SamplingParams())
+
+
+# ------------------------------------------------------ the front end on the card --
+
+
+def _grid_engine(cfg, params, layout, chunk):
+    eng = EngineCore(cfg, params, n_slots=3, max_len=64, prompt_len=16, block_size=8,
+                     cache_layout=layout, kv_dtype="int8", prefill_chunk=chunk, device="cuda")
+    eng.build_serving_grid()  # on this thread, before any other thread runs
+    return eng
+
+
+@pytest.mark.parametrize("layout,chunk", [("contiguous", None), ("paged", 8)])
+def test_async_engine_on_cuda_gives_the_sync_engines_tokens(layout, chunk):
+    """``AsyncEngine`` steps the engine on its worker thread, replaying the
+    graphs captured on this one: the streams (two tenants, one sampled) are
+    the synchronous engine's, and the launches those the stats imply."""
+    import asyncio
+
+    from repro_torch.serving import AsyncEngine
+
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (14, 30, 9, 21, 17)]
+    sps = [SamplingParams(temperature=0.8, top_k=50, seed=i) if i == 3 else SamplingParams()
+           for i in range(len(prompts))]
+    sync = _grid_engine(cfg, params, layout, chunk)
+    for i, p in enumerate(prompts):
+        sync.submit(Request(f"r{i}", p, max_new=8, params=sps[i]))
+    sync.run()
+    want = {r: q.out_tokens for r, q in sync.finished.items()}
+
+    core = _grid_engine(cfg, params, layout, chunk)
+    reset_counts()
+
+    async def go():
+        got = {}
+        async with AsyncEngine(core) as eng:
+            streams = {f"r{i}": await eng.submit(p, sps[i], request_id=f"r{i}", max_new=8,
+                                                 tenant="ab"[i % 2], weight=1.0 + 2 * (i % 2))
+                       for i, p in enumerate(prompts)}
+            for rid, stream in streams.items():
+                got[rid] = [t async for out in stream for t in out.new_token_ids]
+        return got
+
+    assert asyncio.run(go()) == want
+    st = core.stats
+    passes = st.prefill_chunks + st.decode_rounds + (0 if chunk else len(prompts))
+    assert COUNTS["tlmm"] == COUNTS["act_quant"] == 7 * cfg.num_layers * passes
+
+
+def test_tracer_on_leaves_graph_launches_unchanged():
+    """The same requests with the tracer off and on, on one grid-built
+    engine: the same tokens and the same kernel launches, and the trace
+    finishes each request once."""
+    from repro_torch.obs.trace import TRACER
+
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    eng = _grid_engine(cfg, params, "paged", 8)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (14, 30, 9)]
+    runs = []
+    for on in (False, True):
+        if on:
+            TRACER.enable()
+        try:
+            for i, p in enumerate(prompts):
+                eng.submit(Request(f"t{int(on)}.{i}", p, max_new=8))
+            reset_counts()
+            eng.run()
+            launches = dict(COUNTS)
+            trace = TRACER.chrome_trace()
+        finally:
+            TRACER.disable()
+            TRACER.clear()
+        runs.append(([eng.finished[f"t{int(on)}.{i}"].out_tokens for i in range(3)], launches))
+    assert runs[0] == runs[1]
+    fins = [e["args"]["request_id"] for e in trace["traceEvents"] if e["name"] == "req.finish"]
+    assert sorted(fins) == [f"t1.{i}" for i in range(3)]

@@ -1,5 +1,6 @@
 """The PyTorch port on its own: what it imports, where it runs, its launch
 counters, and the pieces of the serving path that need no JAX run."""
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -44,7 +45,13 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
             importlib.import_module(name)
         new = set(["repro_torch.quant.kv_quant", "repro_torch.serving.paging",
                    "repro_torch.kernels.paged_attention.ops",
-                   "repro_torch.kernels.paged_attention.ref"])
+                   "repro_torch.kernels.paged_attention.ref",
+                   "repro_torch.serving.fair_queue", "repro_torch.serving.slo",
+                   "repro_torch.serving.arrivals", "repro_torch.serving.async_engine",
+                   "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.drift",
+                   "repro_torch.obs.engine", "repro_torch.common.hardware",
+                   "repro_torch.core.roofline", "repro_torch.models.jax_init",
+                   "repro_torch.launch.serve"])
         assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
@@ -54,7 +61,7 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
     """).format(src=str(ROOT / "src"), root=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 25  # every module of the port was imported
+    assert int(res.stdout.split()[0]) >= 45  # every module of the port was imported
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -141,12 +148,16 @@ def test_bucket_matches_jax_contiguous_buckets():
 
 
 def test_out_of_slice_arguments_raise_not_implemented():
+    from repro_torch.launch import serve
+
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
     kw = dict(n_slots=1, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineCore(cfg, params, **kw, swap_policy="slo-aware")
-    eng = EngineCore(cfg, params, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        serve.main(["--reduced", "--device", "cpu", "--disagg"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        T.init(dataclasses.replace(cfg, moe=True), 3, device="cpu")
+    eng = EngineCore(cfg, params, **kw, swap_policy="slo-aware")
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
 
