@@ -103,13 +103,34 @@ Phases (any failure raises and the script exits non-zero):
    the JAX CLI's latent weights drawn from seed 0 on the card; its printed
    tokens must equal an ``EngineCore`` run on the same weights, and B1, B2
    and B3 run as often as the run implies;
-9. the results as JSON, the card again, and ``{"ok": true, ...}`` last.
+9. the disaggregated pools (``DisaggEngine``: the prefill pool on its own
+   CUDA stream and dispatch thread, the decode pool on the engine's, the
+   KV handoff channel between them, both pools' grids built first): (p)
+   (i)'s configuration on (d)'s 8 prompts, whose streams must be (i)'s or
+   part only at a near tie, every chunk shipped (all but each prompt's last
+   eagerly) and installed, none discarded or pending, B1 as often as the
+   stats imply (the pool thread's launches counted too) and no B2, its TTFT
+   p50 / p99 and largest ITL beside (i)'s; (q) contiguous bf16, pdswap with
+   the overlapped swap, monolithic prefill on the pool, whose tokens must
+   be the main path's, with B1, B2 and B3 as the stats imply and the relay,
+   the ship and the install timed with CUDA events; then the interference
+   phase on (i)'s colocated and (p)'s disaggregated configurations with 6
+   slots: 4 greedy streams of 64-token prompts decode alone, then while two
+   1,536-token prompts prefill in 256-token chunks, printing ITL p50 / p95
+   in both phases and their ratio, the decode rounds that completed (by
+   CUDA events) while a chunk was in flight on the pool's stream, and the
+   device operations a step on the engine's stream and on the others; and
+   (o) again with ``--disagg``, whose printed tokens must be (o)'s and
+   which must print the ``KV handoff`` line;
+10. how many sentinels the profiler windows kept (see ``_profiled``), the
+    results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -130,6 +151,11 @@ SPEC_K = 4  # draft depth of paths (k), (l), (m): verify blocks of W = 5 rows
 TILED = (256, 512, 768, 1024)  # lengths of the spec paths' prompts that tile a 16-token pattern
 VERIFY_BASE = [5, 517, 1300, 2040]  # slot lengths of the walks' verify-row cases
 TIE_TOL = 0.01  # two runs' streams may part only where two tokens' scores lie this close
+PROFILE_EDGE_S = 0.1  # idle card at each end of a profiler window (see _profiled)
+PROFILE_MARKS = 10  # bursts of sentinel kernels through a window's opening margin
+MARKS_EACH = 100  # sentinel kernels a burst
+MARK = "spin_kernel"  # the sentinel: torch.cuda._sleep's kernel
+WINDOW_MARKS = []  # the sentinels each profiler window kept
 
 
 def smi() -> str:
@@ -655,6 +681,7 @@ def main() -> int:
     print(f"  peak device memory {peak_gib:.2f} GiB  [{card}]")
     print(f"  {_grid_line(grid)}  [{card}]")
     print(f"  launches {launches}")
+    main_streams = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
 
     wall_p, dev_p, top, per_round = profile_decode(torch, eng)
     if dev_p is None:
@@ -710,9 +737,13 @@ def main() -> int:
             and not abort_launches["prefill_attention"]):
         raise AssertionError(f"abort phase: launches {abort_launches}")
     front_launches = frontend_phase(torch, np, cfg, params, max_tokens, path_i, card)
+    cli_launches, cli_tokens = cli_phase(torch, np, card)
+    disagg_launches = disagg_phase(torch, np, cfg, params, max_tokens, path_i, main_streams,
+                                   card)
     del path_i
-    cli_launches = cli_phase(torch, np, card)
-    for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches):
+    cli_disagg_launches, _ = cli_phase(torch, np, card, want=cli_tokens)
+    for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches,
+                 disagg_launches, cli_disagg_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -750,6 +781,11 @@ def main() -> int:
             kernels[-1]["bound_f32_fma_ms"] = r["bound_f32_fma_ms"]
         if "empty_ms" in r:  # the decode walks: the same launch with every length 0
             kernels[-1].update(empty_ms=r["empty_ms"], design=WALK_DESIGN[name])
+    kept = WINDOW_MARKS
+    print(f"profiler windows: {len(kept)}, each with a sentinel kept before and after its device "
+          f"work; opening sentinels kept {min(kept) - 1} to {max(kept) - 1} of "
+          f"{PROFILE_MARKS * MARKS_EACH} ({PROFILE_MARKS} bursts "
+          f"{PROFILE_EDGE_S / PROFILE_MARKS * 1e3:.0f} ms apart)  [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -770,7 +806,8 @@ def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
     return prompts
 
 
-def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, **engine_kw):
+def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, engine_cls=None,
+          **engine_kw):
     """Drive ``EngineCore`` on the card over the requests (greedy, or with
     ``params_of(i)`` for request i), after ``build_serving_grid`` (every
     reachable program built, the decode, chunk and sampler programs captured
@@ -781,14 +818,15 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, **en
     ("round",) for each decode round, ("evict", request id) for each request
     evicted part-way through its chunked prefill, the grid: its build
     seconds, graphs and the device memory their pool reserved).
-    ``on_engine(eng)`` runs after the warm-up, before the requests."""
+    ``on_engine(eng)`` runs after the warm-up, before the requests;
+    ``engine_cls`` (``EngineCore`` by default) is the engine built."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import COUNTS, reset_counts
     from repro_torch.serving import EngineCore, Request, SamplingParams
 
-    eng = EngineCore(cfg, params, device="cuda", **engine_kw)
+    eng = (engine_cls or EngineCore)(cfg, params, device="cuda", **engine_kw)
     grid = build_grid(torch, eng)
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
@@ -833,15 +871,19 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, **en
 
 def build_grid(torch, eng):
     """``eng.build_serving_grid()``: its seconds, the graphs it captured,
-    and the device bytes the allocator holds for their shared pool."""
+    and the device bytes the allocator holds for their shared pool (summed
+    over both pools' engines of a disaggregated engine)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.build_serving_grid()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    graphs = [k for k, p in eng.runner.engine.programs.items() if p.captured is not None]
+    engines = [eng.runner.engine] + ([eng.prefill_pool.engine] if hasattr(eng, "prefill_pool")
+                                     else [])
+    graphs = [k for e in engines for k, p in e.programs.items() if p.captured is not None]
+    pools = [e.graph_pool_bytes() for e in engines]
     return {"seconds": seconds, "graphs": len(graphs),
-            "pool_bytes": eng.runner.engine.graph_pool_bytes()}
+            "pool_bytes": None if None in pools else sum(pools)}
 
 
 def _grid_line(grid):
@@ -1237,7 +1279,6 @@ def profile_verify(torch, np, cfg, eng, rounds: int = 4):
     ``torch.profiler`` (run after the path; its counts are already read).
     Returns (wall s, device s or None, device operations a round, verify
     rounds among them, the top device operations [(name, s, calls)])."""
-    from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(8)
     run = sum(name.startswith("vprof") for name in eng.finished) // 4
@@ -1246,7 +1287,7 @@ def profile_verify(torch, np, cfg, eng, rounds: int = 4):
     _decoding(eng, prompts, f"vprof{run}", (SPEC_K + 1) * (rounds + 3))
     torch.cuda.synchronize()
     before = eng.stats.verify_rounds
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             eng.step()
@@ -1258,18 +1299,18 @@ def profile_verify(torch, np, cfg, eng, rounds: int = 4):
     return wall, dev, ops / rounds, verify, top
 
 
-def check_chunked(cfg, prompts, st, events):
-    """Path (i): one chunk a ``CHUNK`` tokens of each prompt, and decode
-    rounds between two chunks of the longest prompt."""
+def check_chunked(cfg, prompts, st, events, tag="(i)"):
+    """Path (i) (or (p)): one chunk a ``CHUNK`` tokens of each prompt, and
+    decode rounds between two chunks of the longest prompt."""
     want = sum(-(-len(p) // CHUNK) for p in prompts)
     if st.prefill_chunks != want:
-        raise AssertionError(f"path (i): {st.prefill_chunks} chunks, expected {want}")
+        raise AssertionError(f"path {tag}: {st.prefill_chunks} chunks, expected {want}")
     longest = f"req{max(range(len(prompts)), key=lambda i: len(prompts[i]))}"
     at = [i for i, e in enumerate(events) if e == ("chunk", longest)]
     between = sum(e == ("round",) for e in events[at[0]:at[-1]])
     if not between:
-        raise AssertionError(f"path (i): no decode round between the chunks of {longest}")
-    print(f"path (i): {st.prefill_chunks} chunks (sum of ceil(n / {CHUNK})); {between} decode "
+        raise AssertionError(f"path {tag}: no decode round between the chunks of {longest}")
+    print(f"path {tag}: {st.prefill_chunks} chunks (sum of ceil(n / {CHUNK})); {between} decode "
           f"rounds ran between the {len(at)} chunks of the {len(prompts[int(longest[3:])])}-token "
           "prompt")
 
@@ -1598,13 +1639,16 @@ def frontend_phase(torch, np, cfg, params, max_tokens, path_i, card):
     return launches
 
 
-def cli_phase(torch, np, card):
+def cli_phase(torch, np, card, want=None):
     """Path (o): ``repro_torch.launch.serve.main`` in batch mode at full
     width (bitnet-730m, 4 requests of 32 tokens, 8 new, max_len 128,
     contiguous bf16, pdswap), the JAX CLI's latent weights drawn from
     ``--seed 0`` on the card.  Its printed tokens must equal an
     ``EngineCore`` run on the same weights, and it must run B1, B2 and B3
-    as often as its run implies.  Returns its launches."""
+    as often as its run implies.  Given ``want`` ((o)'s printed tokens),
+    it runs again with ``--disagg``: the same tokens, the same launches
+    (B1 on the prefill pool's stream too), and the ``KV handoff`` line.
+    Returns (its launches, its printed tokens)."""
     import contextlib
     import io
 
@@ -1615,7 +1659,8 @@ def cli_phase(torch, np, card):
     from repro_torch.serving import EngineCore, SamplingParams
 
     argv = ["--arch", "bitnet-730m", "--requests", "4", "--prompt-len", "32", "--max-new", "8",
-            "--max-len", "128", "--seed", "0"]
+            "--max-len", "128", "--seed", "0"] + (["--disagg"] if want is not None else [])
+    tag = "(o)" if want is None else "(o) --disagg"
     buf = io.StringIO()
     torch.cuda.synchronize()
     reset_counts()
@@ -1626,8 +1671,8 @@ def cli_phase(torch, np, card):
     wall = time.perf_counter() - t0
     launches = dict(COUNTS)
     text = buf.getvalue()
-    print("path (o): python -m repro_torch.launch.serve " + " ".join(argv) + f"  ({wall:.2f} s "
-          f"wall, weights drawn on the card and the serving grid included)  [{card}]")
+    print(f"path {tag}: python -m repro_torch.launch.serve " + " ".join(argv) + f"  ({wall:.2f} "
+          f"s wall, weights drawn on the card and the serving grid included)  [{card}]")
     print("\n".join("  | " + ln for ln in text.strip().splitlines()))
     printed = {}
     for line in text.splitlines():
@@ -1636,19 +1681,24 @@ def cli_phase(torch, np, card):
             rid, _, toks = line.partition(": ")
             printed[rid] = json.loads(toks.rstrip("."))
     if rc != 0 or "requests finished : 4/4" not in text or len(printed) != 3:
-        raise AssertionError(f"path (o): rc {rc}, printed {printed}")
-
+        raise AssertionError(f"path {tag}: rc {rc}, printed {printed}")
     cfg = get_config("bitnet-730m")
-    args = S.parse_args(argv)
-    eng = EngineCore(cfg, init_like_jax(cfg, 0, "cuda", draw_device="cuda"), n_slots=4,
-                     max_len=128, prompt_len=32, device="cuda")
-    for r in S.batch_requests(args, cfg, SamplingParams()):
-        eng.submit(r)
-    eng.run()
-    want = {rid: eng.finished[rid].out_tokens for rid in printed}
+    if want is None:
+        args = S.parse_args(argv)
+        eng = EngineCore(cfg, init_like_jax(cfg, 0, "cuda", draw_device="cuda"), n_slots=4,
+                         max_len=128, prompt_len=32, device="cuda")
+        for r in S.batch_requests(args, cfg, SamplingParams()):
+            eng.submit(r)
+        eng.run()
+        want = {rid: eng.finished[rid].out_tokens for rid in printed}
+        against = "an EngineCore on the same weights"
+    else:
+        against = "(o)"
+        handoff = [ln.strip() for ln in text.splitlines() if "KV handoff" in ln]
+        if len(handoff) != 1 or "4 segments (0 eager)" not in handoff[0]:
+            raise AssertionError(f"path {tag}: the KV handoff line is {handoff}")
     if printed != want:
-        raise AssertionError(f"path (o): the CLI printed {printed}, an EngineCore on the same "
-                             f"weights gives {want}")
+        raise AssertionError(f"path {tag}: the CLI printed {printed}, {against} gives {want}")
     # 4 prefills in one burst, 7 decode rounds (the first token is the
     # prefill's), and the serving grid's one idle decode round
     passes, rounds = 4 + 7 + 1, 7 + 1
@@ -1657,11 +1707,296 @@ def cli_phase(torch, np, card):
                    "prefill_attention": cfg.num_layers * 4,
                    "decode_attention": cfg.num_layers * rounds})
     if launches != expect:
-        raise AssertionError(f"path (o): launches {launches} != expected {expect}")
-    print(f"path (o): the CLI's tokens equal an EngineCore run on the same weights; launches "
+        raise AssertionError(f"path {tag}: launches {launches} != expected {expect}")
+    print(f"path {tag}: the CLI's tokens equal {against}'s; launches "
           f"{launches} (B1 168 a pass: 4 prefills, 7 decode rounds, the grid's idle round; B2 "
           f"24 a prefill; B3 24 a round)")
-    return launches
+    return launches, printed
+
+
+# ---- the disaggregated pools: paths (p), (q) and the interference phase --
+
+LONG = 1536  # the interference phase's arriving prompts
+SHORT = 64  # its decoding streams' prompts
+
+
+def disagg_phase(torch, np, cfg, params, max_tokens, path_i, main_streams, card):
+    """Paths (p) and (q) and the interference phase, at full width.  (p):
+    ``DisaggEngine`` with (i)'s configuration (paged int8, 512 pages,
+    256-token chunks) on (d)'s 8 prompts, its grid built first for both
+    pools: the streams (i)'s up to near ties, every chunk shipped and
+    installed (none discarded or pending), B1 as often as the stats imply
+    (on the prefill pool's thread too), no B2, TTFT and the largest ITL
+    beside (i)'s.  (q): ``DisaggEngine``, contiguous bf16, pdswap with the
+    overlapped swap, monolithic prefill: the main path's tokens exactly, B1,
+    B2 and B3 as the stats imply, the relay, the ship and the install timed
+    with CUDA events.  Then the interference phase on (i)'s colocated
+    engine and on (p)'s.  Returns the launches of (p) and (q)."""
+    from repro_torch.serving import DisaggEngine, SamplingParams
+    from repro_torch.serving.disagg import decode_pool
+
+    paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap", block_size=16,
+                  n_slots=4, max_len=2048)
+    shared = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256)
+    rec, ho0 = [], []
+
+    def on_p(e):
+        rec.append(TargetRecorder(e))
+        ho0.append(e.handoff.snapshot())  # after the warm-up's one chunk
+
+    eng, st, wall, launches, prefills, events, grid = serve(
+        cfg, params, shared, max_tokens, on_engine=on_p, engine_cls=DisaggEngine,
+        prefill_chunk=CHUNK, **paged8)
+    rec[0].stop()
+    check_served(eng, cfg, len(shared), max_tokens)
+    check_chunked(cfg, shared, st, events, tag="(p)")
+    streams = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(shared))}
+    parted = check_near_ties(torch, "path (p) against (i)", streams, path_i["streams"], rec[0],
+                             path_i["recorder"], lambda rid: SamplingParams())
+    steps = st.decode_rounds + st.replayed_tokens
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 7 * cfg.num_layers * (st.prefill_chunks + steps),
+                   "act_quant": 7 * cfg.num_layers * (st.prefill_chunks + steps),
+                   "prefill_attention": 0,
+                   "paged_decode_attention_quant": cfg.num_layers * steps})
+    if prefills or launches != expect:
+        raise AssertionError(f"path (p): launches {launches} != expected {expect} ({prefills} "
+                             f"monolithic prefills, {st.prefill_chunks} chunks, {steps} rounds)")
+    ho = eng.snapshot()["disagg"]["handoff"]
+    run = {k: ho[k] - ho0[0][k] for k in ("segments", "eager_segments", "bytes_shipped",
+                                          "installs", "discarded")}
+    eager = st.prefill_chunks - len(shared)
+    if (run["segments"], run["eager_segments"], run["installs"], run["discarded"],
+            ho["pending"]) != (st.prefill_chunks, eager, st.prefill_chunks, 0, 0):
+        raise AssertionError(f"path (p): handoff {ho} (before the run {ho0[0]})")
+    p50, p99, itl_max = _latency(st)
+    i50, i99, i_max = path_i["latency"]
+    print(f"path (p) DisaggEngine, (i)'s configuration (paged int8, 512 pages, {CHUNK}-token "
+          f"chunks on the prefill pool's stream and thread): {len(shared)} requests x "
+          f"{max_tokens} tokens, {st.prefill_chunks} chunks, {st.decode_rounds} decode rounds, "
+          f"{wall:.2f} s wall  [{card}]")
+    print(f"  {len(streams) - len(parted)} of {len(streams)} streams equal (i)'s; {len(parted)} "
+          f"part at a near tie (scores within {TIE_TOL})")
+    print(f"  handoff: {run['segments']} segments ({run['eager_segments']} eager), "
+          f"{run['bytes_shipped'] / 2**20:.1f} MiB shipped, {run['installs']} installs, "
+          f"{run['discarded']} discarded, {ho['pending']} pending; ship dispatch "
+          f"{ho['t_dispatch_s'] * 1e3:.3f} ms on the host in all  [{card}]")
+    print(f"  TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms, largest ITL {itl_max:.1f} ms; (i): TTFT "
+          f"p50 {i50:.1f} p99 {i99:.1f}, largest ITL {i_max:.1f} ms; decode "
+          f"{st.decode_tput():.1f} tok/s against (i)'s {path_i['tput']:.1f}  [{card}]")
+    print(f"  {_grid_line(grid)} (both pools)  [{card}]")
+    print(f"  launches {launches}")
+    total = dict(launches)
+
+    # (q): contiguous bf16, pdswap, the swap overlapped, monolithic prefill
+    prompts = make_prompts(np, cfg, PROMPT_LENS)
+    marks = {"relay": [], "ship": [], "install": []}
+
+    def timed(fn, sink):
+        def run(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            sink.append((a, b))
+            return out
+        return run
+
+    install = decode_pool.install_relayed_kv
+
+    def on_q(e):
+        for key, prog in e.prefill_pool.engine.programs.items():
+            if key.startswith("relay:"):
+                prog.fn = timed(prog.fn, marks["relay"])
+        e.handoff.ship = timed(e.handoff.ship, marks["ship"])
+        decode_pool.install_relayed_kv = timed(install, marks["install"])
+
+    try:
+        eng_q, st_q, wall_q, launches_q, prefills_q, _, grid_q = serve(
+            cfg, params, prompts, max_tokens, on_engine=on_q, engine_cls=DisaggEngine,
+            n_slots=4, max_len=2048, mode="pdswap", overlap=True)
+    finally:
+        decode_pool.install_relayed_kv = install
+    check_served(eng_q, cfg, len(prompts), max_tokens)
+    got = {f"req{i}": eng_q.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+    if got != main_streams:
+        raise AssertionError("path (q): the tokens differ from the main path's")
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 7 * cfg.num_layers * (prefills_q + st_q.decode_rounds),
+                   "act_quant": 7 * cfg.num_layers * (prefills_q + st_q.decode_rounds),
+                   "prefill_attention": cfg.num_layers * prefills_q,
+                   "decode_attention": cfg.num_layers * st_q.decode_rounds})
+    if prefills_q != len(prompts) or launches_q != expect:
+        raise AssertionError(f"path (q): launches {launches_q} != expected {expect}")
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in marks.items()}
+    if any(len(v) != len(prompts) for v in ms.values()):
+        raise AssertionError(f"path (q): timed {({k: len(v) for k, v in ms.items()})} of "
+                             f"{len(prompts)} swaps")
+    seg = eng_q.snapshot()["disagg"]["handoff"]
+    hidden = [t.hidden_fraction for t in st_q.swap_timings]
+    print(f"path (q) DisaggEngine, contiguous bf16, pdswap with the overlapped swap, monolithic "
+          f"prefill on the prefill pool's stream: {len(prompts)} requests x {max_tokens} "
+          f"tokens, {st_q.decode_rounds} decode rounds, {wall_q:.2f} s wall; the main path's "
+          f"tokens exactly  [{card}]")
+    print(f"  swap across the pools, a prompt (CUDA events, mean / max over {len(prompts)}): "
+          f"relay {statistics.mean(ms['relay']):.3f} / {max(ms['relay']):.3f} ms, ship "
+          f"{statistics.mean(ms['ship']):.4f} / {max(ms['ship']):.4f} ms, install "
+          f"{statistics.mean(ms['install']):.3f} / {max(ms['install']):.3f} ms; "
+          f"{seg['bytes_shipped'] / seg['segments'] / 2**20:.1f} MiB a segment (f32, "
+          f"max_len rows); hidden fraction mean {statistics.mean(hidden):.3f}  [{card}]")
+    print(f"  TTFT p50 {st_q.ttft.percentile(50) * 1e3:.1f} ms, decode "
+          f"{st_q.decode_tput():.1f} tok/s ({st_q.decode_round_cost() * 1e3:.2f} ms/round)  "
+          f"[{card}]")
+    print(f"  launches {launches_q}")
+    for name, n in launches_q.items():
+        total[name] += n
+    del eng_q
+
+    del eng
+    # (i)'s and (p)'s configurations with 6 slots: the 4 streams and the 2 arrivals
+    from repro_torch.serving import EngineCore
+
+    for label, cls in (("(i) colocated", EngineCore), ("(p) disaggregated", DisaggEngine)):
+        e = cls(cfg, params, device="cuda", prefill_chunk=CHUNK, **dict(paged8, n_slots=6))
+        grid = build_grid(torch, e)
+        list(e.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))
+        interference(torch, np, cfg, e, f"{label}, 6 slots", grid, card)
+        del e
+    return total
+
+
+def interference(torch, np, cfg, eng, label, grid, card, base_steps: int = 16):
+    """4 greedy streams of ``SHORT``-token prompts decode alone (the
+    baseline), then while two ``LONG``-token prompts arrive and prefill in
+    ``CHUNK``-token chunks.  Prints each phase's ITL p50 / p95 (a step's
+    wall: the round's tokens are read at its end) and their ratio, the
+    decode rounds that completed, by CUDA events, while a chunk was in
+    flight on the prefill pool's stream, and the device operations of a
+    round with and without a chunk in flight (profiled again, apart from
+    the timed steps)."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(11)
+    runner = eng.runner
+    for i in range(4):
+        eng.submit(Request(f"itf.{label[:3]}.{i}", rng.integers(0, 32000, SHORT).astype(np.int32),
+                           max_new=400))
+    while eng.scheduler.queue or eng._prefilling:
+        eng.step()
+
+    def timed_steps(n=None):
+        walls = []
+        while (eng.scheduler.queue or eng._prefilling) if n is None else len(walls) < n:
+            t0 = time.perf_counter()
+            eng.step()
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    base = timed_steps(base_steps)
+    ops_alone, engine_stream = _stream_ops(torch, eng, 4, f"{label[1]}_alone")
+
+    # CUDA events: each round on the engine's stream, each chunk where it ran
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    rounds, chunks, restore = [], [], []
+
+    def marked(obj, name, sink):
+        """Events on the current stream before and after each call."""
+        fn = getattr(obj, name)
+
+        def run(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            sink.append((a, b))
+            return out
+
+        setattr(obj, name, run)
+        restore.append((obj, name))
+
+    marked(runner, "decode_logits", rounds)
+    pool = getattr(eng, "prefill_pool", None)
+    if pool is None:  # colocated: the chunk runs on the engine's stream
+        marked(runner, "run_prefill_chunk", chunks)
+    else:  # the chunk's start (after its upload) and end (its ship), on the pool's stream
+        starts, ends = [], []
+        marked(pool, "stage_chunk", starts)
+        marked(eng.handoff, "ship", ends)
+    for j in range(2):
+        eng.submit(Request(f"itf.{label[:3]}.long{j}",
+                           rng.integers(0, 32000, LONG).astype(np.int32), max_new=2))
+    loaded = timed_steps()
+    torch.cuda.synchronize()
+    for obj, name in restore:
+        delattr(obj, name)
+    if pool is not None:  # the chunk: from its upload's end to its ship's start
+        chunks = [(a[1], b[0]) for a, b in zip(starts, ends)]
+    at = lambda e: ref.elapsed_time(e)  # noqa: E731
+    spans = [(at(a), at(b)) for a, b in chunks]
+    inside = sum(any(s < at(b) < e for s, e in spans) for _, b in rounds)
+    if len(chunks) != 2 * LONG // CHUNK:
+        raise AssertionError(f"interference {label}: {len(chunks)} chunks timed")
+
+    for j in range(2):  # the profile with chunks in flight, apart from the timed steps
+        eng.submit(Request(f"itf.{label[:3]}.prof{j}",
+                           rng.integers(0, 32000, LONG).astype(np.int32), max_new=2))
+    ops_loaded, _ = _stream_ops(torch, eng, 4, f"{label[1]}_loaded", engine_stream)
+    while eng.scheduler.queue or eng._prefilling:
+        eng.step()
+    for slot, req in list(eng.scheduler.inflight.items()):
+        eng.abort(req.request_id)
+
+    b50, b95 = (np.percentile(base, 50) * 1e3, np.percentile(base, 95) * 1e3)
+    l50, l95 = (np.percentile(loaded, 50) * 1e3, np.percentile(loaded, 95) * 1e3)
+    print(f"interference {label}: 4 greedy streams of {SHORT}-token prompts; alone ITL p50 "
+          f"{b50:.2f} ms p95 {b95:.2f} ms ({len(base)} rounds); while two {LONG}-token prompts "
+          f"prefill in {CHUNK}-token chunks ITL p50 {l50:.2f} ms p95 {l95:.2f} ms ({len(loaded)} "
+          f"steps, {len(rounds)} rounds, {len(chunks)} chunks); ratio p50 {l50 / b50:.3f} p95 "
+          f"{l95 / b95:.3f}  [{card}]")
+    print(f"  decode rounds completed while a chunk was in flight (CUDA events): {inside} of "
+          f"{len(rounds)}; chunks' device spans {sum(e - s for s, e in spans):.1f} ms in all  "
+          f"[{card}]")
+    print(f"  device operations a step on the engine's stream: {ops_alone[0]:.1f} alone (a "
+          f"round), {ops_loaded[0]:.1f} with chunks arriving (a round"
+          f"{' and a chunk' if pool is None else ''}); on other streams {ops_loaded[1]:.1f} a "
+          f"step (the prefill pool's chunks)  [{card}]")
+    print(f"  {_grid_line(grid)}  [{card}]")
+
+
+def _stream_ops(torch, eng, steps, name, engine_stream=None):
+    """Device operations (kernels, copies, sets) a step over ``steps`` steps
+    under ``torch.profiler``, read from the Chrome trace (its ``stream``
+    argument).  Returns ((on the engine's stream, on every other), the
+    engine's stream id): ``engine_stream``, or where given none the stream
+    with the most operations (run with decode rounds alone)."""
+
+    pool = getattr(eng, "prefill_pool", None)
+    torch.cuda.synchronize()
+    with _profiled(torch) as prof:
+        for _ in range(steps):
+            eng.step()
+        if pool is not None:  # the chunks these steps dispatched, all launched
+            pool.quiesce()
+        torch.cuda.synchronize()
+    path = Path("build") / f"trace_interference_{name}.json"  # read, then removed
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    by_stream = {}
+    for _, _, e in _kept_ops([(e["name"], e["ts"], e) for e in events
+                              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]):
+        sid = e.get("args", {}).get("stream")
+        by_stream[sid] = by_stream.get(sid, 0) + 1
+    if not by_stream:
+        raise AssertionError(f"interference: the profiler saw no device operation ({name})")
+    if engine_stream is None:
+        engine_stream = max(by_stream, key=by_stream.get)
+    on_engine = by_stream.get(engine_stream, 0)
+    return (on_engine / steps, (sum(by_stream.values()) - on_engine) / steps), engine_stream
 
 
 def chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens):
@@ -1802,18 +2137,58 @@ def verify_against_decode(torch, T, cfg, params, rng):
     return err, float(seq.abs().max())
 
 
+@contextlib.contextmanager
+def _profiled(torch):
+    """``torch.profiler`` (host and device events) over the block.  The
+    profiler keeps none of the first device events after it starts, a
+    number that grows over this script's run (about ten late in the run on
+    an H100), so a round run at once lost its first copies and kernels.
+    So the window opens with ``PROFILE_MARKS`` bursts of ``MARKS_EACH``
+    sentinel kernels over ``PROFILE_EDGE_S`` and closes with one more after
+    the block and as long idle; ``_kept_ops`` holds each profile to a
+    sentinel kept on either side of its device work.  The block's own
+    synchronize and wall clock stay inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKS):
+            for _ in range(MARKS_EACH):
+                torch.cuda._sleep(1000)
+            time.sleep(PROFILE_EDGE_S / PROFILE_MARKS)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_EDGE_S)
+
+
+def _kept_ops(ops):
+    """The device operations ``[(name, start, ...)]`` of a ``_profiled``
+    window less its sentinels, once a sentinel kept before the first and
+    one after the last show that the profiler dropped none of them."""
+    marks = [op[1] for op in ops if MARK in op[0]]
+    work = [op for op in ops if MARK not in op[0]]
+    if work and not (marks and min(marks) < min(op[1] for op in work)
+                     and max(marks) > max(op[1] for op in work)):
+        raise AssertionError(f"the profiler dropped device events at its window's edge "
+                             f"({len(marks)} of {PROFILE_MARKS * MARKS_EACH + 1} sentinels kept)")
+    WINDOW_MARKS.append(len(marks))
+    return work
+
+
 def _device_rows(prof):
-    """Device-side events only (kernels, copies, sets) of a profile: (device
-    seconds or None when there were none, device operations, the largest
-    [(name, s, calls)])."""
+    """Device-side events only (kernels, copies, sets) of a ``_profiled``
+    window: (device seconds or None when there were none, device
+    operations, the largest [(name, s, calls)])."""
     from torch.autograd import DeviceType
 
     rows = {}  # name -> [s, count]
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU:
-            row = rows.setdefault(e.name, [0.0, 0])
-            row[0] += e.time_range.elapsed_us() / 1e6
-            row[1] += 1
+    for name, _, e in _kept_ops([(e.name, e.time_range.start, e) for e in prof.events()
+                                 if e.device_type != DeviceType.CPU]):
+        row = rows.setdefault(name, [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e6
+        row[1] += 1
     top = sorted(((name, sec, n) for name, (sec, n) in rows.items()), key=lambda r: -r[1])
     return (sum(r[1] for r in top) if top else None), sum(r[2] for r in top), top[:8]
 
@@ -1841,7 +2216,6 @@ def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
     copies, sets) per round), summed over the device-side events only, the
     device time None when the profiler saw none."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import SamplingParams
 
@@ -1852,7 +2226,7 @@ def profile_decode(torch, eng, rounds: int = 4, sampled: bool = False):
           ) if sampled else None
     _decoding(eng, prompts, f"prof{run}", rounds + 8, sp)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             eng.step()
@@ -1867,7 +2241,6 @@ def profile_chunk(torch, np, eng):
     """One 256-token prefill chunk alone (the second of a 768-token prompt,
     prefix width 256, nothing decoding) under ``torch.profiler``, after the
     path.  Returns (wall s, device s or None, device operations)."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
 
@@ -1875,7 +2248,7 @@ def profile_chunk(torch, np, eng):
     eng.submit(Request("chunkprof", prompt, max_new=2))
     eng.step()  # the first chunk
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         eng.step()  # the second chunk; no request decodes yet
         torch.cuda.synchronize()
@@ -1902,7 +2275,6 @@ def eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card, rounds: int =
     ``prog.fn`` of the decode program in its place — each timing ``rounds``
     decode rounds on the host clock and ``rounds`` more under the profiler.
     The four runs must give the same tokens.  Returns {path: {mode: [runs]}}."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import EngineCore
 
@@ -1928,7 +2300,7 @@ def eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card, rounds: int =
                 eng.step()
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) / rounds
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with _profiled(torch) as prof:
                 t1 = time.perf_counter()
                 for _ in range(rounds):
                     eng.step()

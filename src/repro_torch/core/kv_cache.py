@@ -85,3 +85,40 @@ def insert_prefill_kv(cache, prefill_kv, slot: int):
 def _install(buf: torch.Tensor, new: torch.Tensor, slot: int, s: int, pad) -> None:
     buf[slot, :, :, :s].copy_(new[:, 0])
     buf[slot, :, :, s:].fill_(pad)
+
+
+def relay_prefill_kv(prefill_kv, max_len: int, kv_dtype: str):
+    """The prefill half of ``insert_prefill_kv``, for the disaggregated
+    pools: a prompt's KV (L, 1, Hkv, S, D) f32 in prefill layout becomes
+    one decode-layout segment (1, L, Hkv, max_len, D), rows [S, max_len)
+    padded — f32 values under "fp" (the cast to the cache dtype happens on
+    install), a ``QuantKV`` quantized on write otherwise (padding: payload
+    0, scale 1.0).  What the JAX package's relayout program ships."""
+    out = []
+    for new in prefill_kv:
+        n_layers, _, hkv, s, d = new.shape
+        if kv_dtype == "fp":
+            buf = new.new_zeros((1, n_layers, hkv, max_len, d))
+            _install(buf, new, 0, s, 0)
+            out.append(buf)
+            continue
+        payload, scale = quantize_kv(new, kv_dtype)
+        q = payload.new_zeros((1, n_layers, hkv, max_len, payload.shape[-1]))
+        sc = scale.new_ones((1, n_layers, hkv, max_len))
+        _install(q, payload, 0, s, 0)
+        _install(sc, scale, 0, s, 1.0)
+        out.append(QuantKV(q, sc))
+    return type(prefill_kv)(*out)
+
+
+def install_relayed_kv(cache, relayed, slot: int):
+    """The decode half: copy a relayed segment (``relay_prefill_kv``) into
+    cache slot ``slot`` in place (cast to the cache dtype under "fp"), which
+    stores the bytes ``insert_prefill_kv`` stores, padding rows included."""
+    for buf, new in zip(cache, relayed):
+        if isinstance(buf, QuantKV):
+            buf.q[slot].copy_(new.q[0])
+            buf.scale[slot].copy_(new.scale[0])
+        else:
+            buf[slot].copy_(new[0])
+    return cache

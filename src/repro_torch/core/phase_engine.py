@@ -16,6 +16,12 @@ as the JAX package keys its compiled programs:
   * ``prefill_chunk:{C}+{W}@{B}x{max_len}`` — one C-token prompt chunk over a
     W-wide prefix, installed into the decode cache (chunked prefill)
   * ``prefill_chunk_paged:{C}+{W}@{P}x{bs}`` — the same into the prompt's pages
+  * ``prefill_chunk_kv:{C}+{W}``      — the chunk with no install, its f32 KV
+    returned (the disaggregated prefill pool's chunk program)
+  * ``chunk_write:{C}``               — the decode pool's install of such a
+    chunk into the contiguous cache (quantized on write)
+  * ``relay:{S}->{max_len}``          — the prefill pool's half of the
+    contiguous swap: one prompt's KV as a decode-layout segment
   * ``sampler:{B}``                   — the per-slot token sampler
   * ``verify:{B}x{W}@{max_len}``      — speculative decoding's verify pass: a
     W = k + 1 token block a slot against the decode cache
@@ -45,10 +51,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.kv_cache import insert_prefill_kv
+from repro_torch.core.kv_cache import insert_prefill_kv, relay_prefill_kv
 from repro_torch.core.sampling import sample_block_tokens, sample_tokens
 from repro_torch.kernels import COUNTS
-from repro_torch.layers.attention import KVCache, write_prefill_pages_q
+from repro_torch.layers.attention import KVCache, write_chunk_kv_q, write_prefill_pages_q
 from repro_torch.models import transformer as T
 from repro_torch.quant.kv_quant import assert_kv_dtype
 
@@ -98,6 +104,9 @@ class GraphResources:
 
     stream: Optional["torch.cuda.Stream"] = None
     pool: object = None
+    # called before each capture: a capture must not overlap another
+    # thread's launches (the disaggregated engine waits for its prefill pool)
+    before_capture: Optional[Callable[[], None]] = None
 
     def get(self, device: torch.device):
         if self.stream is None:
@@ -133,8 +142,8 @@ class PhaseProgram:
     engine replays meanwhile (a graph captured later may take this one's
     scratch in the pool, and this one's replay writes that scratch).
     ``kernels.COUNTS`` goes on counting launches: the capture records what
-    the wrappers counted while it ran (and takes it back, since capturing
-    launches nothing), and each replay adds it."""
+    the wrappers counted on its thread while it ran (into the capture's own
+    record, since capturing launches nothing), and each replay adds it."""
 
     name: str
     fn: Callable
@@ -166,6 +175,8 @@ class PhaseProgram:
     def _capture(self, args, device: torch.device, warm) -> None:
         """Capture ``fn`` on ``args``'s shapes (a failed capture raises);
         ``warm`` is the warm-up's result, which sizes the output buffers."""
+        if self.graphs.before_capture is not None:
+            self.graphs.before_capture()
         inputs = []
         static_args = []
         for i, a in enumerate(args):
@@ -182,7 +193,6 @@ class PhaseProgram:
         made = [t for t in tensor_leaves(warm) if _storage(t) not in held]
         buffers = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in made]
         held = _storages(static_args)
-        before = dict(COUNTS)
         graph = torch.cuda.CUDAGraph()
         stream, pool = self.graphs.get(device)
         collecting = gc.isenabled()
@@ -191,7 +201,8 @@ class PhaseProgram:
         # stream captures: no collection runs until the capture ends
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with COUNTS.recording() as launches, torch.cuda.graph(graph, pool=pool,
+                                                                    stream=stream):
                 outputs = self.fn(*static_args)
                 leaves = tensor_leaves(outputs)
                 if sum(_storage(t) not in held for t in leaves) != len(buffers):
@@ -203,8 +214,6 @@ class PhaseProgram:
         finally:
             if collecting:
                 gc.enable()
-            launches = {k: COUNTS[k] - before[k] for k in COUNTS}
-            COUNTS.update(before)
         self.captured = _Graph(graph, inputs, outputs, launches)
 
     def _replay(self, args):
@@ -219,8 +228,7 @@ class PhaseProgram:
                                  f"captured with {tuple(dst.shape)} {dst.dtype}")
             dst.copy_(src)
         g.graph.replay()
-        for k, n in g.launches.items():
-            COUNTS[k] += n
+        COUNTS.add_all(g.launches)
         return g.outputs
 
 
@@ -233,6 +241,7 @@ class PhaseEngine:
             raise ValueError(f"cache_layout must be 'contiguous' or 'paged', got {cache_layout!r}")
         assert_kv_dtype(kv_dtype)
         self.cfg = cfg
+        self.kv_dtype = kv_dtype
         self._programs: Dict[str, PhaseProgram] = {}
         self._graphs = GraphResources()
 
@@ -241,6 +250,10 @@ class PhaseEngine:
         if key not in self._programs:
             self._programs[key] = PhaseProgram(key, fn, capturable, pinned, self._graphs)
         return self._programs[key]
+
+    def before_capture(self, hook: Callable[[], None]) -> None:
+        """Call ``hook`` before each capture of this engine's graphs."""
+        self._graphs.before_capture = hook
 
     @property
     def programs(self) -> Dict[str, PhaseProgram]:
@@ -376,6 +389,53 @@ class PhaseEngine:
 
         return self._program(f"prefill_chunk_paged:{chunk}+{prefix_width}@{max_pages}x{block_size}",
                              fn, capturable=True, pinned=(0, 2, 3))
+
+    def prefill_chunk_kv_program(self, chunk: int, prefix_width: int) -> PhaseProgram:
+        """Chunked prefill with no install, the disaggregated prefill pool's
+        chunk program: ``fn(params, tokens (1, C), prefix, prefix_len,
+        last_pos) -> (logits, chunk KV (L, 1, Hkv, C, D) f32, prefix)``, the
+        f32 mirror updated in place, ``prefix_len`` and ``last_pos`` 0-d
+        device tensors.  The fused chunk programs' math; the decode pool
+        installs the returned KV with their writers (``chunk_write`` or
+        ``page_write``).  A replay returns the graph's output buffers, which
+        its next replay overwrites: a caller that keeps the KV longer copies
+        it out."""
+        cfg = self.cfg
+
+        def fn(params, tokens, prefix, prefix_len, last_pos):
+            return T.prefill_chunk_kv(params, tokens, prefix, prefix_len, last_pos, cfg,
+                                      prefix_width=prefix_width)
+
+        return self._program(f"prefill_chunk_kv:{chunk}+{prefix_width}", fn, capturable=True,
+                             pinned=(0, 2))
+
+    def chunk_write_program(self, chunk: int) -> PhaseProgram:
+        """The decode pool's install of one shipped chunk into the contiguous
+        cache: ``fn(cache, kv (L, 1, Hkv, C, D), slot, prefix_len) ->
+        cache``, in place, quantized on write under int8/int4: the
+        ``write_chunk_kv_q`` scatter the fused ``prefill_chunk`` program
+        runs, so the two pools store the colocated engine's bytes.  The
+        paged counterpart is ``page_write``."""
+
+        def fn(cache, kv, slot, prefix_len):
+            return KVCache(write_chunk_kv_q(cache.k, kv.k, slot, prefix_len),
+                           write_chunk_kv_q(cache.v, kv.v, slot, prefix_len))
+
+        return self._program(f"chunk_write:{chunk}", fn)
+
+    def relay_program(self, seq: int, max_len: int) -> PhaseProgram:
+        """The prefill pool's half of the contiguous swap: ``fn(kv) ->
+        segment``, one prompt's KV (L, 1, Hkv, seq, D) f32 as a decode-layout
+        segment (1, L, Hkv, max_len, D), padded and quantized on write
+        (``core.kv_cache.relay_prefill_kv``).  The decode pool copies it into
+        the slot (``install_relayed_kv``); the two halves store what
+        ``relayout`` stores."""
+        kv_dtype = self.kv_dtype
+
+        def fn(kv):
+            return relay_prefill_kv(kv, max_len, kv_dtype)
+
+        return self._program(f"relay:{seq}->{max_len}", fn)
 
     def verify_program(self, batch: int, max_len: int, width: int) -> PhaseProgram:
         """Speculative verify over the contiguous cache: ``fn(params, tokens

@@ -118,7 +118,7 @@ def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None, row
             int(k.dtype == torch.bfloat16), *k.stride()[:3], *v.stride()[:3],
             int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_launch", "decode_attention")
-    COUNTS["decode_attention"] += 1
+    COUNTS.add("decode_attention")
     return out, l, m
 
 
@@ -155,7 +155,7 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
             int(kv_dtype == "int4"), strides_arg(k_q, v_q, k_scale, v_scale),
             int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_quant_launch", "decode_attention")
-    COUNTS["decode_attention_quant"] += 1
+    COUNTS.add("decode_attention_quant")
     return out, l, m
 
 

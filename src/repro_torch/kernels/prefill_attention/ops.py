@@ -43,7 +43,7 @@ def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(sm_scale),
             build.stream_ptr(q.device))
     build.check(rc, "prefill_attention_launch", "prefill_attention")
-    COUNTS["prefill_attention"] += 1
+    COUNTS.add("prefill_attention")
     return out
 
 

@@ -43,6 +43,7 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALL_ARCHS, ModelConfig, get_config, reduced_config
@@ -53,6 +54,7 @@ from repro_torch.serving import (
     POLICIES,
     AdmissionRejected,
     AsyncEngine,
+    DisaggEngine,
     EngineCore,
     Request,
     SamplingParams,
@@ -238,7 +240,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--spec-ngram", type=int, default=3, metavar="N",
                    help="prompt-lookup n-gram size for --spec-decode")
     p.add_argument("--disagg", action="store_true",
-                   help="disaggregated prefill and decode pools (not in the port yet)")
+                   help="disaggregated serving: prefill and decode run as two pools (on one "
+                        "device: the prefill pool on its own stream and thread) with a KV "
+                        "handoff channel between them")
     p.add_argument("--ragged", action="store_true",
                    help="draw prompt lengths uniformly in [4, prompt_len]")
     p.add_argument("--requests", type=int, default=6)
@@ -284,20 +288,24 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build(args) -> Tuple[ModelConfig, EngineCore, SamplingParams]:
     """The config, the engine on the JAX CLI's weights (its serving grid
     built on a card), and the default sampling parameters."""
-    if args.disagg:
-        raise NotImplementedError("--disagg: disaggregated prefill and decode pools are "
-                                  "ROADMAP A11")
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     # drawn where they are used: a card draws a full-width model in seconds
     params = init_like_jax(cfg, args.seed, device, draw_device=device)
-    eng = EngineCore(cfg, params, n_slots=args.slots, max_len=args.max_len,
-                     prompt_len=args.prompt_len, mode=args.mode,
-                     cache_layout=args.cache_layout, block_size=args.block_size,
-                     num_blocks=args.num_blocks, kv_dtype=args.kv_dtype,
-                     overlap=not args.no_overlap, swap_policy=args.swap_policy,
-                     prefill_chunk=args.prefill_chunk, spec_decode=args.spec_decode or None,
-                     spec_ngram=args.spec_ngram, device=device)
+    kw = dict(n_slots=args.slots, max_len=args.max_len, prompt_len=args.prompt_len,
+              mode=args.mode, cache_layout=args.cache_layout, block_size=args.block_size,
+              num_blocks=args.num_blocks, kv_dtype=args.kv_dtype, overlap=not args.no_overlap,
+              swap_policy=args.swap_policy, prefill_chunk=args.prefill_chunk,
+              spec_decode=args.spec_decode or None, spec_ngram=args.spec_ngram, device=device)
+    if args.disagg:
+        # both pools share one device, the prefill pool on its own stream and
+        # dispatch thread (the split across two cards is ROADMAP A.8)
+        why = ("fewer than 2 local devices" if device.type != "cuda"
+               or torch.cuda.device_count() < 2 else "no two-card split in the port yet")
+        print(f"disagg: {why}, colocating both pools on {device}")
+        eng = DisaggEngine(cfg, params, **kw)
+    else:
+        eng = EngineCore(cfg, params, **kw)
     if device.type == "cuda":
         eng.build_serving_grid()
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
@@ -391,6 +399,10 @@ def _report(args, eng: EngineCore, sp: SamplingParams) -> None:
               f"misses ({stats.prefix_hit_tokens} tokens reused)")
         print(f"  preemptions       : {stats.preemptions}  admission blocks: "
               f"{stats.admission_blocks}")
+    if args.disagg:
+        ho = eng.snapshot()["disagg"]["handoff"]
+        print(f"  KV handoff        : {ho['segments']} segments ({ho['eager_segments']} eager), "
+              f"{ho['bytes_shipped'] / 2**20:.2f} MiB shipped, {ho['installs']} installs")
     if stats.swap_agg.count:
         print(f"  swap latency hidden by overlap: {100 * stats.swap_agg.mean_hidden_fraction:.0f}% "
               f"(paper: ~75%); mean exposed cost {1e3 * stats.swap_agg.mean_cost:.2f} ms")

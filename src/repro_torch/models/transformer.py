@@ -250,6 +250,19 @@ def prefill_chunk_paged(params: dict, tokens: torch.Tensor, pages: KVCache, pref
     return _logits(params, _at(x, last_pos), cfg)[:, -1, :], pages, prefix
 
 
+def prefill_chunk_kv(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len, last_pos,
+                     cfg: ModelConfig, prefix_width: Optional[int] = None):
+    """One chunk computed with no install: the disaggregated prefill pool's
+    chunk program.  The math of ``prefill_chunk`` / ``prefill_chunk_paged``
+    (the same body, the same logits epilogue); the chunk's f32 KV is
+    returned instead of written, so the decode pool can install it with the
+    quantize-on-write writer the fused programs run.  Returns (logits (1,
+    Vp) of ``last_pos``, chunk KV (L, 1, Hkv, C, D) f32, prefix)."""
+    x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
+                                                  prefix_width)
+    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], KVCache(tok_k, tok_v), prefix
+
+
 def _kv_buffer(shape, dtype, kv_dtype: str, device):
     """One K or V buffer: a zeroed fp tensor, or a QuantKV of a zeroed
     payload (int8, or uint8 nibble pairs for int4) and a scale plane of

@@ -1,6 +1,7 @@
 from repro_torch.serving.arrivals import Arrival, bursty_times, make_trace, poisson_times
 from repro_torch.serving.async_engine import AdmissionRejected, AsyncEngine, RequestStream
 from repro_torch.serving.core import EngineCore, EngineStats, ModelRunner, Request, Scheduler
+from repro_torch.serving.disagg import DisaggEngine, DisaggRunner, KVHandoffChannel, PrefillPool
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.fair_queue import WeightedFairQueue
 from repro_torch.serving.outputs import OutputProcessor, RequestOutput

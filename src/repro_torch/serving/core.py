@@ -212,8 +212,11 @@ class EngineStats:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work enqueued on the caller's current stream (the
+    engine's), and for no other stream: on the disaggregated path the
+    prefill pool's chunk computes on its own stream meanwhile."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 class ModelRunner:
@@ -481,6 +484,14 @@ class ModelRunner:
         shapes = self.reachable_chunk_shapes()
         for padded, pw in shapes:
             self.chunk_prog(padded, pw)
+        self._build_decode_grid()
+        if self.device.type == "cuda":
+            self._capture_chunk_programs(shapes)
+        _sync(self.device)
+
+    def _build_decode_grid(self) -> None:
+        """The samplers built and, on a card, the decode, sampler and verify
+        programs run once on idle inputs (warm-up and capture)."""
         n = len(self.slots.slots)
         samplers = [self.engine.sampler_program(n), self.engine.sampler_program(1)]
         if self.spec_decode is not None:
@@ -497,6 +508,9 @@ class ModelRunner:
                                   np.zeros((n,), np.int32), idle)
             block_sampler(torch.zeros_like(logits), self._seeds, self._steps, self._temps,
                           self._top_ks, self._top_ps)
+
+    def _capture_chunk_programs(self, shapes) -> None:
+        """Each chunk shape's program run once on idle inputs (a card only)."""
         if shapes:
             scalars = self._chunk_scalars.upload([0, 0, 0])
             if self.paged is not None:  # every page id the skip id: no page is written
@@ -510,7 +524,6 @@ class ModelRunner:
             else:
                 self.chunk_prog(padded, pw)(self.params, tokens, self.cache, self.chunk_prefix,
                                             scalars[0], scalars[1], scalars[2])
-        _sync(self.device)
 
     def restart_headroom_ok(self, req: Request) -> bool:
         """Admit a restart only when the pool can hold its whole replayed
@@ -839,6 +852,12 @@ class EngineCore:
     device (``models.transformer.init`` + ``convert_for_inference``, or
     ``interop.params_from_numpy``)."""
 
+    # The runner to build: the one seam a subclass changes to move what is
+    # built and where it runs while keeping every scheduling, preemption,
+    # chunking and speculative path (the disaggregated engine's runner
+    # prefills on a separate pool: serving.disagg).
+    runner_cls = ModelRunner
+
     def __init__(
         self,
         cfg: ModelConfig,
@@ -860,7 +879,7 @@ class EngineCore:
         device=None,
     ):
         self.cfg = cfg
-        self.runner = ModelRunner(
+        self.runner = self.runner_cls(
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
             mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
             kv_dtype=kv_dtype, overlap=overlap, prefill_chunk=prefill_chunk,

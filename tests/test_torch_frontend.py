@@ -866,8 +866,11 @@ def test_cli_prints_the_jax_clis_tokens(extra, tmp_path):
 
 
 def test_cli_refuses_disagg_and_runs_on_cuda_unless_told():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        serve.main(["--reduced", "--device", "cpu", "--disagg"])
+    # --disagg is no longer refused: both pools share the one device
+    got, text = _printed(serve.main, ["--reduced", "--device", "cpu", "--disagg", "--requests",
+                                      "2", "--prompt-len", "8", "--max-new", "2",
+                                      "--max-len", "32"])
+    assert "colocating both pools" in text and "KV handoff        : 2 segments" in text
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1102,3 +1102,157 @@ def test_tracer_on_leaves_graph_launches_unchanged():
     assert runs[0] == runs[1]
     fins = [e["args"]["request_id"] for e in trace["traceEvents"] if e["name"] == "req.finish"]
     assert sorted(fins) == [f"t1.{i}" for i in range(3)]
+
+
+# ------------------------------------------- the disaggregated pools on the card --
+
+
+def _disagg_pair(cfg, params, layout, chunk, kv_dtype):
+    """A grid-built DisaggEngine and a grid-built EngineCore of one config."""
+    from repro_torch.serving import DisaggEngine
+
+    kw = dict(n_slots=3, max_len=64, prompt_len=16, block_size=8, cache_layout=layout,
+              kv_dtype=kv_dtype, prefill_chunk=chunk, device="cuda")
+    engines = (DisaggEngine(cfg, params, **kw), EngineCore(cfg, params, **kw))
+    for eng in engines:
+        eng.build_serving_grid()  # on this thread, before the pool's thread runs
+    return engines
+
+
+@pytest.mark.parametrize("layout,chunk,kv_dtype", [("paged", 8, "int8"),
+                                                   ("contiguous", None, "fp")])
+def test_disagg_on_cuda_gives_the_colocated_tokens(layout, chunk, kv_dtype):
+    """Chunked paged int8 and monolithic contiguous bf16 on the card: the
+    two pools serve the colocated engine's tokens (one sampled stream), the
+    launches are those the stats imply (the pool thread's B1 included), and
+    every shipped segment is installed."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (14, 44, 9, 21)]
+    sps = [SamplingParams(temperature=0.8, top_k=50, seed=i) if i == 1 else SamplingParams()
+           for i in range(len(prompts))]
+    disagg, colo = _disagg_pair(cfg, params, layout, chunk, kv_dtype)
+    streams, launches = [], []
+    for eng in (disagg, colo):
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", p, max_new=8, params=sps[i]))
+        reset_counts()
+        st = eng.run()
+        torch.cuda.synchronize()
+        streams.append({r: q.out_tokens for r, q in eng.finished.items()})
+        launches.append(dict(COUNTS))
+    assert streams[0] == streams[1]
+    st = disagg.stats
+    prefills = 0 if chunk else len(prompts)
+    passes = st.prefill_chunks + st.decode_rounds + prefills
+    assert launches[0]["tlmm"] == launches[0]["act_quant"] == 7 * cfg.num_layers * passes
+    assert launches[0]["prefill_attention"] == cfg.num_layers * prefills
+    walk = "paged_decode_attention_quant" if layout == "paged" else "decode_attention"
+    assert launches[0][walk] == cfg.num_layers * st.decode_rounds
+    ho = disagg.snapshot()["disagg"]["handoff"]
+    assert ho["pending"] == ho["discarded"] == 0 and ho["installs"] == (
+        ho["segments"] if chunk else 0)
+    assert ho["segments"] == (st.prefill_chunks if chunk else len(prompts))
+
+
+def test_disagg_decode_round_completes_while_a_chunk_computes():
+    """A decode round dispatched while a chunk computes on the prefill
+    pool's stream (held there behind a long spin) completes before the
+    chunk does: the round carries no dependency on the prefill in flight."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    disagg, colo = _disagg_pair(cfg, params, "paged", 8, "int8")
+    short, long_ = np.arange(8, dtype=np.int32) + 3, np.arange(24, dtype=np.int32) % 50 + 7
+    for eng in (disagg, colo):
+        eng.submit(Request("a", short, max_new=12))
+        while eng.scheduler.queue or eng._prefilling:
+            eng.step()
+    pool = disagg.prefill_pool
+    pool.submit(lambda: torch.cuda._sleep(int(1e9))).result()  # about half a second busy
+    disagg.submit(Request("b", long_, max_new=4))
+    before = len(disagg.scheduler.inflight[0].out_tokens)
+    disagg.step()  # b's first chunk (queued behind the spin) and a decode round of a
+    assert len(disagg.scheduler.inflight[0].out_tokens) == before + 1
+    assert not pool.stream.query(), "the chunk finished before the decode round returned"
+    assert disagg.handoff.pending == 1
+    disagg.run()
+    colo.submit(Request("b", long_, max_new=4))
+    colo.run()
+    assert {r: q.out_tokens for r, q in disagg.finished.items()} == {
+        r: q.out_tokens for r, q in colo.finished.items()}
+
+
+def test_one_pools_graph_is_not_disturbed_by_the_other_pools_replays():
+    """Each pool has its own graph memory pool.  The prefill pool's chunk
+    graph and the decode pool's decode graph, replayed in turns and at once
+    on their two streams, give the bits of their first replays."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    disagg, _ = _disagg_pair(cfg, params, "contiguous", 8, "fp")
+    pool, runner = disagg.prefill_pool, disagg.runner
+    assert pool.engine._graphs.pool != runner.engine._graphs.pool
+    prog = pool.chunk_kv_prog(8, 0)
+    assert prog.captured is not None and runner.decode_prog.captured is not None
+    tokens = torch.arange(8, device=dev).reshape(1, 8) + 11
+    lengths = runner.slots.lengths_array({0: 5, 1: 5, 2: 5})
+
+    def chunk():
+        with pool.on_stream():
+            logits, kv, _ = prog(params, tokens, pool.chunk_prefix, pool._scalars.dev[0],
+                                 pool._scalars.dev[1])
+            out = (logits.clone(), _clone(kv))
+        pool.stream.synchronize()
+        return out
+
+    def decode():
+        out = runner.decode_logits(lengths).clone()
+        torch.cuda.current_stream().synchronize()
+        return out
+
+    first_chunk, first_decode = chunk(), decode()
+    for _ in range(3):
+        with pool.on_stream():  # the chunk on the pool's stream while decode replays
+            prog(params, tokens, pool.chunk_prefix, pool._scalars.dev[0], pool._scalars.dev[1])
+        runner.decode_logits(lengths)
+        torch.cuda.synchronize()
+        assert _same(decode(), first_decode)
+        assert _same(chunk(), first_chunk)
+
+
+def test_shipped_chunk_kv_survives_the_next_replay_until_installed():
+    """A 48-token prompt in chunks of 8: the chunks at 24 and 32 both run
+    ``prefill_chunk_kv:8+32``, so the second replays the graph whose
+    output buffers the first shipped.  Each eager segment still holds, when
+    its install runs, the bytes it held when shipped (it was copied out of
+    the graph's buffers), and the tokens are the colocated engine's."""
+    dev = _cuda()
+    cfg, params = _graph_model(dev)
+    disagg, colo = _disagg_pair(cfg, params, "contiguous", 8, "int8")
+    runner = disagg.runner
+    assert runner.prefix_width(24) == runner.prefix_width(32) == 32
+    handoff, kept = disagg.handoff, []
+    ship = handoff.ship
+
+    def recording_ship(kv, *, eager=False, consumer=None):
+        seg = ship(kv, eager=eager, consumer=consumer)
+        if eager:  # on the pool's thread and stream, ordered after the chunk
+            kept.append((seg, _clone(kv)))
+        return seg
+
+    handoff.ship = recording_ship
+    installs = []
+    drain = handoff.drain
+
+    def checking_drain(slot=None):
+        torch.cuda.synchronize()
+        installs.append(all(_same(seg.kv, snap) for seg, snap in kept))
+        return drain(slot)
+
+    handoff.drain = checking_drain
+    prompt = np.arange(48, dtype=np.int32) * 7 % 256
+    for eng in (disagg, colo):
+        eng.submit(Request("r", prompt, max_new=6))
+        eng.run()
+    assert len(kept) == 5 and installs == [True]
+    assert disagg.finished["r"].out_tokens == colo.finished["r"].out_tokens

@@ -148,13 +148,15 @@ def test_bucket_matches_jax_contiguous_buckets():
 
 
 def test_out_of_slice_arguments_raise_not_implemented():
-    from repro_torch.launch import serve
+    from repro_torch.serving import DisaggEngine
 
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 3, device="cpu"), cfg)
     kw = dict(n_slots=1, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        serve.main(["--reduced", "--device", "cpu", "--disagg"])
+    # the disaggregated pools are ported; their split across two devices is not
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        DisaggEngine(cfg, params, n_slots=1, max_len=64, prefill_device="meta",
+                     decode_device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         T.init(dataclasses.replace(cfg, moe=True), 3, device="cpu")
     eng = EngineCore(cfg, params, **kw, swap_policy="slo-aware")
