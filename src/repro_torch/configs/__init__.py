@@ -1,22 +1,49 @@
-"""Architecture registry of the port (only the architectures it serves)."""
+"""Architecture registry of the port: ``--arch <id>`` resolves through here.
+
+The port serves the transformer family (dense and MoE), every architecture
+the JAX serving engine drives.  The other families of the JAX registry are
+named with the ROADMAP item that ports them.
+"""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.configs.base import (
+    SHAPES,
+    ModelConfig,
+    QuantConfig,
+    ShapeCell,
+    applicable_shapes,
+)
 
 _ARCH_MODULES = {
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
     "bitnet-730m": "repro_torch.configs.bitnet_730m",
+}
+
+# the JAX registry's architectures of other families, and the item that ports each
+NOT_PORTED = {
+    "hymba-1.5b": "ROADMAP A.4",
+    "xlstm-1.3b": "ROADMAP A.5",
+    "whisper-large-v3": "ROADMAP A.6",
 }
 
 ALL_ARCHS = list(_ARCH_MODULES)
 
 
 def get_config(arch: str, *, quant_mode: str | None = None) -> ModelConfig:
+    if arch in NOT_PORTED:
+        raise KeyError(f"{arch!r} is not in the port yet ({NOT_PORTED[arch]}); "
+                       f"the port serves {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; the port serves {sorted(_ARCH_MODULES)} "
-                       "(other families: ROADMAP A12)")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     cfg: ModelConfig = importlib.import_module(_ARCH_MODULES[arch]).CONFIG
     if quant_mode is not None:
         cfg = dataclasses.replace(cfg, quant=QuantConfig(mode=quant_mode))
@@ -24,8 +51,8 @@ def get_config(arch: str, *, quant_mode: str | None = None) -> ModelConfig:
 
 
 def reduced_config(arch: str, **overrides) -> ModelConfig:
-    """A tiny same-family config for CPU tests — the same reduction as the
-    JAX package's ``reduced_config`` for the transformer family."""
+    """A tiny same-family config for CPU tests: the JAX package's
+    ``reduced_config`` for the transformer family."""
     cfg = get_config(arch)
     small = dict(
         num_layers=min(cfg.num_layers, 2),
@@ -35,9 +62,13 @@ def reduced_config(arch: str, **overrides) -> ModelConfig:
         head_dim=32,
         d_ff=0 if cfg.d_ff == 0 else 256,
         vocab_size=256,
+        max_position_embeddings=2048,
     )
+    if cfg.moe:
+        small.update(num_experts=4, top_k=2, moe_d_ff=64)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
 
 
-__all__ = ["ModelConfig", "QuantConfig", "ALL_ARCHS", "get_config", "reduced_config"]
+__all__ = ["ModelConfig", "QuantConfig", "ShapeCell", "SHAPES", "applicable_shapes",
+           "ALL_ARCHS", "NOT_PORTED", "get_config", "reduced_config"]

@@ -1,16 +1,17 @@
 """Model/config dataclasses: the port's own copy of ``repro.configs.base``.
 
-The fields, defaults and derived quantities match the JAX package's
-dataclasses so one configuration means the same model in both packages.
-Only the fields the port reads are kept (the family-specific fields of
-MoE, SSM, xLSTM and encoder-decoder models come with those families, and
-the JAX execution knobs have no counterpart: the port's kernels always run
-on CUDA tensors, their plain versions on CPU tensors).
+The fields, defaults and derived quantities (``param_count``,
+``active_param_count``, ``ffn_hidden``, the shape cells) match the JAX
+package's, so one configuration means the same model in both packages.
+The JAX execution knobs (``use_pallas``, ``attn_impl``, ``remat``) have no
+counterpart: the port's kernels always run on CUDA tensors, their plain
+versions on CPU tensors.  The port serves the transformer family; the
+fields of the other families are kept so that their arithmetic holds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -42,18 +43,40 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
 
+    # --- MoE ---
     moe: bool = False
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0  # per-expert hidden size (d_ff is then unused)
 
+    # --- attention details ---
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     sliding_window: Optional[int] = None
+    global_attn_layers: Tuple[int, ...] = ()
+    causal: bool = True
 
-    norm: str = "rmsnorm"
-    act: str = "silu"
+    # --- SSM / recurrent ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    slstm_every: int = 8
+
+    # --- encoder-decoder ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    cross_attention: bool = False
+
+    # --- misc ---
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"  # silu (SwiGLU) | gelu
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
+    max_position_embeddings: int = 1 << 20
 
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+
+    # dropped-token capacity factor for MoE routing
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -70,3 +93,95 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 256) -> int:
         """Megatron-style vocab padding (the JAX package's embedding rows)."""
         return _round_up(self.vocab_size, multiple)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "xlstm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded per-step cost?"""
+        return self.family in ("xlstm", "hymba")
+
+    @property
+    def ffn_hidden(self) -> int:
+        return self.moe_d_ff if self.moe else self.d_ff
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the JAX package's, term for term)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "xlstm":
+            return emb + L * _xlstm_layer_params(self) + d
+        attn = (d * (self.num_heads * hd) + d * (2 * self.num_kv_heads * hd)
+                + (self.num_heads * hd) * d)
+        if self.qkv_bias:
+            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.moe:
+            ffn = self.num_experts * (3 * d * self.moe_d_ff) + d * self.num_experts
+        elif self.act == "silu":
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = 2 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        total = emb + L * per_layer + d
+        if self.family == "hymba":
+            total += L * _ssm_branch_params(self)
+        if self.family == "encdec":
+            enc_per = attn + (2 * d * self.d_ff) + 2 * d
+            cross = attn + d
+            total += self.encoder_layers * enc_per + L * cross
+        return total
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: only top_k experts count)."""
+        if not self.moe:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        dense = self.param_count() - L * self.num_experts * 3 * d * self.moe_d_ff
+        return dense + L * self.top_k * 3 * d * self.moe_d_ff
+
+
+def _xlstm_layer_params(cfg: ModelConfig) -> int:
+    d, H = cfg.d_model, cfg.num_heads
+    hd = d // H
+    # mLSTM block: q/k/v proj + i/f/o gates + out proj + norm
+    m = 3 * d * d + 3 * d * H + d * d + 2 * d
+    # sLSTM block: 4 gates input + 4 recurrent (block-diag per head) + out
+    s = 4 * d * d + 4 * H * hd * hd + d * d + 2 * d
+    n_s = cfg.num_layers // cfg.slstm_every
+    n_m = cfg.num_layers - n_s
+    return (n_m * m + n_s * s) // cfg.num_layers
+
+
+def _ssm_branch_params(cfg: ModelConfig) -> int:
+    d, N = cfg.d_model, cfg.ssm_state
+    d_in = d  # ssm branch inner width == d_model (parallel-heads design)
+    return d * 2 * d_in + d_in * (2 * N + 1) + d_in * cfg.ssm_conv + d_in * d + d_in
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell of the assigned matrix."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeCell]:
+    """The shape cells that run for this arch (long_500k: sub-quadratic only)."""
+    cells = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.sub_quadratic:
+        cells.append(SHAPES["long_500k"])
+    return cells

@@ -49,7 +49,12 @@ def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal self-attention over a full prompt, (B,H,S,D) layout."""
+    """Causal self-attention over a full prompt, (B,H,S,D) layout, output in
+    q's dtype.  bf16 operands are widened to f32 for the kernel, as the
+    Pallas kernel loads its tiles as f32."""
     if q.is_cuda:
-        return prefill_attention_kernel(q, k, v, sm_scale=sm_scale).to(q.dtype)
+        dtype = q.dtype
+        if dtype != torch.float32:
+            q, k, v = q.float(), k.float(), v.float()
+        return prefill_attention_kernel(q, k, v, sm_scale=sm_scale).to(dtype)
     return prefill_attention_reference(q, k, v, sm_scale=sm_scale)

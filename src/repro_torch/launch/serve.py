@@ -1,8 +1,11 @@
 """Serving entry point of the port: the step-driven engine under a synthetic
 load, or behind an HTTP/SSE server.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-730m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 8 --swap-policy slo-aware [--device cpu --reduced]
+
+``--arch`` takes every architecture of the transformer family, dense and
+MoE (the JAX CLI's default, ``smollm-135m``, is the default here too).
 
 The port of the JAX package's ``repro.launch.serve``, with its arguments,
 its printout, its routes, status codes, JSON bodies and SSE events.  It
@@ -15,8 +18,8 @@ first requests' tokens.  Requests arrive on a seeded Poisson process
 
 The weights are the JAX CLI's: latent f32, drawn from ``--seed`` as
 ``transformer.init(cfg, PRNGKey(seed), float32)`` draws them
-(``models.jax_init``), not packed, so every linear quantizes them on the fly
-and runs the TLMM kernel.  On the CPU the tokens are the JAX CLI's.  It runs
+(``models.jax_init``), not packed, so under a ternary arch every linear
+quantizes them on the fly and runs the TLMM kernel.  On the CPU the tokens are the JAX CLI's.  It runs
 on the card unless ``--device cpu`` is given, and builds the serving grid
 there (every program built, the decode, chunk and sampler programs captured
 as CUDA graphs) before serving.
@@ -220,7 +223,7 @@ async def serve_http(core: EngineCore, default_params: SamplingParams, host: str
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--arch", choices=ALL_ARCHS, default="bitnet-730m")
+    p.add_argument("--arch", choices=ALL_ARCHS, default="smollm-135m")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (the CPU runs the kernels' plain versions)")

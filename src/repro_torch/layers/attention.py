@@ -80,7 +80,7 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 def _check_slice(cfg: ModelConfig) -> None:
     if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not in the port yet (ROADMAP A12)")
+        raise NotImplementedError("sliding-window attention is not in the port yet (ROADMAP A.4)")
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):

@@ -6,7 +6,7 @@ Params are ``{"w": (K, N) tensor}`` (+``"b"``) for dense weights, or
 weights are packed once (``models.transformer.convert_for_inference``), or
 quantized and packed on the fly at every call, as the JAX package's slow
 inference path does; the quantization-aware training branch comes with
-training (ROADMAP A12).
+training (ROADMAP A.7).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ from repro_torch.layers.linear import linear_apply, linear_init
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act != "silu":
-        raise NotImplementedError(f"act {cfg.act!r}: the port serves SwiGLU models (ROADMAP A12)")
+        raise NotImplementedError(
+            f"act {cfg.act!r}: the port serves SwiGLU models (the GELU MLP: ROADMAP A.6)")
     return {
         "w_gate": linear_init(gen, d, f, device=device),
         "w_up": linear_init(gen, d, f, device=device),

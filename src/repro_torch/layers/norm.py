@@ -10,7 +10,8 @@ def rmsnorm_init(d: int, device=None) -> dict:
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-5) -> torch.Tensor:
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r}: the port serves RMSNorm models (ROADMAP A12)")
+        raise NotImplementedError(
+            f"norm {kind!r}: the port serves RMSNorm models (LayerNorm: ROADMAP A.6)")
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * params["scale"].float()
@@ -26,7 +27,8 @@ def apply_norm_blocks(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
     apart, and a rounding there can move an int8 activation; this way every
     block row is normalized exactly as decode normalizes it."""
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r}: the port serves RMSNorm models (ROADMAP A12)")
+        raise NotImplementedError(
+            f"norm {kind!r}: the port serves RMSNorm models (LayerNorm: ROADMAP A.6)")
     xf = x.float()
     sq = xf * xf
     var = torch.stack([sq[:, i].mean(dim=-1, keepdim=True) for i in range(x.shape[1])], dim=1)

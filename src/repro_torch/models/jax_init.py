@@ -66,31 +66,53 @@ def _to(tree, device):
 def init_like_jax(cfg, seed: int = 0, device=None, *, draw_device="cpu") -> dict:
     """The latent f32 weights of the JAX package's
     ``transformer.init(cfg, PRNGKey(seed), float32)`` (its key-split tree,
-    layer by layer) on ``device`` (CUDA by default).  They are drawn on
-    ``draw_device``: the CPU by default, whose float ops round as the JAX
-    package's on the CPU do; a card draws a full-width model in seconds
-    where the CPU takes minutes, its ``log1p`` possibly an ulp away."""
+    layer by layer) on ``device`` (CUDA by default): QKV biases as zeros, an
+    untied ``lm_head`` from the third key of the root split, an MoE layer
+    from ``moe_init``'s four-way split of the layer's FFN key.  They are
+    drawn on ``draw_device``: the CPU by default, whose float ops round as
+    the JAX package's on the CPU do; a card draws a full-width model in
+    seconds where the CPU takes minutes, its ``log1p`` possibly an ulp
+    away."""
     dev = resolve_device(device)
     draw = torch.device(draw_device)
-    k_emb, k_layers, _ = _split((torch.tensor(0, device=draw),
-                                 torch.tensor(seed & MASK32, device=draw)), 3)
+    k_emb, k_layers, k_head = _split((torch.tensor(0, device=draw),
+                                      torch.tensor(seed & MASK32, device=draw)), 3)
     d, f = cfg.d_model, cfg.d_ff
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def lin(key, k, n, scale=None):
-        return {"w": _normal(key, (k, n)) * (1.0 / k ** 0.5 if scale is None else scale)}
+    def lin(key, k, n, scale=None, bias=False):
+        p = {"w": _normal(key, (k, n)) * (1.0 / k ** 0.5 if scale is None else scale)}
+        if bias:
+            p["b"] = torch.zeros(n)
+        return p
+
+    def ffn(kf):
+        if cfg.moe:
+            e, fe = cfg.num_experts, cfg.moe_d_ff
+            r, g, u, w = _split(kf, 4)
+            s_in, s_out = 1.0 / d ** 0.5, 1.0 / fe ** 0.5
+            return "moe", {"router": _normal(r, (d, e)) * s_in,
+                           "w_gate": _normal(g, (e, d, fe)) * s_in,
+                           "w_up": _normal(u, (e, d, fe)) * s_in,
+                           "w_down": _normal(w, (e, fe, d)) * s_out}
+        m1, m2, m3 = _split(kf, 3)
+        return "mlp", {"w_gate": lin(m1, d, f), "w_up": lin(m2, d, f),
+                       "w_down": lin(m3, f, d, 1.0 / f ** 0.5)}
 
     layers = []
     for kl in _split(k_layers, cfg.num_layers):
         ka, kf = _split(kl, 2)
         k1, k2, k3, k4 = _split(ka, 4)
-        m1, m2, m3 = _split(kf, 3)
+        bias = cfg.qkv_bias
+        name, sub = ffn(kf)
         layers.append(_to({
-            "attn": {"wq": lin(k1, d, h * hd), "wk": lin(k2, d, hkv * hd),
-                     "wv": lin(k3, d, hkv * hd), "wo": lin(k4, h * hd, d, 1.0 / (h * hd) ** 0.5)},
-            "ln1": {"scale": torch.ones(d)}, "ln2": {"scale": torch.ones(d)},
-            "mlp": {"w_gate": lin(m1, d, f), "w_up": lin(m2, d, f),
-                    "w_down": lin(m3, f, d, 1.0 / f ** 0.5)},
+            "attn": {"wq": lin(k1, d, h * hd, bias=bias), "wk": lin(k2, d, hkv * hd, bias=bias),
+                     "wv": lin(k3, d, hkv * hd, bias=bias),
+                     "wo": lin(k4, h * hd, d, 1.0 / (h * hd) ** 0.5)},
+            "ln1": {"scale": torch.ones(d)}, "ln2": {"scale": torch.ones(d)}, name: sub,
         }, dev))
-    return {"emb": _to(_normal(k_emb, (cfg.padded_vocab(), d)) * 0.02, dev),
-            "layers": T._stack(layers), "ln_f": {"scale": torch.ones(d, device=dev)}}
+    params = {"emb": _to(_normal(k_emb, (cfg.padded_vocab(), d)) * 0.02, dev),
+              "layers": T._stack(layers), "ln_f": {"scale": torch.ones(d, device=dev)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _to(_normal(k_head, (d, cfg.padded_vocab())) * 0.02, dev)
+    return params

@@ -1,4 +1,5 @@
-"""Decoder-only dense transformer (bitnet-730m) — the PD-Swap phase programs.
+"""Decoder-only transformer, dense and MoE (bitnet, smollm, deepseek, qwen,
+minicpm, chameleon, granite, moonshot) — the PD-Swap phase programs.
 
 Layer-stacked parameters (leading dim = num_layers) in plain dicts, as in
 the JAX package; a Python loop over layers takes the place of its scan.
@@ -42,6 +43,7 @@ from repro_torch.layers.attention import (
     write_prefill_pages_q,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_forward, moe_init
 from repro_torch.layers.norm import apply_norm, apply_norm_blocks, rmsnorm_init
 from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
@@ -49,11 +51,15 @@ from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
            ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
 
+# the families of the JAX package the port does not serve yet, and their items
+_OTHER_FAMILIES = {"hymba": "ROADMAP A.4", "xlstm": "ROADMAP A.5", "encdec": "ROADMAP A.6"}
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "transformer" or cfg.moe:
+    if cfg.family != "transformer":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense transformers (other families: ROADMAP A12)")
+            f"{cfg.name}: the port serves the transformer family; {cfg.family!r} comes with "
+            f"{_OTHER_FAMILIES.get(cfg.family, 'no ROADMAP item')}")
 
 
 def _stack(trees):
@@ -69,38 +75,78 @@ def layer_params(layers, li: int):
     return layers[li]
 
 
-def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
-    """Latent f32 weights with the JAX package's distributions (embedding
-    N(0, 0.02^2), linears N(0, 1/K), norms 1), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the target device."""
+def _cast_layer(lp: dict, dtype: torch.dtype) -> dict:
+    """A layer's f32 draws in the weight dtype: the linears and their biases
+    (the expert stacks are drawn in it); norm scales and the router stay
+    f32, as in the JAX package."""
+    return {g: ({n: {k: t.to(dtype) for k, t in lin.items()} for n, lin in sub.items()}
+                if g in ("attn", "mlp") else sub) for g, sub in lp.items()}
+
+
+def _put(dst, li: int, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], li, src[k])
+    else:
+        dst[li].copy_(src)
+
+
+def _alloc(lp, n: int):
+    if isinstance(lp, dict):
+        return {k: _alloc(v, n) for k, v in lp.items()}
+    return torch.empty((n,) + lp.shape, dtype=lp.dtype, device=lp.device)
+
+
+def init(cfg: ModelConfig, seed: int = 0, *, device=None,
+         dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Weights with the JAX package's distributions (embedding N(0, 0.02^2),
+    linears N(0, 1/K) with zero biases, norms 1, MoE as ``moe_init``), drawn
+    from a ``torch.Generator`` seeded with ``seed`` on the target device, in
+    ``dtype`` (bf16 by default, as the JAX ``init``).  Each layer is drawn
+    in f32 and cast into the layer-stacked tree before the next, so the
+    peak stays one f32 layer above the model.  A ternary config keeps its
+    latent weights f32 (``convert_for_inference`` packs them)."""
     _check_family(cfg)
     dev = resolve_device(device)
+    if cfg.quant.ternary:
+        dtype = torch.float32
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     vp = cfg.padded_vocab()
-    emb = torch.randn((vp, cfg.d_model), generator=gen, device=dev) * 0.02
-    layers = []
-    for _ in range(cfg.num_layers):
-        layers.append({
-            "attn": attention_init(cfg, gen, dev),
-            "ln1": rmsnorm_init(cfg.d_model, device=dev),
-            "ln2": rmsnorm_init(cfg.d_model, device=dev),
-            "mlp": mlp_init(cfg, gen, dev),
-        })
-    params = {"emb": emb, "layers": _stack(layers), "ln_f": rmsnorm_init(cfg.d_model, device=dev)}
+    emb = (torch.randn((vp, cfg.d_model), generator=gen, device=dev) * 0.02).to(dtype)
+    layers = None
+    for li in range(cfg.num_layers):
+        lp = {"attn": attention_init(cfg, gen, dev),
+              "ln1": rmsnorm_init(cfg.d_model, device=dev),
+              "ln2": rmsnorm_init(cfg.d_model, device=dev)}
+        if cfg.moe:
+            lp["moe"] = moe_init(cfg, gen, dev, dtype)
+        else:
+            lp["mlp"] = mlp_init(cfg, gen, dev)
+        lp = _cast_layer(lp, dtype)
+        if layers is None:
+            layers = _alloc(lp, cfg.num_layers)
+        _put(layers, li, lp)
+        del lp
+    params = {"emb": emb, "layers": layers, "ln_f": rmsnorm_init(cfg.d_model, device=dev)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn((cfg.d_model, vp), generator=gen, device=dev) * 0.02
+        params["lm_head"] = (torch.randn((cfg.d_model, vp), generator=gen, device=dev)
+                             * 0.02).to(dtype)
     return params
 
 
 def convert_for_inference(params: dict, cfg: ModelConfig) -> dict:
     """Latent ternary linears -> packed ``TernaryWeight`` (one absmean scale
     per layer): the one-time conversion that puts every linear on the TLMM
-    kernel.  Dense configs are returned unchanged."""
+    kernel.  Dense configs are returned unchanged.  An MoE layer's expert
+    stacks stay latent (fake-quantized at each call, as in the JAX
+    package): only its attention linears are packed."""
     if not cfg.quant.ternary:
         return params
     layers = {g: dict(sub) for g, sub in params["layers"].items()}
     for group, name in LINEARS:
+        if group not in layers:
+            continue
         lin = dict(layers[group][name])
         if not isinstance(lin["w"], TernaryWeight):
             lin["w"] = quantize_and_pack_stacked(lin["w"])
@@ -118,12 +164,20 @@ def _logits(params, x, cfg: ModelConfig, norm=apply_norm) -> torch.Tensor:
     return x.float() @ head.float()  # full f32: TF32 is off (see repro_torch)
 
 
+def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A layer's FFN: the MoE (its aux loss, which serving discards, is not
+    computed) or the dense SwiGLU."""
+    if cfg.moe:
+        return moe_forward(lp["moe"], h, cfg)
+    return mlp_apply(lp["mlp"], h, cfg)
+
+
 def _block_prefill(x, lp, positions, cfg):
     h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
     attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg), kv
+    return x + _ffn(lp, h, cfg), kv
 
 
 def _at(x, last_pos):
@@ -170,7 +224,7 @@ def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
     """The tail after the split: last FFN + norm + logits, (B, Vp)."""
     last = layer_params(params["layers"], cfg.num_layers - 1)
     h2 = apply_norm(last["ln2"], x_mid, cfg.norm, cfg.norm_eps)
-    x_out = x_mid + mlp_apply(last["mlp"], h2, cfg)
+    x_out = x_mid + _ffn(last, h2, cfg)
     return _logits(params, _at(x_out, last_pos), cfg)[:, -1, :]
 
 
@@ -207,12 +261,12 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
             cfg, positions)
         x = x + attn_out
         h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h, cfg)
+        x = x + _ffn(lp, h, cfg)
         ks.append(k)
         vs.append(v)
     tok_k, tok_v = torch.stack(ks), torch.stack(vs)
-    prefix.k.index_copy_(3, positions[0], tok_k)
-    prefix.v.index_copy_(3, positions[0], tok_v)
+    prefix.k.index_copy_(3, positions[0], tok_k.to(prefix.k.dtype))
+    prefix.v.index_copy_(3, positions[0], tok_v.to(prefix.v.dtype))
     return x, tok_k, tok_v, prefix
 
 
@@ -330,7 +384,7 @@ def _decode_layers(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attend_
         attn_out, new_kv = attend_layer(lp["attn"], h, li)
         x = x + attn_out
         h = norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h, cfg)
+        x = x + _ffn(lp, h, cfg)
         tok_k.append(new_kv.k)
         tok_v.append(new_kv.v)
     return _logits(params, x, cfg, norm), torch.stack(tok_k), torch.stack(tok_v)

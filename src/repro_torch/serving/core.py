@@ -1051,16 +1051,28 @@ class EngineCore:
 
     def generate(self, prompt, params: Optional[SamplingParams] = None, *,
                  request_id: Optional[str] = None, max_new: Optional[int] = None,
-                 max_steps: int = 10_000) -> Iterator[RequestOutput]:
-        """Submit one request and stream its outputs as they are produced."""
+                 priority: int = 0, max_steps: int = 10_000) -> Iterator[RequestOutput]:
+        """Submit one request and stream its outputs as they are produced.
+
+        Unbudgeted (no ``max_new``, no ``params.max_tokens``), the request
+        gets its slot's headroom, clamped under the paged layout to what
+        the pool can hold over its lifetime, as the JAX ``generate``: an
+        unbudgeted request degrades to a shorter stream, it does not raise."""
         if params is None:
             params = SamplingParams()
         prompt = np.asarray(prompt, np.int32)
         if max_new is None:
-            max_new = params.max_tokens or max(1, self.runner.max_len - len(prompt))
+            if params.max_tokens is not None:
+                max_new = params.max_tokens  # submit() applies the override
+            else:
+                max_new = self.runner.max_len - len(prompt)
+                if self.runner.paged is not None:
+                    pool_tokens = self.runner.paged.num_blocks * self.runner.block_size
+                    max_new = min(max_new, pool_tokens - len(prompt) + 1)
+                max_new = max(1, max_new)
         self._gen_seq += 1
         rid = request_id or f"gen-{self._gen_seq}"
-        self.submit(Request(rid, prompt, max_new=max_new, params=params))
+        self.submit(Request(rid, prompt, max_new=max_new, priority=priority, params=params))
         for _ in range(max_steps):
             for out in self.step():
                 if out.request_id == rid:

@@ -1256,3 +1256,116 @@ def test_shipped_chunk_kv_survives_the_next_replay_until_installed():
         eng.run()
     assert len(kept) == 5 and installs == [True]
     assert disagg.finished["r"].out_tokens == colo.finished["r"].out_tokens
+
+
+# ------------------------------------------------ the transformer family --
+
+
+@pytest.mark.parametrize("g,d", [(5, 128), (3, 64)])
+def test_prefill_and_walks_at_the_family_serving_shapes(g, d):
+    """B2 and the four walks at qwen2.5-14b's (G = 5, D = 128) and
+    granite's (G = 3, D = 64) heads over 8 KV heads, at phase 3's shapes:
+    B2 at S = 256 and 2048; B3/B4 int8 on a layer slice of a (4, L, 8,
+    2048, D) cache, B5/B6 int8 on 512 pages of 16 through shuffled tables,
+    lengths 0 / 517 / 1300 / 2048; each against its plain version."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(g * d)
+    hkv = 8
+    for s in (256, 2048):
+        q = torch.randn((1, hkv * g, s, d), generator=gen, device=dev)
+        k, v = (torch.randn((1, hkv, s, d), generator=gen, device=dev) for _ in range(2))
+        out = prefill_attention_kernel(q, k, v)
+        torch.cuda.synchronize()
+        assert (out - prefill_attention_reference(q, k, v)).abs().max().item() <= ATTN_TOL
+    b, layers, smax, bs, n = 4, 4, 2048, 16, 512
+    lengths = torch.tensor([0, 517, 1300, 2048], dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    tables = perm[:b * smax // bs].reshape(b, smax // bs).contiguous()
+    slot = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev) for _ in range(2)]
+    pool = [torch.randn((n, layers, hkv, bs, d), generator=gen, device=dev) for _ in range(2)]
+    for kernel, ref, planes, extra in (
+            (decode_attention_kernel, decode_attention_reference,
+             [t.to(torch.bfloat16)[:, 2] for t in slot], ()),
+            (paged_decode_attention_kernel, paged_decode_attention_reference,
+             [t.to(torch.bfloat16)[:, 2] for t in pool], (tables,))):
+        _assert_stats_close(kernel(q, *planes, *extra, lengths),
+                            ref(q, *planes, *extra, lengths))
+    for kernel, ref, planes, extra in (
+            (decode_attention_quant_kernel, decode_attention_quant_reference, slot, ()),
+            (paged_decode_attention_quant_kernel, paged_decode_attention_quant_reference, pool,
+             (tables,))):
+        (kq, ks), (vq, vs) = (quantize_kv(t[:, 2].contiguous(), "int8") for t in planes)
+        args = (q, kq, ks, vq, vs, *extra, lengths)
+        _assert_stats_close(kernel(*args, kv_dtype="int8"), ref(*args, kv_dtype="int8"))
+
+
+def _moe_case(seed):
+    """A granite MoE layer at reduced width (8 experts, top-2) on the CPU,
+    its router biased towards expert 0 so that assignments drop."""
+    from repro_torch.layers.moe import moe_init
+
+    cfg = reduced_config("granite-moe-3b-a800m", d_model=256, num_experts=8, moe_d_ff=128)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    p = moe_init(cfg, gen, "cpu")
+    p["router"][:, 0] += 0.2
+    x = torch.randn((2, 40, cfg.d_model), generator=gen)
+    return cfg, p, x
+
+
+def test_moe_on_cuda_holds_its_cpu_run_with_drops_and_no_host_sync():
+    """``moe_apply`` on the card against its CPU run (f32, TF32 off): the
+    same routing (dropped assignments included) and outputs within 1e-4;
+    ``moe_forward`` issues no host synchronization (the counts are a
+    scatter, nothing is read back)."""
+    from repro_torch.layers import moe as M
+
+    dev = _cuda()
+    cfg, p, x = _moe_case(0)
+    pc = {k: t.to(dev) for k, t in p.items()}
+    gl = x.reshape(-1, cfg.d_model) @ p["router"]
+    cap = max(8, int(gl.shape[0] * cfg.top_k / cfg.num_experts * 1.25))
+    want = M._route(gl, cfg.top_k, cap, cfg.num_experts)
+    got = M._route(gl.to(dev), cfg.top_k, cap, cfg.num_experts)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert (want[1] == cfg.num_experts * cap).any()  # some assignments dropped
+    y, aux = M.moe_apply(pc, x.to(dev), cfg)
+    y_r, aux_r = M.moe_apply(p, x, cfg)
+    assert (y.cpu() - y_r).abs().max().item() <= 1e-4
+    assert abs(float(aux) - float(aux_r)) <= 1e-5
+    xb = x.to(dev, torch.bfloat16)
+    pb = {k: (t if k == "router" else t.to(torch.bfloat16)) for k, t in pc.items()}
+    M.moe_forward(pb, xb, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        M.moe_forward(pb, xb, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_moe_decode_graph_replays_the_eager_program_bit_for_bit():
+    """The decode program of a reduced granite-moe-3b-a800m on bf16
+    weights: the capturing call, a replay and replays on changed inputs
+    give the eager program's logits and cache bytes bit for bit (one slot
+    inactive), so the combine is deterministic; B3 a layer a replay."""
+    dev = _cuda()
+    cfg = reduced_config("granite-moe-3b-a800m", vocab_size=512)
+    params = T.init(cfg, 5, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache, _ = _filled_cache(cfg, "contiguous", "fp", dev, gen)
+    mirror = _clone(cache)
+    prog = PhaseEngine(cfg).decode_program(3, 64)
+    tokens = torch.tensor([11, 0, 200], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([32, 0, 32], dtype=torch.int32, device=dev)
+    for i in range(4):
+        got = prog(params, tokens, cache, lengths)[0].clone()
+        want = prog.fn(params, tokens, mirror, lengths)[0].clone()
+        torch.cuda.synchronize()
+        assert _same(got, want) and _same(cache, mirror), f"call {i}"
+        tokens.copy_((tokens * 7 + 3) % cfg.vocab_size)
+        lengths.add_(torch.tensor([1, 0, 1], dtype=torch.int32, device=dev))
+    assert {k: v for k, v in prog.captured.launches.items() if v} == {
+        "decode_attention": cfg.num_layers}
+    _launches_per_replay(prog, 3, lambda i: prog(params, tokens, cache, lengths))

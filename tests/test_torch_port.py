@@ -51,7 +51,12 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
                    "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.drift",
                    "repro_torch.obs.engine", "repro_torch.common.hardware",
                    "repro_torch.core.roofline", "repro_torch.models.jax_init",
-                   "repro_torch.launch.serve"])
+                   "repro_torch.launch.serve", "repro_torch.layers.moe",
+                   "repro_torch.models.registry", "repro_torch.configs.smollm_135m",
+                   "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen2_5_14b",
+                   "repro_torch.configs.minicpm_2b", "repro_torch.configs.chameleon_34b",
+                   "repro_torch.configs.granite_moe_3b_a800m",
+                   "repro_torch.configs.moonshot_v1_16b_a3b"])
         assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
@@ -157,8 +162,9 @@ def test_out_of_slice_arguments_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         DisaggEngine(cfg, params, n_slots=1, max_len=64, prefill_device="meta",
                      decode_device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        T.init(dataclasses.replace(cfg, moe=True), 3, device="cpu")
+    # MoE is ported; the other families name the items that port them
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        T.init(dataclasses.replace(cfg, family="xlstm"), 3, device="cpu")
     eng = EngineCore(cfg, params, **kw, swap_policy="slo-aware")
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
