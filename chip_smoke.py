@@ -145,7 +145,28 @@ Phases (any failure raises and the script exits non-zero):
     8 of 48 layers and moonshot-v1-16b-a3b at 12 of 48, one 300-token
     prompt and 8 new tokens each, eager = graph tokens; then (o) again with
     ``--arch smollm-135m``, the JAX CLI's default;
-11. how many sentinels the profiler windows kept (see ``_profiled``), the
+11. the other families at full width, bf16 weights drawn on the card by
+    ``init_like_jax`` from seed 0, each freed before the next, each path's
+    launches set to 0 just before and held after: (w) hymba-1.5b, 4
+    prompts of 2,048 tokens through the windowed plain prefill (no B2), the
+    swap into a 4,096-row batch-leading cache, 32 greedy decode steps (B3 a
+    layer a step, 29 of 32 walks from the window's start past 0), the
+    logits after 8 steps against a fresh prefill of prompt + 8 tokens
+    (``FAMILY_TOL``), 2 layers against the CPU port (``FAMILY_CPU_TOL``); (x) xlstm-1.3b, 4 prompts of 512 tokens
+    (the sLSTM's share of the prefill timed), 32 decode steps, no kernel,
+    one group of 8 layers against the CPU port; (y) whisper-large-v3,
+    frames (4, 1,500, 1,280), a 64-token prompt (B2 a decoder layer), 32
+    decode steps (B3 twice a layer a step: self, and cross over 1,500 of
+    1,536 rows), 2 + 2 layers against the CPU port (``FAMILY_CPU_TOL``);
+    (z) the long-context example at full width: hymba at batch 1 over
+    random bf16 caches of 4,096, 65,536 and 524,288 rows, after the counted
+    run a global and a windowed layer's B3 at 524,288 against the plain
+    version, then xlstm at the same contexts;
+    each with decode ms a step by CUDA events and device time a step by the
+    profiler, and peak memory or state MiB.  Phase 3 also holds B2 at
+    (1, 20, S, 64) and B3 at hymba's windowed walk, whisper's cross walk
+    and 524,288 rows to their plain versions, with times and bounds;
+12. how many sentinels the profiler windows kept (see ``_profiled``), the
     results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -709,6 +730,120 @@ def family_kernel_checks(torch, ops, refs, flush, gen):
     return out
 
 
+# the other families' kernel shapes: B2 at whisper's decoder self-attention,
+# B3 at hymba's windowed walk, whisper's cross walk and the long_500k cell
+WHISPER_PREFILL = (20, 64)  # H = Hkv, D
+WHISPER_PREFILL_LENS = (64, 2048)
+HYMBA_WALK = (5, 5, 64, 32, 4096, 1024)  # Hkv, G, D, layers, Smax, window
+HYMBA_WALK_LENGTHS = [2048, 2100, 3000, 4095]
+CROSS_WALK = (20, 1, 64, 32, 1536, 1500)  # Hkv, G, D, layers, rows, encoder_seq
+LONG_ROWS = 524288  # the long_500k cell's context
+
+
+def _walk_case(torch, ops, refs, flush, what, q, k, v, lengths, starts, live_rows, view=None):
+    """One B3 case against its plain version: err, kernel / plain / SDPA
+    times and the bound.  q (B, Hkv, G, D) f32, k/v (B, Hkv, S, D) bf16
+    views the kernel walks; the plain version and the SDPA yardstick (the
+    [start, length) mask, ``enable_gqa``) read ``view`` (k, v) where given,
+    else k/v.  ``live_rows`` is the rows a slot walks, summed."""
+    b, hkv, g, d = q.shape
+    kr, vr = (k, v) if view is None else view
+    got = ops["decode"](q, k, v, lengths, starts)
+    err = _check_err(f"decode_attention {what}", got, refs["decode"](q, kr, vr, lengths, starts))
+    pos = torch.arange(kr.shape[2], device=q.device)[None, :]
+    lo = torch.zeros_like(lengths) if starts is None else starts
+    mask = ((pos < lengths[:, None]) & (pos >= lo[:, None]))[:, None, None, :]
+    qb = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    small = q.numel() * 4 * 2 + 2 * b * hkv * g * 4 + b * 4 * (1 if starts is None else 2)
+    b_ms, b_by = bound(2 * live_rows * hkv * d * 2 + small, 4.0 * d * hkv * g * live_rows, "f32")
+    return {"shape": what, "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths, starts), flush),
+            "call_ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths, starts), flush,
+                                busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["decode"](q, kr, vr, lengths, starts), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed_ms(torch, lambda: sdpa(qb, kr, vr, attn_mask=mask,
+                                                       enable_gqa=True), flush),
+            "empty_ms": timed_ms(torch, lambda: ops["decode"](q, k, v, torch.zeros_like(lengths),
+                                                              None), flush)}
+
+
+def other_family_kernel_checks(torch, ops, refs, flush, gen):
+    """Phase 3 at the other families' shapes: B2 at whisper's decoder
+    self-attention (1, 20, S, 64), S 64 and 2048; B3 at hymba's heads (Hkv
+    5, G 5, D 64) on a layer slice of a (4, 32, 5, 4096, 64) bf16 cache with
+    the window's starts (1,024 rows a slot), at whisper's cross walk (Hkv
+    20, G 1, D 64, 1,500 of 1,536 rows a slot, NaN in the pad) and over
+    524,288 rows of one slot (a hymba global layer at the long_500k cell).
+    Each against its plain version, timed beside its bound and SDPA.
+    Returns [(kernel, case)]."""
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    h, d = WHISPER_PREFILL
+    for s in WHISPER_PREFILL_LENS:
+        q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev) for _ in range(3))
+        err = (ops["prefill"](q, k, v) - refs["prefill"](q, k, v)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"prefill attention kernel off by {err} at (1,{h},{s},{d})")
+        ops_causal = 4.0 * d * h * s * (s + 1) / 2
+        nbytes = 4 * q.numel() * 4
+        b_ms, b_by = bound(nbytes, 3 * ops_causal, "tf32")
+        out.append(("prefill_attention", {
+            "shape": f"(1,{h},{s},{d}) f32 (whisper-large-v3 decoder)", "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
+            "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_f32_fma_ms": bound(nbytes, ops_causal, "f32")[0],
+            "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush)}))
+        del q, k, v
+    hkv, g, d, layers, smax, window = HYMBA_WALK
+    b = len(HYMBA_WALK_LENGTHS)
+    lengths = torch.tensor(HYMBA_WALK_LENGTHS, dtype=torch.int32, device=dev)
+    starts = torch.clamp(lengths + 1 - window, min=0).to(torch.int32)
+    planes = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev,
+                          dtype=torch.bfloat16)[:, 7] for _ in range(2)]
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    live = int((lengths - starts).sum())
+    out.append(("decode_attention", _walk_case(
+        torch, ops, refs, flush,
+        f"hymba-1.5b: B={b} Hkv={hkv} G={g} D={d} lengths={HYMBA_WALK_LENGTHS} window {window} "
+        f"(starts {starts.tolist()}) bf16 layer slice of ({b},{layers},{hkv},{smax},{d})",
+        q, *planes, lengths, starts, live)))
+    del planes
+    hkv, g, d, layers, rows, enc = CROSS_WALK
+    planes = [torch.randn((b, layers, hkv, rows, d), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+    for t in planes:
+        t[:, :, :, enc:] = float("nan")  # the pad the walk must not read
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    lengths = torch.full((b,), enc, dtype=torch.int32, device=dev)
+    planes = [t[:, 5] for t in planes]
+    got = ops["decode"](q, *planes, lengths)
+    if not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError("the cross walk read the NaN pad past encoder_seq")
+    out.append(("decode_attention", _walk_case(
+        torch, ops, refs, flush,
+        f"whisper-large-v3 cross: B={b} Hkv={hkv} G={g} D={d} {enc} of {rows} rows (NaN pad) "
+        f"bf16 layer slice of ({b},{layers},{hkv},{rows},{d})",
+        q, *planes, lengths, None, b * enc, view=[t[:, :, :enc] for t in planes])))
+    del planes
+    hkv, g, d = HYMBA_WALK[:3]
+    planes = [torch.randn((1, hkv, LONG_ROWS, d), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+    q = torch.randn((1, hkv, g, d), generator=gen, device=dev)
+    lengths = torch.full((1,), LONG_ROWS - 1, dtype=torch.int32, device=dev)
+    out.append(("decode_attention", _walk_case(
+        torch, ops, refs, flush,
+        f"hymba-1.5b global layer at long_500k: B=1 Hkv={hkv} G={g} D={d} length "
+        f"{LONG_ROWS - 1} of {LONG_ROWS} rows bf16 (grid 8 x {hkv} x 1 = {8 * hkv} blocks)",
+        q, *planes, lengths, None, LONG_ROWS - 1)))
+    del planes
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -774,8 +909,10 @@ def main() -> int:
             "unpack": lambda w: unpack_ternary(w).contiguous()}
     checks = kernel_checks(torch, ops, refs)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for name, case in family_kernel_checks(torch, ops, refs, flush,
-                                           torch.Generator(device="cuda").manual_seed(1)):
+    for name, case in (family_kernel_checks(torch, ops, refs, flush,
+                                            torch.Generator(device="cuda").manual_seed(1))
+                       + other_family_kernel_checks(torch, ops, refs, flush,
+                                                    torch.Generator(device="cuda").manual_seed(2))):
         r = checks[name]
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
@@ -889,8 +1026,12 @@ def main() -> int:
     # ---- 10. the transformer family at full width
     family_launches = family_phase(torch, np, card)
     cli_smollm_launches, _ = cli_phase(torch, np, card, arch="smollm-135m")
+
+    # ---- 11. the other families at full width, and the long_500k context
+    other_launches = other_families_phase(torch, np, card)
     for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches,
-                 disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches):
+                 disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches,
+                 other_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -2746,6 +2887,455 @@ def eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card, rounds: int =
         out[path] = runs
         del eng
     return out
+
+
+# ---- the other families: paths (w)-(z) --
+
+FAMILY_STEPS = 32  # greedy decode steps of paths (w), (x), (y)
+HYMBA_BATCH, HYMBA_PROMPT, HYMBA_MAX_LEN = 4, 2048, 4096
+HYMBA_CHECK_STEP = 8  # (w): decode logits after this many steps = a fresh prefill's
+XLSTM_BATCH, XLSTM_PROMPT = 4, 512
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN = 4, 64, 128
+LONG_CONTEXTS = (4096, 65536, LONG_ROWS)  # path (z)
+# xlstm's one group (8 layers) on the card against the CPU on bf16 weights:
+# cuBLAS and the CPU round the bf16 products' sums apart, and the sLSTM's
+# and mLSTM's exponential gates carry each step's rounding into the next
+# over 512 steps; measured 0.0292 of max |logit| on one H100 80GB HBM3
+# (700 W), about 2.7 times that.  On f32 weights (TF32 off)
+# the same code must agree to float rounding.
+XLSTM_TOL = 0.08
+XLSTM_F32_TOL = 1e-3
+# hymba's and whisper's 2-layer (2 + 2) logits on the card against the CPU
+# on bf16 weights: measured at most 0.0068 (hymba) and 0.0060 (whisper) of
+# max |logit| on one H100 80GB HBM3 (700 W), about 3 times that.  (w)'s
+# full-depth decode against a fresh prefill keeps FAMILY_TOL: measured
+# 0.0277 of max |logit| there (0.105 of 3.79), the 32 layers' bf16 roundings
+FAMILY_CPU_TOL = 0.02
+
+
+def _first_layers(tree, n):
+    """The first ``n`` entries of every layer-stacked leaf (views)."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _step_device_ms(torch, step, n: int = 3, warm: bool = True):
+    """Device time a call of ``step()`` under the profiler (device-side
+    events only, summed), over ``n`` calls after one unprofiled call (with
+    ``warm``): (wall ms a call, device ms a call or None when the profiler
+    saw none, device operations a call, the largest [(name, ms a call,
+    calls a call)])."""
+    if warm:
+        step()
+    torch.cuda.synchronize()
+    with _profiled(torch) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev, ops, top = _device_rows(prof)
+    return (wall / n * 1e3, (None if dev is None else dev / n * 1e3), ops / n,
+            [(name, sec / n * 1e3, calls / n) for name, sec, calls in top])
+
+
+def _print_top(top, k: int = 6):
+    for name, ms, calls in top[:k]:
+        print(f"    {ms:9.3f} ms  {calls:8.1f} calls  {name[:90]}")
+
+
+def _greedy(torch, step, logits, lengths, steps):
+    """``steps`` greedy decode steps from ``logits`` at ``lengths``, timed by
+    CUDA events.  Returns (tokens (B, steps + 1) fed and last, the logits of
+    every step, ms a step)."""
+    toks, outs = [logits.argmax(-1)], []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for t in range(steps):
+        logits = step(toks[-1], lengths + t)
+        outs.append(logits)
+        toks.append(logits.argmax(-1))
+    e1.record()
+    e1.synchronize()
+    return torch.stack(toks, dim=1), outs, e0.elapsed_time(e1) / steps
+
+
+def _held(what, got, want, tol=None):
+    """Raises unless ``got`` (card) holds ``want`` (CPU) within ``tol``
+    (``FAMILY_TOL``) of max |want|; returns (err, max |want|)."""
+    tol = FAMILY_TOL if tol is None else tol
+    got, want = got.float().cpu(), want.float().cpu()
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not (got.isfinite().all() and err <= tol * max(scale, 1.0)):
+        raise AssertionError(f"{what}: the card differs by {err} (max |x| {scale})")
+    return err, scale
+
+
+def _launch_check(what, launches, want):
+    expect = {name: 0 for name in launches}
+    expect.update(want)
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches} != expected {expect}")
+
+
+def hymba_path(torch, np, card):
+    """(w) hymba-1.5b at full width and depth on bf16 weights drawn on the
+    card by ``init_like_jax`` from seed 0: 4 prompts of 2,048 tokens
+    prefilled (the windowed plain path on every layer), installed into a
+    batch-leading cache of 4,096 rows, 32 greedy decode steps (B3 a layer a
+    step, the 29 windowed layers from a start past 0).  The 2-layer logits
+    (prefill and 2 decode steps) against the CPU port on prompt 0; the
+    logits after 8 steps against a fresh prefill of prompt + 8 tokens.
+    Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.layers import attention as A
+    from repro_torch.models import hymba as H
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("hymba-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"path (w) hymba-1.5b: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads x {cfg.head_dim} over {cfg.num_kv_heads}, window {cfg.sliding_window} (global "
+          f"{cfg.global_attn_layers}), SSM state {cfg.ssm_state}; bf16 weights from seed 0 "
+          f"(init_like_jax on the card): {nbytes / 1e9:.2f} GB in {time.perf_counter() - t0:.1f} s"
+          f"  [{card}]")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYMBA_BATCH, HYMBA_PROMPT))).cuda()
+    starts_seen = []
+    walk = A.decode_attention
+
+    def recording(q, k, v, lengths, starts=None, **kw):
+        starts_seen.append(0 if starts is None else int(starts.min()))
+        return walk(q, k, v, lengths, starts, **kw)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = H.forward_prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = dict(COUNTS)
+    cache = H.install_prefill(H.init_cache(cfg, HYMBA_BATCH, HYMBA_MAX_LEN, device="cuda"), pre)
+    del pre
+    lengths = torch.full((HYMBA_BATCH,), HYMBA_PROMPT, dtype=torch.int32, device="cuda")
+    A.decode_attention = recording
+    try:
+        H.decode_step(params, logits.argmax(-1), _clone_cache(cache), lengths, cfg)
+    finally:
+        A.decode_attention = walk
+    reset_counts()
+    toks, outs, ms = _greedy(torch, lambda t, ln: H.decode_step(params, t, cache, ln, cfg)[0],
+                             logits, lengths, FAMILY_STEPS)
+    launches = dict(COUNTS)
+    _launch_check("path (w) prefill", prefill_launches, {})
+    _launch_check("path (w) decode", launches, {"decode_attention": cfg.num_layers * FAMILY_STEPS})
+    windowed = sum(1 for st in starts_seen if st > 0)
+    if windowed != cfg.num_layers - len(cfg.global_attn_layers):
+        raise AssertionError(f"path (w): {windowed} walks started past 0 in a step at length "
+                             f"{HYMBA_PROMPT} (starts {starts_seen})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms, dev_ms, ops, top = _step_device_ms(
+        torch, lambda: H.decode_step(params, toks[:, -1], cache, lengths + FAMILY_STEPS, cfg))
+    print(f"path (w): prefill of {HYMBA_BATCH} x {HYMBA_PROMPT} tokens {t_prefill * 1e3:.1f} ms "
+          f"(launches {prefill_launches}); {FAMILY_STEPS} decode steps at {ms:.3f} ms a step "
+          f"(CUDA events, eager) = {HYMBA_BATCH * 1e3 / ms:.1f} tok/s; device time "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} a step over {ops:.0f} device "
+          f"operations (profiler; wall {wall_ms:.3f} ms); peak device memory {peak:.2f} GiB  "
+          f"[{card}]")
+    print(f"path (w): launches {launches}; one step at length {HYMBA_PROMPT}: {windowed} of "
+          f"{cfg.num_layers} walks from a start past 0 (window {cfg.sliding_window}: start "
+          f"{HYMBA_PROMPT + 1 - cfg.sliding_window}); a decode step's largest device operations:")
+    _print_top(top)
+    _, pre_ms, pre_ops, top = _step_device_ms(
+        torch, lambda: H.forward_prefill(params, tokens, cfg), n=1, warm=False)
+    print(f"path (w): the prefill under the profiler: "
+          f"{'not measured' if pre_ms is None else f'{pre_ms:.1f} ms'} of device time over "
+          f"{pre_ops:.0f} device operations, the largest:")
+    _print_top(top)
+    # the decode's logits after 8 steps against a fresh prefill of prompt + 8 tokens
+    fresh, _ = H.forward_prefill(params, torch.cat([tokens, toks[:, :HYMBA_CHECK_STEP]], dim=1), cfg)
+    err, scale = _held("path (w) decode vs fresh prefill", outs[HYMBA_CHECK_STEP - 1], fresh)
+    print(f"path (w): decode logits after {HYMBA_CHECK_STEP} steps vs a fresh prefill of the "
+          f"prompt + {HYMBA_CHECK_STEP} tokens on the card: max abs err {err:.3g} (max |logit| "
+          f"{scale:.3g})")
+    del cache, outs, fresh
+    _free(torch)
+    # full width at 2 layers (layer 0 global, layer 1 windowed) against the CPU port, prompt 0
+    cfg2 = dataclasses.replace(cfg, num_layers=2, global_attn_layers=(0,))
+    p2 = {**params, "layers": _first_layers(params["layers"], 2)}
+    runs = []
+    for dev, p in (("cuda", p2), ("cpu", _to_cpu(p2))):
+        lg, pre = H.forward_prefill(p, tokens[:1].to(dev), cfg2)
+        c2 = H.install_prefill(H.init_cache(cfg2, 1, HYMBA_PROMPT + 8, device=dev), pre)
+        out = [lg]
+        for t in range(2):
+            ln = torch.full((1,), HYMBA_PROMPT + t, dtype=torch.int32, device=dev)
+            out.append(H.decode_step(p, toks[:1, t].to(dev), c2, ln, cfg2)[0])
+        runs.append(out)
+    for what, got, want in zip(("prefill", "decode step 1", "decode step 2"), *runs):
+        err, scale = _held(f"path (w) 2-layer {what}", got, want, FAMILY_CPU_TOL)
+        print(f"reference (w): full-width 2-layer hymba {what} logits vs CPU plain versions: max "
+              f"abs err {err:.3g} (max |logit| {scale:.3g}, {err / max(scale, 1.0):.3g} of it; "
+              f"tolerance {FAMILY_CPU_TOL})")
+    del params, p2, runs
+    _free(torch)
+    return {name: n + prefill_launches[name] for name, n in launches.items()}
+
+
+def _clone_cache(cache):
+    if isinstance(cache, tuple):
+        return type(cache)(*(_clone_cache(c) for c in cache))
+    return cache.clone()
+
+
+def xlstm_path(torch, np, card):
+    """(x) xlstm-1.3b at full width and depth on bf16 weights drawn on the
+    card: 4 prompts of 512 tokens prefilled (the sLSTM's share of the
+    wall time timed apart), 32 greedy decode steps; no kernel.  One group
+    (8 layers) against the CPU port on prompt 0.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.long_context_decode import state_bytes
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("xlstm-1.3b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT))).cuda()
+    slstm = X.slstm_forward
+    slstm_s = []
+
+    def timed_slstm(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = slstm(*args)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t0)
+        return out
+
+    X.forward_prefill(params, tokens[:, :64], cfg)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    X.slstm_forward = timed_slstm
+    try:
+        t0 = time.perf_counter()
+        logits, cache = X.forward_prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    finally:
+        X.slstm_forward = slstm
+    lengths = torch.full((XLSTM_BATCH,), XLSTM_PROMPT, dtype=torch.int32, device="cuda")
+    toks, outs, ms = _greedy(torch, lambda t, ln: X.decode_step(params, t, cache, ln, cfg)[0],
+                             logits, lengths, FAMILY_STEPS)
+    launches = dict(COUNTS)
+    _launch_check("path (x)", launches, {})
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("path (x): non-finite decode logits")
+    wall_ms, dev_ms, ops, top = _step_device_ms(
+        torch, lambda: X.decode_step(params, toks[:, -1], cache, lengths, cfg))
+    per_seq = state_bytes(cache) / XLSTM_BATCH
+    print(f"path (x) xlstm-1.3b full width and depth ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.d_model // cfg.num_heads}, one sLSTM in "
+          f"{cfg.slstm_every}): prefill of {XLSTM_BATCH} x {XLSTM_PROMPT} tokens "
+          f"{t_prefill * 1e3:.1f} ms wall, the sLSTM blocks {sum(slstm_s) * 1e3:.1f} ms of it "
+          f"({len(slstm_s)} blocks, one step a token: {sum(slstm_s) / t_prefill:.3f} of the "
+          f"prefill); {FAMILY_STEPS} decode steps at {ms:.3f} ms a step (CUDA events, eager) = "
+          f"{XLSTM_BATCH * 1e3 / ms:.1f} tok/s; device time "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} a step over {ops:.0f} device "
+          f"operations (wall {wall_ms:.3f} ms); state {per_seq / 2**20:.1f} MiB a sequence; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}; a decode step's largest device operations:  [{card}]")
+    _print_top(top)
+    del cache, outs
+    _free(torch)
+    cfg_g = dataclasses.replace(cfg, num_layers=cfg.slstm_every)
+    p_g = {**params, "groups": _first_layers(params["groups"], 1)}
+    for dtype, tol in (("bf16", XLSTM_TOL), ("f32", XLSTM_F32_TOL)):
+        runs = []
+        for dev, p in (("cuda", p_g), ("cpu", _to_cpu(p_g))):
+            if dtype == "f32":
+                p = _to_f32(p)
+            lg, st = X.forward_prefill(p, tokens[:1].to(dev), cfg_g)
+            ln = torch.full((1,), XLSTM_PROMPT, dtype=torch.int32, device=dev)
+            runs.append([lg, X.decode_step(p, toks[:1, 0].to(dev), st, ln, cfg_g)[0]])
+        for what, got, want in zip(("prefill", "decode step"), *runs):
+            err, scale = _held(f"path (x) one-group {dtype} {what}", got, want, tol)
+            print(f"reference (x): full-width one-group ({cfg_g.num_layers} layers) xlstm {what} "
+                  f"logits on {dtype} weights vs CPU plain versions: max abs err {err:.3g} (max "
+                  f"|logit| {scale:.3g}, {err / max(scale, 1.0):.3g} of it; tolerance {tol})")
+    del params, p_g, runs
+    _free(torch)
+    return launches
+
+
+def whisper_path(torch, np, card):
+    """(y) whisper-large-v3 at full width and depth on bf16 weights drawn
+    on the card: frames (4, 1,500, 1,280) from seed 0, a 64-token decoder
+    prompt (B2 a decoder layer), the swap into a batch-leading cache, 32
+    greedy decode steps (B3 twice a layer a step: the self walk and the
+    cross walk over 1,500 of 1,536 rows).  2 encoder and 2 decoder layers
+    against the CPU port on request 0.  Returns the launches of the
+    prefill and the decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import encdec as E
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("whisper-large-v3")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).cuda().to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT))).cuda()
+    E.forward_prefill(params, tokens[:, :16], cfg, frames=frames)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = E.forward_prefill(params, tokens, cfg, frames=frames)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = dict(COUNTS)
+    cache = E.install_prefill(E.init_cache(cfg, WHISPER_BATCH, WHISPER_MAX_LEN, device="cuda"),
+                              pre)
+    del pre
+    lengths = torch.full((WHISPER_BATCH,), WHISPER_PROMPT, dtype=torch.int32, device="cuda")
+    reset_counts()
+    toks, outs, ms = _greedy(torch, lambda t, ln: E.decode_step(params, t, cache, ln, cfg)[0],
+                             logits, lengths, FAMILY_STEPS)
+    launches = dict(COUNTS)
+    _launch_check("path (y) prefill", prefill_launches, {"prefill_attention": cfg.num_layers})
+    _launch_check("path (y) decode", launches,
+                  {"decode_attention": 2 * cfg.num_layers * FAMILY_STEPS})
+    wall_ms, dev_ms, ops, top = _step_device_ms(
+        torch, lambda: E.decode_step(params, toks[:, -1], cache, lengths + FAMILY_STEPS, cfg))
+    print(f"path (y) whisper-large-v3 full width and depth ({cfg.encoder_layers} + {cfg.num_layers}"
+          f" layers, d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}): encode + "
+          f"prefill of {WHISPER_BATCH} x ({cfg.encoder_seq} frames, {WHISPER_PROMPT} tokens) "
+          f"{t_prefill * 1e3:.1f} ms (launches {prefill_launches}); {FAMILY_STEPS} decode steps at "
+          f"{ms:.3f} ms a step (CUDA events, eager) = {WHISPER_BATCH * 1e3 / ms:.1f} tok/s; device "
+          f"time {'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} a step over {ops:.0f} "
+          f"device operations (wall {wall_ms:.3f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches} (B3 "
+          f"{2 * cfg.num_layers} a step: self and cross); a decode step's largest device "
+          f"operations:  [{card}]")
+    _print_top(top)
+    del cache, outs
+    _free(torch)
+    cfg2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    p2 = {**params, "enc_layers": _first_layers(params["enc_layers"], 2),
+          "dec_layers": _first_layers(params["dec_layers"], 2)}
+    runs = []
+    for dev, p in (("cuda", p2), ("cpu", _to_cpu(p2))):
+        lg, pre = E.forward_prefill(p, tokens[:1].to(dev), cfg2, frames=frames[:1].to(dev))
+        c2 = E.install_prefill(E.init_cache(cfg2, 1, WHISPER_MAX_LEN, device=dev), pre)
+        ln = torch.full((1,), WHISPER_PROMPT, dtype=torch.int32, device=dev)
+        runs.append([lg, E.decode_step(p, toks[:1, 0].to(dev), c2, ln, cfg2)[0]])
+    for what, got, want in zip(("prefill", "decode step"), *runs):
+        err, scale = _held(f"path (y) 2+2-layer {what}", got, want, FAMILY_CPU_TOL)
+        print(f"reference (y): full-width 2+2-layer whisper {what} logits vs CPU plain versions: "
+              f"max abs err {err:.3g} (max |logit| {scale:.3g}, {err / max(scale, 1.0):.3g} of it; "
+              f"tolerance {FAMILY_CPU_TOL})")
+    del params, p2, runs, frames
+    _free(torch)
+    return {name: n + prefill_launches[name] for name, n in launches.items()}
+
+
+def long_context_path(torch, np, card):
+    """(z) the long-context example at full width: hymba-1.5b at batch 1,
+    decode steps at contexts 4,096, 65,536 and 524,288 over a cache of
+    random bf16 rows (not prefilled), device ms a step by CUDA events and
+    by the profiler; after the counted run, one global layer's B3 against
+    its plain version on the card over the 524,288-row cache, and a
+    windowed layer's with its start.  Then xlstm-1.3b at the same contexts,
+    its state fixed.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.long_context_decode import STEPS, decode_rows
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+    from repro_torch.models.jax_init import init_like_jax
+
+    total = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        cfg = get_config(arch)
+        params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+        profiled, kept = {}, {}
+
+        def fill(cache):
+            if arch == "hymba-1.5b":
+                for t in cache.kv:
+                    t.normal_(generator=gen)
+
+        def on_cache(ctx, cache, lengths, cfg=cfg, params=params, profiled=profiled, kept=kept):
+            from repro_torch.models.registry import get_model
+
+            step = get_model(cfg).decode_step
+            tok = torch.zeros((1,), dtype=torch.long, device="cuda")
+            profiled[ctx] = _step_device_ms(torch, lambda: step(params, tok, cache, lengths, cfg))
+            if arch == "hymba-1.5b" and ctx == LONG_ROWS:
+                kept["cache"], kept["lengths"] = cache, lengths
+
+        reset_counts()
+        rows = decode_rows(cfg, params, LONG_CONTEXTS, "cuda", fill=fill, on_cache=on_cache)
+        launches = dict(COUNTS)
+        steps = len(LONG_CONTEXTS) * (STEPS + 1 + 4)  # timed, warm-up, profiled
+        walks = 0 if cfg.family == "xlstm" else cfg.num_layers * steps
+        _launch_check(f"path (z) {arch}", launches, {"decode_attention": walks})
+        if kept:
+            cache, lengths = kept.pop("cache"), kept.pop("lengths")
+            g = cfg.num_heads // cfg.num_kv_heads
+            q = torch.randn((1, cfg.num_kv_heads, g, cfg.head_dim), generator=gen, device="cuda")
+            for li in (cfg.global_attn_layers[0], 1):
+                k, v = cache.kv.k[:, li], cache.kv.v[:, li]
+                starts = (None if li in cfg.global_attn_layers else
+                          torch.clamp(lengths + 1 - cfg.sliding_window, min=0).to(torch.int32))
+                got = decode_attention(q.reshape(1, -1, cfg.head_dim), k, v, lengths, starts,
+                                       return_stats=True)
+                want = decode_attention_reference(q, k, v, lengths, starts)
+                err = _check_err(f"path (z) layer {li} at {LONG_ROWS} rows",
+                                 [t.reshape(w.shape) for t, w in zip(got, want)], want)
+                print(f"path (z): layer {li} ({'global' if starts is None else 'windowed'}) B3 over "
+                      f"{LONG_ROWS} rows (length {int(lengths[0])}) vs its plain version on the "
+                      f"card: max err {err:.3g}")
+            del cache, k, v, got, want
+        for ctx, ms, nbytes in rows:
+            wall_ms, dev_ms, ops, _ = profiled[ctx]
+            print(f"path (z) {arch} batch 1, context {ctx}: {ms:.3f} ms a step (CUDA events, "
+                  f"eager), device time {'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}"
+                  f" a step over {ops:.0f} device operations (profiler), state "
+                  f"{nbytes / 2**20:.1f} MiB  [{card}]")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del params
+        _free(torch)
+    return total
+
+
+def other_families_phase(torch, np, card):
+    """Phase 11: paths (w)-(z), each driven with the counts set to 0 just
+    before and read just after.  Returns the launches summed."""
+    total = {}
+    for path in (hymba_path, xlstm_path, whisper_path, long_context_path):
+        for name, n in path(torch, np, card).items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def _to_cpu(tree):

@@ -5,8 +5,8 @@ The fields, defaults and derived quantities (``param_count``,
 package's, so one configuration means the same model in both packages.
 The JAX execution knobs (``use_pallas``, ``attn_impl``, ``remat``) have no
 counterpart: the port's kernels always run on CUDA tensors, their plain
-versions on CPU tensors.  The port serves the transformer family; the
-fields of the other families are kept so that their arithmetic holds.
+versions on CPU tensors.  The port runs every model family of the JAX
+registry (transformer, hymba, xlstm, encdec).
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ load, or behind an HTTP/SSE server.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --requests 8 --swap-policy slo-aware [--device cpu --reduced]
 
-``--arch`` takes every architecture of the transformer family, dense and
-MoE (the JAX CLI's default, ``smollm-135m``, is the default here too).
+``--arch`` takes every architecture of the JAX registry, as the JAX CLI
+does (its default, ``smollm-135m``, is the default here too); the engine
+drives the transformer family, dense and MoE, and refuses the others with
+the JAX CLI's message.
 
 The port of the JAX package's ``repro.launch.serve``, with its arguments,
 its printout, its routes, status codes, JSON bodies and SSE events.  It
@@ -63,6 +65,7 @@ from repro_torch.serving import (
     SamplingParams,
 )
 from repro_torch.serving.arrivals import poisson_times
+from repro_torch.serving.core import check_served_family
 
 
 def _http_payload(writer, status: str, body: bytes, ctype: str = "application/json") -> None:
@@ -293,6 +296,7 @@ def build(args) -> Tuple[ModelConfig, EngineCore, SamplingParams]:
     built on a card), and the default sampling parameters."""
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    check_served_family(cfg)
     # drawn where they are used: a card draws a full-width model in seconds
     params = init_like_jax(cfg, args.seed, device, draw_device=device)
     kw = dict(n_slots=args.slots, max_len=args.max_len, prompt_len=args.prompt_len,

@@ -3,16 +3,23 @@
 One parameter set, two phase-specialized execution paths (the two engines):
 
 * ``attention_prefill`` — the whole prompt through the causal prefill
-  attention kernel (compute-bound engine); ``attention_prefill_chunk`` is
-  the same engine run one bounded chunk at a time (chunked prefill), the
+  attention kernel (compute-bound engine) where the JAX package runs its
+  Pallas kernel: causal, no window, as many queries as keys.  Elsewhere (a
+  sliding window, the whisper encoder's non-causal attention, cross
+  attention over the encoder's K/V) it computes what the JAX package
+  computes outside Pallas, in plain torch: the dense f32 masked softmax up
+  to 1,024 queries and keys, else the chunked path (512-query chunks,
+  grouped GQA with no KV expansion).  ``attention_prefill_chunk`` is the
+  prefill engine run one bounded chunk at a time (chunked prefill), the
   chunk attending the prefix already prefilled plus itself.
 * ``attention_decode``  — one token against the KV cache through the decode
   attention kernel (bandwidth-bound engine), with per-sequence lengths for
-  continuous batching; ``attention_decode_paged`` is the same engine over
-  the paged pool.  The new token is folded in by an online-softmax merge, so
-  the cache is only read during the layer walk; the caller writes every
-  layer's new token afterwards with one scatter (``scatter_new_tokens_q``
-  or ``scatter_new_tokens_paged_q``).
+  continuous batching, a sliding window's start (hymba) and the read-only
+  cross-attention cache (whisper); ``attention_decode_paged`` is the same
+  engine over the paged pool.  The new token is folded in by an
+  online-softmax merge, so the cache is only read during the layer walk;
+  the caller writes every layer's new token afterwards with one scatter
+  (``scatter_new_tokens_q`` or ``scatter_new_tokens_paged_q``).
 * ``attention_verify`` / ``attention_verify_paged`` — the decode engine run
   W = k + 1 positions a slot (speculative decoding's verify pass): the
   block's rows are written into this layer's cache first (the
@@ -78,32 +85,106 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
-def _check_slice(cfg: ModelConfig) -> None:
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not in the port yet (ROADMAP A.4)")
+def _project_q(params, x, cfg: ModelConfig, positions, rope: bool = True):
+    b, s, _ = x.shape
+    q = linear_apply(params["wq"], x, cfg.quant).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    if rope and cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear_apply(params["wq"], x, cfg.quant).reshape(b, s, h, hd)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    q = _project_q(params, x, cfg, positions)
     k = linear_apply(params["wk"], x, cfg.quant).reshape(b, s, hkv, hd)
     v = linear_apply(params["wv"], x, cfg.quant).reshape(b, s, hkv, hd)
     if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The prefill engine.  Returns (y, (k, v)) with k/v (B, Hkv, S, D) views
-    in cache layout."""
-    _check_slice(cfg)
+DENSE_MAX = 1024  # the dense masked softmax takes up to this many queries and keys
+QUERY_CHUNK = 512  # the chunked path's queries a chunk
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """(Sq, Skv) bool: key j is visible to query i."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def _dense_attention(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The JAX package's dense path: q (B, H, S, D), k/v (B, Hkv, Skv, D)
+    upcast to f32 (KV repeated to H heads), the scores masked with -1e30, a
+    softmax, the PV product in f32.  Returns f32 (B, H, S, D)."""
+    g = q.shape[1] // k.shape[1]
+    kk, vv = (t.repeat_interleave(g, dim=1) if g > 1 else t for t in (k, v))
+    dev = q.device
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    mask = _mask(torch.arange(q.shape[2], device=dev), torch.arange(k.shape[2], device=dev),
+                 causal, window)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vv.float())
+
+
+def _chunked_attention(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The JAX package's ``_chunked_attention``: exact attention one
+    ``QUERY_CHUNK`` of queries at a time, GQA grouped (K/V never expanded
+    to H heads).  q (B, H, Sq, D) is rounded to K's dtype; the operands are
+    then upcast to f32, which is exact, so each product equals the JAX
+    package's product in the storage dtype accumulated in f32; p is rounded
+    to V's dtype before the PV product, and the output to q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    sm = 1.0 / math.sqrt(d)
+    chunk = min(QUERY_CHUNK, sq)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    qg = q.to(k.dtype).float().reshape(b, hkv, g, sq, d)
+    kpos = torch.arange(skv, device=dev)
+    out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=dev)
+    for c0 in range(0, sq, chunk):
+        qc = qg[:, :, :, c0:c0 + chunk]
+        scores = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * sm
+        mask = _mask(c0 + torch.arange(qc.shape[3], device=dev), kpos, causal, window)
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        p = torch.softmax(scores, dim=-1).to(v.dtype).float()
+        out[:, :, :, c0:c0 + chunk] = torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype)
+    return out.reshape(b, h, sq, d)
+
+
+def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                      *, window: Optional[int] = None, causal: bool = True,
+                      cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The prefill engine, dispatched as the JAX package dispatches it: the
+    causal prefill kernel for causal attention with no window over as many
+    keys as queries; the dense f32 masked softmax when queries and keys are
+    at most ``DENSE_MAX``; else the chunked path.  ``cross_kv`` (the
+    encoder's (B, Hkv, Senc, D) K/V) replaces this input's own K/V, with no
+    RoPE, and is not causal.  Returns (y, (k, v)) with k/v (B, Hkv, S, D)
+    views in cache layout (the cross K/V where given)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # strided views
-    out = prefill_attention(qt, kt, vt)  # (B, H, S, D)
+    if cross_kv is not None:
+        qt = _project_q(params, x, cfg, positions, rope=False).transpose(1, 2)
+        kt, vt = cross_kv
+        causal = False
+    else:
+        q, k, v = _project_qkv(params, x, cfg, positions)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # strided views
+    if window is None and causal and kt.shape[2] == s:
+        out = prefill_attention(qt, kt, vt)  # (B, H, S, D)
+    elif s <= DENSE_MAX and kt.shape[2] <= DENSE_MAX:
+        out = _dense_attention(qt, kt, vt, causal=causal, window=window).to(x.dtype)
+    else:
+        out = _chunked_attention(qt, kt, vt, causal=causal, window=window)
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
     y = linear_apply(params["wo"], y, cfg.quant)
     return y, (kt, vt)
@@ -119,7 +200,6 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, k_prefix: torch.Tenso
     keys at or before it.  Plain f32 matmuls and a softmax over the scores
     masked with -1e30, as the JAX package computes it (it has no kernel for
     this path).  Returns (y, (k, v)) with the chunk's K/V (B, Hkv, C, D)."""
-    _check_slice(cfg)
     b, c, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cap = k_prefix.shape[2]
@@ -437,7 +517,6 @@ def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
     writes before it walks), merge each row's own fresh token in f32 and
     output-project.  Returns (y (B, W, d), the new tokens' K/V (B, Hkv, W,
     D)); in decode the caller scatters them."""
-    _check_slice(cfg)
     b, w = x.shape[:2]
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, x, cfg, positions)
@@ -450,14 +529,31 @@ def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                     cfg: ModelConfig, *, window: Optional[int] = None,
+                     cross_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
     """The decode engine: one token (x (B,1,d)) against this layer's cache
     (leaves (B, Hkv, Smax, ·), possibly strided views, possibly QuantKV).
-    The cache is only read."""
+    The cache is only read.  With ``window`` the walk starts at
+    ``max(0, lengths + 1 - window)``: the range the window keeps once the
+    fresh token is merged.
+
+    With ``cross_len`` the cache is the read-only cross-attention cache
+    (whisper's encoder K/V): the query (no RoPE) walks its first
+    ``cross_len`` rows, no fresh token is merged, and the cache comes back
+    as it was, in place of the new token's K/V."""
+    if cross_len is not None:
+        b = x.shape[0]
+        h, hd = cfg.num_heads, cfg.head_dim
+        qd = _project_q(params, x, cfg, None, rope=False).reshape(b, h, hd)
+        eff = torch.full((b,), cross_len, dtype=torch.int32, device=x.device)
+        out = decode_attention(qd, cache.k, cache.v, eff)
+        return linear_apply(params["wo"], out.reshape(b, 1, h * hd), cfg.quant), cache
+    starts = (None if window is None
+              else torch.clamp(lengths + 1 - window, min=0).to(torch.int32))
 
     def attend(qd, k, v):
         k_arr, v_arr, qkw = _kv_leaf_args(cache.k, cache.v)
-        return decode_attention(qd, k_arr, v_arr, lengths, return_stats=True, **qkw)
+        return decode_attention(qd, k_arr, v_arr, lengths, starts, return_stats=True, **qkw)
 
     return _decode_new_token(params, x, lengths[:, None], cfg, attend)
 

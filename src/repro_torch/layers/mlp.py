@@ -1,4 +1,4 @@
-"""Dense SwiGLU FFN (llama family)."""
+"""Dense FFN: SwiGLU (llama family, hymba) or the GELU MLP (whisper)."""
 from __future__ import annotations
 
 import torch
@@ -9,10 +9,11 @@ from repro_torch.layers.linear import linear_apply, linear_init
 
 
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+    """SwiGLU weights for ``transformer.init``; the GELU MLP's (whisper)
+    come from ``init_like_jax``."""
     if cfg.act != "silu":
-        raise NotImplementedError(
-            f"act {cfg.act!r}: the port serves SwiGLU models (the GELU MLP: ROADMAP A.6)")
+        raise ValueError(f"act {cfg.act!r}: mlp_init draws SwiGLU weights")
+    d, f = cfg.d_model, cfg.d_ff
     return {
         "w_gate": linear_init(gen, d, f, device=device),
         "w_up": linear_init(gen, d, f, device=device),
@@ -21,7 +22,12 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g = linear_apply(params["w_gate"], x, cfg.quant)
-    u = linear_apply(params["w_up"], x, cfg.quant)
-    h = F.silu(g.float()).to(x.dtype) * u
-    return linear_apply(params["w_down"], h, cfg.quant)
+    if cfg.act == "silu":
+        g = linear_apply(params["w_gate"], x, cfg.quant)
+        u = linear_apply(params["w_up"], x, cfg.quant)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return linear_apply(params["w_down"], h, cfg.quant)
+    h = linear_apply(params["w_in"], x, cfg.quant)
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return linear_apply(params["w_out"], h, cfg.quant)

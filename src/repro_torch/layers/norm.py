@@ -1,4 +1,4 @@
-"""RMSNorm (f32 statistics, cast back to the input dtype)."""
+"""RMSNorm / LayerNorm (f32 statistics, cast back to the input dtype)."""
 from __future__ import annotations
 
 import torch
@@ -8,13 +8,21 @@ def rmsnorm_init(d: int, device=None) -> dict:
     return {"scale": torch.ones((d,), device=device)}
 
 
+def _normalize(params: dict, xf: torch.Tensor, kind: str, eps: float, mean) -> torch.Tensor:
+    """The f32 normalization of ``xf`` given ``mean(t)``, the mean of ``t``
+    over its last dim."""
+    if kind == "rmsnorm":
+        return xf * torch.rsqrt(mean(xf * xf) + eps) * params["scale"].float()
+    if kind != "layernorm":
+        raise ValueError(f"norm must be 'rmsnorm' or 'layernorm', got {kind!r}")
+    # the population variance, as jnp.var: the mean square of the centred values
+    centred = xf - mean(xf)
+    y = centred * torch.rsqrt(mean(centred * centred) + eps)
+    return y * params["scale"].float() + params["bias"].float()
+
+
 def apply_norm(params: dict, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-5) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r}: the port serves RMSNorm models (LayerNorm: ROADMAP A.6)")
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    y = _normalize(params, x.float(), kind, eps, lambda t: t.mean(dim=-1, keepdim=True))
     return y.to(x.dtype)
 
 
@@ -26,11 +34,8 @@ def apply_norm_blocks(params: dict, x: torch.Tensor, kind: str = "rmsnorm",
     number of rows, so a row summed among 4 rows and among 20 can round
     apart, and a rounding there can move an int8 activation; this way every
     block row is normalized exactly as decode normalizes it."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r}: the port serves RMSNorm models (LayerNorm: ROADMAP A.6)")
-    xf = x.float()
-    sq = xf * xf
-    var = torch.stack([sq[:, i].mean(dim=-1, keepdim=True) for i in range(x.shape[1])], dim=1)
-    y = xf * torch.rsqrt(var + eps) * params["scale"].float()
-    return y.to(x.dtype)
+
+    def mean(t):
+        return torch.stack([t[:, i].mean(dim=-1, keepdim=True) for i in range(t.shape[1])], dim=1)
+
+    return _normalize(params, x.float(), kind, eps, mean).to(x.dtype)

@@ -1,9 +1,9 @@
 """Uniform model API: family -> module functions, as the JAX package's
 ``repro.models.registry``.
 
-The port serves the transformer family.  The JAX ``ModelAPI.loss_fn``
-comes with training (ROADMAP A.7); the other families with ROADMAP A.4
-(hymba), A.5 (xlstm) and A.6 (encdec).
+All four families of the JAX registry: the transformer family (dense and
+MoE), hymba, xlstm and the whisper encoder-decoder.  The JAX
+``ModelAPI.loss_fn`` comes with training (ROADMAP A.7): here it raises.
 """
 from __future__ import annotations
 
@@ -11,9 +11,18 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hymba, transformer, xlstm
 
-_FAMILIES = {"transformer": transformer}
+_FAMILIES = {
+    "transformer": transformer,
+    "xlstm": xlstm,
+    "hymba": hymba,
+    "encdec": encdec,
+}
+
+
+def _no_training(*args, **kwargs):
+    raise NotImplementedError("training is not in the port yet (ROADMAP A.7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,11 +32,10 @@ class ModelAPI:
     decode_step: Callable
     init_cache: Optional[Callable]
     module: Any
+    loss_fn: Callable = _no_training
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in _FAMILIES:
-        transformer._check_family(cfg)  # raises, naming the item that ports the family
     mod = _FAMILIES[cfg.family]
     return ModelAPI(init=mod.init, forward_prefill=mod.forward_prefill,
                     decode_step=mod.decode_step, init_cache=getattr(mod, "init_cache", None),

@@ -51,15 +51,13 @@ from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
            ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
 
-# the families of the JAX package the port does not serve yet, and their items
-_OTHER_FAMILIES = {"hymba": "ROADMAP A.4", "xlstm": "ROADMAP A.5", "encdec": "ROADMAP A.6"}
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "transformer":
+def _check_window(cfg: ModelConfig) -> None:
+    """No config of the family sets a sliding window, and its programs take
+    none (hymba's windowed layers are ``models.hymba``'s)."""
+    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the transformer family; {cfg.family!r} comes with "
-            f"{_OTHER_FAMILIES.get(cfg.family, 'no ROADMAP item')}")
+            f"{cfg.name}: the transformer family's programs take no sliding window")
 
 
 def _stack(trees):
@@ -106,7 +104,7 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
     in f32 and cast into the layer-stacked tree before the next, so the
     peak stays one f32 layer above the model.  A ternary config keeps its
     latent weights f32 (``convert_for_inference`` packs them)."""
-    _check_family(cfg)
+    _check_window(cfg)
     dev = resolve_device(device)
     if cfg.quant.ternary:
         dtype = torch.float32
@@ -198,7 +196,7 @@ def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     complete there, so the relayout can run while ``prefill_tail`` does.
     Right-padded prompts pass their true last position as ``last_pos``;
     causality keeps it independent of the padding."""
-    _check_family(cfg)
+    _check_window(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -244,7 +242,7 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
     capacity.  The mirror holds f32 values, not the (possibly quantized)
     cache bytes: the chunk then computes what the whole-prompt prefill
     would, and the per-token quantization on write stores the same bytes."""
-    _check_family(cfg)
+    _check_window(cfg)
     b, c = tokens.shape
     cap = prefix.k.shape[3]
     if not isinstance(prefix_len, torch.Tensor) and prefix_len + c > cap:

@@ -28,6 +28,9 @@ The policy's ``should_shed`` (true only in the SLO-aware one) drops queue
 heads that can no longer meet their TTFT target, and its ``prefill_quanta``
 may grant several chunks a step.
 
+The engine drives the transformer family, as the JAX engine does; the
+other families run through the registry API (``models.registry``).
+
 The tracer (``obs.trace.TRACER``) records the request lifecycle and the
 engine's spans with host clocks taken where the engine already waits for the
 device (a chunk's synchronize, a prefill's end, a round's token read), so
@@ -219,6 +222,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def check_served_family(cfg: ModelConfig) -> None:
+    """The JAX engine's refusal of a model of another family."""
+    if cfg.family != "transformer":
+        raise ValueError(f"{cfg.name} ({cfg.family}): serving engine drives the transformer family")
+
+
 class ModelRunner:
     """Owns the phase programs, prompt buckets, the decode cache and slots."""
 
@@ -241,6 +250,7 @@ class ModelRunner:
         spec_ngram: int = 3,
         device=None,
     ):
+        check_served_family(cfg)
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
         if spec_decode == 0:

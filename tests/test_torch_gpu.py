@@ -1369,3 +1369,67 @@ def test_moe_decode_graph_replays_the_eager_program_bit_for_bit():
     assert {k: v for k, v in prog.captured.launches.items() if v} == {
         "decode_attention": cfg.num_layers}
     _launches_per_replay(prog, 3, lambda i: prog(params, tokens, cache, lengths))
+
+
+# ---------------------------------------------------- the other families --
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_hymba_decode_on_cuda_holds_its_cpu_run():
+    """A reduced hymba (window 32, layer 0 global) on f32 weights: a
+    48-token prefill, the swap into the decode cache and 8 greedy decode
+    steps on the card against the same run on the CPU (logits within 1e-4
+    of max |logit|, the CPU's tokens fed to both); B3 runs a layer a step,
+    with starts past 0 on the windowed layer, and no B2 (every layer takes
+    the windowed plain path)."""
+    from repro_torch.models import hymba as H
+    from repro_torch.models.jax_init import init_like_jax
+
+    dev = _cuda()
+    cfg = reduced_config("hymba-1.5b")
+    p_cpu = init_like_jax(cfg, 2, "cpu")
+    p_gpu = _to_dev(p_cpu, dev)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 48))).long()
+    reset_counts()
+    runs = []
+    for d, params in (("cpu", p_cpu), (dev, p_gpu)):
+        lg, pre = H.forward_prefill(params, tokens.to(d), cfg)
+        cache = H.install_prefill(H.init_cache(cfg, 2, 64, dtype=torch.float32, device=d), pre)
+        runs.append([lg.cpu()])
+        for t in range(8):
+            tok = runs[0][t].argmax(-1)
+            lengths = torch.full((2,), 48 + t, dtype=torch.int32, device=d)
+            lg, cache = H.decode_step(params, tok.to(d), cache, lengths, cfg)
+            runs[-1].append(lg.cpu())
+    torch.cuda.synchronize()
+    for t, (a, b) in enumerate(zip(*runs)):
+        scale = a.abs().max().item()
+        assert (b - a).abs().max().item() <= 1e-4 * scale, f"step {t}"
+    assert COUNTS["decode_attention"] == 8 * cfg.num_layers
+    assert COUNTS["prefill_attention"] == 0
+
+
+def test_whisper_cross_walk_over_a_padded_cache_equals_its_plain_version():
+    """The cross walk of whisper's decode: B3 at G = 1, D = 64 over the
+    first 1,500 rows of a 1,536-row layer slice of the batch-leading cross
+    cache, NaN in the pad rows it must not read, against the plain version
+    over the 1,500 rows."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, layers, hkv, rows, d, enc = 4, 3, 20, 1536, 64, 1500
+    cache = [torch.randn((b, layers, hkv, rows, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2)]
+    for t in cache:
+        t[:, :, :, enc:] = float("nan")
+    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    lengths = torch.full((b,), enc, dtype=torch.int32, device=dev)
+    got = decode_attention_kernel(q, cache[0][:, 1], cache[1][:, 1], lengths)
+    want = decode_attention_reference(q, cache[0][:, 1, :, :enc], cache[1][:, 1, :, :enc],
+                                      lengths)
+    assert all(torch.isfinite(t).all() for t in got)
+    _assert_stats_close(got, want)

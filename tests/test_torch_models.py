@@ -1,5 +1,5 @@
 """The rest of the transformer family in the port, against the JAX package
-on the CPU: the registry and its arithmetic, the MoE layer, the weight
+on the CPU: the registry (every arch of the JAX registry) and its arithmetic, the MoE layer, the weight
 draws, greedy streams of reduced qwen2.5-14b, granite-moe-3b-a800m and
 moonshot-v1-16b-a3b against a live JAX engine, the CLI's default arch, and
 ``EngineCore.generate``'s defaults.
@@ -28,8 +28,11 @@ from repro_torch.configs import base as B
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.layers import moe as M
+from repro_torch.models import encdec as E
+from repro_torch.models import hymba as H
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 from repro_torch.models.jax_init import init_like_jax
 from repro_torch.serving import EngineCore, Request, SamplingParams
 from test_torch_frontend import _jax_kernel_path_main, _printed
@@ -56,8 +59,9 @@ def _port_config(jc) -> B.ModelConfig:
 @pytest.mark.parametrize("arch", jcfgs.ALL_ARCHS)
 def test_config_fields_and_arithmetic_equal_jax(arch):
     """Every field of the JAX config (less its execution knobs) and its
-    derived numbers; the port's registry holds the transformer family with
-    the JAX values, and names the item that ports any other family."""
+    derived numbers; the port's registry holds every arch with the JAX
+    values, its reduced config the JAX one, and ``get_model`` gives the
+    family's module."""
     jc = jcfgs.get_config(arch)
     pc = _port_config(jc)
     for name in ("param_count", "active_param_count"):
@@ -69,24 +73,24 @@ def test_config_fields_and_arithmetic_equal_jax(arch):
         dataclasses.asdict(c) for c in jbase.applicable_shapes(jc)]
     assert {k: dataclasses.asdict(v) for k, v in B.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
-    if jc.family != "transformer":
-        assert arch not in C.ALL_ARCHS
-        with pytest.raises(KeyError, match=C.NOT_PORTED[arch].replace(".", r"\.")):
-            C.get_config(arch)
-        with pytest.raises(NotImplementedError, match=C.NOT_PORTED[arch].replace(".", r"\.")):
-            R.get_model(pc)
-        return
+    assert arch in C.ALL_ARCHS
     assert C.get_config(arch) == pc
     assert C.reduced_config(arch) == _port_config(jcfgs.reduced_config(arch))
     assert C.get_config(arch, quant_mode="ternary") == _port_config(
         jcfgs.get_config(arch, quant_mode="ternary"))
     api = R.get_model(pc)
-    assert api.init is T.init and api.decode_step is T.decode_step and api.module is T
+    mod = {"transformer": T, "hymba": H, "xlstm": X, "encdec": E}[jc.family]
+    assert api.init is mod.init and api.decode_step is mod.decode_step and api.module is mod
+    assert api.forward_prefill is mod.forward_prefill and api.init_cache is mod.init_cache
 
 
 def test_registry_lists_the_transformer_family():
-    want = sorted(a for a in jcfgs.ALL_ARCHS if jcfgs.get_config(a).family == "transformer")
-    assert sorted(C.ALL_ARCHS) == want and len(want) == 8
+    """The registry lists every arch of the JAX registry, eleven, of which
+    the transformer family is eight."""
+    family = sorted(a for a in jcfgs.ALL_ARCHS if jcfgs.get_config(a).family == "transformer")
+    assert sorted(C.ALL_ARCHS) == sorted(jcfgs.ALL_ARCHS) and len(C.ALL_ARCHS) == 11
+    assert sorted(a for a in C.ALL_ARCHS if C.get_config(a).family == "transformer") == family
+    assert len(family) == 8
 
 
 # --------------------------------------------------------------------- MoE --

@@ -1,6 +1,5 @@
 """The PyTorch port on its own: what it imports, where it runs, its launch
 counters, and the pieces of the serving path that need no JAX run."""
-import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -56,7 +55,12 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
                    "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen2_5_14b",
                    "repro_torch.configs.minicpm_2b", "repro_torch.configs.chameleon_34b",
                    "repro_torch.configs.granite_moe_3b_a800m",
-                   "repro_torch.configs.moonshot_v1_16b_a3b"])
+                   "repro_torch.configs.moonshot_v1_16b_a3b",
+                   "repro_torch.configs.hymba_1_5b", "repro_torch.configs.xlstm_1_3b",
+                   "repro_torch.configs.whisper_large_v3", "repro_torch.models.ssm",
+                   "repro_torch.models.hymba", "repro_torch.models.xlstm",
+                   "repro_torch.models.encdec",
+                   "repro_torch.examples.long_context_decode"])
         assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
@@ -162,9 +166,11 @@ def test_out_of_slice_arguments_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         DisaggEngine(cfg, params, n_slots=1, max_len=64, prefill_device="meta",
                      decode_device="cpu")
-    # MoE is ported; the other families name the items that port them
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        T.init(dataclasses.replace(cfg, family="xlstm"), 3, device="cpu")
+    # every model family is ported; training is not
+    from repro_torch.models.registry import get_model
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        get_model(cfg).loss_fn(params, {}, cfg)
     eng = EngineCore(cfg, params, **kw, swap_policy="slo-aware")
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
