@@ -166,7 +166,28 @@ Phases (any failure raises and the script exits non-zero):
     profiler, and peak memory or state MiB.  Phase 3 also holds B2 at
     (1, 20, S, 64) and B3 at hymba's windowed walk, whisper's cross walk
     and 524,288 rows to their plain versions, with times and bounds;
-12. how many sentinels the profiler windows kept (see ``_profiled``), the
+12. training at full width, f32 weights drawn on the card by
+    ``init_like_jax`` from seed 0, each path's launches set to 0 just
+    before and read just after (training launches no kernel: it takes the
+    plain paths, as the JAX training step does): (T1) smollm-135m at full
+    depth through the train CLI's loop, batch 8 x 256, WSD: run A 10 steps
+    with a checkpoint at step 10 (under ``chiprun_out/``, removed after),
+    run B ``--restore`` to step 20, run C a fresh 20 steps, B's and A's
+    losses equal to C's bit for bit, the loss falling from within 1.0 of
+    ln(vocab); ms a step (CUDA events), tokens a second, model FLOPs and
+    their share of the f32 peak, peak memory, one profiled step, the first
+    step at 2 layers against the CPU port (``TRAIN_CPU_TOL``); (T2)
+    bitnet-730m QAT at full depth, 5 steps, every latent linear's gradient
+    nonzero, then the trained weights packed and served (4 x 256 tokens,
+    16 new, B1/B2/B3 as the stats imply) and served again after a
+    ``CheckpointManager`` save and restore, to the same tokens; (T3)
+    granite-moe-3b-a800m at 4 of 32 layers, 2 steps, aux above 0, every
+    expert with rows a nonzero gradient, the dropped assignments; (T4)
+    hymba (2 layers), xlstm (one group of 8) and whisper (2 + 2): one loss
+    and gradient each against the CPU port (``GRAD_CPU_TOL`` of each
+    leaf's max |g|); then each kernel launcher refuses an input that
+    requires grad;
+13. how many sentinels the profiler windows kept (see ``_profiled``), the
     results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
 Without a CUDA device, or without the rest of the repository beside it, it
@@ -177,6 +198,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1029,9 +1051,12 @@ def main() -> int:
 
     # ---- 11. the other families at full width, and the long_500k context
     other_launches = other_families_phase(torch, np, card)
+
+    # ---- 12. training
+    train_launches = training_phase(torch, np, card, ops)
     for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches,
                  disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches,
-                 other_launches):
+                 other_launches, train_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -3329,6 +3354,474 @@ def other_families_phase(torch, np, card):
     for path in (hymba_path, xlstm_path, whisper_path, long_context_path):
         for name, n in path(torch, np, card).items():
             total[name] = total.get(name, 0) + n
+    return total
+
+
+# ---- training: paths (T1)-(T4) --
+
+TRAIN_ARGS = ["--batch", "8", "--seq", "256", "--lr", "3e-4", "--schedule", "wsd", "--seed", "0",
+              "--device", "cuda", "--log-every", "5"]  # the JAX launcher's defaults, WSD
+TRAIN_A, TRAIN_B = 10, 20  # (T1): run A's steps; runs B (restored from A) and C end here
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+QAT_STEPS = 5  # (T2)
+QAT_PROMPTS, QAT_PROMPT_LEN, QAT_NEW = 4, 256, 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 2  # (T3)
+GRAD_BATCH, GRAD_SEQ = 2, 128  # (T4), whisper's decoder 64 tokens over 1,500 frames
+CKPT_DIR = Path("chiprun_out") / "train_ckpt"  # removed at the end of the phase
+# A training step on the card against the CPU port, both f32 with TF32 off:
+# the loss and gradient norm, and (T4) every gradient leaf as a share of its
+# max |g|; products and reductions summed in other orders.  Measured on one
+# H100 80GB HBM3 (700 W): at most 8.7e-8 (the losses) and 2.45e-4 (xlstm's
+# mLSTM w_qkv, whose exponential gates carry each rounding on).
+TRAIN_CPU_TOL = 1e-4
+GRAD_CPU_TOL = 1e-3
+
+
+def _no_launches(what, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{what}: training launched kernels {launches}")
+
+
+def _train_flops(cfg, params_n, b, s, remat=True):
+    """Model FLOPs of one training step: 6 N T for the parameters' products
+    (forward and backward, the tied head's included), the attention's
+    score and PV products 4 B S^2 d a layer forward (the dense path computes
+    every position) and twice that backward; with remat, the layers'
+    forward once more (2 N_layers T and the attention's 4 B S^2 d)."""
+    t = b * s
+    attn = 4 * b * s * s * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    model = 6 * params_n * t + 3 * attn
+    layer_n = params_n - cfg.padded_vocab() * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return model, model + (2 * layer_n * t + attn if remat else 0)
+
+
+def _step_times(history, first=2):
+    ms = [h["ms"] for s, h in history.items() if s >= first]
+    return statistics.median(ms), min(ms), max(ms)
+
+
+def smollm_training(torch, np, card):
+    """(T1) smollm-135m at full width and depth through the train CLI's
+    loop (``launch.train.train``): run A 10 steps with a checkpoint at step
+    10, run B ``--restore`` to step 20, run C a fresh 20 steps.  B's losses
+    at steps 10-19 must equal C's bit for bit, and A's C's at 0-9; the loss
+    must fall, and start within 1.0 of ln(vocab).  Then the first step at 2
+    of 30 layers on the card against the CPU port, and one profiled step."""
+    import shutil
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
+
+    base = ["--arch", "smollm-135m", *TRAIN_ARGS, "--ckpt-every", str(TRAIN_A)]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    _free(torch)
+    held = torch.cuda.memory_allocated() / 2**30  # by earlier phases, in every run's peak
+    reset_counts()
+    runs, peaks = {}, {}
+    for name, extra in (("A", ["--steps", str(TRAIN_A), "--ckpt-dir", str(CKPT_DIR)]),
+                        ("B", ["--steps", str(TRAIN_B), "--ckpt-dir", str(CKPT_DIR), "--restore"]),
+                        ("C", ["--steps", str(TRAIN_B)])):
+        torch.cuda.reset_peak_memory_stats()
+        runs[name] = train_cli.train(train_cli.parse_args(base + extra))
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        if name != "C":  # keep the history, not the state: each run's peak is its own
+            runs[name] = dataclasses.replace(runs[name], params=None, opt=None)
+            _free(torch)
+    launches = dict(COUNTS)
+    _no_launches("path (T1)", launches)
+    peak = peaks["C"]
+    a, b, c = (runs[k].history for k in "ABC")
+    if runs["B"].start != TRAIN_A or sorted(b) != list(range(TRAIN_A, TRAIN_B)):
+        raise AssertionError(f"path (T1): run B resumed at {runs['B'].start}, steps {sorted(b)}")
+    for what, got, want in (("A", a, c), ("B", b, c)):
+        for s, h in got.items():
+            if h["loss"] != want[s]["loss"] or h["grad_norm"] != want[s]["grad_norm"]:
+                raise AssertionError(f"path (T1): run {what}'s step {s} (loss {h['loss']}, grad "
+                                     f"norm {h['grad_norm']}) differs from run C's "
+                                     f"({want[s]['loss']}, {want[s]['grad_norm']})")
+    cfg = runs["C"].cfg
+    losses = [c[s]["loss"] for s in range(TRAIN_B)]
+    if not (abs(losses[0] - math.log(cfg.vocab_size)) < 1.0 and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"path (T1): losses {losses}")
+    med, lo, hi = _step_times(c)
+    n = cfg.param_count()
+    model_flops, step_flops = _train_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"path (T1) smollm-135m training at full width and depth ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, Vp "
+          f"{cfg.padded_vocab()}, {n / 1e6:.1f} M parameters, f32, remat {cfg.remat}), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, WSD lr 3e-4, through launch.train: run A {TRAIN_A} steps "
+          f"+ checkpoint, run B --restore to {TRAIN_B}, run C {TRAIN_B} fresh; B's losses at steps "
+          f"{TRAIN_A}-{TRAIN_B - 1} and A's at 0-{TRAIN_A - 1} equal C's bit for bit (and the "
+          f"gradient norms); loss {losses[0]:.4f} (ln V {math.log(cfg.vocab_size):.4f}) -> "
+          f"{losses[-1]:.4f}; {med:.2f} ms a step (CUDA events, median of steps 2-{TRAIN_B - 1}; "
+          f"{lo:.2f}-{hi:.2f}) = {TRAIN_BATCH * TRAIN_SEQ * 1e3 / med:,.0f} tokens/s; model FLOPs "
+          f"{model_flops / 1e12:.3f} TFLOP a step ({model_flops / (med / 1e3) / PEAK_OPS['f32']:.3f}"
+          f" of the f32 peak), {step_flops / 1e12:.3f} with remat's recompute "
+          f"({step_flops / (med / 1e3) / PEAK_OPS['f32']:.3f}); f32 bound "
+          f"{step_flops / PEAK_OPS['f32'] * 1e3:.1f} ms; peak device memory of run C {peak:.2f} GiB (A "
+          f"{peaks['A']:.2f}, B {peaks['B']:.2f}), of which {held:.2f} GiB was held before run A; "
+          f"launches {launches}  [{card}]")
+    print("  run C losses: " + " ".join(f"{x:.4f}" for x in losses))
+    res = runs["C"]
+    step_fn = make_train_step(cfg, res.tcfg)
+    source = make_source(DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in source.batch(TRAIN_B).items()}
+    params, opt = res.params, res.opt
+    wall_ms, dev_ms, ops, top = _step_device_ms(
+        torch, lambda: step_fn(params, opt, batch, TRAIN_B), n=1)
+    print(f"profile (T1): one training step under torch.profiler: {wall_ms:.2f} ms wall, "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} of device time over "
+          f"{ops:.0f} device operations, device busy "
+          f"{'not measured' if dev_ms is None else f'{dev_ms / wall_ms:.3f}'}; its largest device "
+          f"operations:  [{card}]")
+    _print_top(top, 8)
+    del runs, res, params, opt
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    _free(torch)
+    # the first step at 2 of 30 layers, the same weights and batch on both devices
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    tcfg = TrainConfig(schedule="wsd", warmup=5, total_steps=TRAIN_B)
+    batch0 = source.batch(0)
+    out = []
+    state = init_train_state(cfg2, 0, "cuda")
+    for dev in ("cuda", "cpu"):
+        p, o = (tree_map(lambda t: t.to(dev, copy=True), x) for x in state)
+        _, _, m = make_train_step(cfg2, tcfg)(
+            p, o, {k: torch.from_numpy(v).to(dev) for k, v in batch0.items()}, 0)
+        out.append({k: float(v) for k, v in m.items()})
+    for k in ("loss", "grad_norm"):
+        err = abs(out[0][k] - out[1][k]) / abs(out[1][k])
+        if not err <= TRAIN_CPU_TOL:
+            raise AssertionError(f"path (T1) 2 layers: {k} {out[0][k]} on the card, {out[1][k]} "
+                                 f"on the CPU")
+        print(f"reference (T1): full-width 2-layer first step {k} on the card {out[0][k]:.6f} vs "
+              f"the CPU port {out[1][k]:.6f}: relative error {err:.3g} (tolerance "
+              f"{TRAIN_CPU_TOL})")
+    del state
+    _free(torch)
+    return launches
+
+
+def _serve_tokens(torch, cfg, params, prompts):
+    """The prompts served greedily on ``EngineCore(n_slots=4, max_len=2048)``
+    on the card (the programs captured at first use), the counts read over
+    the run: (tokens by request, stats, launches)."""
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.serving import EngineCore, Request
+
+    eng = EngineCore(cfg, params, n_slots=QAT_PROMPTS, max_len=2048, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(f"q{i}", p, max_new=QAT_NEW))
+    torch.cuda.synchronize()
+    reset_counts()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    launches = dict(COUNTS)
+    per_pass = 7 * cfg.num_layers
+    expect = {name: 0 for name in launches}
+    expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+                   "act_quant": per_pass * (stats.swaps + stats.decode_rounds),
+                   "prefill_attention": cfg.num_layers * stats.swaps,
+                   "decode_attention": cfg.num_layers * stats.decode_rounds})
+    if stats.swaps != len(prompts) or launches != expect:
+        raise AssertionError(f"path (T2) serving: launches {launches} != {expect}")
+    tokens = {k: r.out_tokens for k, r in eng.finished.items()}
+    if any(len(t) != QAT_NEW for t in tokens.values()):
+        raise AssertionError(f"path (T2) serving: {tokens}")
+    return tokens, stats, launches
+
+
+def bitnet_qat(torch, np, card):
+    """(T2) bitnet-730m quantization-aware training at full width and
+    depth: 5 steps of ``make_train_step`` at 8 x 256 (f32 latent weights
+    drawn by ``init_like_jax`` from seed 0), every latent linear's gradient
+    nonzero (the straight-through estimators); then the trained weights
+    packed (``convert_for_inference``) and served (4 prompts of 256, 16
+    new, greedy) through B1/B2/B3, and again after a ``CheckpointManager``
+    save and restore, to the same tokens."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
+
+    cfg = get_config("bitnet-730m")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(cfg, 0, "cuda")
+    tcfg = TrainConfig(schedule="wsd", warmup=1, total_steps=QAT_STEPS)
+    step_fn = make_train_step(cfg, tcfg)
+    source = make_source(DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    reset_counts()
+    losses, ms = [], []
+    for s in range(QAT_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in source.batch(s).items()}
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, m = step_fn(params, opt, batch, s)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+    api = get_model(cfg)
+    _, _, grads = loss_and_grads(lambda p, b: api.loss_fn(p, b, cfg), params, batch)
+    launches = dict(COUNTS)
+    _no_launches("path (T2) training", launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0):
+        raise AssertionError(f"path (T2): losses {losses}")
+    for group, name in T.LINEARS:
+        g = grads["layers"][group][name]["w"]
+        per_layer = g.abs().flatten(1).amax(1)
+        if not bool((per_layer > 0).all()):
+            raise AssertionError(f"path (T2): {group}/{name} has a zero gradient in layers "
+                                 f"{(per_layer == 0).nonzero().flatten().tolist()}")
+    del grads
+    n = cfg.param_count()
+    model_flops, step_flops = _train_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    med = statistics.median(ms[1:])
+    print(f"path (T2) bitnet-730m QAT at full width and depth ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, Vp {cfg.padded_vocab()}, {n / 1e6:.1f} M latent f32 parameters), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {QAT_STEPS} steps of make_train_step: loss "
+          + " ".join(f"{x:.4f}" for x in losses) + f" (ln V {math.log(cfg.vocab_size):.4f}); "
+          f"every latent linear's gradient nonzero in every layer (7 x {cfg.num_layers}); "
+          f"{med:.1f} ms a step (CUDA events, median of steps 1-{QAT_STEPS - 1}; "
+          f"{min(ms[1:]):.1f}-{max(ms[1:]):.1f}) = {TRAIN_BATCH * TRAIN_SEQ * 1e3 / med:,.0f} "
+          f"tokens/s; model FLOPs {model_flops / 1e12:.3f} TFLOP a step "
+          f"({model_flops / (med / 1e3) / PEAK_OPS['f32']:.3f} of the f32 peak), "
+          f"{step_flops / 1e12:.3f} with remat ({step_flops / (med / 1e3) / PEAK_OPS['f32']:.3f})"
+          f"; f32 bound {step_flops / PEAK_OPS['f32'] * 1e3:.1f} ms; peak device memory "
+          f"{peak:.2f} GiB  [{card}]")
+    del opt
+    _free(torch)
+    prompts = make_prompts(np, cfg, [QAT_PROMPT_LEN] * QAT_PROMPTS)
+    tokens, stats, serve_launches = _serve_tokens(torch, cfg, T.convert_for_inference(params, cfg),
+                                                  prompts)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(CKPT_DIR))
+        t0 = time.perf_counter()
+        mgr.save(QAT_STEPS, params)
+        t_save = time.perf_counter() - t0
+        template = tree_map(torch.empty_like, params)
+        del params
+        _free(torch)
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(template)
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del template
+    again, _, again_launches = _serve_tokens(torch, cfg, T.convert_for_inference(restored, cfg),
+                                             prompts)
+    if step != QAT_STEPS or again != tokens:
+        raise AssertionError(f"path (T2): after the checkpoint (step {step}) the tokens differ")
+    print(f"path (T2) serving the trained weights packed: {QAT_PROMPTS} prompts of "
+          f"{QAT_PROMPT_LEN} tokens, {QAT_NEW} new, greedy on EngineCore(n_slots={QAT_PROMPTS}, "
+          f"max_len=2048): {stats.swaps} prefills, {stats.decode_rounds} decode rounds, launches "
+          f"{serve_launches} as the stats imply; a second engine after a CheckpointManager save "
+          f"({t_save:.1f} s) and restore ({t_restore:.1f} s) of the latent weights gives the same "
+          f"tokens; first request's {tokens['q0']}  [{card}]")
+    del restored
+    _free(torch)
+    return {k: serve_launches[k] + again_launches[k] for k in serve_launches}
+
+
+def granite_moe_training(torch, np, card):
+    """(T3) granite-moe-3b-a800m at full width, 4 of 32 layers: 2 training
+    steps at 8 x 256; the aux loss above 0, and every expert that received
+    rows in a layer has a nonzero gradient there; the dropped assignments a
+    layer printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.layers import moe as M
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(cfg, 0, "cuda")
+    step_fn = make_train_step(cfg, TrainConfig(schedule="wsd", warmup=1,
+                                               total_steps=MOE_TRAIN_STEPS))
+    source = make_source(DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    reset_counts()
+    metrics = []
+    for s in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in source.batch(s).items()}
+        params, opt, m = step_fn(params, opt, batch, s)
+        metrics.append({k: float(v) for k, v in m.items()})
+    routed, route = [], M._route
+
+    def recording(gate_logits, k, capacity, num_experts):
+        out = route(gate_logits, k, capacity, num_experts)
+        routed.append((out[1], capacity))
+        return out
+
+    api = get_model(cfg)
+    M._route = recording
+    try:
+        _, lm, grads = loss_and_grads(lambda p, b: api.loss_fn(p, b, cfg), params, batch)
+    finally:
+        M._route = route
+    launches = dict(COUNTS)
+    _no_launches("path (T3)", launches)
+    e = cfg.num_experts
+    drops = []
+    for li, (dest, cap) in enumerate(routed[:cfg.num_layers]):  # the forward's, before the recompute
+        kept = dest[dest < e * cap] // cap
+        drops.append(int((dest == e * cap).sum()))
+        got = torch.unique(kept)
+        gmax = torch.stack([grads["layers"]["moe"][w][li].flatten(1).abs().amax(1)
+                            for w in ("w_gate", "w_up", "w_down")]).amin(0)
+        if not bool((gmax[got] > 0).all()):
+            raise AssertionError(f"path (T3): layer {li}: an expert with rows has a zero gradient")
+    if not (float(lm["aux"]) > 0 and all(m["aux"] > 0 for m in metrics)
+            and all(math.isfinite(m["loss"]) for m in metrics)):
+        raise AssertionError(f"path (T3): metrics {metrics}")
+    print(f"path (T3) granite-moe-3b-a800m training at full width, {cfg.num_layers} of 32 layers "
+          f"({e} experts top-{cfg.top_k}, f32), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{MOE_TRAIN_STEPS} steps: loss " + " ".join(f"{m['loss']:.4f}" for m in metrics)
+          + ", aux " + " ".join(f"{m['aux']:.4f}" for m in metrics) + f"; every expert that "
+          f"received rows has a nonzero gradient; dropped assignments a layer {drops} of "
+          f"{TRAIN_BATCH * TRAIN_SEQ * cfg.top_k} (capacity {routed[0][1]}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    del params, opt, grads
+    _free(torch)
+    return launches
+
+
+def family_gradients(torch, np, card):
+    """(T4) one loss and gradient of hymba-1.5b (2 layers), xlstm-1.3b (one
+    group, 8 layers) and whisper-large-v3 (2 + 2 layers) at full width, f32
+    ``init_like_jax`` weights, on the card against the CPU port: the loss,
+    and every gradient leaf within ``GRAD_CPU_TOL`` of its max |g|."""
+    from repro_torch.common.tree import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.models.jax_init import init_like_jax
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import loss_and_grads
+
+    rng = np.random.default_rng(0)
+    reset_counts()
+    for arch, cut in (("hymba-1.5b", dict(num_layers=2)), ("xlstm-1.3b", dict(num_layers=8)),
+                      ("whisper-large-v3", dict(num_layers=2, encoder_layers=2))):
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        api = get_model(cfg)
+        seq = GRAD_SEQ // 2 if cfg.family == "encdec" else GRAD_SEQ
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (GRAD_BATCH, seq)).astype(np.int32),
+                 "targets": rng.integers(0, cfg.vocab_size, (GRAD_BATCH, seq)).astype(np.int32),
+                 "mask": np.ones((GRAD_BATCH, seq), np.float32)}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal((GRAD_BATCH, cfg.encoder_seq, cfg.d_model),
+                                                  dtype=np.float32)
+        params = init_like_jax(cfg, 0, "cuda", draw_device="cuda")
+        runs = []
+        for dev in ("cuda", "cpu"):
+            p = params if dev == "cuda" else _to_cpu(params)
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(lambda q, b: api.loss_fn(q, b, cfg), p,
+                                             {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs.append((float(loss), dict(named_leaves(grads)), time.perf_counter() - t0))
+        (lg, gg, tg), (lc, gc, tc) = runs
+        loss_err = abs(lg - lc) / abs(lc)
+        worst = max(((gg[k].cpu() - g).abs().max().item() / max(g.abs().max().item(), 1e-30), k)
+                    for k, g in gc.items())
+        if not (loss_err <= TRAIN_CPU_TOL and worst[0] <= GRAD_CPU_TOL):
+            raise AssertionError(f"path (T4) {arch}: loss error {loss_err}, worst gradient leaf "
+                                 f"{worst}")
+        print(f"path (T4) {arch} at full width, {cut}: one loss and gradient at "
+              f"{GRAD_BATCH} x {seq}"
+              f"{f' over {cfg.encoder_seq:,} frames' if cfg.family == 'encdec' else ''}: "
+              f"loss {lg:.6f} on the card vs {lc:.6f} on the CPU port (relative {loss_err:.3g}, "
+              f"tolerance {TRAIN_CPU_TOL}); every gradient leaf within {worst[0]:.3g} of its max "
+              f"|g| (worst {worst[1]}; tolerance {GRAD_CPU_TOL}); {tg * 1e3:.0f} ms on the card "
+              f"(first call), {tc:.1f} s on the CPU  [{card}]")
+        del params, runs, gg, gc
+        _free(torch)
+    launches = dict(COUNTS)
+    _no_launches("path (T4)", launches)
+    return launches
+
+
+def refusal_checks(torch, ops):
+    """Each kernel launcher refuses an input that requires grad while grad
+    is enabled, and launches nothing."""
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.quant.ternary import quantize_and_pack
+
+    dev = torch.device("cuda")
+    r = lambda *shape: torch.randn(shape, device=dev)
+    g = lambda *shape: torch.randn(shape, device=dev, requires_grad=True)
+    i8 = lambda *shape: torch.zeros(shape, dtype=torch.int8, device=dev)
+    lengths = torch.tensor([5, 30], dtype=torch.int32, device=dev)
+    tables = torch.arange(4, dtype=torch.int32, device=dev).reshape(2, 2)
+    w = quantize_and_pack(r(128, 64))
+    calls = {
+        "act_quant": lambda: ops["act_quant"](g(4, 128), w.scale),
+        "tlmm": lambda: ops["tlmm"](i8(4, 128), w.packed, g(4, 1)),
+        "prefill": lambda: ops["prefill"](g(1, 4, 32, 64), r(1, 2, 32, 64), r(1, 2, 32, 64)),
+        "decode": lambda: ops["decode"](g(2, 2, 2, 64), r(2, 2, 32, 64), r(2, 2, 32, 64), lengths),
+        "decode_quant": lambda: ops["decode_quant"](
+            g(2, 2, 2, 64), i8(2, 2, 32, 64), r(2, 2, 32), i8(2, 2, 32, 64), r(2, 2, 32), lengths,
+            kv_dtype="int8"),
+        "paged": lambda: ops["paged"](g(2, 2, 2, 64), r(4, 2, 16, 64), r(4, 2, 16, 64), tables,
+                                      lengths),
+        "paged_quant": lambda: ops["paged_quant"](
+            g(2, 2, 2, 64), i8(4, 2, 16, 64), r(4, 2, 16), i8(4, 2, 16, 64), r(4, 2, 16), tables,
+            lengths, kv_dtype="int8"),
+    }
+    reset_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as err:
+            if "has no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"the {name} kernel launched on an input that requires grad")
+    torch.cuda.synchronize()
+    if any(COUNTS.values()):
+        raise AssertionError(f"a refused call launched: {dict(COUNTS)}")
+    print(f"refusal: each of the {len(calls)} kernel launchers raised on an input that requires "
+          f"grad, and launched nothing")
+
+
+def training_phase(torch, np, card, ops):
+    """Phase 12: paths (T1)-(T4) (each with the counts set to 0 just before
+    and read just after: training launches no kernel, (T2)'s serving B1, B2
+    and B3 as its stats imply), then the launchers' refusal of autograd.
+    Returns the launches summed."""
+    total = {}
+    for path in (smollm_training, bitnet_qat, granite_moe_training, family_gradients):
+        for name, n in path(torch, np, card).items():
+            total[name] = total.get(name, 0) + n
+    refusal_checks(torch, ops)
     return total
 
 

@@ -3,10 +3,12 @@
 The fields, defaults and derived quantities (``param_count``,
 ``active_param_count``, ``ffn_hidden``, the shape cells) match the JAX
 package's, so one configuration means the same model in both packages.
-The JAX execution knobs (``use_pallas``, ``attn_impl``, ``remat``) have no
-counterpart: the port's kernels always run on CUDA tensors, their plain
-versions on CPU tensors.  The port runs every model family of the JAX
-registry (transformer, hymba, xlstm, encdec).
+Of the JAX execution knobs, ``remat`` (the activation checkpointing of
+the training layer walk: ``"full"``, ``"dots"`` or ``"none"``) is kept; it
+changes the memory a training step holds, never a number.  ``use_pallas``
+and ``attn_impl`` have no counterpart: the port's kernels always run on
+CUDA tensors, their plain versions on CPU tensors.  The port runs every
+model family of the JAX registry (transformer, hymba, xlstm, encdec).
 """
 from __future__ import annotations
 
@@ -77,6 +79,9 @@ class ModelConfig:
 
     # dropped-token capacity factor for MoE routing
     moe_capacity_factor: float = 1.25
+
+    # activation checkpointing of the training layer walk: full | dots | none
+    remat: str = "full"
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -1,7 +1,8 @@
 """minicpm-2b  [dense]  (arXiv:2404.06395) — llama-like; WSD LR schedule.
 
 40L d_model=2304 36H (MHA kv=36) d_ff=5760 vocab=122753.  The WSD
-(warmup-stable-decay) schedule it introduces comes with training.
+(warmup-stable-decay) schedule it introduces is ``optim.schedules.wsd``
+(the train CLI's ``--schedule wsd``).
 """
 from repro_torch.configs.base import ModelConfig
 

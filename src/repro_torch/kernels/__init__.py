@@ -12,12 +12,19 @@ locked add, never a read and a store that another thread's add can fall
 between.  A CUDA graph's capture records what its own thread counts into
 the capture (``COUNTS.recording()``), launches nothing, and leaves the
 totals alone: another thread's launches during the capture still count.
+
+A kernel has no backward: autograd cannot see through a launch, so its
+output would silently cut the graph.  Every launcher refuses a tensor that
+requires grad while grad is enabled (``refuse_autograd``); training runs
+the plain paths, as the JAX training step does.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Dict, Iterator, MutableMapping
+
+import torch
 
 _NAMES = ("act_quant", "tlmm", "prefill_attention", "decode_attention", "decode_attention_quant",
           "paged_decode_attention", "paged_decode_attention_quant")
@@ -83,6 +90,16 @@ class LaunchCounts(MutableMapping):
 
 
 COUNTS = LaunchCounts(_NAMES)
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raises when grad is enabled and any of ``tensors`` requires grad:
+    the launch of ``what`` would give an output with no gradient."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: a hand-written kernel has no backward; run it under "
+                           "torch.no_grad() or on tensors that do not require grad "
+                           "(training takes the plain paths)")
 
 
 def reset_counts() -> None:

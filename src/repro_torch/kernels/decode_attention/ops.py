@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import COUNTS
+from repro_torch.kernels import COUNTS, refuse_autograd
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_quant_reference,
@@ -95,6 +95,7 @@ def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None, row
     batch/head strides, contiguous rows along S, 16-byte aligned rows),
     R = ``rows_per_slot`` query rows a slot, lengths/starts (B,) int32 ->
     (out (B,Hkv,G,D), l, m (B,Hkv,G)), all f32."""
+    refuse_autograd("decode_attention_kernel", q, k, v)
     b, hkv, g, d = q.shape
     s = k.shape[2]
     _check_rows_per_slot(rows_per_slot, b, k.shape[0])
@@ -128,6 +129,7 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
     int8 (Dp = D) or uint8 int4 nibble pairs (Dp = D/2), strided as B3's
     cache; k_scale/v_scale (B/R,Hkv,S) f32, any batch/head strides, unit
     stride along S -> (out, l, m) as B3."""
+    refuse_autograd("decode_attention_quant_kernel", q, k_scale, v_scale)
     b, hkv, g, d = q.shape
     s = k_q.shape[2]
     dp = quant_payload_dim(kv_dtype, d)

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import COUNTS
+from repro_torch.kernels import COUNTS, refuse_autograd
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (
     PAYLOAD_DTYPES,
@@ -55,6 +55,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, lengths, st
     page/head strides, contiguous slots, 16-byte aligned rows);
     block_tables (B,P) int32; lengths/starts (B,) int32 -> (out (B,Hkv,G,D),
     l, m (B,Hkv,G)), all f32."""
+    refuse_autograd("paged_decode_attention_kernel", q, k_pages, v_pages)
     b, hkv, g, d = q.shape
     n, _, bs, _ = k_pages.shape
     if k_pages.shape != (n, hkv, bs, d) or v_pages.shape != k_pages.shape:
@@ -89,6 +90,7 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
                                         kv_dtype: str, sm_scale=None):
     """Launch B6: as B5 over packed pages (N,Hkv,bs,Dp), int8 (Dp = D) or
     uint8 int4 nibble pairs (Dp = D/2), with f32 scale planes (N,Hkv,bs)."""
+    refuse_autograd("paged_decode_attention_quant_kernel", q, k_scales, v_scales)
     b, hkv, g, d = q.shape
     n, _, bs, _ = k_pages_q.shape
     dp = quant_payload_dim(kv_dtype, d)

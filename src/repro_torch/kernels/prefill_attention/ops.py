@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import COUNTS
+from repro_torch.kernels import COUNTS, refuse_autograd
 from repro_torch.kernels import build
 from repro_torch.kernels.prefill_attention.ref import prefill_attention_reference
 
@@ -21,6 +21,7 @@ def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel: q (B,H,S,D), k/v (B,Hkv,S,D), all f32 with
     unit stride along D, k/v rows 16-byte aligned -> out (B,H,S,D) f32."""
+    refuse_autograd("prefill_attention_kernel", q, k, v)
     b, h, s, d = q.shape
     hkv = k.shape[1]
     if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import COUNTS
+from repro_torch.kernels import COUNTS, refuse_autograd
 from repro_torch.kernels import build
 from repro_torch.kernels.tlmm.ref import tlmm_reference
 from repro_torch.quant.act_quant import quantize_and_fold
@@ -29,6 +29,7 @@ def act_quant_kernel(x: torch.Tensor, beta: torch.Tensor,
     """Launch the CUDA kernel: x (M,K) f32 or bf16, beta a one-element f32
     tensor -> (x_q (M,K) int8, scale (M,1) f32 = act_scale * beta), bit-equal
     to ``quantize_and_fold``."""
+    refuse_autograd("act_quant_kernel", x, beta)
     m, k = x.shape
     if x.dtype not in _AQ_DTYPES or beta.dtype != torch.float32 or beta.numel() != 1:
         raise TypeError("act_quant_kernel takes f32 or bf16 x and a one-element f32 beta")
@@ -53,6 +54,7 @@ def tlmm_kernel(x_q: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) 
     """Launch the CUDA kernel: x_q (M,K) int8 with M >= 1, w_packed (K/4,N)
     uint8, scale (M,1) f32 -> y (M,N) f32.  M <= 8 runs the cluster split-K
     kernel, larger M the int8 tensor-core kernel."""
+    refuse_autograd("tlmm_kernel", x_q, w_packed, scale)
     m, k = x_q.shape
     kq, n = w_packed.shape
     if kq * 4 != k:

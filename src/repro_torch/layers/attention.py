@@ -9,9 +9,12 @@ One parameter set, two phase-specialized execution paths (the two engines):
   attention over the encoder's K/V) it computes what the JAX package
   computes outside Pallas, in plain torch: the dense f32 masked softmax up
   to 1,024 queries and keys, else the chunked path (512-query chunks,
-  grouped GQA with no KV expansion).  ``attention_prefill_chunk`` is the
-  prefill engine run one bounded chunk at a time (chunked prefill), the
-  chunk attending the prefix already prefilled plus itself.
+  grouped GQA with no KV expansion).  In training (``training=True``) it
+  always takes the plain paths, as the JAX training step does
+  (``use_pallas=False``): the kernel's output has no gradient.
+  ``attention_prefill_chunk`` is the prefill engine run one bounded chunk
+  at a time (chunked prefill), the chunk attending the prefix already
+  prefilled plus itself.
 * ``attention_decode``  — one token against the KV cache through the decode
   attention kernel (bandwidth-bound engine), with per-sequence lengths for
   continuous batching, a sliding window's start (hymba) and the read-only
@@ -50,6 +53,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -85,20 +89,22 @@ def attention_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
-def _project_q(params, x, cfg: ModelConfig, positions, rope: bool = True):
+def _project_q(params, x, cfg: ModelConfig, positions, rope: bool = True,
+               training: bool = False):
     b, s, _ = x.shape
-    q = linear_apply(params["wq"], x, cfg.quant).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = linear_apply(params["wq"], x, cfg.quant, training=training)
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     if rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
+def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False):
     b, s, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    q = _project_q(params, x, cfg, positions)
-    k = linear_apply(params["wk"], x, cfg.quant).reshape(b, s, hkv, hd)
-    v = linear_apply(params["wv"], x, cfg.quant).reshape(b, s, hkv, hd)
+    q = _project_q(params, x, cfg, positions, training=training)
+    k = linear_apply(params["wk"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
+    v = linear_apply(params["wv"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
     if cfg.rope_theta > 0:
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -119,12 +125,23 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return mask
 
 
+def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, H, S, D), each KV head repeated for its G = H /
+    Hkv query heads (``jnp.repeat``'s order).  An expanded view copied by
+    ``reshape``: the same values as ``repeat_interleave``, and a backward
+    that sums over the group, where ``repeat_interleave``'s adds with
+    atomics on a card (in no fixed order)."""
+    b, hkv, s, d = t.shape
+    if h == hkv:
+        return t
+    return t[:, :, None].expand(b, hkv, h // hkv, s, d).reshape(b, h, s, d)
+
+
 def _dense_attention(q, k, v, *, causal: bool, window: Optional[int]) -> torch.Tensor:
     """The JAX package's dense path: q (B, H, S, D), k/v (B, Hkv, Skv, D)
     upcast to f32 (KV repeated to H heads), the scores masked with -1e30, a
     softmax, the PV product in f32.  Returns f32 (B, H, S, D)."""
-    g = q.shape[1] // k.shape[1]
-    kk, vv = (t.repeat_interleave(g, dim=1) if g > 1 else t for t in (k, v))
+    kk, vv = _repeat_kv(k, q.shape[1]), _repeat_kv(v, q.shape[1])
     dev = q.device
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (1.0 / math.sqrt(q.shape[-1]))
     mask = _mask(torch.arange(q.shape[2], device=dev), torch.arange(k.shape[2], device=dev),
@@ -143,50 +160,71 @@ def _chunked_attention(q, k, v, *, causal: bool, window: Optional[int]) -> torch
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
-    sm = 1.0 / math.sqrt(d)
     chunk = min(QUERY_CHUNK, sq)
-    dev = q.device
-    kf, vf = k.float(), v.float()
     qg = q.to(k.dtype).float().reshape(b, hkv, g, sq, d)
-    kpos = torch.arange(skv, device=dev)
-    out = torch.empty((b, hkv, g, sq, d), dtype=q.dtype, device=dev)
-    for c0 in range(0, sq, chunk):
-        qc = qg[:, :, :, c0:c0 + chunk]
-        scores = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * sm
-        mask = _mask(c0 + torch.arange(qc.shape[3], device=dev), kpos, causal, window)
-        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-        p = torch.softmax(scores, dim=-1).to(v.dtype).float()
-        out[:, :, :, c0:c0 + chunk] = torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(q.dtype)
-    return out.reshape(b, h, sq, d)
+    kf, vf = k.float(), v.float()
+    # in training each chunk is recomputed in backward, as the JAX package's
+    # jax.checkpoint of its scan body: otherwise backward keeps every chunk's
+    # (.., chunk, Skv) scores, the whole S x S matrix
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if not grad:
+        out = torch.empty(b, hkv, g, sq, d, dtype=q.dtype, device=q.device)
+        for c0 in range(0, sq, chunk):
+            out[:, :, :, c0:c0 + chunk] = _attend_chunk(qg[:, :, :, c0:c0 + chunk], kf, vf, c0,
+                                                        causal, window, v.dtype)
+        return out.reshape(b, h, sq, d)
+    # under grad the chunks' outputs are concatenated: an in-place write into
+    # one tensor would be saved by, and clash with, the chunks' checkpoints
+    outs = [checkpoint(_attend_chunk, qg[:, :, :, c0:c0 + chunk], kf, vf, c0, causal, window,
+                       v.dtype, use_reentrant=False).to(q.dtype)
+            for c0 in range(0, sq, chunk)]
+    return torch.cat(outs, dim=3).reshape(b, h, sq, d)
+
+
+def _attend_chunk(qc, kf, vf, c0: int, causal: bool, window: Optional[int],
+                  v_dtype: torch.dtype) -> torch.Tensor:
+    """One query chunk of ``_chunked_attention``: qc (B, Hkv, G, c, D) at
+    positions c0 + [0, c) over f32 keys and values -> (B, Hkv, G, c, D) f32,
+    p rounded to V's dtype before the PV product."""
+    dev = qc.device
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * (1.0 / math.sqrt(qc.shape[-1]))
+    mask = _mask(c0 + torch.arange(qc.shape[3], device=dev),
+                 torch.arange(kf.shape[2], device=dev), causal, window)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1).to(v_dtype).float()
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
 
 
 def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                       *, window: Optional[int] = None, causal: bool = True,
                       cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      training: bool = False,
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The prefill engine, dispatched as the JAX package dispatches it: the
     causal prefill kernel for causal attention with no window over as many
-    keys as queries; the dense f32 masked softmax when queries and keys are
-    at most ``DENSE_MAX``; else the chunked path.  ``cross_kv`` (the
+    keys as queries (never in training: the JAX training step runs
+    ``use_pallas=False``); the dense f32 masked softmax when queries and
+    keys are at most ``DENSE_MAX``; else the chunked path.  ``training``
+    also selects the linears' quantization-aware branch.  ``cross_kv`` (the
     encoder's (B, Hkv, Senc, D) K/V) replaces this input's own K/V, with no
     RoPE, and is not causal.  Returns (y, (k, v)) with k/v (B, Hkv, S, D)
     views in cache layout (the cross K/V where given)."""
     b, s, _ = x.shape
     if cross_kv is not None:
-        qt = _project_q(params, x, cfg, positions, rope=False).transpose(1, 2)
+        qt = _project_q(params, x, cfg, positions, rope=False, training=training).transpose(1, 2)
         kt, vt = cross_kv
         causal = False
     else:
-        q, k, v = _project_qkv(params, x, cfg, positions)
+        q, k, v = _project_qkv(params, x, cfg, positions, training=training)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # strided views
-    if window is None and causal and kt.shape[2] == s:
+    if not training and window is None and causal and kt.shape[2] == s:
         out = prefill_attention(qt, kt, vt)  # (B, H, S, D)
     elif s <= DENSE_MAX and kt.shape[2] <= DENSE_MAX:
         out = _dense_attention(qt, kt, vt, causal=causal, window=window).to(x.dtype)
     else:
         out = _chunked_attention(qt, kt, vt, causal=causal, window=window)
     y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    y = linear_apply(params["wo"], y, cfg.quant)
+    y = linear_apply(params["wo"], y, cfg.quant, training=training)
     return y, (kt, vt)
 
 

@@ -21,13 +21,14 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              training: bool = False) -> torch.Tensor:
     if cfg.act == "silu":
-        g = linear_apply(params["w_gate"], x, cfg.quant)
-        u = linear_apply(params["w_up"], x, cfg.quant)
+        g = linear_apply(params["w_gate"], x, cfg.quant, training=training)
+        u = linear_apply(params["w_up"], x, cfg.quant, training=training)
         h = F.silu(g.float()).to(x.dtype) * u
-        return linear_apply(params["w_down"], h, cfg.quant)
-    h = linear_apply(params["w_in"], x, cfg.quant)
+        return linear_apply(params["w_down"], h, cfg.quant, training=training)
+    h = linear_apply(params["w_in"], x, cfg.quant, training=training)
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return linear_apply(params["w_out"], h, cfg.quant)
+    return linear_apply(params["w_out"], h, cfg.quant, training=training)

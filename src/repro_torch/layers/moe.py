@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.quant.ternary import ternary_quantize
+from repro_torch.quant.ternary import ternary_quantize, ternary_quantize_ste
 
 # Token-chunk size for the dispatch buffer (the JAX package's): bounds the
 # (E, C, d) working set of a long prompt.
@@ -57,12 +57,15 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator, device=None,
     }
 
 
-def _maybe_ternary(w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Inference under ``quant_mode="ternary"``: one layer's whole (E, ·, ·)
-    stack fake-quantized with one absmean (not one per expert), as the JAX
-    package's ``_maybe_ternary``; bf16 configs pass through."""
+def _maybe_ternary(w: torch.Tensor, cfg: ModelConfig, training: bool = False) -> torch.Tensor:
+    """Under ``quant_mode="ternary"``: one layer's whole (E, ·, ·) stack
+    fake-quantized with one absmean (not one per expert), as the JAX
+    package's ``_maybe_ternary``; in training through the straight-through
+    quantizer (f32); bf16 configs pass through."""
     if not cfg.quant.ternary:
         return w
+    if training:
+        return ternary_quantize_ste(w.float())[0]
     w_q, beta = ternary_quantize(w.float())
     return (w_q.float() * beta).to(w.dtype)
 
@@ -124,14 +127,14 @@ def _combine(y_buf, dest, weights, t: int, k: int) -> torch.Tensor:
 
 
 def _moe_tokens(x_flat: torch.Tensor, gate_logits: torch.Tensor, params: dict,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, training: bool = False) -> torch.Tensor:
     """The MoE over T token rows: route, dispatch, expert FFNs, combine."""
     t = x_flat.shape[0]
     e, k = cfg.num_experts, cfg.top_k
     cap = max(8, int(t * k / e * cfg.moe_capacity_factor))
-    w_gate = _maybe_ternary(params["w_gate"], cfg)
-    w_up = _maybe_ternary(params["w_up"], cfg)
-    w_down = _maybe_ternary(params["w_down"], cfg)
+    w_gate = _maybe_ternary(params["w_gate"], cfg, training)
+    w_up = _maybe_ternary(params["w_up"], cfg, training)
+    w_down = _maybe_ternary(params["w_down"], cfg, training)
     token_idx, dest, comb_w, _ = _route(gate_logits, k, cap, e)
     buf = _dispatch(x_flat, token_idx, dest, e, cap)
     y_buf = _expert_ffn(buf, w_gate, w_up, w_down)
@@ -139,17 +142,18 @@ def _moe_tokens(x_flat: torch.Tensor, gate_logits: torch.Tensor, params: dict,
 
 
 def _moe_tokens_chunked(x_flat: torch.Tensor, gate_logits: torch.Tensor, params: dict,
-                        cfg: ModelConfig, chunk: int = MOE_TOKEN_CHUNK) -> torch.Tensor:
+                        cfg: ModelConfig, chunk: int = MOE_TOKEN_CHUNK,
+                        training: bool = False) -> torch.Tensor:
     """``_moe_tokens`` over chunks of ``chunk`` rows (the last one padded
     with zero rows, which route and claim capacity as in the JAX scan)."""
     t, d = x_flat.shape
     if t <= chunk:
-        return _moe_tokens(x_flat, gate_logits, params, cfg)
+        return _moe_tokens(x_flat, gate_logits, params, cfg, training)
     pad = (-t) % chunk
     if pad:
         x_flat = F.pad(x_flat, (0, 0, 0, pad))
         gate_logits = F.pad(gate_logits, (0, 0, 0, pad))
-    ys = [_moe_tokens(x_flat[i:i + chunk], gate_logits[i:i + chunk], params, cfg)
+    ys = [_moe_tokens(x_flat[i:i + chunk], gate_logits[i:i + chunk], params, cfg, training)
           for i in range(0, t + pad, chunk)]
     return torch.cat(ys)[:t]
 
@@ -167,16 +171,19 @@ def _gate_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["router"].float()
 
 
-def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                training: bool = False) -> torch.Tensor:
     """The MoE FFN of x (B, S, d) -> (B, S, d) in x's dtype, without the
     aux loss (the serving programs discard it, as the JAX ones do)."""
     b, s, d = x.shape
     gl = _gate_logits(params, x)
-    y = _moe_tokens_chunked(x.reshape(b * s, d), gl.reshape(b * s, -1), params, cfg)
+    y = _moe_tokens_chunked(x.reshape(b * s, d), gl.reshape(b * s, -1), params, cfg,
+                            training=training)
     return y.reshape(b, s, d).to(x.dtype)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              training: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, d), aux loss scalar), as the JAX ``moe_apply``."""
     aux = load_balance_loss(_gate_logits(params, x), cfg.top_k, cfg.num_experts)
-    return moe_forward(params, x, cfg), aux
+    return moe_forward(params, x, cfg, training=training), aux

@@ -13,7 +13,11 @@ kernel.  Cross-attention K/V are computed once after encoding; the
 decoder's prefill attends them through the plain path (1,500 keys, not
 causal), its decode walks them through the decode attention kernel, over a
 cache padded to a multiple of 128 rows (1,500 -> 1,536) whose pad the walk
-length ``encoder_seq`` masks.
+length ``encoder_seq`` masks.  The training pass (``loss_fn``) encodes
+``batch["frames"]`` and runs the decoder on the plain attention paths
+(never the kernel: its output has no gradient), each decoder layer
+recomputed in backward unless ``cfg.remat`` is "none"; the head is the
+tied embedding.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from repro_torch.layers.linear import linear_apply
 from repro_torch.layers.mlp import mlp_apply
 from repro_torch.layers.norm import apply_norm
 from repro_torch.models.jax_init import init_like_jax
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, remat, unbind_layers
+from repro_torch.train.losses import chunked_ce_loss
 
 
 class EncDecCache(NamedTuple):
@@ -65,8 +70,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     b, s, d = frames.shape
     x = frames + _sinusoids(s, d, frames.device).to(frames.dtype)[None]
     positions = torch.arange(s, device=frames.device).expand(b, s)
-    for li in range(cfg.encoder_layers):
-        lp = layer_params(params["enc_layers"], li)
+    for lp in unbind_layers(params["enc_layers"]):
         h = apply_norm(lp["ln1"], x, "layernorm", cfg.norm_eps)
         attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, causal=False)
         x = x + attn_out
@@ -81,22 +85,59 @@ def compute_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> K
     b, s, _ = enc_out.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     ks, vs = [], []
-    for li in range(cfg.num_layers):
-        cross = layer_params(params["dec_layers"], li)["cross"]
+    for lp in unbind_layers(params["dec_layers"]):
+        cross = lp["cross"]
         ks.append(linear_apply(cross["wk"], enc_out, cfg.quant).reshape(b, s, hkv, hd).transpose(1, 2))
         vs.append(linear_apply(cross["wv"], enc_out, cfg.quant).reshape(b, s, hkv, hd).transpose(1, 2))
     return KVCache(torch.stack(ks), torch.stack(vs))
 
 
-def _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg: ModelConfig):
+def _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg: ModelConfig,
+                       training: bool = False):
     h = apply_norm(lp["ln1"], x, "layernorm", cfg.norm_eps)
-    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg)
+    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, training=training)
     x = x + attn_out
     h = apply_norm(lp["lnx"], x, "layernorm", cfg.norm_eps)
-    cross_out, _ = attention_prefill(lp["cross"], h, positions, cfg, cross_kv=(cross_k, cross_v))
+    cross_out, _ = attention_prefill(lp["cross"], h, positions, cfg, cross_kv=(cross_k, cross_v),
+                                     training=training)
     x = x + cross_out
     h = apply_norm(lp["ln2"], x, "layernorm", cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg), kv
+    return x + mlp_apply(lp["mlp"], h, cfg, training=training), kv
+
+
+def _dec_block_train(x, lp, positions, cross_k, cross_v, cfg: ModelConfig):
+    return _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg, training=True)[0]
+
+
+def _decoder_hidden(params: dict, tokens: torch.Tensor, cross: KVCache,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The training pass of the decoder over tokens (B, S) against the
+    cross K/V: the final normed hidden state (B, S, d)."""
+    b, s = tokens.shape
+    x = params["emb"][tokens] + params["pos_dec"][:s][None]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = remat(_dec_block_train, cfg.remat)
+    for lp, ck, cv in zip(unbind_layers(params["dec_layers"]), cross.k.unbind(0),
+                          cross.v.unbind(0)):
+        x = body(x, lp, positions, ck, cv, cfg)
+    return apply_norm(params["ln_f"], x, "layernorm", cfg.norm_eps)
+
+
+def forward_train(params: dict, batch_inputs: dict, cfg: ModelConfig):
+    """batch_inputs: "frames" (B, Senc, d) and "tokens" (B, S) -> the full
+    logits (B, S, Vp) f32 and a zero aux loss."""
+    enc_out = encode(params, batch_inputs["frames"], cfg)
+    x = _decoder_hidden(params, batch_inputs["tokens"], compute_cross_kv(params, enc_out, cfg), cfg)
+    return x.float() @ params["emb"].float().T, torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
+    """batch: frames (B, Senc, d), tokens, targets, mask (B, S).  The
+    chunked loss over the tied head: (nll, {"nll", "aux": 0})."""
+    enc_out = encode(params, batch["frames"], cfg)
+    x = _decoder_hidden(params, batch["tokens"], compute_cross_kv(params, enc_out, cfg), cfg)
+    loss = chunked_ce_loss(x, params["emb"].T, batch["targets"], batch["mask"])
+    return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 
 def padded_enc_seq(cfg: ModelConfig) -> int:

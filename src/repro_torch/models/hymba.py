@@ -11,10 +11,12 @@ path (dense up to 1,024 tokens, else chunked; the JAX package has no kernel
 for it), and the decode walks the cache through the decode attention kernel
 from the window's start.  The SSM branch is plain torch (``models.ssm``).
 
-Entry points, as the JAX ``ModelAPI`` less ``loss_fn``: ``init``,
-``forward_prefill`` (KV layer-major (L, B, Hkv, S, D)), ``init_cache``
-(KV batch-leading (B, L, Hkv, Smax, D), the SSM and conv states (L, B, ...)),
-``decode_step``; ``install_prefill`` is the logic swap between the two.
+Entry points, as the JAX ``ModelAPI``: ``init``, ``loss_fn`` (with
+``forward_hidden`` / ``forward_train``: the same layers, each recomputed
+in backward unless ``cfg.remat`` is ``"none"``), ``forward_prefill`` (KV
+layer-major (L, B, Hkv, S, D)), ``init_cache`` (KV batch-leading (B, L,
+Hkv, Smax, D), the SSM and conv states (L, B, ...)), ``decode_step``;
+``install_prefill`` is the logic swap between the two.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from repro_torch.layers.mlp import mlp_apply
 from repro_torch.layers.norm import apply_norm
 from repro_torch.models.jax_init import init_like_jax
 from repro_torch.models.ssm import ssm_decode, ssm_prefill
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, remat, unbind_layers
+from repro_torch.train.losses import chunked_ce_loss
 
 FULL_WINDOW = 1 << 30
 
@@ -78,6 +81,46 @@ def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ params["emb"].float().T
 
 
+def _block(x, lp, window: int, positions, cfg: ModelConfig, training: bool = False):
+    """One layer over the whole sequence: (x, (k, v), (SSM state, conv state))."""
+    h = apply_norm(lp["ln1"], x, "rmsnorm", cfg.norm_eps)
+    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, window=window,
+                                     training=training)
+    ssm_out, ssm_state = ssm_prefill(lp["ssm"], h, cfg)
+    x = x + _fuse(lp, attn_out, ssm_out, cfg)
+    h2 = apply_norm(lp["ln2"], x, "rmsnorm", cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h2, cfg, training=training), kv, ssm_state
+
+
+def _block_train(x, lp, window: int, positions, cfg: ModelConfig):
+    return _block(x, lp, window, positions, cfg, training=True)[0]
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final normed hidden state (B, S, d) of tokens (B, S) for the
+    chunked loss, each layer under ``cfg.remat``."""
+    b, s = tokens.shape
+    x = params["emb"][tokens]
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = remat(_block_train, cfg.remat)
+    for lp, w in zip(unbind_layers(params["layers"]), layer_windows(cfg)):
+        x = body(x, lp, w, positions, cfg)
+    return apply_norm(params["ln_f"], x, "rmsnorm", cfg.norm_eps)
+
+
+def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """The full logits (B, S, Vp) f32 and a zero aux loss."""
+    x = forward_hidden(params, tokens, cfg)
+    return x.float() @ params["emb"].float().T, torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
+    """The chunked loss over the tied head: (nll, {"nll", "aux": 0})."""
+    x = forward_hidden(params, batch["tokens"], cfg)
+    loss = chunked_ce_loss(x, params["emb"].T, batch["targets"], batch["mask"])
+    return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
+
+
 def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     """The prefill program: tokens (B, S), one length a batch.  Returns
     (last-position logits (B, Vp), HymbaCache with the KV layer-major
@@ -87,13 +130,8 @@ def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     ks, vs, hs, convs = [], [], [], []
     for li, w in enumerate(layer_windows(cfg)):
-        lp = layer_params(params["layers"], li)
-        h = apply_norm(lp["ln1"], x, "rmsnorm", cfg.norm_eps)
-        attn_out, (k, v) = attention_prefill(lp["attn"], h, positions, cfg, window=w)
-        ssm_out, (ssm_h, conv) = ssm_prefill(lp["ssm"], h, cfg)
-        x = x + _fuse(lp, attn_out, ssm_out, cfg)
-        h2 = apply_norm(lp["ln2"], x, "rmsnorm", cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h2, cfg)
+        x, (k, v), (ssm_h, conv) = _block(x, layer_params(params["layers"], li), w, positions,
+                                          cfg)
         ks.append(k)
         vs.append(v)
         hs.append(ssm_h)

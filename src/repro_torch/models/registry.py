@@ -2,8 +2,9 @@
 ``repro.models.registry``.
 
 All four families of the JAX registry: the transformer family (dense and
-MoE), hymba, xlstm and the whisper encoder-decoder.  The JAX
-``ModelAPI.loss_fn`` comes with training (ROADMAP A.7): here it raises.
+MoE), hymba, xlstm and the whisper encoder-decoder, each with its
+``init``, ``loss_fn`` (the training pass and the chunked loss),
+``forward_prefill``, ``decode_step`` and ``init_cache``.
 """
 from __future__ import annotations
 
@@ -21,22 +22,18 @@ _FAMILIES = {
 }
 
 
-def _no_training(*args, **kwargs):
-    raise NotImplementedError("training is not in the port yet (ROADMAP A.7)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init: Callable
+    loss_fn: Callable
     forward_prefill: Callable
     decode_step: Callable
     init_cache: Optional[Callable]
     module: Any
-    loss_fn: Callable = _no_training
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     mod = _FAMILIES[cfg.family]
-    return ModelAPI(init=mod.init, forward_prefill=mod.forward_prefill,
+    return ModelAPI(init=mod.init, loss_fn=mod.loss_fn, forward_prefill=mod.forward_prefill,
                     decode_step=mod.decode_step, init_cache=getattr(mod, "init_cache", None),
                     module=mod)

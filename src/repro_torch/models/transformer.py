@@ -4,6 +4,10 @@ minicpm, chameleon, granite, moonshot) — the PD-Swap phase programs.
 Layer-stacked parameters (leading dim = num_layers) in plain dicts, as in
 the JAX package; a Python loop over layers takes the place of its scan.
 Entry points:
+  * ``forward_hidden`` / ``forward_train`` / ``loss_fn`` — the training
+    pass: every layer's plain paths (no kernel: a kernel's output has no
+    gradient), the quantization-aware linears of a ternary config, each
+    layer recomputed in backward under ``cfg.remat``, and the chunked loss;
   * ``forward_prefill`` — full causal pass -> last-position logits + per-layer
     KV, or (``split_tail=True``) the hidden state right after the last
     layer's attention, the point where the KV relayout can start;
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -43,10 +48,11 @@ from repro_torch.layers.attention import (
     write_prefill_pages_q,
 )
 from repro_torch.layers.mlp import mlp_apply, mlp_init
-from repro_torch.layers.moe import moe_forward, moe_init
+from repro_torch.layers.moe import moe_apply, moe_forward, moe_init
 from repro_torch.layers.norm import apply_norm, apply_norm_blocks, rmsnorm_init
 from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
+from repro_torch.train.losses import chunked_ce_loss
 
 LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
            ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
@@ -71,6 +77,42 @@ def layer_params(layers, li: int):
     if isinstance(layers, dict):
         return {k: layer_params(v, li) for k, v in layers.items()}
     return layers[li]
+
+
+def unbind_layers(layers) -> list:
+    """The per-layer trees of a layer-stacked tree, each leaf taken apart
+    once with ``torch.unbind``.  Indexing ``layers[li]`` layer by layer
+    would make each layer's backward a ``select`` backward that allocates
+    and adds a whole (L, ...) gradient; an unbind's backward stacks the L
+    gradients once."""
+    if isinstance(layers, dict):
+        per = {k: unbind_layers(v) for k, v in layers.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    if isinstance(layers, TernaryWeight):
+        return [TernaryWeight(p, s) for p, s in zip(torch.unbind(layers.packed),
+                                                    torch.unbind(layers.scale))]
+    return list(torch.unbind(layers))
+
+
+def remat(fn, mode: str):
+    """``fn`` under activation checkpointing ``mode``, as the JAX
+    ``_remat``: ``"none"`` saves every activation; ``"full"`` saves only
+    ``fn``'s inputs and recomputes the rest in backward.  ``"dots"`` (JAX:
+    also keep the matmuls with no batch dims) recomputes everything here,
+    as ``"full"``: the policy moves memory, never a number.  With grad
+    disabled ``fn`` runs as it is."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat must be 'full', 'dots' or 'none', got {mode!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
 
 
 def _cast_layer(lp: dict, dtype: torch.dtype) -> dict:
@@ -156,10 +198,13 @@ def _embed(params, tokens):
     return params["emb"][tokens]
 
 
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["emb"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params, x, cfg: ModelConfig, norm=apply_norm) -> torch.Tensor:
     x = norm(params["ln_f"], x, cfg.norm, cfg.norm_eps)
-    head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.float() @ head.float()  # full f32: TF32 is off (see repro_torch)
+    return x.float() @ _head(params, cfg).float()  # full f32: TF32 is off (see repro_torch)
 
 
 def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -168,6 +213,52 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe:
         return moe_forward(lp["moe"], h, cfg)
     return mlp_apply(lp["mlp"], h, cfg)
+
+
+def _block_train(x, lp, positions, cfg: ModelConfig):
+    """One layer of the training pass: (x, the layer's aux loss, f32)."""
+    h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
+    attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, training=True)
+    x = x + attn_out
+    h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
+    if cfg.moe:
+        ffn_out, aux = moe_apply(lp["moe"], h, cfg, training=True)
+    else:
+        ffn_out = mlp_apply(lp["mlp"], h, cfg, training=True)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ffn_out, aux
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """The training pass over tokens (B, S): (the final normed hidden state
+    (B, S, d), the layers' aux losses summed, f32).  Every layer takes the
+    plain attention paths, and the linears of a ternary config are
+    quantization-aware.  Each layer runs under ``cfg.remat``."""
+    _check_window(cfg)
+    b, s = tokens.shape
+    x = _embed(params, tokens)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    body = remat(_block_train, cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in unbind_layers(params["layers"]):
+        x, aux_l = body(x, lp, positions, cfg)
+        aux = aux + aux_l
+    return apply_norm(params["ln_f"], x, cfg.norm, cfg.norm_eps), aux
+
+
+def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """The full logits (B, S, Vp) f32 and the aux loss: the small-model
+    path; training takes ``loss_fn``, which never holds them whole."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    return x.float() @ _head(params, cfg).float(), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.01):
+    """batch: tokens (B, S), targets (B, S), mask (B, S).  Returns (nll +
+    aux_weight * aux / num_layers, {"nll", "aux"}), as the JAX ``loss_fn``."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg)
+    loss = chunked_ce_loss(x, _head(params, cfg), batch["targets"], batch["mask"])
+    return loss + aux_weight * aux / max(cfg.num_layers, 1), {"nll": loss, "aux": aux}
 
 
 def _block_prefill(x, lp, positions, cfg):

@@ -12,7 +12,10 @@ state, padded steps with input gate ``-1e30``, ``max(|den|, exp(-m))``.
 
 Layers come in groups of ``slstm_every``: ``slstm_every - 1`` mLSTM blocks,
 then one sLSTM block.  The states are grouped as in the JAX package
-(``XLSTMCache``), and the steps update them in place.
+(``XLSTMCache``), and the steps update them in place.  The training pass
+(``forward_hidden``, ``loss_fn``) runs the prefill's blocks from fresh
+states, which it discards, each group under ``cfg.remat``; the head is the
+untied ``lm_head``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers.norm import apply_norm
 from repro_torch.models.jax_init import init_like_jax
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, remat, unbind_layers
+from repro_torch.train.losses import chunked_ce_loss
 
 STATE_INIT_M = -1e30
 CHUNK = 64  # the mLSTM prefill's steps a chunk
@@ -256,6 +260,40 @@ def _forward(params, tokens, cfg: ModelConfig, cache: XLSTMCache, *, decode: boo
     if last_only:
         x = x[:, -1:, :]
     return x.float() @ params["lm_head"].float(), cache
+
+
+def _group_train(x, gp: dict, mstates, sstate: SLSTMState, cfg: ModelConfig):
+    """One group of the training pass from the fresh states ``mstates``
+    (one a block) and ``sstate``: its mLSTM blocks, then its sLSTM block."""
+    for mp, st in zip(unbind_layers(gp["mlstm"]), mstates):
+        x, _ = mlstm_prefill(mp, x, st, cfg)
+    return slstm_forward(gp["slstm"], x, sstate, cfg)[0]
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final normed hidden state (B, S, d) of tokens (B, S) for the
+    chunked loss, each group under ``cfg.remat``."""
+    x = params["emb"][tokens]
+    fresh = init_cache(cfg, tokens.shape[0], device=tokens.device)
+    body = remat(_group_train, cfg.remat)
+    for g, gp in enumerate(unbind_layers(params["groups"])):
+        mstates = [MLSTMState(*(t[g, j] for t in fresh.mlstm))
+                   for j in range(fresh.mlstm.c.shape[1])]
+        x = body(x, gp, mstates, SLSTMState(*(t[g] for t in fresh.slstm)), cfg)
+    return apply_norm(params["ln_f"], x, "rmsnorm", cfg.norm_eps)
+
+
+def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+    """The full logits (B, S, Vp) f32 and a zero aux loss."""
+    x = forward_hidden(params, tokens, cfg)
+    return x.float() @ params["lm_head"].float(), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
+    """The chunked loss over ``lm_head``: (nll, {"nll", "aux": 0})."""
+    x = forward_hidden(params, batch["tokens"], cfg)
+    loss = chunked_ce_loss(x, params["lm_head"], batch["targets"], batch["mask"])
+    return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 
 def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):

@@ -40,6 +40,17 @@ def ternary_quantize(w: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, 
     return w_q.to(torch.int8), beta
 
 
+def ternary_quantize_ste(w: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The straight-through version for quantization-aware training.
+    Forward: the dequantized ternary weights ``w_q * beta``, as the JAX
+    expression ``w + stop_gradient(deq - w)`` rounds them (in float that is
+    not always ``deq``); backward: the identity to the latent weights."""
+    with torch.no_grad():
+        w_q, beta = ternary_quantize(w, eps)
+        deq = w_q.to(w.dtype) * beta.to(w.dtype)
+    return w + (deq - w).detach(), beta
+
+
 def pack_ternary(w_q: torch.Tensor) -> torch.Tensor:
     """Pack int8 ternary (K, N) -> uint8 (K//4, N); K must be a multiple of 4."""
     k, n = w_q.shape

@@ -1433,3 +1433,137 @@ def test_whisper_cross_walk_over_a_padded_cache_equals_its_plain_version():
                                       lengths)
     assert all(torch.isfinite(t).all() for t in got)
     _assert_stats_close(got, want)
+
+
+# ------------------------------------------------------------- training ----
+
+# a training step's loss and gradient norm on the card against the CPU
+# port, as a share of the CPU's: f32 products (TF32 off) summed in other
+# orders.  QAT (bitnet) also rounds activations to int8 codes, and a code
+# flips where an input lies an ulp from a rounding boundary: the JAX parity
+# tests' QAT tolerance.
+TRAIN_TOL = {"smollm-135m": 1e-5, "granite-moe-3b-a800m": 1e-5, "bitnet-730m": 5e-3}
+# each weight's change over the run, card against CPU, as a share of the
+# CPU's change (L2 over the leaf): Adam turns a rounding of a gradient that
+# nearly cancels into a step of up to lr, so single coordinates may part;
+# a skipped or botched update parts the whole leaf (share 1 or more).
+# Measured on one H100 80GB HBM3 (700 W): at most 5.7e-6 (smollm), 1.7e-5
+# (granite), 3.7e-5 (bitnet); losses and gradient norms within 2.6e-6.
+DELTA_TOL = {"smollm-135m": 1e-3, "granite-moe-3b-a800m": 1e-3, "bitnet-730m": 5e-3}
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "bitnet-730m", "granite-moe-3b-a800m"])
+def test_training_step_on_cuda_holds_the_cpu_port(arch):
+    """Three steps of ``make_train_step`` on a reduced config (bitnet: QAT,
+    granite: the MoE's aux) on the card and on the CPU from the same
+    weights and batches.  WSD with one warmup step: step 0 runs at lr 0, so
+    steps 1 and 2 move the weights and step 2's loss is taken after an
+    update.  Losses, gradient norms and each weight's change over the run;
+    no kernel is launched (training takes the plain paths)."""
+    from repro_torch.common.tree import named_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
+
+    dev = _cuda()
+    cfg = reduced_config(arch)
+    step_fn = make_train_step(cfg, TrainConfig(schedule="wsd", warmup=1, total_steps=4))
+    source = make_source(DataConfig(batch=4, seq_len=32, vocab_size=cfg.vocab_size, seed=3))
+    state0 = init_train_state(cfg, 1, "cpu")
+    before = {n: w.clone() for n, w in named_leaves(state0[0])}
+    runs = []
+    reset_counts()
+    for d in ("cpu", dev):  # the step updates in place: each device takes a copy
+        params, opt = (tree_map(lambda t: t.to(d, copy=True), x) for x in state0)
+        metrics = []
+        for s in range(3):
+            batch = {k: torch.from_numpy(v).to(d) for k, v in source.batch(s).items()}
+            params, opt, m = step_fn(params, opt, batch, s)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((metrics, {n: w.cpu() - before[n] for n, w in named_leaves(params)}))
+    assert all(n == 0 for n in COUNTS.values()), dict(COUNTS)
+    assert metrics[1]["lr"] > 0 and metrics[0]["lr"] == 0
+    for s, (mc, mg) in enumerate(zip(runs[0][0], runs[1][0])):
+        for k in ("loss", "grad_norm"):
+            err = abs(mg[k] - mc[k]) / abs(mc[k])
+            print(f"{arch} step {s} {k}: relative error {err:.3g}")
+            assert err <= TRAIN_TOL[arch], (s, k, mg[k], mc[k])
+    worst = 0.0
+    for name, dc in runs[0][1].items():
+        dg, scale = runs[1][1][name], dc.norm().item()
+        assert scale > 0, f"{name} did not move on the CPU"
+        err = (dg - dc).norm().item() / scale
+        worst = max(worst, err)
+        assert err <= DELTA_TOL[arch], (name, err)
+    print(f"{arch}: worst weight change error {worst:.3g}")
+
+
+def test_kernel_wrappers_refuse_grad_requiring_inputs_on_cuda():
+    """Each wrapper (and so each of the seven launches under it) raises on a
+    CUDA input that requires grad while grad is enabled, and launches
+    nothing; under no_grad the same call runs its kernel."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.tlmm.ops import tlmm_matmul
+    from repro_torch.quant.ternary import quantize_and_pack
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    w = quantize_and_pack(r(128, 64))
+    lengths = torch.tensor([5, 30], dtype=torch.int32, device=dev)
+    tables = torch.arange(4, dtype=torch.int32, device=dev).reshape(2, 2)
+    q8 = lambda *shape: torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+    x, q, q3 = r(4, 128), r(1, 4, 32, 64), r(2, 4, 64)
+    calls = {
+        "act_quant_kernel": lambda x: tlmm_matmul(x, w),
+        "prefill_attention_kernel": lambda q: prefill_attention(q, r(1, 2, 32, 64), r(1, 2, 32, 64)),
+        "decode_attention_kernel": lambda q: decode_attention(q, r(2, 2, 32, 64).bfloat16(),
+                                                              r(2, 2, 32, 64).bfloat16(), lengths),
+        "decode_attention_quant_kernel": lambda q: decode_attention(
+            q, q8(2, 2, 32, 64), q8(2, 2, 32, 64), lengths, k_scales=r(2, 2, 32).abs(),
+            v_scales=r(2, 2, 32).abs(), kv_dtype="int8"),
+        "paged_decode_attention_kernel": lambda q: paged_decode_attention(
+            q, r(4, 2, 16, 64).bfloat16(), r(4, 2, 16, 64).bfloat16(), tables, lengths),
+        "paged_decode_attention_quant_kernel": lambda q: paged_decode_attention(
+            q, q8(4, 2, 16, 64), q8(4, 2, 16, 64), tables, lengths,
+            k_scales=r(4, 2, 16).abs(), v_scales=r(4, 2, 16).abs(), kv_dtype="int8"),
+    }
+    args = {"act_quant_kernel": x, "prefill_attention_kernel": q}
+    for name, call in calls.items():
+        a = args.get(name, q3).clone().requires_grad_()
+        reset_counts()
+        with pytest.raises(RuntimeError, match=f"{name}: a hand-written kernel has no backward"):
+            call(a)
+        assert sum(COUNTS.values()) == 0, name
+        with torch.no_grad():
+            call(a)
+        torch.cuda.synchronize()
+        assert sum(COUNTS.values()) >= 1, name
+    reset_counts()
+    x_q = torch.zeros((4, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError, match="tlmm_kernel: a hand-written kernel has no backward"):
+        tlmm_kernel(x_q, w.packed, torch.ones((4, 1), device=dev, requires_grad=True))
+    assert sum(COUNTS.values()) == 0
+
+
+def test_bf16_serving_is_unchanged_by_the_autograd_refusal():
+    """A bf16 ``init`` model served by the engine: its weights require no
+    grad, so the kernels launch with grad enabled as under no_grad, to the
+    same tokens, B2 and B3 as often as the stats imply."""
+    dev = _cuda()
+    cfg = reduced_config("qwen2.5-14b")
+    params = T.init(cfg, 5, device=dev)
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, 20 + 7 * i) for i in range(3)]
+    outs = []
+    for ctx in (torch.enable_grad, torch.no_grad):
+        with ctx():
+            eng = EngineCore(cfg, params, n_slots=2, max_len=64, device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(f"r{i}", p, max_new=6))
+            reset_counts()
+            stats = eng.run()
+            outs.append({k: r.out_tokens for k, r in eng.finished.items()})
+            assert COUNTS["prefill_attention"] == cfg.num_layers * stats.swaps
+            assert COUNTS["decode_attention"] == cfg.num_layers * stats.decode_rounds
+    assert outs[0] == outs[1]

@@ -39,7 +39,7 @@ from test_torch_frontend import _jax_kernel_path_main, _printed
 from test_torch_parity import _numpy_params, _pack_jax, _to_numpy
 from test_torch_spec import SPEC_COUNTERS, _serve
 
-KNOBS = ("use_pallas", "attn_impl", "remat")  # the JAX execution knobs the port has not
+KNOBS = ("use_pallas", "attn_impl")  # the JAX execution knobs the port has not
 MOE_F32_TOL = 1e-5
 # bf16 expert products: XLA and PyTorch round each product's f32 sum to bf16,
 # and a sum taken in another order can land one bf16 ulp apart, 2^-6 for the

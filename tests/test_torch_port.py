@@ -166,11 +166,16 @@ def test_out_of_slice_arguments_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         DisaggEngine(cfg, params, n_slots=1, max_len=64, prefill_device="meta",
                      decode_device="cpu")
-    # every model family is ported; training is not
+    # every model family and training are ported: the registry's loss_fn
+    # trains the latent weights (the packed ones are refused)
     from repro_torch.models.registry import get_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        get_model(cfg).loss_fn(params, {}, cfg)
+    tokens = torch.arange(16).reshape(2, 8) % cfg.vocab_size
+    batch = {"tokens": tokens, "targets": tokens, "mask": torch.ones(2, 8)}
+    loss, metrics = get_model(cfg).loss_fn(T.init(cfg, 3, device="cpu"), batch, cfg)
+    assert torch.isfinite(loss) and loss.dim() == 0 and set(metrics) == {"nll", "aux"}
+    with pytest.raises(ValueError, match="no latent weights"):
+        get_model(cfg).loss_fn(params, batch, cfg)
     eng = EngineCore(cfg, params, **kw, swap_policy="slo-aware")
     with pytest.raises(ValueError, match="never truncated"):
         eng.submit(Request("long", np.arange(60, dtype=np.int32), max_new=8))
