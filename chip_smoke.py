@@ -36,6 +36,20 @@ Phases (any failure raises and the script exits non-zero):
    B6 int8 on 512 pages of 16 at G = 5, D = 128 (qwen2.5-14b), B3 and B6
    int8 at G = 8, D = 128 (chameleon-34b) and G = 3, D = 64 (granite),
    the library yardstick SDPA with ``enable_gqa``;
+   then the analysis phase: the kernel pass on the card (``python -m
+   repro_torch.analysis.kernel_check --device cuda`` in-process: every one
+   of the seven launches over its case grid inside 4 KiB guard bands, twice
+   with two fillings of the pads and dead rows, against its plain version,
+   the quantized entry points under a dispatch recorder, and the CPU half:
+   the registry's launch limits from ``kernels/costs.py`` and the plain
+   versions' contracts), its case and finding counts (any finding fails);
+   then, where the CUDA toolkit has ``compute-sanitizer``, the same pass in
+   a subprocess under ``--tool memcheck`` and B2 and the walks under
+   ``--tool racecheck``, each within ``SANITIZER_TIMEOUT_S`` (any error it
+   reports fails; a tool that cannot attach to the card is printed once and
+   the others are not started); the phase's
+   seconds.  Every bound of phase 3 comes from ``kernels/costs.py``
+   (``min_bytes`` and ``flops`` of the shape);
 4. the main path: bitnet-730m at full width (24 layers, random weights
    from a seed, packed to 2 bits) served by
    ``EngineCore(device="cuda", mode="pdswap", overlap=True)`` to 8 greedy
@@ -44,7 +58,8 @@ Phases (any failure raises and the script exits non-zero):
    seconds and the pool the graphs reserved are printed); the launch
    counters, set to 0 just before, must equal what the engine's stats imply
    (act-quant as often as B1), the graphs' replays adding what their
-   captures counted; the decode profile (device-side events only: device
+   captures counted; no program registered and no graph captured after
+   the grid (the warm-up and the 8 requests included); the decode profile (device-side events only: device
    time a round, busy share, operations a round); the served model's logits
    are held against the plain versions on the CPU at full width and cut
    depth; then the main path's and (d)'s configurations decode the same 4
@@ -54,9 +69,12 @@ Phases (any failure raises and the script exits non-zero):
    and peak device memory;
 5. the other cache options at full width, each serving the same 8 requests
    (and each driven with the counts set to 0 just before and read just
-   after): (a) contiguous int8, pdswap; (b) contiguous int4, static;
+   after): (a) contiguous int8, pdswap, then one eager decode round of its
+   engine under a dispatch recorder, which must allocate no f32 tensor as
+   large as one layer's dequantized cache direction; (b) contiguous int4, static;
    (c) paged bf16, 16-token pages, four prompts sharing a 256-token prefix
-   (prefix hits asserted); (d) paged int8; (e) paged int8 on a pool of 150
+   (prefix hits asserted); (d) paged int8, with (4)'s check that the grid
+   is closed; (e) paged int8 on a pool of 150
    pages, which forces preemption (asserted) and must give (d)'s tokens;
    (f) the main path's configuration again, so that the paths' times
    compare with it late in the run as they are; (g) (d) with the odd
@@ -259,6 +277,8 @@ def timed_ms(torch, fn, flush, reps: int = 15, busy: bool = True) -> float:
 
 def kernel_checks(torch, ops, refs):
     """Phase 3.  Returns {kernel: entry without launches}."""
+    from repro_torch.kernels import costs
+
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -307,7 +327,8 @@ def kernel_checks(torch, ops, refs):
             # tlmm_matmul end to end from f32 activations: act-quant, then B1
             tw = refs["ternary"](w, torch.tensor(0.037, device=dev))
             x = torch.randn((m, k), generator=gen, device=dev)
-            b_ms, b_by = bound(m * k + k * n / 4 + m * 4 + m * n * 4, 2.0 * m * k * n, "int8")
+            cost = costs.tlmm_cost(m, k, n)
+            b_ms, b_by = bound(cost.min_bytes, cost.flops, "int8")
             case = {
                 "shape": f"M={m} K={k} N={n}", "max_abs_err": 0.0,
                 "ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush),
@@ -329,9 +350,9 @@ def kernel_checks(torch, ops, refs):
         err = (out - refs["prefill"](q, k, v)).abs().max().item()
         if not err <= 1e-4:
             raise AssertionError(f"prefill attention kernel off by {err} at S={s}")
-        ops_causal = 4.0 * 64 * 24 * s * (s + 1) / 2
+        cost = costs.prefill_attention_cost(1, 24, 24, s, 64)
         # the kernel's products: three TF32 tensor-core passes (3xTF32) a product
-        b_ms, b_by = bound(4 * q.numel() * 4, 3 * ops_causal, "tf32")
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
         sdpa = torch.nn.functional.scaled_dot_product_attention
         cases.append({
             "shape": f"(1,24,{s},64)", "max_abs_err": err,
@@ -340,7 +361,7 @@ def kernel_checks(torch, ops, refs):
             "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
             "bound_ms": b_ms, "bound_by": b_by,
             # the same work on the f32 FMA units
-            "bound_f32_fma_ms": bound(4 * q.numel() * 4, ops_causal, "f32")[0],
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
             "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush),
         })
     results["prefill_attention"] = dict(cases[1], max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -441,6 +462,7 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
     run again on the same contents placed elsewhere (same bits asserted),
     B3/B4 also on the same rows as shuffled 16-row pages through B5/B6 (the
     same walk: same bits asserted), and timed with every length 0."""
+    from repro_torch.kernels import costs
     from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
     from repro_torch.quant.kv_quant import dequantize_kv
 
@@ -451,17 +473,15 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
     no_lengths = torch.zeros_like(lengths)
     mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    live = sum(DECODE_LENGTHS)
     used = [-(-n // bs) for n in DECODE_LENGTHS]
     qb = q.to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    small = q.numel() * 4 * 2 + 2 * b * hkv * 4 + b * 4  # q in, out/l/m out, lengths
     results = {}
 
-    def entry(shape, err, run, plain, lib, nbytes, empty):
+    def entry(shape, err, run, plain, lib, cost, empty):
         """The kernel's times, and the same launch with every length 0 (the
         fixed cost of the launch, ``empty_ms``)."""
-        b_ms, b_by = bound(nbytes, 4.0 * d * hkv * live, "f32")
+        b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
         return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
                 "call_ms": timed_ms(torch, run, flush, busy=False),
                 "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
@@ -482,7 +502,8 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
     results["decode_attention"] = entry(
         f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={DECODE_LENGTHS} bf16 layer slice", err,
         lambda: ops["decode"](*args), lambda: refs["decode"](*args),
-        lambda: sdpa(qb, args[1], args[2], attn_mask=mask), 2 * live * hkv * d * 2 + small,
+        lambda: sdpa(qb, args[1], args[2], attn_mask=mask),
+        costs.decode_attention_cost(DECODE_LENGTHS, hkv, 1, d, cap=smax),
         lambda: ops["decode"](*args[:3], no_lengths))
     del cache_k, cache_v, args
 
@@ -509,7 +530,8 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
             f"B={b} Hkv={hkv} Smax={smax} D={d} lengths={DECODE_LENGTHS} {kv_dtype} layer slice",
             err, lambda: ops["decode_quant"](*args, kv_dtype=kv_dtype),
             lambda: refs["decode_quant"](*args, kv_dtype=kv_dtype),
-            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small,
+            lambda: sdpa(qb, kd, vd, attn_mask=mask),
+            costs.decode_attention_cost(DECODE_LENGTHS, hkv, 1, d, kv_dtype=kv_dtype, cap=smax),
             lambda: ops["decode_quant"](*args[:5], no_lengths, kv_dtype=kv_dtype)))
     results["decode_attention_quant"] = dict(cases[0], max_abs_err=max(c["max_abs_err"] for c in cases),
                                              cases=cases)
@@ -521,7 +543,6 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
     for i, u in enumerate(used):
         tables[i, :u] = perm[start:start + u]
         start += u
-    small_p = small + sum(used) * 4  # the table entries read
 
     # B5 — paged decode attention, bf16 pool (512, 24, 24, 16, 64), layer 7
     pool_k, pool_v = (torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev)
@@ -536,7 +557,9 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
         f"B={b} Hkv={hkv} N={pool_pages} bs={bs} P={n_pages} D={d} lengths={DECODE_LENGTHS} "
         "bf16 pool layer slice, shuffled tables", err, lambda: ops["paged"](*args),
         lambda: refs["paged"](*args), lambda: sdpa(qb, kd, vd, attn_mask=mask),
-        2 * live * hkv * d * 2 + small_p, lambda: ops["paged"](*args[:4], no_lengths))
+        costs.decode_attention_cost(DECODE_LENGTHS, hkv, 1, d, paged=True, bs=bs,
+                                    cap=n_pages * bs),
+        lambda: ops["paged"](*args[:4], no_lengths))
     del pool_k, pool_v, kd, vd
 
     # B6 — quantized paged decode attention on the same pool layout
@@ -558,7 +581,9 @@ def decode_walk_checks(torch, ops, refs, flush, gen):
             f"{kv_dtype} pool layer slice, shuffled tables", err,
             lambda: ops["paged_quant"](*args, kv_dtype=kv_dtype),
             lambda: refs["paged_quant"](*args, kv_dtype=kv_dtype),
-            lambda: sdpa(qb, kd, vd, attn_mask=mask), 2 * live * hkv * (dp + 4) + small_p,
+            lambda: sdpa(qb, kd, vd, attn_mask=mask),
+            costs.decode_attention_cost(DECODE_LENGTHS, hkv, 1, d, kv_dtype=kv_dtype, paged=True,
+                                        bs=bs, cap=n_pages * bs),
             lambda: ops["paged_quant"](*args[:6], no_lengths, kv_dtype=kv_dtype)))
     results["paged_decode_attention_quant"] = dict(
         cases[0], max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
@@ -578,6 +603,7 @@ def verify_row_checks(torch, ops, refs, flush, gen):
     bf16 view with the 20 rows' masks.  The bound counts each slot's rows
     read once (its longest row's range) and the operations of every row.
     Returns {kernel: case}."""
+    from repro_torch.kernels import costs
     from repro_torch.quant.kv_quant import dequantize_kv
 
     dev = torch.device("cuda")
@@ -586,10 +612,8 @@ def verify_row_checks(torch, ops, refs, flush, gen):
     base = torch.tensor(VERIFY_BASE, dtype=torch.int32, device=dev)
     lengths = (base[:, None] + torch.arange(w, dtype=torch.int32, device=dev)).reshape(-1)
     no_lengths = torch.zeros_like(lengths)
-    read = sum(VERIFY_BASE) + b * (w - 1)
     mask = (torch.arange(smax, device=dev)[None, None, :] < lengths.reshape(b, w, 1))[:, None]
     qb = q.reshape(b, w, hkv, d).transpose(1, 2).to(torch.bfloat16)
-    small = q.numel() * 4 * 2 + 2 * b * w * hkv * 4 + b * w * 4
     sdpa = torch.nn.functional.scaled_dot_product_attention
     (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, smax, d), "int8")
                             for _ in range(2))
@@ -611,27 +635,29 @@ def verify_row_checks(torch, ops, refs, flush, gen):
     shape = (f"verify rows: B*W={b * w} query rows (4 slots x {w}), lengths {VERIFY_BASE} + "
              f"0..{w - 1}, Hkv={hkv} D={d}, int8")
 
-    def case(run, plain, empty, err, nbytes):
-        b_ms, b_by = bound(nbytes, 4.0 * d * hkv * int(lengths.sum()), "f32")
+    def case(run, plain, empty, err, cost):
+        b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
         return {"shape": shape, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
                 "call_ms": timed_ms(torch, run, flush, busy=False),
                 "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": timed_ms(torch, lambda: sdpa(qb, kd, vd, attn_mask=mask), flush),
                 "empty_ms": timed_ms(torch, empty, flush)}
 
-    nbytes = 2 * read * hkv * (d + 4) + small
+    rows = lengths.tolist()
     out = {
         "decode_attention_quant": case(
             lambda: ops["decode_quant"](q, *planes, lengths, kv_dtype="int8", rows_per_slot=w),
             lambda: refs["decode_quant"](q, *(t.repeat_interleave(w, 0) for t in planes), lengths,
                                          kv_dtype="int8"),
             lambda: ops["decode_quant"](q, *planes, no_lengths, kv_dtype="int8", rows_per_slot=w),
-            err, nbytes),
+            err, costs.decode_attention_cost(rows, hkv, 1, d, kv_dtype="int8", cap=smax,
+                                             rows_per_slot=w)),
         "paged_decode_attention_quant": case(
             lambda: ops["paged_quant"](q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8"),
             lambda: refs["paged_quant"](q, kp, ksp, vp, vsp, tables, lengths, kv_dtype="int8"),
             lambda: ops["paged_quant"](q, kp, ksp, vp, vsp, tables, no_lengths, kv_dtype="int8"),
-            err_p, nbytes + 4 * sum(-(-(n + w - 1) // 16) for n in VERIFY_BASE)),
+            err_p, costs.decode_attention_cost(rows, hkv, 1, d, kv_dtype="int8", paged=True,
+                                               bs=16, cap=smax, rows_per_slot=w)),
     }
     out["decode_attention_quant"]["shape"] += " slot slice (rows_per_slot 5)"
     out["paged_decode_attention_quant"]["shape"] += " pages, each table row repeated 5 times"
@@ -657,6 +683,7 @@ def family_kernel_checks(torch, ops, refs, flush, gen):
     and G = 3, D = 64 (granite): each against its plain version, timed
     beside its bound and SDPA with ``enable_gqa``.  Returns [(kernel,
     case)]."""
+    from repro_torch.kernels import costs
     from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
     from repro_torch.quant.kv_quant import dequantize_kv
 
@@ -672,22 +699,20 @@ def family_kernel_checks(torch, ops, refs, flush, gen):
         if not err <= 1e-4:
             raise AssertionError(f"prefill attention kernel off by {err} at H={h} Hkv={hkv} "
                                  f"S={s} D={d}")
-        ops_causal = 4.0 * d * h * s * (s + 1) / 2
-        nbytes = (2 * q.numel() + 2 * k.numel()) * 4
-        b_ms, b_by = bound(nbytes, 3 * ops_causal, "tf32")
+        cost = costs.prefill_attention_cost(1, h, hkv, s, d)
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
         out.append(("prefill_attention", {
             "shape": f"(1,{h},{s},{d}) Hkv={hkv} f32 (qwen2.5-14b)", "max_abs_err": err,
             "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
             "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
             "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_f32_fma_ms": bound(nbytes, ops_causal, "f32")[0],
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
             "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
                                    flush)}))
         del q, k, v
     b, smax, bs, pool_pages = 4, 2048, 16, 512
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
-    live = sum(DECODE_LENGTHS)
     mask = (torch.arange(smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     used = [-(-n // bs) for n in DECODE_LENGTHS]
     perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
@@ -703,7 +728,6 @@ def family_kernel_checks(torch, ops, refs, flush, gen):
     for arch, hkv, g, d, layers, walks in FAMILY_WALKS:
         q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
         qb = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
-        small = q.numel() * 4 * 2 + 2 * b * hkv * g * 4 + b * 4
         for layout, kv_dtype in walks:
             name = names[(layout, kv_dtype)]
             rows = (pool_pages if layout == "paged" else b, layers, hkv,
@@ -729,9 +753,9 @@ def family_kernel_checks(torch, ops, refs, flush, gen):
                          else (lambda t: t))
                 kd, vd = (dequantize_kv(view(p_), sview(s_), kv_dtype).to(torch.bfloat16)
                           for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
-            row_bytes = d * 2 if kv_dtype == "fp" else d + 4
-            nbytes = 2 * live * hkv * row_bytes + small + (sum(used) * 4 if walk_tables else 0)
-            b_ms, b_by = bound(nbytes, 4.0 * d * hkv * g * live, "f32")
+            cost = costs.decode_attention_cost(DECODE_LENGTHS, hkv, g, d, kv_dtype=kv_dtype,
+                                               paged=bool(walk_tables), bs=bs, cap=smax)
+            b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
             no_lengths = torch.zeros_like(lengths)
             out.append((kernels[name], {
                 "shape": (f"{arch}: B={b} Hkv={hkv} G={g} D={d} lengths={DECODE_LENGTHS} "
@@ -762,12 +786,14 @@ CROSS_WALK = (20, 1, 64, 32, 1536, 1500)  # Hkv, G, D, layers, rows, encoder_seq
 LONG_ROWS = 524288  # the long_500k cell's context
 
 
-def _walk_case(torch, ops, refs, flush, what, q, k, v, lengths, starts, live_rows, view=None):
+def _walk_case(torch, ops, refs, flush, what, q, k, v, lengths, starts, view=None):
     """One B3 case against its plain version: err, kernel / plain / SDPA
     times and the bound.  q (B, Hkv, G, D) f32, k/v (B, Hkv, S, D) bf16
     views the kernel walks; the plain version and the SDPA yardstick (the
     [start, length) mask, ``enable_gqa``) read ``view`` (k, v) where given,
-    else k/v.  ``live_rows`` is the rows a slot walks, summed."""
+    else k/v."""
+    from repro_torch.kernels import costs
+
     b, hkv, g, d = q.shape
     kr, vr = (k, v) if view is None else view
     got = ops["decode"](q, k, v, lengths, starts)
@@ -777,8 +803,9 @@ def _walk_case(torch, ops, refs, flush, what, q, k, v, lengths, starts, live_row
     mask = ((pos < lengths[:, None]) & (pos >= lo[:, None]))[:, None, None, :]
     qb = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    small = q.numel() * 4 * 2 + 2 * b * hkv * g * 4 + b * 4 * (1 if starts is None else 2)
-    b_ms, b_by = bound(2 * live_rows * hkv * d * 2 + small, 4.0 * d * hkv * g * live_rows, "f32")
+    cost = costs.decode_attention_cost(lengths.tolist(), hkv, g, d, cap=k.shape[2],
+                                       starts=None if starts is None else starts.tolist())
+    b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
     return {"shape": what, "max_abs_err": err,
             "ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths, starts), flush),
             "call_ms": timed_ms(torch, lambda: ops["decode"](q, k, v, lengths, starts), flush,
@@ -800,6 +827,8 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
     524,288 rows of one slot (a hymba global layer at the long_500k cell).
     Each against its plain version, timed beside its bound and SDPA.
     Returns [(kernel, case)]."""
+    from repro_torch.kernels import costs
+
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
@@ -809,16 +838,15 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
         err = (ops["prefill"](q, k, v) - refs["prefill"](q, k, v)).abs().max().item()
         if not err <= 1e-4:
             raise AssertionError(f"prefill attention kernel off by {err} at (1,{h},{s},{d})")
-        ops_causal = 4.0 * d * h * s * (s + 1) / 2
-        nbytes = 4 * q.numel() * 4
-        b_ms, b_by = bound(nbytes, 3 * ops_causal, "tf32")
+        cost = costs.prefill_attention_cost(1, h, h, s, d)
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
         out.append(("prefill_attention", {
             "shape": f"(1,{h},{s},{d}) f32 (whisper-large-v3 decoder)", "max_abs_err": err,
             "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
             "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
             "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bound_f32_fma_ms": bound(nbytes, ops_causal, "f32")[0],
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
             "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush)}))
         del q, k, v
     hkv, g, d, layers, smax, window = HYMBA_WALK
@@ -828,12 +856,11 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
     planes = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev,
                           dtype=torch.bfloat16)[:, 7] for _ in range(2)]
     q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
-    live = int((lengths - starts).sum())
     out.append(("decode_attention", _walk_case(
         torch, ops, refs, flush,
         f"hymba-1.5b: B={b} Hkv={hkv} G={g} D={d} lengths={HYMBA_WALK_LENGTHS} window {window} "
         f"(starts {starts.tolist()}) bf16 layer slice of ({b},{layers},{hkv},{smax},{d})",
-        q, *planes, lengths, starts, live)))
+        q, *planes, lengths, starts)))
     del planes
     hkv, g, d, layers, rows, enc = CROSS_WALK
     planes = [torch.randn((b, layers, hkv, rows, d), generator=gen, device=dev,
@@ -850,7 +877,7 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
         torch, ops, refs, flush,
         f"whisper-large-v3 cross: B={b} Hkv={hkv} G={g} D={d} {enc} of {rows} rows (NaN pad) "
         f"bf16 layer slice of ({b},{layers},{hkv},{rows},{d})",
-        q, *planes, lengths, None, b * enc, view=[t[:, :, :enc] for t in planes])))
+        q, *planes, lengths, None, view=[t[:, :, :enc] for t in planes])))
     del planes
     hkv, g, d = HYMBA_WALK[:3]
     planes = [torch.randn((1, hkv, LONG_ROWS, d), generator=gen, device=dev,
@@ -861,9 +888,142 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
         torch, ops, refs, flush,
         f"hymba-1.5b global layer at long_500k: B=1 Hkv={hkv} G={g} D={d} length "
         f"{LONG_ROWS - 1} of {LONG_ROWS} rows bf16 (grid 8 x {hkv} x 1 = {8 * hkv} blocks)",
-        q, *planes, lengths, None, LONG_ROWS - 1)))
+        q, *planes, lengths, None)))
     del planes
     return out
+
+
+# ---- the analysis phase --
+
+SANITIZER_TIMEOUT_S = 120  # each compute-sanitizer run of the kernel pass
+RACECHECK_KERNELS = ("prefill_attention", "decode_attention", "decode_attention_quant",
+                     "paged_decode_attention", "paged_decode_attention_quant")
+
+
+def _sanitizer() -> str | None:
+    import shutil
+
+    found = shutil.which("compute-sanitizer")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/compute-sanitizer")
+    return str(cand) if cand.exists() else None
+
+
+def _sanitized(tool: str, binary: str, kernels=None):
+    """The kernel pass on the card in a subprocess under ``compute-sanitizer
+    --tool tool``: (ran, errors, seconds, what it said last).  ``ran`` is
+    False where the tool reported no summary (it could not run here)."""
+    import os
+    import re
+    import signal
+
+    cmd = [binary, "--tool", tool, sys.executable, "-m", "repro_torch.analysis.kernel_check",
+           "--device", "cuda"] + (["--kernels", ",".join(kernels)] if kernels else [])
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=SANITIZER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return False, 0, time.perf_counter() - t0, f"cut at its {SANITIZER_TIMEOUT_S} s limit"
+    seconds = time.perf_counter() - t0
+    summary = re.findall(r"ERROR SUMMARY: (\d+) error", out)
+    refused = re.search(r"Error: (Device not supported[^\n]*)", out)
+    tail = " | ".join(line.strip() for line in out.strip().splitlines()[-3:])
+    if refused:  # the tool cannot attach to this card here: its "errors" are its own
+        return False, 0, seconds, f"exit {proc.returncode}: {refused.group(1).strip()}"
+    if not summary:
+        return False, 0, seconds, f"exit {proc.returncode}: {tail}"
+    return True, sum(int(n) for n in summary), seconds, tail
+
+
+def analysis_phase(torch, card):
+    """Phase 3b: the kernel pass on the card (every launch inside guard
+    bands, against its plain version, plus the CPU half), then the same
+    pass under compute-sanitizer's memcheck, and racecheck over B2 and the
+    walks, where the toolkit has the tool.  Any finding fails the run: no
+    baseline waives one here."""
+    from repro_torch.analysis import kernel_check
+
+    t0 = time.perf_counter()
+    stats = {}
+    found = kernel_check.run(Path(__file__).resolve().parent / "src" / "repro_torch",
+                             device="cuda", stats=stats)
+    for f in found:
+        print(f"  {f.render()}")
+    print(f"analysis: kernel pass: {stats['cases']} cases on the card over the seven launches "
+          f"(guard bands, two fillings, against the plain versions), {stats['contracts']} "
+          f"plain-version contract checks, {stats['launches']} launch shapes of the registry "
+          f"within 227 KiB and 8-block clusters: {len(found)} findings; largest difference "
+          f"from the plain version: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in stats["max_err"].items()) + f"  [{card}]")
+    if found:
+        raise AssertionError(f"the kernel pass found {len(found)} faults")
+    binary = _sanitizer()
+    if binary is None:
+        print("analysis: compute-sanitizer is absent from this CUDA toolkit: not run")
+    else:
+        for tool, kernels in (("memcheck", None), ("racecheck", RACECHECK_KERNELS)):
+            ran, errors, seconds, said = _sanitized(tool, binary, kernels)
+            which = "every launch" if kernels is None else "B2 and the walks"
+            if not ran:
+                print(f"analysis: compute-sanitizer --tool {tool} ({which}) did not run to a "
+                      f"summary in {seconds:.1f} s: {said}")
+                if "Device not supported" in said:
+                    print("analysis: compute-sanitizer cannot attach to this card: its other "
+                          "tools not run")
+                    break
+                continue
+            print(f"analysis: compute-sanitizer --tool {tool} ({which}): {errors} errors in "
+                  f"{seconds:.1f} s  [{card}]")
+            if errors:
+                raise AssertionError(f"compute-sanitizer {tool} reported {errors} errors: {said}")
+    print(f"analysis: phase {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def grid_closure(eng, grid, what, card):
+    """No program registered and no graph captured after
+    ``build_serving_grid`` (the warm-up and the served requests included):
+    a capture inside a served request is a latency spike."""
+    engines = [eng.runner.engine] + ([eng.prefill_pool.engine] if hasattr(eng, "prefill_pool")
+                                     else [])
+    registered = sum(len(set(e.programs) - grid["programs"]) for e in engines)
+    captured = sum(1 for e in engines for k, p in e.programs.items()
+                   if p.captured is not None and k not in grid["captured"])
+    print(f"analysis: {what} after build_serving_grid, its warm-up and {len(eng.finished) - 1} "
+          f"requests: {registered} programs registered, {captured} graphs captured  [{card}]")
+    if registered or captured:
+        raise AssertionError(f"{what}: {registered} programs registered and {captured} graphs "
+                             "captured after the serving grid was built")
+
+
+def eager_round_f32(torch, eng, cfg, card):
+    """One eager decode round of a quantized contiguous engine (its
+    program's ``fn``, idle lengths: every slot is free) under the dispatch
+    recorder: no f32 allocation as large as one layer's dequantized cache
+    direction (a wrapper that fell back to dequantizing its operand)."""
+    from repro_torch.analysis.progcheck import OpRecorder
+
+    runner = eng.runner
+    n = len(runner.slots.slots)
+    threshold = n * cfg.num_kv_heads * runner.max_len * cfg.head_dim
+    lengths = runner.slots.lengths_array({s: 0 for s in range(n)})
+    args = (runner.params, runner.last_tokens, runner.cache, lengths)
+    rec = OpRecorder(args)
+    with torch.no_grad(), rec:
+        runner.decode_prog.fn(*args)
+    torch.cuda.synchronize()
+    big = rec.f32_at_least(threshold)
+    largest = max((math.prod(sh) for op, sh, dt in rec.ops if dt == torch.float32), default=0)
+    print(f"analysis: one eager int8 decode round of (a): {len(rec.ops)} allocations, the "
+          f"largest f32 {largest} elements against one layer's dequantized cache direction of "
+          f"{threshold}: {len(big)} as large  [{card}]")
+    if big:
+        raise AssertionError(f"(a)'s eager round allocates f32 {big[0]}: a dequantized layer cache")
 
 
 def main() -> int:
@@ -939,6 +1099,7 @@ def main() -> int:
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
     del flush
+    analysis_phase(torch, card)
     for name, r in checks.items():
         for c in r.get("cases", [r]):
             extra = "".join(f"  {key} {c[key]:.4f}" for key in (
@@ -962,6 +1123,7 @@ def main() -> int:
     rng = np.random.default_rng(1)
 
     check_served(eng, cfg, len(prompt_lens), max_tokens)
+    grid_closure(eng, grid, "the main path", card)
     per_pass = 7 * cfg.num_layers
     expect = {name: 0 for name in DECODE_KERNELS}
     expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
@@ -1196,7 +1358,8 @@ def build_grid(torch, eng):
     graphs = [k for e in engines for k, p in e.programs.items() if p.captured is not None]
     pools = [e.graph_pool_bytes() for e in engines]
     return {"seconds": seconds, "graphs": len(graphs),
-            "pool_bytes": None if None in pools else sum(pools)}
+            "pool_bytes": None if None in pools else sum(pools),
+            "programs": {k for e in engines for k in e.programs}, "captured": set(graphs)}
 
 
 def _grid_line(grid):
@@ -1314,6 +1477,10 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         print(f"  kv_bytes {kb}")
         print(f"  {_grid_line(grid)}  [{card}]")
         print(f"  launches {launches}")
+        if key == "d":
+            grid_closure(eng, grid, "path (d)", card)
+        if key == "a":
+            eager_round_f32(torch, eng, cfg, card)
         if key == "c" and not st.prefix_hits > 0:
             raise AssertionError("path (c): no prefix-cache hits")
         if key in ("e", "h", "j") and not (st.preemptions > 0 and st.replayed_tokens > 0):

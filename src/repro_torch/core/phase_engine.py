@@ -131,9 +131,12 @@ class PhaseProgram:
     as a CUDA graph, and every later call replays the graph.
 
     The arguments at ``pinned`` (params, cache, pages, the f32 prefix
-    mirror: what the JAX program donates) must be the very tensors of the
-    first call, checked by ``data_ptr`` on every call and on every device;
-    another tensor raises.  The tensors of every other argument are copied
+    mirror: what the JAX program donates; a cache a program returns comes
+    back as the same storage, updated in place) must be the very tensors of
+    the first call, checked by ``data_ptr`` on every call of a capturable
+    program and on every device; another tensor raises.  ``phase`` names
+    the serving phase (``prefill``, ``decode``, ``swap`` or ``sampler``),
+    as the JAX registry does; the ``program`` analysis pass reads both.  The tensors of every other argument are copied
     into the graph's static inputs before each replay, so they may change
     between calls but not in shape or dtype.  A replay returns the graph's
     static outputs: the tensors ``fn`` makes are copied, at the end of the
@@ -152,6 +155,7 @@ class PhaseProgram:
     graphs: GraphResources = dataclasses.field(default_factory=GraphResources)
     pins: Optional[List[List[int]]] = None  # data_ptr of each pinned argument's tensors
     captured: Optional[_Graph] = None
+    phase: str = ""
 
     def __call__(self, *args):
         if not self.capturable:
@@ -232,6 +236,62 @@ class PhaseProgram:
         return g.outputs
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one tensor a program is dispatched with (the
+    counterpart of ``jax.ShapeDtypeStruct``); ``host`` for a tensor that
+    stays on the CPU (the page write's destination ids)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    host: bool = False
+
+    def zeros(self, device) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device="cpu" if self.host else device)
+
+
+def spec_of(tree):
+    """``tree`` with every tensor replaced by its ``TensorSpec``."""
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tuple(tree.shape), tree.dtype)
+    return _rebuild(tree, iter([TensorSpec(tuple(t.shape), t.dtype) for t in tensor_leaves(tree)]))
+
+
+def _materialize(tree, device):
+    if isinstance(tree, TensorSpec):
+        return tree.zeros(device)
+    if isinstance(tree, dict):
+        return {k: _materialize(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_materialize(x, device) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_materialize(x, device) for x in tree)
+    return tree
+
+
+@dataclasses.dataclass(eq=False)
+class ProgramSignature:
+    """What ``EngineCore.step`` dispatches one program with: ``args`` holds,
+    at each index of ``own``, the runner's own tensors (params, cache,
+    pages, prefix mirror: the pinned arguments), and elsewhere
+    ``TensorSpec`` trees or the Python ints the program takes."""
+
+    key: str
+    program: PhaseProgram
+    args: tuple
+    own: Tuple[int, ...]
+
+    @property
+    def phase(self) -> str:
+        return self.program.phase
+
+    def inputs(self, device) -> tuple:
+        """The arguments to call the program with: the runner's own tensors
+        where ``own`` says, zeros of each spec on ``device`` elsewhere."""
+        return tuple(a if i in self.own else _materialize(a, device)
+                     for i, a in enumerate(self.args))
+
+
 class PhaseEngine:
     """Builds and caches the phase programs for one architecture."""
 
@@ -245,10 +305,11 @@ class PhaseEngine:
         self._programs: Dict[str, PhaseProgram] = {}
         self._graphs = GraphResources()
 
-    def _program(self, key: str, fn: Callable, *, capturable: bool = False,
+    def _program(self, key: str, fn: Callable, *, phase: str, capturable: bool = False,
                  pinned: Tuple[int, ...] = ()) -> PhaseProgram:
         if key not in self._programs:
-            self._programs[key] = PhaseProgram(key, fn, capturable, pinned, self._graphs)
+            self._programs[key] = PhaseProgram(key, fn, capturable, pinned, self._graphs,
+                                               phase=phase)
         return self._programs[key]
 
     def before_capture(self, hook: Callable[[], None]) -> None:
@@ -281,7 +342,7 @@ class PhaseEngine:
         def fn(params, tokens, last_pos):
             return T.forward_prefill(params, tokens, cfg, last_pos=last_pos)
 
-        return self._program(f"prefill_varlen:{batch}x{seq}", fn)
+        return self._program(f"prefill_varlen:{batch}x{seq}", fn, phase="prefill")
 
     def prefill_split_programs_varlen(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
         """(body, tail): the overlap split, the tail taking ``last_pos``."""
@@ -294,7 +355,8 @@ class PhaseEngine:
         def tail_fn(params, x_mid, last_pos):
             return T.prefill_tail(params, x_mid, cfg, last_pos=last_pos)
 
-        return self._program(key, body_fn), self._program(key + ":tail", tail_fn)
+        return (self._program(key, body_fn, phase="prefill"),
+                self._program(key + ":tail", tail_fn, phase="prefill"))
 
     def prefill_split_programs(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
         """(body, tail): the overlap split at the last layer's attention."""
@@ -306,8 +368,8 @@ class PhaseEngine:
         def tail_fn(params, x_mid):
             return T.prefill_tail(params, x_mid, cfg)
 
-        return (self._program(f"prefill_body:{batch}x{seq}", body_fn),
-                self._program(f"prefill_tail:{batch}x{seq}", tail_fn))
+        return (self._program(f"prefill_body:{batch}x{seq}", body_fn, phase="prefill"),
+                self._program(f"prefill_tail:{batch}x{seq}", tail_fn, phase="prefill"))
 
     def relayout_program(self, batch: int, seq: int, max_len: int) -> PhaseProgram:
         """The swap: ``fn(kv, cache, slot)`` moves one prompt's prefill-layout
@@ -321,7 +383,7 @@ class PhaseEngine:
         def fn(kv, cache, slot):
             return insert_prefill_kv(cache, kv, slot)
 
-        return self._program(f"relayout:{batch}x{seq}->{max_len}", fn)
+        return self._program(f"relayout:{batch}x{seq}->{max_len}", fn, phase="swap", pinned=(1,))
 
     def decode_program(self, batch: int, max_len: int) -> PhaseProgram:
         """``fn(params, token, cache, lengths) -> (logits, cache)``; the cache
@@ -331,7 +393,8 @@ class PhaseEngine:
         def fn(params, token, cache, lengths):
             return T.decode_step(params, token, cache, lengths, cfg)
 
-        return self._program(f"decode:{batch}x{max_len}", fn, capturable=True, pinned=(0, 2))
+        return self._program(f"decode:{batch}x{max_len}", fn, phase="decode", capturable=True,
+                             pinned=(0, 2))
 
     def paged_decode_program(self, n_slots: int, max_pages: int) -> PhaseProgram:
         """``fn(params, token, pages, block_tables, lengths) -> (logits,
@@ -341,7 +404,8 @@ class PhaseEngine:
         def fn(params, token, pages, block_tables, lengths):
             return T.decode_step_paged(params, token, pages, block_tables, lengths, cfg)
 
-        return self._program(f"decode_paged:{n_slots}x{max_pages}", fn, capturable=True,
+        return self._program(f"decode_paged:{n_slots}x{max_pages}", fn, phase="decode",
+                             capturable=True,
                              pinned=(0, 2))
 
     def page_write_program(self, seq: int, block_size: int) -> PhaseProgram:
@@ -353,7 +417,7 @@ class PhaseEngine:
             return KVCache(write_prefill_pages_q(pages.k, kv.k, page_ids, block_size=block_size),
                            write_prefill_pages_q(pages.v, kv.v, page_ids, block_size=block_size))
 
-        return self._program(f"page_write:{seq}@{block_size}", fn)
+        return self._program(f"page_write:{seq}@{block_size}", fn, phase="swap", pinned=(0,))
 
     def prefill_chunk_program(self, chunk: int, n_slots: int, max_len: int,
                               prefix_width: int) -> PhaseProgram:
@@ -371,7 +435,7 @@ class PhaseEngine:
                                    prefix_width=prefix_width)
 
         return self._program(f"prefill_chunk:{chunk}+{prefix_width}@{n_slots}x{max_len}", fn,
-                             capturable=True, pinned=(0, 2, 3))
+                             phase="prefill", capturable=True, pinned=(0, 2, 3))
 
     def paged_prefill_chunk_program(self, chunk: int, max_pages: int, block_size: int,
                                     prefix_width: int) -> PhaseProgram:
@@ -388,7 +452,7 @@ class PhaseEngine:
                                          last_pos, cfg, prefix_width=prefix_width)
 
         return self._program(f"prefill_chunk_paged:{chunk}+{prefix_width}@{max_pages}x{block_size}",
-                             fn, capturable=True, pinned=(0, 2, 3))
+                             fn, phase="prefill", capturable=True, pinned=(0, 2, 3))
 
     def prefill_chunk_kv_program(self, chunk: int, prefix_width: int) -> PhaseProgram:
         """Chunked prefill with no install, the disaggregated prefill pool's
@@ -406,7 +470,8 @@ class PhaseEngine:
             return T.prefill_chunk_kv(params, tokens, prefix, prefix_len, last_pos, cfg,
                                       prefix_width=prefix_width)
 
-        return self._program(f"prefill_chunk_kv:{chunk}+{prefix_width}", fn, capturable=True,
+        return self._program(f"prefill_chunk_kv:{chunk}+{prefix_width}", fn, phase="prefill",
+                             capturable=True,
                              pinned=(0, 2))
 
     def chunk_write_program(self, chunk: int) -> PhaseProgram:
@@ -421,7 +486,7 @@ class PhaseEngine:
             return KVCache(write_chunk_kv_q(cache.k, kv.k, slot, prefix_len),
                            write_chunk_kv_q(cache.v, kv.v, slot, prefix_len))
 
-        return self._program(f"chunk_write:{chunk}", fn)
+        return self._program(f"chunk_write:{chunk}", fn, phase="swap", pinned=(0,))
 
     def relay_program(self, seq: int, max_len: int) -> PhaseProgram:
         """The prefill pool's half of the contiguous swap: ``fn(kv) ->
@@ -435,7 +500,7 @@ class PhaseEngine:
         def fn(kv):
             return relay_prefill_kv(kv, max_len, kv_dtype)
 
-        return self._program(f"relay:{seq}->{max_len}", fn)
+        return self._program(f"relay:{seq}->{max_len}", fn, phase="swap")
 
     def verify_program(self, batch: int, max_len: int, width: int) -> PhaseProgram:
         """Speculative verify over the contiguous cache: ``fn(params, tokens
@@ -449,7 +514,8 @@ class PhaseEngine:
         def fn(params, tokens, cache, lengths, n_tokens):
             return T.verify(params, tokens, cache, lengths, n_tokens, cfg)
 
-        return self._program(f"verify:{batch}x{width}@{max_len}", fn, capturable=True,
+        return self._program(f"verify:{batch}x{width}@{max_len}", fn, phase="decode",
+                             capturable=True,
                              pinned=(0, 2))
 
     def paged_verify_program(self, n_slots: int, max_pages: int, width: int) -> PhaseProgram:
@@ -461,7 +527,8 @@ class PhaseEngine:
         def fn(params, tokens, pages, block_tables, lengths, n_tokens):
             return T.verify_paged(params, tokens, pages, block_tables, lengths, n_tokens, cfg)
 
-        return self._program(f"verify_paged:{n_slots}x{width}@{max_pages}", fn, capturable=True,
+        return self._program(f"verify_paged:{n_slots}x{width}@{max_pages}", fn, phase="decode",
+                             capturable=True,
                              pinned=(0, 2))
 
     def block_sampler_program(self, batch: int, width: int) -> PhaseProgram:
@@ -470,10 +537,10 @@ class PhaseEngine:
         with ``fold_in(PRNGKey(seeds[b]), step0s[b] + i)``, the key sequential
         decode uses, so speculation keeps sampled streams unchanged."""
         return self._program(f"block_sampler:{batch}x{width}", sample_block_tokens,
-                             capturable=True)
+                             phase="sampler", capturable=True)
 
     def sampler_program(self, batch: int) -> PhaseProgram:
         """The per-slot sampler, the decode epilogue: ``fn(logits, seeds,
         steps, temps, top_ks, top_ps) -> tokens`` on the logits' device; slot
         i draws with ``fold_in(PRNGKey(seeds[i]), steps[i])``."""
-        return self._program(f"sampler:{batch}", sample_tokens, capturable=True)
+        return self._program(f"sampler:{batch}", sample_tokens, phase="sampler", capturable=True)

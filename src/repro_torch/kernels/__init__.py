@@ -59,7 +59,8 @@ class LaunchCounts(MutableMapping):
     def recording(self) -> Iterator[Dict[str, int]]:
         """Within the block, this thread's launches go into the yielded dict
         (a capture's) and not into the counts."""
-        record = dict.fromkeys(self._counts, 0)
+        with self._lock:
+            record = dict.fromkeys(self._counts, 0)
         self._local.record = record
         try:
             yield record
@@ -82,7 +83,8 @@ class LaunchCounts(MutableMapping):
             return iter(list(self._counts))
 
     def __len__(self) -> int:
-        return len(self._counts)
+        with self._lock:
+            return len(self._counts)
 
     def __repr__(self) -> str:
         with self._lock:

@@ -30,6 +30,13 @@ _ARGS = ([build.P] * 8 + [build.I] * 6 + [build.I64] * 6 + [build.I, build.F, bu
 _QUANT_ARGS = ([build.P] * 10 + [build.I] * 6 + [build.P, build.I, build.F, build.P])
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+
+# The operands that alias the persistent cache (the layer slice of the
+# decode cache and its scale planes): read only, never handed back among the
+# outputs.  Audited by the ``program`` analysis pass (``prog:op-alias``).
+CACHE_OPERANDS = {
+    "decode_attention": {"args": ("k", "v", "k_scales", "v_scales"), "writes": False},
+}
 PAYLOAD_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
 
 
@@ -187,11 +194,18 @@ def decode_attention(
     qg = q.float().reshape(b, hkv, h // hkv, d)
     if kv_dtype != "fp" and (k_scales is None or v_scales is None):
         raise ValueError("a quantized cache needs its scale planes")
-    if not q.is_cuda and rows_per_slot > 1:  # the plain walk: each row its own slot
-        k, v = k.repeat_interleave(rows_per_slot, 0), v.repeat_interleave(rows_per_slot, 0)
-        if kv_dtype != "fp":
-            k_scales = k_scales.repeat_interleave(rows_per_slot, 0)
-            v_scales = v_scales.repeat_interleave(rows_per_slot, 0)
+    if not q.is_cuda and rows_per_slot > 1:
+        # the plain walk, row i of every slot at a time over the slots'
+        # cache as it is (never a copy of the cache a row: the quantized
+        # one would be dequantized R times over)
+        r = rows_per_slot
+        parts = [decode_attention(q[i::r], k, v, lengths[i::r],
+                                  None if starts is None else starts[i::r], sm_scale=sm_scale,
+                                  return_stats=True, k_scales=k_scales, v_scales=v_scales,
+                                  kv_dtype=kv_dtype) for i in range(r)]
+        out, l, m = (torch.stack([p_[j] for p_ in parts], 1).reshape((b,) + parts[0][j].shape[1:])
+                     for j in range(3))
+        return (out, l, m) if return_stats else out.to(q.dtype)
     if kv_dtype != "fp":
         if q.is_cuda:
             out, l, m = decode_attention_quant_kernel(

@@ -33,6 +33,14 @@ from repro_torch.kernels.paged_attention.ref import (
 _ARGS = [build.P] * 9 + [build.I] * 8 + [build.P, build.F, build.P]
 _QUANT_ARGS = [build.P] * 11 + [build.I] * 8 + [build.P, build.F, build.P]
 
+# The operands that alias the persistent page pool (one layer's pages and
+# their scale planes): read only, never handed back among the outputs.
+# Audited by the ``program`` analysis pass (``prog:op-alias``).
+CACHE_OPERANDS = {
+    "paged_decode_attention": {"args": ("k_pages", "v_pages", "k_scales", "v_scales"),
+                               "writes": False},
+}
+
 
 def _check_tables(block_tables, b, q):
     if block_tables.dim() != 2 or block_tables.shape[0] != b or block_tables.dtype != torch.int32:
@@ -139,11 +147,27 @@ def paged_decode_attention(
     k_scales: Optional[torch.Tensor] = None,  # (N, Hkv, bs) f32 — quantized pool
     v_scales: Optional[torch.Tensor] = None,
     kv_dtype: str = "fp",
+    rows_per_slot: int = 1,
 ):
     """Attention of one query token per sequence over its paged KV, with the
-    contract of ``decode_attention``."""
+    contract of ``decode_attention``.  ``rows_per_slot`` R > 1 says that the
+    table's rows come in runs of R repeating one sequence's row (a verify
+    block's W rows); the kernel walks each row's table as it is either way."""
     b, h, d = q.shape
     hkv = k_pages.shape[1]
+    r = rows_per_slot
+    if r < 1 or b % r:
+        raise ValueError(f"{b} query rows do not come in runs of {r} rows a sequence")
+    if not q.is_cuda and r > 1:
+        # the plain walk, row i of every run at a time: gathering (and
+        # dequantizing) the pages once a row would copy the layer R times
+        parts = [paged_decode_attention(q[i::r], k_pages, v_pages, block_tables[i::r],
+                                        lengths[i::r], None if starts is None else starts[i::r],
+                                        sm_scale=sm_scale, return_stats=True, k_scales=k_scales,
+                                        v_scales=v_scales, kv_dtype=kv_dtype) for i in range(r)]
+        out, l, m = (torch.stack([p_[j] for p_ in parts], 1).reshape((b,) + parts[0][j].shape[1:])
+                     for j in range(3))
+        return (out, l, m) if return_stats else out.to(q.dtype)
     qg = q.float().reshape(b, hkv, h // hkv, d)
     if kv_dtype != "fp":
         if k_scales is None or v_scales is None:

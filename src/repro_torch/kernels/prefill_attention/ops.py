@@ -16,6 +16,12 @@ from repro_torch.kernels.prefill_attention.ref import prefill_attention_referenc
 _ARGS = ([build.P] * 4 + [build.I] * 5 + [build.I64] * 9 + [build.F, build.P])
 HEAD_DIMS = (32, 64, 128)
 
+# The KV operands (the prefill's own K and V, which the swap then installs):
+# read only, never handed back.  Audited by the ``program`` analysis pass.
+CACHE_OPERANDS = {
+    "prefill_attention": {"args": ("k", "v"), "writes": False},
+}
+
 
 def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              sm_scale: Optional[float] = None) -> torch.Tensor:

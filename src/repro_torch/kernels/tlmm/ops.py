@@ -23,6 +23,13 @@ _ARGS = [build.P, build.P, build.P, build.P, build.I, build.I, build.I, build.P]
 _AQ_ARGS = [build.P, build.I, build.P, build.P, build.P, build.I, build.I, build.F, build.P]
 _AQ_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The packed weight (the paper's static region, resident across both
+# phases): read only, never handed back.  Audited by the ``program``
+# analysis pass (``prog:op-alias``).
+CACHE_OPERANDS = {
+    "tlmm_matmul": {"args": ("w",), "writes": False},
+}
+
 
 def act_quant_kernel(x: torch.Tensor, beta: torch.Tensor,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -689,6 +689,6 @@ def attention_verify_paged(params: dict, x: torch.Tensor, k_pages, v_pages, plan
         write_verify_rows_q(v_pages, v.transpose(1, 2)[None], plan.targets)
         k_arr, v_arr, qkw = _kv_leaf_args(_layer0(k_pages), _layer0(v_pages))
         return paged_decode_attention(qd, k_arr, v_arr, plan.tables, plan.walk,
-                                      return_stats=True, **qkw)
+                                      return_stats=True, rows_per_slot=x.shape[1], **qkw)
 
     return _decode_new_token(params, x, plan.positions, cfg, attend)

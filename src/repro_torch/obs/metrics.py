@@ -52,9 +52,9 @@ class Counter:
         self.help = help
         self.labels = dict(labels) if labels else None
         self._fn = fn
-        self._value = 0.0
+        self._value = 0.0  # owned-by: metrics-owner
 
-    def inc(self, n: float = 1.0) -> None:
+    def inc(self, n: float = 1.0) -> None:  # thread: metrics-owner
         if self._fn is not None:
             raise TypeError(f"counter {self.name} is a callback view")
         if n < 0:
@@ -62,6 +62,8 @@ class Counter:
         self._value += n
 
     @property
+    # analysis: allow(lock:thread) — the scrape's read: a float load is atomic
+    # under the interpreter lock and a scrape tolerates one sample's staleness
     def value(self) -> float:
         return float(self._fn()) if self._fn is not None else self._value
 
@@ -80,14 +82,16 @@ class Gauge:
         self.help = help
         self.labels = dict(labels) if labels else None
         self._fn = fn
-        self._value = 0.0
+        self._value = 0.0  # owned-by: metrics-owner
 
-    def set(self, v: float) -> None:
+    def set(self, v: float) -> None:  # thread: metrics-owner
         if self._fn is not None:
             raise TypeError(f"gauge {self.name} is a callback view")
         self._value = float(v)
 
     @property
+    # analysis: allow(lock:thread) — the scrape's read: a float load is atomic
+    # under the interpreter lock and a scrape tolerates one sample's staleness
     def value(self) -> float:
         return float(self._fn()) if self._fn is not None else self._value
 
@@ -101,15 +105,17 @@ class _WindowStat:
     nothing of serving)."""
 
     def __init__(self, window: int):
-        self.count = 0
-        self.total = 0.0
-        self._win: deque = deque(maxlen=window)
+        self.count = 0  # owned-by: metrics-owner
+        self.total = 0.0  # owned-by: metrics-owner
+        self._win: deque = deque(maxlen=window)  # owned-by: metrics-owner
 
-    def record(self, v: float) -> None:
+    def record(self, v: float) -> None:  # thread: metrics-owner
         self.count += 1
         self.total += float(v)
         self._win.append(float(v))
 
+    # analysis: allow(lock:thread) — the scrape's read: np.asarray(deque)
+    # copies under the interpreter lock; quantiles tolerate a stale window
     def percentile(self, q: float) -> float:
         if not self._win:
             return 0.0

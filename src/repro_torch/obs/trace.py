@@ -81,14 +81,16 @@ class Tracer:
         self._lock = threading.Lock()
         self._configure(capacity)
 
-    def _configure(self, capacity: int) -> None:  # the caller holds _lock (or owns self)
+    # analysis: allow(lock:unguarded) — callers hold self._lock (enable, clear);
+    # __init__ calls it on an object no other thread holds yet
+    def _configure(self, capacity: int) -> None:
         if capacity < 1:
             raise ValueError("tracer capacity must be >= 1")
-        self.capacity = capacity
-        self._events: deque = deque(maxlen=capacity)
-        self._emitted = 0
-        self._finished: set = set()
-        self._t0 = time.perf_counter()
+        self.capacity = capacity  # guarded-by: self._lock
+        self._events: deque = deque(maxlen=capacity)  # guarded-by: self._lock
+        self._emitted = 0  # guarded-by: self._lock
+        self._finished: set = set()  # guarded-by: self._lock
+        self._t0 = time.perf_counter()  # guarded-by: self._lock
 
     def enable(self, capacity: Optional[int] = None) -> None:
         """Start recording into a fresh buffer of ``capacity`` events."""
@@ -105,13 +107,20 @@ class Tracer:
             self._configure(self.capacity)
 
     @property
+    # analysis: allow(lock:unguarded) — a monitoring read: a torn emitted/len
+    # pair can misreport dropped by one scrape, never corrupt it
     def dropped(self) -> int:
         """Events evicted by the ring bound (emitted minus retained)."""
         return self._emitted - len(self._events)
 
+    # analysis: allow(lock:unguarded) — list(deque) copies under the
+    # interpreter lock; tests and benchmarks read it, not the export
     def events(self) -> List[tuple]:
         return list(self._events)
 
+    # analysis: allow(lock:unguarded) — the lock-free hot path (class
+    # docstring): deque.append and an int add are atomic enough for metering,
+    # and a lock here would serialize the engine's and the pool's threads
     def complete(self, name: str, t0: float, t1: float, lane: Optional[str] = None,
                  **args) -> None:
         """Record a span from ``perf_counter`` stamps the caller took."""
@@ -127,6 +136,7 @@ class Tracer:
             return _NULL_SPAN
         return _Span(self, name, lane, args)
 
+    # analysis: allow(lock:unguarded) — the lock-free hot path, as complete()
     def instant(self, name: str, lane: Optional[str] = None, **args) -> None:
         if not self.enabled:
             return
@@ -134,6 +144,9 @@ class Tracer:
         self._events.append(("i", name, time.perf_counter(),
                              lane or threading.current_thread().name, args or None))
 
+    # analysis: allow(lock:unguarded) — _finished is touched by the finish
+    # paths only, which all run on the engine's step thread (the funnel this
+    # method asserts); set.add is atomic under the interpreter lock besides
     def finish(self, request_id: str, reason: Optional[str]) -> None:
         """The terminal lifecycle event, exactly once a request: every finish
         path (stop and length, a resume at its budget, shed, abort) comes
@@ -190,6 +203,8 @@ class Tracer:
 
 
 # The process-wide tracer every site records into (sites hold it directly,
-# so it is never rebound).  Tests that run several engines call ``clear()``
-# between them, so that the exactly-once finish set does not span runs.
+# so it is never rebound: declared shared, so the ``lock`` analysis pass
+# flags a rebind).  Tests that run several engines call ``clear()`` between
+# them, so that the exactly-once finish set does not span runs.
+# analysis: shared-global(TRACER)
 TRACER = Tracer()

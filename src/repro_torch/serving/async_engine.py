@@ -25,7 +25,9 @@ serves it to many clients at once:
   client-chosen names must not grow them without bound).
 
 Threads: the event loop owns the front end's state, and the executor's
-thread only ever runs ``core.step()``.  Submissions wait in ``_pending`` and
+thread only ever runs ``core.step()`` (the ``# owned-by: event-loop`` and
+``# thread: event-loop`` annotations, which the ``lock`` analysis pass
+checks).  Submissions wait in ``_pending`` and
 aborts in ``_aborts``, both applied by the loop task between quanta, so no
 engine state changes while a step runs.  Admission reads loop-owned
 mirrors only (the scheduler queue's length taken between quanta, every id
@@ -109,22 +111,22 @@ class AsyncEngine:
         self.core = core
         self.max_queue = max_queue
         self.max_tenants = max_tenants
-        self._pending: Deque[Request] = deque()
-        self._streams: Dict[str, _Stream] = {}
-        self._aborts: Deque[str] = deque()
+        self._pending: Deque[Request] = deque()  # owned-by: event-loop
+        self._streams: Dict[str, _Stream] = {}  # owned-by: event-loop
+        self._aborts: Deque[str] = deque()  # owned-by: event-loop
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
-        self._closed = False
+        self._closed = False  # owned-by: event-loop
         self._exec = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-step")
-        self._seq = 0
+        self._seq = 0  # owned-by: event-loop
         # loop-owned mirrors of engine state: the scheduler queue's length
         # (taken between quanta), every id and every tenant ever admitted
-        self._core_backlog = 0
-        self._ids: set = set()
-        self._tenants: set = set()
-        self.accepted = 0
-        self.rejected = 0
-        self.reject_reasons: Dict[str, int] = {}
+        self._core_backlog = 0  # owned-by: event-loop
+        self._ids: set = set()  # owned-by: event-loop
+        self._tenants: set = set()  # owned-by: event-loop
+        self.accepted = 0  # owned-by: event-loop
+        self.rejected = 0  # owned-by: event-loop
+        self.reject_reasons: Dict[str, int] = {}  # owned-by: event-loop
         self._metrics_registry = None
 
     # ------------------------------------------------------------ lifecycle --
@@ -141,7 +143,7 @@ class AsyncEngine:
     async def __aexit__(self, *exc) -> None:
         await self.shutdown()
 
-    async def shutdown(self) -> None:
+    async def shutdown(self) -> None:  # thread: event-loop
         """Stop the loop once the running quantum ends.  Every open stream
         receives a terminal abort delta, so no reader hangs."""
         self._closed = True
@@ -158,19 +160,19 @@ class AsyncEngine:
 
     # ------------------------------------------------------------ admission --
 
-    def _reject(self, reason: str) -> None:
+    def _reject(self, reason: str) -> None:  # thread: event-loop
         self.rejected += 1
         key = reason.split(":", 1)[0]
         self.reject_reasons[key] = self.reject_reasons.get(key, 0) + 1
         raise AdmissionRejected(reason)
 
-    def _backlog(self) -> int:
+    def _backlog(self) -> int:  # thread: event-loop
         return len(self._pending) + self._core_backlog
 
     async def submit(self, prompt, params: Optional[SamplingParams] = None, *,
                      request_id: Optional[str] = None, max_new: Optional[int] = None,
                      tenant: str = "default", weight: float = 1.0,
-                     priority: int = 0) -> RequestStream:
+                     priority: int = 0) -> RequestStream:  # thread: event-loop
         """Admit one request and return its output stream, or raise
         ``AdmissionRejected`` when the backlog is at ``max_queue`` or the
         request can never be served."""
@@ -226,7 +228,7 @@ class AsyncEngine:
         async for out in stream:
             yield out
 
-    async def abort(self, request_id: str) -> None:
+    async def abort(self, request_id: str) -> None:  # thread: event-loop
         """Cancel a request; applied by the loop between quanta, which routes
         the stream its terminal abort delta."""
         self._aborts.append(request_id)
@@ -234,14 +236,14 @@ class AsyncEngine:
 
     # ------------------------------------------------------------ step loop --
 
-    def _route(self, out: RequestOutput) -> None:
+    def _route(self, out: RequestOutput) -> None:  # thread: event-loop
         stream = self._streams.get(out.request_id)
         if stream is not None:
             stream.queue.put_nowait(out)
             if out.finished:
                 del self._streams[out.request_id]
 
-    def _drain_control(self) -> None:
+    def _drain_control(self) -> None:  # thread: event-loop
         """Apply the aborts and admissions queued since the last quantum
         (never during one)."""
         while self._aborts:
@@ -268,7 +270,7 @@ class AsyncEngine:
                 self._route(out)
         self._core_backlog = len(self.core.scheduler.queue)
 
-    async def _run(self) -> None:
+    async def _run(self) -> None:  # thread: event-loop
         loop = asyncio.get_running_loop()
         while not self._closed:
             self._drain_control()
@@ -288,11 +290,11 @@ class AsyncEngine:
     # -------------------------------------------------------------- metrics --
 
     @property
-    def open_streams(self) -> int:
+    def open_streams(self) -> int:  # thread: event-loop
         """Streams that have not had their terminal delta yet."""
         return len(self._streams)
 
-    def snapshot(self) -> dict:
+    def snapshot(self) -> dict:  # thread: event-loop
         """The engine's stats block with the front end's admission counters."""
         return engine_snapshot(self.core, extra={"frontend": {
             "accepted": self.accepted,

@@ -64,7 +64,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import KVSlotManager, insert_prefill_kv
-from repro_torch.core.phase_engine import PhaseEngine
+import re
+
+from repro_torch.core.phase_engine import PhaseEngine, ProgramSignature, TensorSpec, spec_of
 from repro_torch.core.sampling import accept_length
 from repro_torch.core.staging import StagedTensor
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
@@ -434,7 +436,7 @@ class ModelRunner:
         buf[0, :size] = req.prompt[start:start + size]
         tokens = self._chunk_tokens.upload(buf)[:, :padded]
         scalars = self._chunk_scalars.upload([slot, start, size - 1])
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow(det:wallclock) — chunk wall time feeds t_prefill/t_replay stats and a trace span only
         if self.paged is not None:
             # start is page-aligned; prefix-cache hits and padding pages
             # carry the skip id and are left out
@@ -449,7 +451,7 @@ class ModelRunner:
             logits, _, _ = prog(self.params, tokens, self.cache, self.chunk_prefix, scalars[0],
                                 scalars[1], scalars[2])
         _sync(self.device)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # analysis: allow(det:wallclock) — chunk wall time feeds t_prefill/t_replay stats and a trace span only
         if restarted:
             stats.t_replay += t1 - t0
         else:
@@ -535,6 +537,86 @@ class ModelRunner:
                 self.chunk_prog(padded, pw)(self.params, tokens, self.cache, self.chunk_prefix,
                                             scalars[0], scalars[1], scalars[2])
 
+    def program_signatures(self) -> Dict[str, ProgramSignature]:
+        """Every registered program with what ``EngineCore.step`` dispatches
+        it with (``abstract_signature``): the surface the ``program``
+        analysis pass runs.  A program this runner never dispatches (the
+        disaggregated pools' split programs) has ``args`` None."""
+        return {key: self.abstract_signature(key) for key in self.engine.programs}
+
+    def abstract_signature(self, key: str) -> ProgramSignature:
+        """The arguments the program registered under ``key`` is dispatched
+        with: the runner's own params, cache, pages and prefix mirror where
+        it passes them (the pinned arguments), and ``TensorSpec`` trees of
+        the shapes and dtypes it passes elsewhere (the Python ints as 0).
+        ``args`` is None for a key this runner never dispatches."""
+        prog = self.engine.programs[key]
+        cfg = self.cfg
+        n = len(self.slots.slots)
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+        scalar = TensorSpec((), i32)
+
+        def vec(k, dt=i32):
+            return TensorSpec((k,), dt)
+
+        def prefill_out(s):  # what the split body returns at bucket s: (x_mid, KV)
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                x_mid, kv = T.forward_prefill(self.params, torch.zeros((1, s), dtype=i64),
+                                              cfg, split_tail=True)
+            return spec_of(x_mid), spec_of(kv)
+
+        cache = self.paged.kv if self.paged is not None else self.cache
+        tables = (TensorSpec((n, self.paged.max_pages), i32) if self.paged is not None else None)
+        vp = cfg.padded_vocab()
+        args, own = None, ()
+        if m := re.fullmatch(r"prefill_varlen:(\d+)x(\d+)", key):
+            b, sq = map(int, m.groups())
+            args, own = (self.params, TensorSpec((b, sq), i64), 0), (0,)
+        elif m := re.fullmatch(r"prefill_split_varlen:(\d+)x(\d+)(:tail)?", key):
+            b, sq = int(m.group(1)), int(m.group(2))
+            if m.group(3):
+                args, own = (self.params, prefill_out(sq)[0], 0), (0,)
+            else:
+                args, own = (self.params, TensorSpec((b, sq), i64)), (0,)
+        elif m := re.fullmatch(r"relayout:(\d+)x(\d+)->(\d+)", key):
+            args, own = (prefill_out(int(m.group(2)))[1], self.cache, 0), (1,)
+        elif (m := re.fullmatch(r"page_write:(\d+)@(\d+)", key)) and self.paged is not None:
+            sq, bs = map(int, m.groups())
+            args, own = (self.paged.kv, prefill_out(sq)[1],
+                         TensorSpec((sq // bs,), i32, host=True)), (0,)
+        elif re.fullmatch(r"decode(_paged)?:(\d+)x(\d+)", key):
+            if self.paged is not None:
+                args = (self.params, vec(n), cache, tables, vec(n))
+            else:
+                args = (self.params, vec(n), cache, vec(n))
+            own = prog.pinned
+        elif m := re.fullmatch(r"verify(_paged)?:(\d+)x(\d+)@(\d+)", key):
+            w = int(m.group(3))
+            if self.paged is not None:
+                args = (self.params, TensorSpec((n, w), i32), cache, tables, vec(n), vec(n))
+            else:
+                args = (self.params, TensorSpec((n, w), i32), cache, vec(n), vec(n))
+            own = prog.pinned
+        elif m := re.fullmatch(r"prefill_chunk(_paged)?:(\d+)\+(\d+)@(\d+)x(\d+)", key):
+            c = int(m.group(2))
+            tokens = TensorSpec((1, c), i64)
+            if self.paged is not None:
+                args = (self.params, tokens, cache, self.chunk_prefix,
+                        vec(c // self.block_size), scalar, scalar)
+            else:
+                args = (self.params, tokens, cache, self.chunk_prefix, scalar, scalar, scalar)
+            own = prog.pinned
+        elif m := re.fullmatch(r"sampler:(\d+)", key):
+            b = int(m.group(1))
+            args = (TensorSpec((b, vp), f32), vec(b), vec(b), vec(b, f32), vec(b), vec(b, f32))
+        elif m := re.fullmatch(r"block_sampler:(\d+)x(\d+)", key):
+            b, w = map(int, m.groups())
+            args = (TensorSpec((b, w, vp), f32), vec(b), vec(b), vec(b, f32), vec(b),
+                    vec(b, f32))
+        return ProgramSignature(key, prog, args, tuple(own))
+
     def restart_headroom_ok(self, req: Request) -> bool:
         """Admit a restart only when the pool can hold its whole replayed
         state (prompt + tokens already generated); otherwise two restarts
@@ -573,7 +655,7 @@ class ModelRunner:
                 return progs["relayout"].fn(kv, self.cache, slot)
             return insert_prefill_kv(self.cache, kv, slot)
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow(det:wallclock) — prefill wall time feeds t_prefill/t_replay stats and a trace span only
         if self.mode == "pdswap":
             ctl = SwapController(progs["body"].fn,
                                  lambda p, x: progs["tail"].fn(p, x, last_pos),
@@ -588,7 +670,7 @@ class ModelRunner:
             logits, kv = progs["full"].fn(self.params, tokens, last_pos)
             swap_write(kv)
             _sync(self.device)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # analysis: allow(det:wallclock) — prefill wall time feeds t_prefill/t_replay stats and a trace span only
         if resuming:
             stats.t_replay += t1 - t0
         else:
@@ -698,7 +780,7 @@ class ModelRunner:
         caller backs off."""
         p = len(req.prompt)
         n_slots = len(self.slots.slots)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow(det:wallclock) — replay wall time feeds t_replay stats and a trace span only
         for j, tok in enumerate(req.out_tokens[:-1]):
             pos = p + j
             try:
@@ -712,7 +794,7 @@ class ModelRunner:
             self._decode(inputs[0], inputs[1])
             stats.replayed_tokens += 1
         _sync(self.device)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # analysis: allow(det:wallclock) — replay wall time feeds t_replay stats and a trace span only
         stats.t_replay += t1 - t0
         if TRACER.enabled:
             TRACER.complete("replay", t0, t1, request_id=req.request_id,
@@ -802,7 +884,7 @@ class Scheduler:
 
     def submit(self, request: Request) -> None:
         self.validate(request)
-        now = time.perf_counter()
+        now = time.perf_counter()  # analysis: allow(det:wallclock) — arrival stamp meters queue wait / TTFT and feeds SLO pacing, never token values
         if request.arrival_time_s == 0.0:
             request.arrival_time_s = now
         request.enqueue_t = now
@@ -832,7 +914,7 @@ class Scheduler:
             swap_cost=stats.swap_agg.mean_cost,
             decode_round_cost=stats.decode_round_cost(),
             pending_chunks=pending_chunks,
-            oldest_wait_s=(time.perf_counter() - head.arrival_time_s
+            oldest_wait_s=(time.perf_counter() - head.arrival_time_s  # analysis: allow(det:wallclock) — queue age feeds the swap policy's pacing view, not any stream's token values
                            if head is not None and head.arrival_time_s else 0.0),
         )
         return self.policy.should_prefill(view)
@@ -1001,10 +1083,10 @@ class EngineCore:
         policy's ``prefill_quanta`` may grant several back to back.  First
         the policy's ``should_shed`` drops the queue heads that can no
         longer meet their TTFT target (``finish_reason="shed"``)."""
-        t_step0 = time.perf_counter() if TRACER.enabled else 0.0
+        t_step0 = time.perf_counter() if TRACER.enabled else 0.0  # analysis: allow(det:wallclock) — trace-span stamp, recorded only while tracing
         outs: List[RequestOutput] = []
         sched, runner = self.scheduler, self.runner
-        now = time.perf_counter()
+        now = time.perf_counter()  # analysis: allow(det:wallclock) — shed deadline check paces admission (drop-or-serve), never token values
         while sched.queue:
             head = sched.queue[0]  # the request popleft returns (fair_queue.peek)
             if head.out_tokens or head.preempted:
@@ -1048,7 +1130,7 @@ class EngineCore:
         if not self.has_unfinished():
             sched.policy.reset()
         if TRACER.enabled and t_step0:
-            TRACER.complete("engine.step", t_step0, time.perf_counter(), outputs=len(outs))
+            TRACER.complete("engine.step", t_step0, time.perf_counter(), outputs=len(outs))  # analysis: allow(det:wallclock) — trace-span stamp, recorded only while tracing
         return outs
 
     def run(self, max_rounds: int = 10_000) -> EngineStats:
@@ -1233,7 +1315,7 @@ class EngineCore:
         """Stamp the queue wait (arrival to first successful admission) once
         a request: a restart keeps its first stamp."""
         if req.queue_wait_s is None and req.arrival_time_s:
-            req.queue_wait_s = time.perf_counter() - req.arrival_time_s
+            req.queue_wait_s = time.perf_counter() - req.arrival_time_s  # analysis: allow(det:wallclock) — queue-wait metering stamp; stats only
             self.stats.queue_wait.record(req.queue_wait_s)
             self.stats.tenant_queue_wait.setdefault(req.tenant, LatencyStat()).record(
                 req.queue_wait_s)
@@ -1337,11 +1419,11 @@ class EngineCore:
         # max_len - 1, which live KV never reaches (n + max_new <= max_len).
         park = 0 if runner.paged is not None else runner.max_len
         lengths = runner.slots.lengths_array({slot: park for slot in self._prefilling})
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow(det:wallclock) — decode-round wall time feeds t_decode stats only
         logits = runner.decode_logits(lengths)
         next_tokens = runner.sample_batch(logits, sched.inflight)
         next_np = next_tokens.cpu().numpy()  # waits for the round
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # analysis: allow(det:wallclock) — decode-round wall time feeds t_decode stats only
         stats.t_decode += t1 - t0
         stats.decode_rounds += 1
         stats.decode_tokens += len(active)
@@ -1405,11 +1487,11 @@ class EngineCore:
             # (draft_for clamps; this guards the clamp)
             assert length + n_tokens[slot] - 1 <= runner.max_len - 2, (
                 slot, length, int(n_tokens[slot]), runner.max_len)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # analysis: allow(det:wallclock) — verify-round wall time feeds t_decode stats only
         logits = runner.run_verify(tokens, n_tokens)
         targets = runner.select_targets(logits, sched.inflight)
         targets_np = targets.cpu().numpy()  # waits for the round
-        t1 = time.perf_counter()
+        t1 = time.perf_counter()  # analysis: allow(det:wallclock) — verify-round wall time feeds t_decode stats only
         stats.t_decode += t1 - t0
         stats.decode_rounds += 1
         stats.verify_rounds += 1

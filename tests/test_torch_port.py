@@ -60,7 +60,13 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
                    "repro_torch.configs.whisper_large_v3", "repro_torch.models.ssm",
                    "repro_torch.models.hymba", "repro_torch.models.xlstm",
                    "repro_torch.models.encdec",
-                   "repro_torch.examples.long_context_decode"])
+                   "repro_torch.examples.long_context_decode",
+                   "repro_torch.kernels.costs", "repro_torch.core.dse",
+                   "repro_torch.examples.dse_explore", "repro_torch.analysis",
+                   "repro_torch.analysis.__main__", "repro_torch.analysis.common",
+                   "repro_torch.analysis.locklint", "repro_torch.analysis.determinism",
+                   "repro_torch.analysis.kernel_check", "repro_torch.analysis.progcheck",
+                   "repro_torch.analysis.report"])
         assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
