@@ -235,6 +235,21 @@ SPEC_K = 4  # draft depth of paths (k), (l), (m): verify blocks of W = 5 rows
 TILED = (256, 512, 768, 1024)  # lengths of the spec paths' prompts that tile a 16-token pattern
 VERIFY_BASE = [5, 517, 1300, 2040]  # slot lengths of the walks' verify-row cases
 TIE_TOL = 0.01  # two runs' streams may part only where two tokens' scores lie this close
+# (M2) against the single card: a model rank's decode walk covers half the
+# sequence and the halves are merged (another order of f32 sums), and a
+# data rank runs batches of 2 slots (some op of the round then sums in
+# another order too; which one is not traced).  Where either
+# moves an activation across an int8 rounding step the W1.58-A8 linears
+# carry a whole step on.  Read on one card (``mesh_cause_phase``; H100
+# 80GB HBM3, 700 W): the split walk alone parts req1 at token 15 with
+# margins 0.0082 and 0.0150 and logits 0.0602 apart; 2-slot batches alone
+# part nothing, at 0.0544; both give (M2a)'s logits bit for bit; a dropped
+# half (the planted fault) parts at margins 0.1053 and 0.0449 with logits
+# 0.767 apart.  The limits lie between: a stream may part where both
+# margins are within MESH_TIE_TOL, the logits on common tokens within
+# MESH_AGREE_TOL
+MESH_TIE_TOL = 0.04
+MESH_AGREE_TOL = 0.2
 PROFILE_EDGE_S = 0.1  # idle card at each end of a profiler window (see _profiled)
 PROFILE_MARKS = 10  # bursts of sentinel kernels through a window's opening margin
 MARKS_EACH = 100  # sentinel kernels a burst
@@ -893,6 +908,168 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
     return out
 
 
+# the shard shapes of phase (M): bitnet-730m on a (data 2, model 2) mesh
+MESH_TLMM = ((1536, 768), (1536, 2048), (768, 1536), (2048, 1536))  # (K, N): column / row shards
+MESH_PREFILL = (12, 64)  # heads a model rank prefills (24 / 2), D
+MESH_LENGTHS = [300, 1300]  # a data rank's 2 slots over max_len 2048: halves of 1,024 rows
+
+
+def mesh_kernel_checks(torch, ops, refs, flush, gen):
+    """Phase 3 at the shard shapes of phase (M): B1 at a model rank's
+    column shards (N / 2) and row shards (K / 2), at the decode rows (M =
+    2 slots of a data rank) and 1,024 prefill rows; B2 on 12 of 24 heads;
+    B3 and B4 on one model rank's half of the sequence (a layer slice of a
+    (2, 24, 24, 1024, 64) block, lengths cut to the half: the second half
+    holds an empty slot), the two halves' walks merged as the ranks merge
+    them against the whole walk; B5 and B6 over a data rank's 2 slots of
+    a whole pool.  Each against its plain version, timed beside its bound
+    and its library yardstick.  Returns [(kernel, case)]."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
+    from repro_torch.layers.attention import combine_partials
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for m in (2, 1024):
+        for k, n in MESH_TLMM:
+            x_q = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            w = torch.randint(0, 256, (k // 4, n), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+            scale = torch.ones((m, 1), device=dev)  # a row shard's partial sum: a unit scale
+            if not torch.equal(ops["tlmm"](x_q, w, scale), refs["tlmm"](x_q, w, scale)):
+                raise AssertionError(f"TLMM kernel differs from its plain version at the shard "
+                                     f"M={m} K={k} N={n}")
+            wu = refs["unpack"](w)
+            if m > 64:
+                lib = lambda: torch._int_mm(x_q, wu)  # noqa: E731
+            else:
+                xb, wb = x_q.to(torch.bfloat16), wu.to(torch.bfloat16)
+                lib = lambda: xb @ wb  # noqa: E731
+            cost = costs.tlmm_cost(m, k, n)
+            b_ms, b_by = bound(cost.min_bytes, cost.flops, "int8")
+            out.append(("tlmm", {
+                "shape": f"M={m} K={k} N={n} (a model rank's {'row' if k < n else 'column'} shard)",
+                "max_abs_err": 0.0,
+                "ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush),
+                "call_ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush, busy=False),
+                "plain_ms": timed_ms(torch, lambda: refs["tlmm"](x_q, w, scale), flush),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush)}))
+    h, d = MESH_PREFILL
+    for s in (256, 1536):
+        q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev) for _ in range(3))
+        err = (ops["prefill"](q, k, v) - refs["prefill"](q, k, v)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"prefill attention kernel off by {err} at (1,{h},{s},{d})")
+        cost = costs.prefill_attention_cost(1, h, h, s, d)
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
+        out.append(("prefill_attention", {
+            "shape": f"(1,{h},{s},{d}) f32 (12 of bitnet-730m's 24 heads)", "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
+            "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
+            "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush)}))
+        del q, k, v
+    b, layers, hkv, d, smax, bs = 2, 24, 24, 64, 2048, 16
+    half = smax // 2
+    glob = torch.tensor(MESH_LENGTHS, dtype=torch.int32, device=dev)
+    halves = [torch.clamp(glob - r * half, 0, half).to(torch.int32) for r in range(2)]
+    q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
+    qb = q.to(torch.bfloat16)
+
+    def entry(kernel, what, err, run, plain, lib, cost):
+        b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
+        out.append((kernel, {"shape": what, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                             "call_ms": timed_ms(torch, run, flush, busy=False),
+                             "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush)}))
+
+    whole = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2)]
+    parts = []
+    for r, lengths in enumerate(halves):
+        kv = [t[:, 7, :, r * half:(r + 1) * half] for t in whole]
+        got = ops["decode"](q, *kv, lengths)
+        err = _check_err(f"B3 sequence half {r}", got, refs["decode"](q, *kv, lengths))
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"B3 on sequence half {r}: an empty slot gave a NaN")
+        parts.append(got)
+        mask = (torch.arange(half, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        entry("decode_attention",
+              f"model rank {r}'s sequence half: B={b} Hkv={hkv} D={d} local lengths "
+              f"{lengths.tolist()} of {half} rows bf16 layer slice of ({b},{layers},{hkv},{half},{d})",
+              err, lambda: ops["decode"](q, *kv, lengths), lambda: refs["decode"](q, *kv, lengths),
+              lambda: sdpa(qb, *kv, attn_mask=mask),
+              costs.decode_attention_cost(lengths.tolist(), hkv, 1, d, cap=half))
+    merged = combine_partials(*(torch.stack([p_[i].reshape(b, hkv, -1) for p_ in parts])
+                                for i in range(3)))
+    full = refs["decode"](q, whole[0][:, 7], whole[1][:, 7], glob)
+    merr = (merged[0] - full[0].reshape(b, hkv, -1)).abs().max().item()
+    if not merr <= 1e-4:
+        raise AssertionError(f"the two sequence halves' walks merge {merr} off the whole walk")
+    print(f"kernel decode_attention: the two model ranks' halves merged = the whole walk "
+          f"within {merr:.3g}")
+    del whole
+    for kv_dtype in ("int8", "int4"):
+        lengths = halves[1]
+        (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, half, d),
+                                                kv_dtype) for _ in range(2))
+        args = (q, kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7], lengths)
+        got = ops["decode_quant"](*args, kv_dtype=kv_dtype)
+        err = _check_err(f"B4 {kv_dtype} sequence half", got,
+                         refs["decode_quant"](*args, kv_dtype=kv_dtype))
+        kd, vd = (dequantize_kv(p_, s_, kv_dtype).to(torch.bfloat16)
+                  for p_, s_ in ((args[1], args[2]), (args[3], args[4])))
+        mask = (torch.arange(half, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        entry("decode_attention_quant",
+              f"model rank 1's sequence half: B={b} Hkv={hkv} D={d} local lengths "
+              f"{lengths.tolist()} of {half} rows {kv_dtype} layer slice",
+              err, lambda: ops["decode_quant"](*args, kv_dtype=kv_dtype),
+              lambda: refs["decode_quant"](*args, kv_dtype=kv_dtype),
+              lambda: sdpa(qb, kd, vd, attn_mask=mask),
+              costs.decode_attention_cost(lengths.tolist(), hkv, 1, d, kv_dtype=kv_dtype,
+                                          cap=half))
+        del kc, ksc, vc, vsc, kd, vd
+    pool_pages, n_pages = 512, smax // bs
+    used = [-(-n // bs) for n in MESH_LENGTHS]
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
+    tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
+    tables[0, :used[0]] = perm[:used[0]]
+    tables[1, :used[1]] = perm[used[0]:used[0] + used[1]]
+    mask = (torch.arange(smax, device=dev)[None, :] < glob[:, None])[:, None, None, :]
+    for kv_dtype in ("fp", "int8"):
+        name = "paged" if kv_dtype == "fp" else "paged_quant"
+        kernel = "paged_decode_attention" + ("" if kv_dtype == "fp" else "_quant")
+        kw = {} if kv_dtype == "fp" else {"kv_dtype": kv_dtype}
+        if kv_dtype == "fp":
+            planes = [torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev,
+                                  dtype=torch.bfloat16)[:, 7] for _ in range(2)]
+            kd, vd = (gather_pages(p_, tables) for p_ in planes)
+        else:
+            (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev,
+                                                    (pool_pages, layers, hkv, bs, d), kv_dtype)
+                                    for _ in range(2))
+            planes = [kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7]]
+            kd, vd = (dequantize_kv(gather_pages(p_, tables), gather_scales(s_, tables),
+                                    kv_dtype).to(torch.bfloat16)
+                      for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
+        args = (q, *planes, tables, glob)
+        got = ops[name](*args, **kw)
+        err = _check_err(f"{kernel} a data rank's slots", got, refs[name](*args, **kw))
+        entry(kernel, f"a data rank's 2 slots: B={b} Hkv={hkv} N={pool_pages} bs={bs} "
+              f"lengths={MESH_LENGTHS} {'bf16' if kv_dtype == 'fp' else kv_dtype} whole pool",
+              err, lambda: ops[name](*args, **kw), lambda: refs[name](*args, **kw),
+              lambda: sdpa(qb, kd, vd, attn_mask=mask),
+              costs.decode_attention_cost(MESH_LENGTHS, hkv, 1, d, kv_dtype=kv_dtype, paged=True,
+                                          bs=bs, cap=smax))
+        del planes, args, kd, vd
+    return out
+
+
 # ---- the analysis phase --
 
 SANITIZER_TIMEOUT_S = 120  # each compute-sanitizer run of the kernel pass
@@ -1094,7 +1271,9 @@ def main() -> int:
     for name, case in (family_kernel_checks(torch, ops, refs, flush,
                                             torch.Generator(device="cuda").manual_seed(1))
                        + other_family_kernel_checks(torch, ops, refs, flush,
-                                                    torch.Generator(device="cuda").manual_seed(2))):
+                                                    torch.Generator(device="cuda").manual_seed(2))
+                       + mesh_kernel_checks(torch, ops, refs, flush,
+                                            torch.Generator(device="cuda").manual_seed(3))):
         r = checks[name]
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
@@ -1147,6 +1326,14 @@ def main() -> int:
     print(f"  {_grid_line(grid)}  [{card}]")
     print(f"  launches {launches}")
     main_streams = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+    main_kv = eng.kv_bytes()["allocated"]
+    main_round = (stats.decode_round_cost(), stats.decode_tput())  # before the profile's rounds
+    main_rec, rec_round = recorded(cfg, params, prompts, max_tokens, main_streams, "the main path",
+                                   n_slots=n_slots, max_len=max_len, mode="pdswap", overlap=True)
+    print(f"  the main path served again with its logits recorded (untimed above): decode "
+          f"{rec_round * 1e3:.2f} ms/round against {stats.decode_round_cost() * 1e3:.2f}; the "
+          f"recorder's own host time {main_rec.seconds / len(main_rec.rounds) * 1e3:.3f} ms a "
+          f"round; tokens equal  [{card}]")
 
     wall_p, dev_p, top, per_round = profile_decode(torch, eng)
     if dev_p is None:
@@ -1177,9 +1364,21 @@ def main() -> int:
     # eager against graph decode rounds, in alternation within this run
     eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card)
 
+    # ---- (M1) the main path on a (data 1, model 1) NCCL mesh in this process
+    m1_launches = mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len,
+                                main_streams, main_rec, main_round, (dev_p, per_round), card)
+
     # ---- 5. the other cache options at full width
-    path_launches, path_i = cache_option_paths(torch, np, cfg, params, prompts, max_tokens,
-                                               n_slots, max_len, card)
+    path_launches, path_i, paths_bd = cache_option_paths(torch, np, cfg, params, prompts,
+                                                         max_tokens, n_slots, max_len, card)
+    # ---- (M2) the same model on a (data 2, model 2) gloo mesh of 4 processes on this card
+    mesh_launches, m2a = mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv,
+                                       {"a": {"streams": main_streams, "recorder": main_rec},
+                                        **paths_bd}, card)
+    del paths_bd
+    mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
+                     m2a, card)
+    del m2a
     spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
     for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
@@ -1216,7 +1415,7 @@ def main() -> int:
 
     # ---- 12. training
     train_launches = training_phase(torch, np, card, ops)
-    for part in (path_launches, spec_launches, abort_launches, front_launches, cli_launches,
+    for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches, front_launches, cli_launches,
                  disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches,
                  other_launches, train_launches):
         for name, n in part.items():
@@ -1269,6 +1468,421 @@ def main() -> int:
     return 0
 
 
+# ---- phase (M): serving on a mesh of processes --
+
+MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
+MESH_WORLD = 4
+MESH_TIMEOUT_S = 600  # the (M2) world, all three configurations
+# (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
+# options, and the path whose streams it must give
+MESH_PATHS = (
+    ("M2a", "contiguous bf16, pdswap with the overlapped swap", False,
+     dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap", overlap=True), "a"),
+    ("M2b", "paged int8, bs 16, full pool, shared 256-token prefix, pdswap", True,
+     dict(cache_layout="paged", kv_dtype="int8", mode="pdswap"), "d"),
+    ("M2c", "contiguous int4, static", False,
+     dict(cache_layout="contiguous", kv_dtype="int4", mode="static"), "b"),
+)
+# (M2a) once more with the helpers' native form under gloo (every gather
+# and exchange one all_gather / all_to_all_single), against the portable
+# form (one broadcast a rank) that ``layers.collectives.form`` picks there
+MESH_NATIVE = ("M2a-native", "(M2a) with the native gathers and exchange", False,
+               MESH_PATHS[0][3], None)
+
+
+def _mesh_expect(cfg, kw, stats, prefills):
+    """One rank's launches on a mesh path: each rank runs every linear
+    (its shard) and B2 (its heads) on every prefill, and its walk once a
+    layer a decode round, as the single card does."""
+    kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention" + (
+        "" if kw["kv_dtype"] == "fp" else "_quant")
+    passes = prefills + stats["decode_rounds"]
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 7 * cfg.num_layers * passes, "act_quant": 7 * cfg.num_layers * passes,
+                   "prefill_attention": cfg.num_layers * prefills,
+                   kernel: cfg.num_layers * stats["decode_rounds"]})
+    return expect
+
+
+def _shape_lines(shapes):
+    """{"name shape": launches} as one sorted line a kernel."""
+    by = {}
+    for key, n in shapes.items():
+        name, shape = key.split(" ", 1)
+        by.setdefault(name, []).append(f"{shape} x{n}")
+    return [f"{name}: " + ", ".join(sorted(v)) for name, v in sorted(by.items())]
+
+
+def mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, main_streams,
+                  main_rec, main_round, main_profile, card):
+    """(M1): the main path's engine on a (data 1, model 1) NCCL mesh in
+    this process.  Every collective runs (on groups of one), the decode
+    program is captured as a CUDA graph with its collectives inside, and
+    the tokens must be the main path's.  The timed run keeps no logits
+    (a second, untimed run records them); its decode round is printed
+    beside the main path's (``main_round``: seconds a round and tok/s),
+    and 4 decode rounds are profiled beside the main path's
+    (``main_profile``: device seconds and operations a round of its 4
+    profiled rounds).  Returns the launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.serving import SamplingParams
+
+    t0 = time.perf_counter()
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    store = MESH_DIR / "m1_store"
+    store.unlink(missing_ok=True)
+    join_process_group("nccl", init_method=f"file://{store.resolve()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        print(f"(M1) {mesh.describe()}")
+        kw = dict(n_slots=n_slots, max_len=max_len, mode="pdswap", overlap=True, mesh=mesh)
+        eng, stats, wall, launches, _, _, grid = serve(cfg, params, prompts, max_tokens, **kw)
+        decode_key = f"decode:{n_slots}x{max_len}"
+        if decode_key not in grid["captured"]:
+            raise AssertionError(f"(M1): the decode program was not captured ({grid['captured']})")
+        per_pass = 7 * cfg.num_layers
+        expect = {name: 0 for name in DECODE_KERNELS}
+        expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+                       "act_quant": per_pass * (stats.swaps + stats.decode_rounds),
+                       "prefill_attention": cfg.num_layers * stats.swaps,
+                       "decode_attention": cfg.num_layers * stats.decode_rounds})
+        if launches != expect:
+            raise AssertionError(f"(M1): launches {launches} != expected {expect}")
+        got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+        rec, _ = recorded(cfg, params, prompts, max_tokens, got, "(M1)", **kw)
+        parted = check_near_ties(torch, "(M1)", got, main_streams, rec, main_rec,
+                                 lambda rid: SamplingParams())
+        print(f"(M1) main path on a (1, 1) NCCL mesh: {stats.swaps} prefills, "
+              f"{stats.decode_rounds} decode rounds, {wall:.2f} s wall, decode "
+              f"{stats.decode_round_cost() * 1e3:.2f} ms/round ({stats.decode_tput():.1f} tok/s) "
+              f"against the main path's {main_round[0] * 1e3:.2f} "
+              f"({main_round[1]:.1f} tok/s), neither timed run recording; "
+              f"{grid['graphs']} graphs captured, {decode_key} among "
+              f"them with its collectives inside; tokens "
+              f"{'equal the main path' if not parted else f'part at near ties {parted}'}; "
+              f"launches {launches}  [{card}]")
+        wall_p, dev_p, top, per_round = profile_decode(torch, eng)
+        main_dev, main_ops = main_profile
+        if dev_p is None or main_dev is None:
+            print("(M1) profile: the profiler saw no device time; not measured")
+        else:
+            print(f"(M1) profile: 4 decode rounds (4 slots, 256-token prompts): "
+                  f"{dev_p / 4 * 1e3:.3f} ms device time and {per_round:.1f} device operations "
+                  f"a round, against the main path's {main_dev / 4 * 1e3:.3f} ms and "
+                  f"{main_ops:.1f}; {wall_p / 4 * 1e3:.3f} ms wall a round  [{card}]")
+            for name, sec, calls in top[:8]:
+                print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
+        print(f"(M1) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+        del eng, rec
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return launches
+
+
+class _RowsRecorder:
+    """A rank's recorded logits rows read back from its file, with
+    ``TargetRecorder.row``'s interface."""
+
+    def __init__(self, rows, device):
+        self.rows = {(rid, pos): t.to(device) for (rid, pos), t in rows.items()}
+
+    def row(self, rid, pos):
+        return self.rows.get((rid, pos))
+
+
+def mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv, refs, card):
+    """(M2): bitnet-730m on a (data 2, model 2) gloo mesh of 4 processes on
+    this card (``python -m torch.distributed.run --standalone
+    --nproc-per-node 4 chip_smoke.py --mesh-worker DIR``; each rank on
+    cuda:0, the programs eager), three configurations (``MESH_PATHS``).
+    Each rank's launches must be what its stats imply, by shape; the ranks'
+    snapshots (times left out) equal; rank 0's streams those of the path
+    they mirror, or parted at a near tie; a contiguous rank's KV a quarter
+    of the single card's; (M2a) with the native collectives the tokens of
+    (M2a).  Returns rank 0's launches summed over ``MESH_PATHS``, and
+    (M2a)'s streams and logits rows (``mesh_cause_phase`` reads them)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={MESH_WORLD}", str(Path(__file__).resolve()), "--mesh-worker",
+           str(MESH_DIR.resolve())]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    (MESH_DIR / "world.log").write_text(run.stdout + run.stderr)
+    if run.returncode != 0:
+        raise AssertionError(f"(M2): the 4-rank world exited {run.returncode}:\n"
+                             f"{(run.stdout + run.stderr)[-6000:]}")
+    print(f"(M2) launched with: {' '.join(cmd[1:])}")
+    try:
+        total, m2a = _mesh_m2_results(torch, cfg, main_kv, refs, card)
+    finally:  # the logits rows (about 100 MB) never stay behind
+        for f in MESH_DIR.glob("*_rows.pt"):
+            f.unlink()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"(M2) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    return total, m2a
+
+
+def _mesh_m2_results(torch, cfg, main_kv, refs, card):
+    """(M2)'s checks and printout from the ranks' files."""
+    from repro_torch.serving import SamplingParams
+
+    total, m2a = {}, None
+    for key, what, _, kw, ref in MESH_PATHS + (MESH_NATIVE,):
+        ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            if got["snapshot"] != r0["snapshot"]:
+                raise AssertionError(f"({key}): rank {r}'s host decisions differ from rank 0's")
+            shapes = got["shapes"]
+            want = _mesh_expect(cfg, kw, got["stats"], got["stats"]["prefills"])
+            if got["launches"] != want or sum(shapes.values()) != sum(want.values()):
+                raise AssertionError(f"({key}) rank {r}: launches {got['launches']} != {want}")
+            if key == MESH_NATIVE[0]:
+                continue
+            print(f"({key}) rank {r}: {got['describe']}")
+            for line in _shape_lines(shapes):
+                print(f"    {line}")
+            swap = ("static: installed after the prefill" if kw["mode"] == "static"
+                    else f"swap (relayout or page write) mean {got['relayout_ms']:.3f} ms")
+            print(f"    KV {got['kv_mib']:.1f} MiB and weights {got['weights_mib']:.1f} MiB "
+                  f"(the whole tree's {got['whole_weights_mib']:.1f}, dropped once sliced) on this "
+                  f"rank; the swap's exchange {got['exchange_bytes']} bytes sent in "
+                  f"{got['exchanges']} swaps; {swap}  [{card}]")
+        st = r0["stats"]
+        if key == MESH_NATIVE[0]:
+            base = json.loads((MESH_DIR / f"{MESH_PATHS[0][0]}_rank0.json").read_text())
+            if r0["streams"] != base["streams"]:
+                raise AssertionError(f"({key}): the native collectives' tokens differ from "
+                                     f"({MESH_PATHS[0][0]})'s")
+            print(f"({key}) {what}: decode {st['decode_round_ms']:.2f} ms/round "
+                  f"({st['decode_tput']:.1f} tok/s) against the portable form's "
+                  f"{base['stats']['decode_round_ms']:.2f}, swap mean {r0['relayout_ms']:.3f} ms "
+                  f"against {base['relayout_ms']:.3f}, TTFT mean {st['ttft_mean_ms']:.1f} ms "
+                  f"against {base['stats']['ttft_mean_ms']:.1f}; the same tokens; the 4 ranks' "
+                  f"snapshots equal  [{card}]")
+            continue
+        rows = _RowsRecorder(torch.load(MESH_DIR / f"{key}_rows.pt"), "cuda")
+        parted = check_near_ties(torch, f"({key})", {k: v for k, v in r0["streams"].items()},
+                                 refs[ref]["streams"], rows,
+                                 refs[ref]["recorder"], lambda rid: SamplingParams(),
+                                 tol=MESH_TIE_TOL, agree_tol=MESH_AGREE_TOL)
+        if key == MESH_PATHS[0][0]:
+            m2a = {"streams": r0["streams"], "recorder": rows}
+        if kw["cache_layout"] == "contiguous" and kw["kv_dtype"] == "fp":
+            if r0["kv_bytes"] * 4 != main_kv:
+                raise AssertionError(f"({key}): a rank holds {r0['kv_bytes']} KV bytes, not a "
+                                     f"quarter of the single card's {main_kv}")
+        print(f"({key}) {what} on the (2, 2) gloo mesh: {st['prefills']} prefills, "
+              f"{st['decode_rounds']} decode rounds, {r0['wall']:.2f} s wall, decode "
+              f"{st['decode_round_ms']:.2f} ms/round ({st['decode_tput']:.1f} tok/s), TTFT mean "
+              f"{st['ttft_mean_ms']:.1f} ms; rank 0's recorder, inside this window, "
+              f"{r0['recorder_ms_round']:.3f} ms of host time a round; the 4 ranks' snapshots "
+              f"equal; streams "
+              f"{'equal' if not parted else f'part at near ties {parted} from'} path ({ref})'s; "
+              f"the rank's seconds {r0['seconds']:.1f}  [{card}]")
+        for name, n in r0["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total, m2a
+
+
+def _split_walk(torch, drop: bool = False):
+    """The decode walk as a model axis of 2 runs it, on one card: B3 over
+    each half of the cache's rows (local lengths ``clamp(len - r * S/2, 0,
+    S/2)``), the two (out, l, m) stacked in rank order and merged by
+    ``combine_partials``, as ``merge_partials`` merges the gathered ones.
+    With ``drop`` the second half's partials are left out: the planted
+    fault of ``mesh_cause_phase``.  Returns (the plain function, the walk)."""
+    from repro_torch.layers import attention as A
+
+    plain = A.decode_attention
+
+    def walk(q, k, v, lengths, starts=None, *, return_stats=False, **kw):
+        if not return_stats or starts is not None or kw:
+            raise AssertionError("the split walk takes the bf16 decode walk of the main path")
+        half = k.shape[2] // 2
+        parts = [plain(q, k[:, :, r * half:(r + 1) * half], v[:, :, r * half:(r + 1) * half],
+                       torch.clamp(lengths - r * half, 0, half).to(torch.int32),
+                       return_stats=True) for r in range(2)]
+        if drop:
+            return parts[0]
+        return A.combine_partials(*(torch.stack(t) for t in zip(*parts)))
+
+    return plain, walk
+
+
+def mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
+                     m2a, card):
+    """What (M2a)'s logits differ from the single card's by, reproduced on
+    this card: the main path served (E1) with the decode walk split into
+    two sequence halves merged as the model ranks merge them, (E2) in
+    batches of 2 slots (a data rank's), (E3) both (the computation of an
+    (M2a) rank, bar the vocabulary halves of the logits), and (F) as (E3)
+    with the second half's (out, l, m) dropped: the planted fault.  Each
+    is read against the main path, and (E3) against (M2a) itself.  The
+    (M2) limits must pass (E1)-(E3) and fail (F)."""
+    from repro_torch.layers import attention as A
+    from repro_torch.serving import SamplingParams
+
+    t0 = time.perf_counter()
+    greedy = lambda rid: SamplingParams()  # noqa: E731
+    runs = (("E1", "the walk in two sequence halves, 4 slots", 4, "split"),
+            ("E2", "2 slots, the walk whole", 2, None),
+            ("E3", "2 slots, the walk in two sequence halves", 2, "split"),
+            ("F", "(E3) with the second half's partials dropped (the planted fault)", 2, "drop"))
+    for key, what, slots, how in runs:
+        plain, walk = _split_walk(torch, drop=how == "drop")
+        rec = []
+        if how is not None:
+            A.decode_attention = walk
+        try:
+            eng, st, *_ = serve(cfg, params, prompts, max_tokens, n_slots=slots, max_len=max_len,
+                                mode="pdswap", overlap=True,
+                                on_engine=lambda e: rec.append(TargetRecorder(e)))
+        finally:
+            A.decode_attention = plain
+        rec[0].stop()
+        got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+        del eng
+        print(f"({key}) {what}: {st.decode_rounds} decode rounds  [{card}]")
+        reading = compare_streams(torch, f"({key}) against the main path", got, main_streams,
+                                  rec[0], main_rec, greedy)
+        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        if key == "E3":
+            same = compare_streams(torch, "(E3) against (M2a)", got, m2a["streams"], rec[0],
+                                   m2a["recorder"], greedy)
+            if same["parts"] or same["agree"] > 1e-4:
+                raise AssertionError(f"(E3) does not reproduce (M2a): {same}")
+        if key == "F":
+            if not faults:
+                raise AssertionError(f"(F): the planted fault passes the (M2) limits (tie "
+                                     f"{MESH_TIE_TOL}, logits {MESH_AGREE_TOL})")
+            print(f"(F) fails the (M2) limits, as it must: {'; '.join(faults)}")
+        elif faults:
+            raise AssertionError(f"({key}): " + "; ".join(faults))
+        del rec
+    print(f"(E) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of a params tree's tensors (a ``TernaryWeight``'s packed
+    bytes and scale)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if hasattr(tree, "packed"):
+        return _tree_bytes(tree.packed) + _tree_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def mesh_worker(out: Path) -> int:
+    """One rank of (M2), started by ``torch.distributed.run``: join the
+    gloo world on this card, build the (2, 2) mesh, draw the main path's
+    weights and keep this rank's slice of them (the whole tree dropped),
+    serve each of ``MESH_PATHS`` and then ``MESH_NATIVE`` (rank 0 admits,
+    the others follow), and write this rank's launches by shape, KV and
+    weight bytes, the exchange's bytes, the snapshot and rank 0's streams
+    and logits rows (recorded within the timed run, the recorder's host
+    time measured)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.layers import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineCore, Request
+
+    t_start = time.perf_counter()
+    join_process_group("gloo")
+    mesh = make_host_mesh(data=2, model=2)
+    rank = mesh.rank
+    cfg = get_config("bitnet-730m")
+    whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
+    whole_bytes = _tree_bytes(whole)
+    params = shard_params(whole, cfg, mesh)  # the rank keeps its slice only
+    del whole
+    torch.cuda.empty_cache()
+    form = C.form
+    for key, _, shared, kw, _ in MESH_PATHS + (MESH_NATIVE,):
+        t0 = time.perf_counter()
+        if key == MESH_NATIVE[0]:
+            C.form = lambda group: "native"
+        prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256 if shared else 0)
+        eng = EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw)
+        rec = TargetRecorder(eng) if rank == 0 and key != MESH_NATIVE[0] else None
+        prefills, prefill = [], eng.runner.prefill
+
+        def counted(*args, prefill=prefill, prefills=prefills, **kw_):
+            prefills.append(1)
+            return prefill(*args, **kw_)
+
+        eng.runner.prefill = counted
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts()
+        t_run = time.perf_counter()
+        if rank == 0:
+            for i, p in enumerate(prompts):
+                eng.submit(Request(f"req{i}", p, max_new=32))
+            eng.run()
+            eng.stop_followers()
+        else:
+            eng.follow()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        st = eng.stats
+        C.form = form
+        result = {
+            "describe": mesh.describe(), "launches": dict(COUNTS),
+            "weights_mib": _tree_bytes(params) / 2**20, "whole_weights_mib": whole_bytes / 2**20,
+            "recorder_ms_round": (rec.seconds / max(len(rec.rounds), 1) * 1e3
+                                  if rec is not None else 0.0),
+            "shapes": {f"{name} {shape}": n for (name, shape), n in COUNTS.shapes().items()},
+            "kv_bytes": eng.kv_bytes()["allocated"], "kv_mib": eng.kv_bytes()["allocated"] / 2**20,
+            "exchange_bytes": eng.runner.engine.exchange_bytes,
+            "exchanges": eng.runner.engine.exchanges,
+            "relayout_ms": (statistics.mean(t.t_relayout for t in st.swap_timings) * 1e3
+                            if st.swap_timings else 0.0),
+            "snapshot": _decisions(eng.snapshot()),
+            "streams": {r: list(map(int, q.out_tokens)) for r, q in eng.finished.items()},
+            "stats": {"swaps": st.swaps, "prefills": len(prefills),
+                      "decode_rounds": st.decode_rounds,
+                      "decode_round_ms": st.decode_round_cost() * 1e3,
+                      "decode_tput": st.decode_tput(), "ttft_mean_ms": st.ttft.mean * 1e3},
+            "wall": wall, "seconds": time.perf_counter() - t0}
+        (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
+        if rec is not None:
+            rows = {(rid, pos): rec.row(rid, pos).cpu()
+                    for rid, toks in result["streams"].items() for pos in range(1, len(toks))}
+            torch.save(rows, out / f"{key}_rows.pt")
+        del eng, rec
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def _decisions(tree):
+    """A snapshot with its floats (times, rates) taken out: what the ranks'
+    host decisions make equal."""
+    if isinstance(tree, dict):
+        return {k: _decisions(v) for k, v in tree.items() if not isinstance(v, float)}
+    if isinstance(tree, (list, tuple)):
+        return [_decisions(v) for v in tree if not isinstance(v, float)]
+    return tree
+
+
 def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
     """The greedy requests' prompts, from seed 0; with ``shared_prefix``, the
     prompts ``SHARED`` start with the same tokens."""
@@ -1279,6 +1893,20 @@ def make_prompts(np, cfg, prompt_lens, shared_prefix: int = 0):
         for i in SHARED:
             prompts[i][:shared_prefix] = prefix
     return prompts
+
+
+def recorded(cfg, params, prompts, max_tokens, want, what, params_of=None, **engine_kw):
+    """A path served once more, untimed, with a ``TargetRecorder``: the rows
+    that ``check_near_ties`` reads, kept out of the timed run's window.  Its
+    streams must be the timed run's (``want``).  Returns the recorder and
+    the recorded run's decode seconds a round."""
+    rec = []
+    eng, st, *_ = serve(cfg, params, prompts, max_tokens, params_of,
+                        on_engine=lambda e: rec.append(TargetRecorder(e)), **engine_kw)
+    rec[0].stop()
+    if {r: eng.finished[r].out_tokens for r in want} != want:
+        raise AssertionError(f"{what}: the recorded run's tokens differ from the timed run's")
+    return rec[0], st.decode_round_cost()
 
 
 def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, engine_cls=None,
@@ -1434,14 +2062,16 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         ("j", f"(i) on a {SMALL_POOL}-page pool", shared,
          dict(paged8, prefill_chunk=CHUNK, num_blocks=SMALL_POOL), None),
     ]
-    total, streams, latency, ops, rec = {}, {}, {}, {}, []
+    total, streams, latency, ops, recs = {}, {}, {}, {}, {}
     for key, what, ps, kw, params_of in paths:
         eng, st, wall, launches, prefills, events, grid = serve(
             cfg, params, ps, max_tokens, params_of,
-            on_engine=(lambda e: rec.append(TargetRecorder(e))) if key == "i" else None,
+            on_engine=((lambda e, key=key: recs.setdefault(key, TargetRecorder(e)))
+                       if key == "i" else None),
             n_slots=n_slots, max_len=max_len, block_size=16, **kw)
+        if key in recs:
+            recs[key].stop()  # the profiles below are not recorded
         if key == "i":
-            rec[0].stop()  # the profiles below are not recorded
             tput_i = st.decode_tput()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check_served(eng, cfg, len(ps), max_tokens)
@@ -1515,6 +2145,9 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
         del eng
+        if key in ("b", "d"):  # (M2c) and (M2b) are held to their logits
+            recs[key], _ = recorded(cfg, params, ps, max_tokens, streams[key], f"path ({key})",
+                                    n_slots=n_slots, max_len=max_len, block_size=16, **kw)
     for key, ref in (("e", "d"), ("h", "g"), ("j", "i")):
         if streams[key] != streams[ref]:
             raise AssertionError(f"path ({key}): the preempted run's tokens differ from ({ref})'s")
@@ -1536,7 +2169,9 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
     print(f"path (i): {same} of {len(requests)} streams equal (d)'s (monolithic prefill runs "
           "B2, chunks f32 matmuls: equal only to float rounding, not asserted)")
     return total, {"streams": {r: t for r, t in streams["i"].items() if r in requests},
-                   "recorder": rec[0], "latency": latency["i"], "tput": tput_i}
+                   "recorder": recs["i"], "latency": latency["i"], "tput": tput_i}, {
+        key: {"streams": {r: t for r, t in streams[key].items() if r in requests},
+              "recorder": recs[key]} for key in ("b", "d")}
 
 
 class TargetRecorder:
@@ -1548,6 +2183,7 @@ class TargetRecorder:
     def __init__(self, eng):
         self.eng = eng
         self.rounds = []  # (logits (B, W, V), {slot: (request id, index of row 0)})
+        self.seconds = 0.0  # host time spent keeping rounds
         runner = eng.runner
         decode, verify = runner.decode_logits, runner.run_verify
 
@@ -1566,8 +2202,10 @@ class TargetRecorder:
     def _keep(self, logits):
         if self.eng is None:  # stopped
             return
+        t0 = time.perf_counter()
         rows = {s: (r.request_id, len(r.out_tokens)) for s, r in self.eng.scheduler.inflight.items()}
         self.rounds.append((logits.clone(), rows))
+        self.seconds += time.perf_counter() - t0
 
     def stop(self):
         """Keep nothing more (the rounds kept so far stay readable)."""
@@ -1608,17 +2246,16 @@ def _margin(torch, row, sp, pos, mine, other):
     return float(scores[mine] - scores[other]), "perturbed scores"
 
 
-def check_near_ties(torch, what, got, want, rec_got, rec_want, params_of):
-    """Two runs' streams ({request id: tokens}) must be equal, or part only
-    at a near tie.  At the first position where a request's streams part:
-    greedy, the two tokens' logits lie within TIE_TOL in both runs; sampled
-    (where a draw can also flip at the top-k / top-p edge), the two runs'
-    logits rows lie within TIE_TOL of each other, so that the same noise
-    decides between nearly equal rows.  The rest of a parted stream is not
-    compared.  Prints each parting (position, tokens, each run's margin
-    and the rows' largest difference) and the largest difference between
-    the two runs' logits on the tokens both gave.  Returns the partings."""
-    parted, agree = [], 0.0
+def compare_streams(torch, what, got, want, rec_got, rec_want, params_of):
+    """Where two runs' streams ({request id: tokens}) part, and by how much
+    their logits differ before that.  For each request that parts, at its
+    first differing position: the two tokens, each run's margin for its
+    own token over the other's (``_margin``), whether the draw was greedy,
+    and how far apart the runs' logits rows lie there; the rest of a
+    parted stream is not compared.  ``agree``: the largest difference
+    between the two runs' logits on the tokens both gave.  Prints each
+    parting and the agreement; checks nothing."""
+    parts, agree = [], 0.0
     for rid in sorted(want):
         a, b = got[rid], want[rid]
         pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -1638,13 +2275,41 @@ def check_near_ties(torch, what, got, want, rec_got, rec_want, params_of):
         print(f"{what}: {rid} parts at token {pos}: {a[pos]} against {b[pos]} "
               f"({'greedy' if sp.greedy else 'sampled'}); margins ({how}) {m0:.6f} and "
               f"{m1:.6f}; the runs' logits there {diff:.6f} apart at most")
-        bad = max(m0, m1) > TIE_TOL if sp.greedy else diff > TIE_TOL
-        if bad:
-            raise AssertionError(f"{what}: {rid} parts at token {pos}, not at a near tie "
-                                 f"(margins {m0}, {m1}; logits {diff} apart; limit {TIE_TOL})")
-        parted.append((rid, pos))
+        parts.append({"rid": rid, "pos": pos, "margins": (m0, m1), "diff": diff,
+                      "greedy": sp.greedy})
     print(f"{what}: the two runs' logits on the tokens both gave lie within {agree:.3g}")
-    return parted
+    return {"parts": parts, "agree": agree}
+
+
+def near_tie_faults(reading, tol, agree_tol=None):
+    """What in a ``compare_streams`` reading breaks the near-tie rule: a
+    greedy parting where either margin exceeds ``tol``, a sampled one
+    where the rows lie more than ``tol`` apart, or (with ``agree_tol``)
+    logits on common tokens further apart than ``agree_tol``."""
+    faults = [f"{p['rid']} parts at token {p['pos']}, not at a near tie (margins "
+              f"{p['margins'][0]}, {p['margins'][1]}; logits {p['diff']} apart; limit {tol})"
+              for p in reading["parts"]
+              if (max(p["margins"]) if p["greedy"] else p["diff"]) > tol]
+    if agree_tol is not None and reading["agree"] > agree_tol:
+        faults.append(f"the two runs' logits part by {reading['agree']} on tokens both gave "
+                      f"(limit {agree_tol})")
+    return faults
+
+
+def check_near_ties(torch, what, got, want, rec_got, rec_want, params_of, tol=TIE_TOL,
+                    agree_tol=None):
+    """Two runs' streams ({request id: tokens}) must be equal, or part only
+    at a near tie: greedy, the two tokens' logits lie within TIE_TOL in
+    both runs; sampled (where a draw can also flip at the top-k / top-p
+    edge), the two runs' logits rows lie within TIE_TOL of each other, so
+    that the same noise decides between nearly equal rows.  With
+    ``agree_tol`` the logits on the tokens both gave must also lie within
+    it.  Returns the partings [(request id, position)]."""
+    reading = compare_streams(torch, what, got, want, rec_got, rec_want, params_of)
+    faults = near_tie_faults(reading, tol, agree_tol)
+    if faults:
+        raise AssertionError(f"{what}: " + "; ".join(faults))
+    return [(p["rid"], p["pos"]) for p in reading["parts"]]
 
 
 def spec_prompts(np, cfg):
@@ -4009,4 +4674,6 @@ def _to_cpu(tree):
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":  # one rank of phase (M2)
+        sys.exit(mesh_worker(Path(sys.argv[2])))
     sys.exit(main())

@@ -544,6 +544,98 @@ def _paged_cases() -> List[KernelCase]:
     return cases
 
 
+def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
+    """The launches a rank of a (data 2, model 2) mesh makes at
+    bitnet-730m's widths: ``act_quant`` over a row shard with its extra
+    column (K/2 + 4), B1 at the column shards (N/2) and the row shards
+    (K/2, unit scale: the rank's int32 partial), B2 on 12 of 24 heads, B3
+    and B4 over a sequence half with an empty slot, B5 and B6 over a data
+    rank's 2 slots."""
+    rng = np.random.default_rng(15)
+    cases = []
+    for m in (2, 4):
+        for k in (772, 2052):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = rng.standard_normal((m, k)).astype(np.float32)
+                x[0] = 0.0
+                x[:, -4] = np.abs(x[:, :-4]).max(axis=1) * 1.5  # the whole row's absmax
+                x[:, -3:] = 0.0
+                if dtype == torch.bfloat16:
+                    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                ops = {"x": Operand(x, dtype, "float"),
+                       "beta": Operand(np.array([0.037], np.float32), torch.float32, "float")}
+                cases.append(KernelCase("act_quant", f"act_quant M={m} K={k} {str(dtype)[6:]} "
+                                        "(a row shard + its absmax column)", ops, ("x", "beta"),
+                                        {}, ("x", "beta"), {}))
+    for m in (2, 4, 130):
+        for k, n, row in ((1536, 768, False), (1536, 2048, False), (768, 1536, True),
+                          (2048, 1536, True)):
+            # a row shard's B1 returns the rank's int32 partial: a unit scale
+            scale = (np.ones((m, 1), np.float32) if row
+                     else (rng.random((m, 1)) * 1e-3).astype(np.float32))
+            ops = {"x_q": Operand(rng.integers(-127, 128, (m, k)).astype(np.int8), torch.int8,
+                                  "int8"),
+                   "w": Operand(rng.integers(0, 256, (k // 4, n)).astype(np.uint8), torch.uint8,
+                                "packed"),
+                   "scale": Operand(scale, torch.float32, "float")}
+            cases.append(KernelCase("tlmm", f"tlmm M={m} K={k} N={n} (a model rank's "
+                                    f"{'row' if row else 'column'} shard)", ops,
+                                    ("x_q", "w", "scale"), {}, ("x_q", "w", "scale"), {}))
+    for s_ in (65, 257):
+        q, k, v = (rng.standard_normal((1, 12, s_, 64)).astype(np.float32) for _ in range(3))
+        ops = {n: Operand(a, torch.float32, "float", extra_rows=EXTRA_ROWS)
+               for n, a in (("q", q), ("k", k), ("v", v))}
+        cases.append(KernelCase("prefill_attention", f"prefill H=12 Hkv=12 S={s_} D=64 (12 of "
+                                "24 heads)", ops, ("q", "k", "v"), {}, ("q", "k", "v"), {}))
+    hkv, half, d = 24, 48, 64
+    for fmt in ("bf16", "int8", "int4"):
+        quant = fmt != "bf16"
+        kernel = "decode_attention_quant" if quant else "decode_attention"
+        for lengths in ([0, half], [30, 0]):
+            live = np.zeros((2, half), bool)
+            for b_, n_ in enumerate(lengths):
+                live[b_, :n_] = True
+            dead = np.broadcast_to(~live[:, None, :], (2, hkv, half)).copy()
+            ops = _walk_tensors(rng, (2, hkv, half), fmt, d, dead, EXTRA_ROWS)
+            ops["q"] = Operand(rng.standard_normal((2, hkv, 1, d)).astype(np.float32),
+                               torch.float32, "float")
+            ops["lengths"] = Operand(np.array(lengths, np.int32), torch.int32, "index")
+            label = f"{kernel} {fmt} D={d} G=1 Hkv={hkv} a sequence half of {half} lengths={lengths}"
+            if quant:
+                args = ("q", "k", "k_scale", "v", "v_scale", "lengths", None)
+                plain = ("q", "k_r", "k_scale_r", "v_r", "v_scale_r", "lengths", None)
+                cases.append(KernelCase(kernel, label, ops, args, {"kv_dtype": fmt}, plain,
+                                        {"kv_dtype": fmt}, fp_elems=2 * hkv * half * d))
+            else:
+                cases.append(KernelCase(kernel, label, ops, ("q", "k", "v", "lengths", None), {},
+                                        ("q", "k_r", "v_r", "lengths", None), {}))
+    n_pages, bs = 8, PAGE
+    tables = np.array([[3, 0, 6, 1], [5, 2, 7, 4]], np.int32)
+    lengths = [37, 64]
+    live = np.zeros((n_pages, bs), bool)
+    for b_ in range(2):
+        for pos in range(lengths[b_]):
+            live[tables[b_, pos // bs], pos % bs] = True
+    dead = np.broadcast_to(~live[:, None, :], (n_pages, hkv, bs)).copy()
+    for fmt in ("bf16", "int8"):
+        quant = fmt != "bf16"
+        kernel = "paged_decode_attention_quant" if quant else "paged_decode_attention"
+        ops = _walk_tensors(rng, (n_pages, hkv, bs), fmt, d, dead, EXTRA_ROWS)
+        ops["q"] = Operand(rng.standard_normal((2, hkv, 1, d)).astype(np.float32),
+                           torch.float32, "float")
+        ops["tables"] = Operand(tables.copy(), torch.int32, "index")
+        ops["lengths"] = Operand(np.array(lengths, np.int32), torch.int32, "index")
+        label = f"{kernel} {fmt} D={d} G=1 Hkv={hkv} a data rank's 2 slots lengths={lengths}"
+        if quant:
+            args = ("q", "k", "k_scale", "v", "v_scale", "tables", "lengths", None)
+            cases.append(KernelCase(kernel, label, ops, args, {"kv_dtype": fmt}, args,
+                                    {"kv_dtype": fmt}, fp_elems=n_pages * hkv * bs * d))
+        else:
+            args = ("q", "k", "v", "tables", "lengths", None)
+            cases.append(KernelCase(kernel, label, ops, args, {}, args, {}))
+    return [c for c in cases if kernels is None or c.kernel in kernels]
+
+
 def device_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
     """The card half's case grid, restricted to ``kernels`` when given."""
     cases = (_act_quant_cases() + _tlmm_cases() + _prefill_cases() + _slot_cases()
@@ -780,7 +872,7 @@ def run(root: Path, subset: Optional[Sequence[str]] = None, *, device: str = "cp
     if device == "cuda":
         wrappers, plains = _wrappers(), _plains()
         dev = torch.device("cuda")
-        for case in device_cases(kernels):
+        for case in device_cases(kernels) + mesh_cases(kernels):
             n_cases += 1
             found += run_case(case, wrappers[case.kernel], plains[case.kernel], dev,
                               where[case.kernel], errors)

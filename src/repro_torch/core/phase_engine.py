@@ -41,6 +41,15 @@ shared pool (the pool holds scratch only), so the graphs may replay in any
 order.  The monolithic prefill programs (one
 shape a bucket, compute-bound at long prompts) run eagerly.  On the CPU
 every program runs eagerly.
+
+On a mesh (``PhaseEngine(cfg, mesh)``, one process a rank) every program
+runs under the rules of ``make_pctx``: prefill with the heads over the
+model axis, decode with the batch over data and the KV sequence over
+model.  The relayout is then the exchange from heads-sharded prefill KV to
+sequence-sharded decode KV, one all-to-all over the model axis: the
+counterpart of the paper's bitstream load.  The programs capture as graphs
+only where the mesh's collectives can be captured (NCCL,
+``Mesh.capturable``); on a gloo mesh they run eagerly.
 """
 from __future__ import annotations
 
@@ -54,9 +63,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_cache import insert_prefill_kv, relay_prefill_kv
 from repro_torch.core.sampling import sample_block_tokens, sample_tokens
 from repro_torch.kernels import COUNTS
+from repro_torch.layers import collectives as C
 from repro_torch.layers.attention import KVCache, write_chunk_kv_q, write_prefill_pages_q
+from repro_torch.layers.sharding import (
+    DECODE_RULES,
+    LONG_DECODE_RULES,
+    PREFILL_RULES,
+    MeshAxes,
+    PartitionCtx,
+)
 from repro_torch.models import transformer as T
-from repro_torch.quant.kv_quant import assert_kv_dtype
+from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
+
+
+def _mesh_axes(mesh) -> MeshAxes:
+    if mesh is None:
+        return MeshAxes()
+    names = mesh.axis_names
+    dp = tuple(n for n in names if n in ("pod", "data")) or (None,)
+    dp = dp[0] if len(dp) == 1 else dp
+    return MeshAxes(dp=dp, tp="model" if "model" in names else None,
+                    fsdp="data" if "data" in names else None)
+
+
+def make_pctx(mesh, phase: str) -> PartitionCtx:
+    rules = {"prefill": PREFILL_RULES, "decode": DECODE_RULES,
+             "long_decode": LONG_DECODE_RULES}.get(phase, PREFILL_RULES)
+    return PartitionCtx(mesh=mesh, axes=_mesh_axes(mesh), rules=rules)
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -295,22 +328,96 @@ class ProgramSignature:
 class PhaseEngine:
     """Builds and caches the phase programs for one architecture."""
 
-    def __init__(self, cfg: ModelConfig, *, cache_layout: str = "contiguous",
-                 kv_dtype: str = "fp"):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, cache_layout: str = "contiguous",
+                 kv_dtype: str = "fp", long_context: bool = False):
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(f"cache_layout must be 'contiguous' or 'paged', got {cache_layout!r}")
         assert_kv_dtype(kv_dtype)
+        if long_context and cache_layout == "paged":
+            raise NotImplementedError("long-context decode walks the contiguous cache")
         self.cfg = cfg
+        self.mesh = mesh
         self.kv_dtype = kv_dtype
+        self.decode_phase = "long_decode" if long_context else "decode"
+        self.prefill_ctx = make_pctx(mesh, "prefill")
+        self.decode_ctx = make_pctx(mesh, self.decode_phase)
+        T.check_mesh_model(cfg, self.prefill_ctx)
+        # bytes the swap's exchange (relayout or page write) sent from this
+        # rank, and its calls
+        self.exchange_bytes = 0
+        self.exchanges = 0
+        self.n_slots: Optional[int] = None  # the whole batch of the cache init_cache made
         self._programs: Dict[str, PhaseProgram] = {}
         self._graphs = GraphResources()
 
     def _program(self, key: str, fn: Callable, *, phase: str, capturable: bool = False,
                  pinned: Tuple[int, ...] = ()) -> PhaseProgram:
         if key not in self._programs:
+            # a mesh whose collectives a graph cannot capture (gloo) runs eagerly
+            capturable = capturable and (self.mesh is None or self.mesh.capturable)
             self._programs[key] = PhaseProgram(key, fn, capturable, pinned, self._graphs,
                                                phase=phase)
         return self._programs[key]
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} on a mesh is ROADMAP A.13")
+
+    # ------------------------------------------------------ mesh shards --
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> KVCache:
+        """This rank's block of the (batch, L, Hkv, max_len, D) decode cache:
+        its rows of the batch and max_len / k rows of the sequence, k the
+        ranks of the sequence axis; the whole cache without a mesh."""
+        k = self.decode_ctx.size(self.decode_ctx.resolve(["kv_seq"])[0])
+        if max_len % k:
+            raise ValueError(f"max_len {max_len} does not split over {k} sequence shards")
+        lo, hi = T.batch_rows(self.decode_ctx, batch)
+        self.n_slots = batch
+        return T.init_cache(self.cfg, hi - lo, max_len // k, kv_dtype=self.kv_dtype,
+                            device=device)
+
+    def _exchange(self, kv: KVCache, sl: int) -> KVCache:
+        """The swap on a mesh: one prompt's prefill KV (L, 1, Hkv / tp, S,
+        D) of this rank's heads becomes this rank's rows [i * Sl, i * Sl +
+        n) of every head (n = what of the prompt falls in them), i its index
+        on the decode sequence axis, by one all-to-all over the model axis
+        that carries K and V together.  Each model rank gets a chunk of c =
+        min(Sl, S) rows from each; rows past the prompt are zeros."""
+        pctx = self.decode_ctx
+        tp = pctx.axes.tp
+        seq_ax = pctx.resolve(["kv_seq"])[0]
+        seq_axes = seq_ax if isinstance(seq_ax, tuple) else (seq_ax,)
+        if seq_axes[-1] != tp:
+            raise NotImplementedError(f"the decode sequence axis {seq_ax} must end in {tp!r}")
+        k = pctx.size(tp)
+        i = pctx.index(seq_ax)
+        base = i - pctx.index(tp)  # the sequence index of model rank 0 of this group
+        both = torch.stack([kv.k, kv.v])  # (2, L, 1, Hkv / tp, S, D)
+        s = both.shape[4]
+        c = min(sl, s)
+        send = both.new_zeros(both.shape[:4] + (k * c,) + both.shape[5:])
+        for j in range(k):
+            a = (base + j) * sl
+            n = max(0, min(s - a, c))
+            if n:
+                send[:, :, :, :, j * c:j * c + n] = both[:, :, :, :, a:a + n]
+        recv = C.all_to_all(send, self.mesh.group(tp), split_dim=4, cat_dim=3)
+        self.exchange_bytes += send.numel() * send.element_size() * (k - 1) // k
+        self.exchanges += 1
+        n_mine = max(0, min(s - i * sl, c))
+        return KVCache(recv[0, :, :, :, :n_mine], recv[1, :, :, :, :n_mine])
+
+    def _gather_kv_heads(self, kv: KVCache) -> KVCache:
+        """Prefill KV of this rank's heads made whole over the model axis
+        (the paged pool holds every head on every rank)."""
+        both = torch.stack([kv.k, kv.v])  # (2, L, B, Hkv / tp, S, D)
+        self.exchange_bytes += both.numel() * both.element_size()
+        self.exchanges += 1
+        dims = (None, "layers", "batch", "kv_heads", "seq", "head_dim")
+        both = self.prefill_ctx.shard(both, dims, dims[:3] + (None,) + dims[4:],
+                                      both.shape[:3] + (self.cfg.num_kv_heads,) + both.shape[4:])
+        return KVCache(both[0], both[1])
 
     def before_capture(self, hook: Callable[[], None]) -> None:
         """Call ``hook`` before each capture of this engine's graphs."""
@@ -337,36 +444,36 @@ class PhaseEngine:
     def prefill_program_varlen(self, batch: int, seq: int) -> PhaseProgram:
         """``fn(params, tokens, last_pos) -> (logits, kv)`` for right-padded
         prompts at bucket length ``seq``."""
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.prefill_ctx
 
         def fn(params, tokens, last_pos):
-            return T.forward_prefill(params, tokens, cfg, last_pos=last_pos)
+            return T.forward_prefill(params, tokens, cfg, last_pos=last_pos, pctx=pctx)
 
         return self._program(f"prefill_varlen:{batch}x{seq}", fn, phase="prefill")
 
     def prefill_split_programs_varlen(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
         """(body, tail): the overlap split, the tail taking ``last_pos``."""
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.prefill_ctx
         key = f"prefill_split_varlen:{batch}x{seq}"
 
         def body_fn(params, tokens):
-            return T.forward_prefill(params, tokens, cfg, split_tail=True)
+            return T.forward_prefill(params, tokens, cfg, split_tail=True, pctx=pctx)
 
         def tail_fn(params, x_mid, last_pos):
-            return T.prefill_tail(params, x_mid, cfg, last_pos=last_pos)
+            return T.prefill_tail(params, x_mid, cfg, last_pos=last_pos, pctx=pctx, batch=batch)
 
         return (self._program(key, body_fn, phase="prefill"),
                 self._program(key + ":tail", tail_fn, phase="prefill"))
 
     def prefill_split_programs(self, batch: int, seq: int) -> Tuple[PhaseProgram, PhaseProgram]:
         """(body, tail): the overlap split at the last layer's attention."""
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.prefill_ctx
 
         def body_fn(params, tokens):
-            return T.forward_prefill(params, tokens, cfg, split_tail=True)
+            return T.forward_prefill(params, tokens, cfg, split_tail=True, pctx=pctx)
 
         def tail_fn(params, x_mid):
-            return T.prefill_tail(params, x_mid, cfg)
+            return T.prefill_tail(params, x_mid, cfg, pctx=pctx, batch=batch)
 
         return (self._program(f"prefill_body:{batch}x{seq}", body_fn, phase="prefill"),
                 self._program(f"prefill_tail:{batch}x{seq}", tail_fn, phase="prefill"))
@@ -376,22 +483,36 @@ class PhaseEngine:
         KV (L, 1, Hkv, seq, D) into slot ``slot`` of the batch-leading decode
         cache in place — layer-major to batch-leading, cast to the cache
         dtype or quantized from f32, rows [seq, max_len) padded — and
-        returns the cache."""
+        returns the cache.
+
+        On a mesh ``cache`` is this rank's block and ``slot`` a slot of the
+        whole batch: the ranks of the data row that holds the slot exchange
+        the prompt's KV from heads to sequence (``_exchange``) and install
+        their rows into their block; the other rows do nothing."""
         if batch != 1:
             raise NotImplementedError("the relayout installs one prompt at a time")
 
         def fn(kv, cache, slot):
-            return insert_prefill_kv(cache, kv, slot)
+            if self.mesh is None:
+                return insert_prefill_kv(cache, kv, slot)
+            if self.n_slots is None:
+                raise RuntimeError("on a mesh the relayout installs into PhaseEngine.init_cache's "
+                                   "cache")
+            leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
+            lo, hi = T.batch_rows(self.decode_ctx, self.n_slots)
+            if not lo <= slot < hi:
+                return cache
+            return insert_prefill_kv(cache, self._exchange(kv, leaf.shape[3]), slot - lo)
 
         return self._program(f"relayout:{batch}x{seq}->{max_len}", fn, phase="swap", pinned=(1,))
 
     def decode_program(self, batch: int, max_len: int) -> PhaseProgram:
         """``fn(params, token, cache, lengths) -> (logits, cache)``; the cache
         is updated in place (the JAX program donates it)."""
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.decode_ctx
 
         def fn(params, token, cache, lengths):
-            return T.decode_step(params, token, cache, lengths, cfg)
+            return T.decode_step(params, token, cache, lengths, cfg, pctx)
 
         return self._program(f"decode:{batch}x{max_len}", fn, phase="decode", capturable=True,
                              pinned=(0, 2))
@@ -399,10 +520,10 @@ class PhaseEngine:
     def paged_decode_program(self, n_slots: int, max_pages: int) -> PhaseProgram:
         """``fn(params, token, pages, block_tables, lengths) -> (logits,
         pages)``; the pool is updated in place."""
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.decode_ctx
 
         def fn(params, token, pages, block_tables, lengths):
-            return T.decode_step_paged(params, token, pages, block_tables, lengths, cfg)
+            return T.decode_step_paged(params, token, pages, block_tables, lengths, cfg, pctx)
 
         return self._program(f"decode_paged:{n_slots}x{max_pages}", fn, phase="decode",
                              capturable=True,
@@ -411,9 +532,13 @@ class PhaseEngine:
     def page_write_program(self, seq: int, block_size: int) -> PhaseProgram:
         """The paged swap: ``fn(pages, kv, page_ids)`` scatters prefill-layout
         KV (L, 1, Hkv, seq, D) into the pages ``page_ids`` (ids >= N skipped)
-        in place, quantizing on write under int8/int4, and returns the pool."""
+        in place, quantizing on write under int8/int4, and returns the pool.
+        On a mesh the ranks first gather the prompt's heads: every rank's
+        pool holds every page whole."""
 
         def fn(pages, kv, page_ids):
+            if self.mesh is not None:
+                kv = self._gather_kv_heads(kv)
             return KVCache(write_prefill_pages_q(pages.k, kv.k, page_ids, block_size=block_size),
                            write_prefill_pages_q(pages.v, kv.v, page_ids, block_size=block_size))
 
@@ -428,6 +553,7 @@ class PhaseEngine:
         program's traced scalars), so one graph serves every chunk of the
         shape.  The install is part of the program: the fabric can flip
         back to decode after every chunk."""
+        self._no_mesh("prefill_chunk_program")
         cfg = self.cfg
 
         def fn(params, tokens, cache, prefix, slot, prefix_len, last_pos):
@@ -443,6 +569,7 @@ class PhaseEngine:
         pages, prefix, page_ids (C/bs,), prefix_len, last_pos) -> (logits,
         pages, prefix)``, page ids and scalars on the device; C must be whole
         pages."""
+        self._no_mesh("paged_prefill_chunk_program")
         if chunk % block_size:
             raise ValueError(f"a chunk of {chunk} tokens is not whole pages of {block_size}")
         cfg = self.cfg
@@ -464,6 +591,7 @@ class PhaseEngine:
         ``page_write``).  A replay returns the graph's output buffers, which
         its next replay overwrites: a caller that keeps the KV longer copies
         it out."""
+        self._no_mesh("prefill_chunk_kv_program")
         cfg = self.cfg
 
         def fn(params, tokens, prefix, prefix_len, last_pos):
@@ -481,6 +609,7 @@ class PhaseEngine:
         ``write_chunk_kv_q`` scatter the fused ``prefill_chunk`` program
         runs, so the two pools store the colocated engine's bytes.  The
         paged counterpart is ``page_write``."""
+        self._no_mesh("chunk_write_program")
 
         def fn(cache, kv, slot, prefix_len):
             return KVCache(write_chunk_kv_q(cache.k, kv.k, slot, prefix_len),
@@ -495,6 +624,7 @@ class PhaseEngine:
         (``core.kv_cache.relay_prefill_kv``).  The decode pool copies it into
         the slot (``install_relayed_kv``); the two halves store what
         ``relayout`` stores."""
+        self._no_mesh("relay_program")
         kv_dtype = self.kv_dtype
 
         def fn(kv):
@@ -509,6 +639,7 @@ class PhaseEngine:
         ``decode``, streaming the cache once a round but scoring W = k + 1
         positions a slot; per-slot draft depth varies through the device
         tensor ``n_tokens``, so one graph serves every round."""
+        self._no_mesh("verify_program")
         cfg = self.cfg
 
         def fn(params, tokens, cache, lengths, n_tokens):
@@ -522,6 +653,7 @@ class PhaseEngine:
         """Speculative verify over the paged pool: ``fn(params, tokens (B,
         W), pages, block_tables, lengths, n_tokens) -> (logits (B, W, Vp),
         pages)``; see ``verify_program``."""
+        self._no_mesh("paged_verify_program")
         cfg = self.cfg
 
         def fn(params, tokens, pages, block_tables, lengths, n_tokens):

@@ -12,6 +12,9 @@ locked add, never a read and a store that another thread's add can fall
 between.  A CUDA graph's capture records what its own thread counts into
 the capture (``COUNTS.recording()``), launches nothing, and leaves the
 totals alone: another thread's launches during the capture still count.
+Each launch outside a capture is also counted by its shape
+(``COUNTS.shapes()``: the shard shapes a mesh rank launches at); a replay
+adds to the totals only.
 
 A kernel has no backward: autograd cannot see through a launch, so its
 output would silently cut the graph.  Every launcher refuses a tensor that
@@ -37,17 +40,29 @@ class LaunchCounts(MutableMapping):
     def __init__(self, names):
         self._lock = threading.Lock()
         self._counts: Dict[str, int] = dict.fromkeys(names, 0)  # guarded-by: self._lock
+        self._shapes: Dict[tuple, int] = {}  # guarded-by: self._lock
         self._local = threading.local()  # .record: the dict a capture on this thread fills
 
-    def add(self, name: str, n: int = 1) -> None:
-        """Count ``n`` launches of ``name`` (into the capture under way on
-        this thread, if there is one)."""
+    def add(self, name: str, n: int = 1, shape: tuple = ()) -> None:
+        """Count ``n`` launches of ``name`` at ``shape`` (into the capture
+        under way on this thread, if there is one)."""
         record = getattr(self._local, "record", None)
         if record is not None:
             record[name] += n
             return
         with self._lock:
             self._counts[name] += n
+            self._shapes[(name, shape)] = self._shapes.get((name, shape), 0) + n
+
+    def shapes(self) -> Dict[tuple, int]:
+        """{(name, shape): launches} of the launches outside captures since
+        the last ``reset_counts``."""
+        with self._lock:
+            return dict(self._shapes)
+
+    def clear_shapes(self) -> None:
+        with self._lock:
+            self._shapes.clear()
 
     def add_all(self, launches: Dict[str, int]) -> None:
         """Count a graph replay's launches, all under one lock."""
@@ -107,3 +122,4 @@ def refuse_autograd(what: str, *tensors) -> None:
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    COUNTS.clear_shapes()

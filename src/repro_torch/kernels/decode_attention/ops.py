@@ -126,7 +126,7 @@ def decode_attention_kernel(q, k, v, lengths, starts=None, *, sm_scale=None, row
             int(k.dtype == torch.bfloat16), *k.stride()[:3], *v.stride()[:3],
             int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_launch", "decode_attention")
-    COUNTS.add("decode_attention")
+    COUNTS.add("decode_attention", shape=(tuple(q.shape), tuple(k.shape)))
     return out, l, m
 
 
@@ -164,7 +164,7 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
             int(kv_dtype == "int4"), strides_arg(k_q, v_q, k_scale, v_scale),
             int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
     build.check(rc, "decode_attention_quant_launch", "decode_attention")
-    COUNTS.add("decode_attention_quant")
+    COUNTS.add("decode_attention_quant", shape=(tuple(q.shape), tuple(k_q.shape)))
     return out, l, m
 
 

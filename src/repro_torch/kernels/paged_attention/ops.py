@@ -89,7 +89,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_tables, lengths, st
             strides_arg(k_pages, v_pages, k_pages, v_pages), float(sm_scale),
             build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention_launch", "paged_attention")
-    COUNTS.add("paged_decode_attention")
+    COUNTS.add("paged_decode_attention", shape=(tuple(q.shape), tuple(block_tables.shape)))
     return out, l, m
 
 
@@ -130,7 +130,8 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
             strides_arg(k_pages_q, v_pages_q, k_scales, v_scales), float(sm_scale),
             build.stream_ptr(q.device))
     build.check(rc, "paged_decode_attention_quant_launch", "paged_attention")
-    COUNTS.add("paged_decode_attention_quant")
+    COUNTS.add("paged_decode_attention_quant",
+               shape=(tuple(q.shape), tuple(block_tables.shape)))
     return out, l, m
 
 

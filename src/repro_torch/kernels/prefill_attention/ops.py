@@ -50,7 +50,7 @@ def prefill_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], float(sm_scale),
             build.stream_ptr(q.device))
     build.check(rc, "prefill_attention_launch", "prefill_attention")
-    COUNTS.add("prefill_attention")
+    COUNTS.add("prefill_attention", shape=(tuple(q.shape), tuple(k.shape)))
     return out
 
 

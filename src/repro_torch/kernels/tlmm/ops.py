@@ -53,7 +53,7 @@ def act_quant_kernel(x: torch.Tensor, beta: torch.Tensor,
     rc = fn(x.data_ptr(), _AQ_DTYPES[x.dtype], beta.data_ptr(), x_q.data_ptr(), scale.data_ptr(),
             m, k, eps, build.stream_ptr(x.device))
     build.check(rc, "act_quant_launch", "tlmm")
-    COUNTS.add("act_quant")
+    COUNTS.add("act_quant", shape=(m, k))
     return x_q, scale
 
 
@@ -81,7 +81,7 @@ def tlmm_kernel(x_q: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) 
     rc = fn(x_q.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
             m, n, k, build.stream_ptr(x_q.device))
     build.check(rc, "tlmm_launch", "tlmm")
-    COUNTS.add("tlmm")
+    COUNTS.add("tlmm", shape=(m, k, n))
     return y
 
 

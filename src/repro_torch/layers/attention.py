@@ -53,13 +53,16 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
-from repro_torch.layers.linear import linear_apply, linear_init
+from repro_torch.layers import collectives as C
+from repro_torch.layers.linear import linear_apply, linear_apply_row_parallel, linear_init
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.quant.kv_quant import QuantKV, infer_kv_dtype, quantize_kv
 
@@ -99,15 +102,57 @@ def _project_q(params, x, cfg: ModelConfig, positions, rope: bool = True,
     return q
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False):
+def _heads_whole(pctx: PartitionCtx) -> bool:
+    """Whether the phase keeps every head on every rank (decode) while the
+    projections' weights hold this rank's columns only."""
+    return pctx.mesh is not None and pctx.resolve(["heads"])[0] is None
+
+
+def _gather_heads(pctx: PartitionCtx, *parts: torch.Tensor):
+    """The column-parallel projections' local outputs (..., n_i / tp) made
+    whole (..., n_i) on every model rank, in one all-gather."""
+    group = pctx.mesh.group(pctx.axes.tp)
+    widths = [t.shape[-1] for t in parts]
+    both = C.all_gather(torch.cat(parts, dim=-1)[None], group, dim=0)  # (tp, ..., sum n_i/tp)
+    return [torch.cat(ranks.unbind(0), dim=-1)
+            for ranks in both.split(widths, dim=-1)]
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False,
+                 pctx: PartitionCtx = NULL_CTX):
+    """q (B, S, H, D) and k, v (B, S, Hkv, D), RoPE applied.  On a mesh
+    the heads are this rank's (prefill: H/tp of them) or, where the phase
+    keeps them whole (decode), gathered from the column-parallel shards."""
     b, s, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    q = _project_q(params, x, cfg, positions, training=training)
-    k = linear_apply(params["wk"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
-    v = linear_apply(params["wv"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
+    if pctx.mesh is None:
+        q = _project_q(params, x, cfg, positions, training=training)
+        k = linear_apply(params["wk"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
+        v = linear_apply(params["wv"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
+    else:
+        q, k, v = (linear_apply(params[n], x, cfg.quant) for n in ("wq", "wk", "wv"))
+        if _heads_whole(pctx):
+            q, k, v = _gather_heads(pctx, q, k, v)
+        q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
     if cfg.rope_theta > 0:
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx,
+              training: bool = False) -> torch.Tensor:
+    """The output projection of the heads ``y`` (..., heads * D): whole on
+    one device; row-parallel on a mesh, over this rank's heads (the heads
+    it holds in prefill, its slice of the whole heads in decode)."""
+    if pctx.mesh is None:
+        return linear_apply(params["wo"], y, cfg.quant, training=training)
+    group = pctx.mesh.group(pctx.axes.tp)
+    if not _heads_whole(pctx):
+        return linear_apply_row_parallel(params["wo"], y, cfg.quant, group)
+    return linear_apply_row_parallel(params["wo"], pctx.axis_slice(y, -1, pctx.axes.tp), cfg.quant,
+                                     group, whole_row=y)
 
 
 DENSE_MAX = 1024  # the dense masked softmax takes up to this many queries and keys
@@ -198,7 +243,7 @@ def _attend_chunk(qc, kf, vf, c0: int, causal: bool, window: Optional[int],
 def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                       *, window: Optional[int] = None, causal: bool = True,
                       cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      training: bool = False,
+                      training: bool = False, pctx: PartitionCtx = NULL_CTX,
                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The prefill engine, dispatched as the JAX package dispatches it: the
     causal prefill kernel for causal attention with no window over as many
@@ -208,14 +253,17 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
     also selects the linears' quantization-aware branch.  ``cross_kv`` (the
     encoder's (B, Hkv, Senc, D) K/V) replaces this input's own K/V, with no
     RoPE, and is not causal.  Returns (y, (k, v)) with k/v (B, Hkv, S, D)
-    views in cache layout (the cross K/V where given)."""
+    views in cache layout (the cross K/V where given).  On a mesh
+    (``pctx``) the heads are over the model axis: the kernel runs on this
+    rank's H/tp and Hkv/tp heads, k/v are those heads, and the output
+    projection sums over the ranks."""
     b, s, _ = x.shape
     if cross_kv is not None:
         qt = _project_q(params, x, cfg, positions, rope=False, training=training).transpose(1, 2)
         kt, vt = cross_kv
         causal = False
     else:
-        q, k, v = _project_qkv(params, x, cfg, positions, training=training)
+        q, k, v = _project_qkv(params, x, cfg, positions, training=training, pctx=pctx)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)  # strided views
     if not training and window is None and causal and kt.shape[2] == s:
         out = prefill_attention(qt, kt, vt)  # (B, H, S, D)
@@ -223,8 +271,8 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
         out = _dense_attention(qt, kt, vt, causal=causal, window=window).to(x.dtype)
     else:
         out = _chunked_attention(qt, kt, vt, causal=causal, window=window)
-    y = out.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.head_dim)
-    y = linear_apply(params["wo"], y, cfg.quant, training=training)
+    y = out.transpose(1, 2).reshape(b, s, qt.shape[1] * cfg.head_dim)
+    y = _out_proj(params, y, cfg, pctx, training=training)
     return y, (kt, vt)
 
 
@@ -315,6 +363,34 @@ def scatter_new_tokens_q(buf, new: torch.Tensor, lengths: torch.Tensor):
     payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
     return QuantKV(scatter_new_tokens(buf.q, payload, lengths),
                    scatter_new_tokens(buf.scale, scale, lengths))
+
+
+def scatter_new_tokens_seq_shard(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor,
+                                 r: int, smax: int) -> torch.Tensor:
+    """``scatter_new_tokens`` into rank r's rows [r * Sl, (r + 1) * Sl) of
+    a cache whose sequence of ``smax`` rows is split over the ranks (buf
+    (B, L, Hkv, Sl, ·)).  The write lands at ``min(lengths, smax - 1)``, as
+    on one device, and only the rank holding that row changes anything:
+    every other rank writes back what its row already holds (no host read
+    of who owns what, so the write stays inside a CUDA graph)."""
+    b, _, _, sl = buf.shape[:4]
+    g = torch.clamp(lengths.long(), max=smax - 1)
+    idx = torch.clamp(g - r * sl, 0, sl - 1)
+    rows = torch.arange(b, device=buf.device)
+    vals = new[:, :, :, 0].transpose(0, 1).to(buf.dtype)
+    owner = ((g // sl) == r).reshape((b,) + (1,) * (vals.dim() - 1))
+    buf[rows, :, :, idx] = torch.where(owner, vals, buf[rows, :, :, idx])
+    return buf
+
+
+def scatter_new_tokens_seq_shard_q(buf, new: torch.Tensor, lengths: torch.Tensor, r: int,
+                                   smax: int):
+    """``scatter_new_tokens_seq_shard`` into a possibly quantized leaf."""
+    if not isinstance(buf, QuantKV):
+        return scatter_new_tokens_seq_shard(buf, new, lengths, r, smax)
+    payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+    return QuantKV(scatter_new_tokens_seq_shard(buf.q, payload, lengths, r, smax),
+                   scatter_new_tokens_seq_shard(buf.scale, scale, lengths, r, smax))
 
 
 def _first_kept(keep: torch.Tensor) -> torch.Tensor:
@@ -545,8 +621,33 @@ def _merge_new_token(out_cache, l_cache, m_cache, q, k_new, v_new, sm_scale: flo
     return (out_cache * (alpha * l_cache) + p_new * vn.float()) / torch.clamp(l, min=1e-30)
 
 
+def merge_partials(out: torch.Tensor, l: torch.Tensor, m: torch.Tensor, group):
+    """Merge the walks of the k ranks of ``group`` over disjoint parts of
+    the cache: each rank's normalized ``out`` (B, H, D) f32 and softmax
+    stats ``l``, ``m`` (B, H, 1) are gathered and combined in rank order,
+    so every rank holds the same (out, l, m) of the whole walk.  A rank
+    with nothing to walk (``l = 0``, ``m`` at the walk's floor) weighs
+    nothing; with no rank holding a row the result is out 0, l 0, which
+    the fresh token's merge then overrides."""
+    if dist.get_world_size(group) == 1:
+        return out, l, m
+    d = out.shape[-1]
+    allp = C.all_gather(torch.cat([out, l, m], dim=-1)[None], group, dim=0)
+    return combine_partials(allp[..., :d], allp[..., d:d + 1], allp[..., d + 1:])
+
+
+def combine_partials(outs: torch.Tensor, ls: torch.Tensor, ms: torch.Tensor):
+    """The online-softmax combination of k walks stacked on dim 0: outs
+    (k, B, H, D) normalized f32, ls / ms (k, B, H, 1).  Returns the (out,
+    l, m) of their union; out is 0 where no walk holds a row."""
+    m_g = ms.amax(dim=0)
+    w = torch.exp(ms - m_g) * ls
+    l_g = w.sum(dim=0)
+    return (outs * w).sum(dim=0) / torch.clamp(l_g, min=1e-30), l_g, m_g
+
+
 def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
-                      attend_cache) -> Tuple[torch.Tensor, KVCache]:
+                      attend_cache, pctx: PartitionCtx = NULL_CTX) -> Tuple[torch.Tensor, KVCache]:
     """The decode engine's body, shared by both cache layouts and by the
     verify pass: project the W new tokens a sequence (x (B, W, d) at
     ``positions`` (B, W); W = 1 in decode), attend each over the cache
@@ -554,21 +655,25 @@ def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
     D), one row a token; k/v the fresh (B, W, Hkv, D), which the verify pass
     writes before it walks), merge each row's own fresh token in f32 and
     output-project.  Returns (y (B, W, d), the new tokens' K/V (B, Hkv, W,
-    D)); in decode the caller scatters them."""
+    D)); in decode the caller scatters them.  On a mesh (``pctx``) every
+    rank projects its columns and gathers the whole heads, and the output
+    projection is row-parallel."""
     b, w = x.shape[:2]
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, pctx=pctx)
     qd = q.reshape(b * w, h, hd)
     out_c, l_c, m_c = attend_cache(qd, k, v)
     out = _merge_new_token(out_c, l_c, m_c, qd, k.reshape(b * w, hkv, 1, hd),
                            v.reshape(b * w, hkv, 1, hd), 1.0 / math.sqrt(hd)).to(x.dtype)
-    y = linear_apply(params["wo"], out.reshape(b, w, h * hd), cfg.quant)
+    y = _out_proj(params, out.reshape(b, w, h * hd), cfg, pctx)
     return y, KVCache(k.transpose(1, 2), v.transpose(1, 2))
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
                      cfg: ModelConfig, *, window: Optional[int] = None,
-                     cross_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+                     cross_len: Optional[int] = None, pctx: PartitionCtx = NULL_CTX,
+                     walk: Optional[Tuple[torch.Tensor, object]] = None,
+                     ) -> Tuple[torch.Tensor, KVCache]:
     """The decode engine: one token (x (B,1,d)) against this layer's cache
     (leaves (B, Hkv, Smax, ·), possibly strided views, possibly QuantKV).
     The cache is only read.  With ``window`` the walk starts at
@@ -578,7 +683,13 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
     With ``cross_len`` the cache is the read-only cross-attention cache
     (whisper's encoder K/V): the query (no RoPE) walks its first
     ``cross_len`` rows, no fresh token is merged, and the cache comes back
-    as it was, in place of the new token's K/V."""
+    as it was, in place of the new token's K/V.
+
+    On a mesh the cache is this rank's rows of the sequence and ``walk`` =
+    (local lengths, group): the kernel walks the local rows [0, local
+    length), and the ranks of ``group``, which hold the other rows, merge
+    their partials (``merge_partials``) before the fresh token is folded
+    in.  ``lengths`` stay the global ones (positions, the fresh token)."""
     if cross_len is not None:
         b = x.shape[0]
         h, hd = cfg.num_heads, cfg.head_dim
@@ -591,14 +702,19 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
 
     def attend(qd, k, v):
         k_arr, v_arr, qkw = _kv_leaf_args(cache.k, cache.v)
-        return decode_attention(qd, k_arr, v_arr, lengths, starts, return_stats=True, **qkw)
+        if walk is None:
+            return decode_attention(qd, k_arr, v_arr, lengths, starts, return_stats=True, **qkw)
+        local, group = walk
+        return merge_partials(*decode_attention(qd, k_arr, v_arr, local, return_stats=True,
+                                                **qkw), group)
 
-    return _decode_new_token(params, x, lengths[:, None], cfg, attend)
+    return _decode_new_token(params, x, lengths[:, None], cfg, attend, pctx)
 
 
 def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
                            block_tables: torch.Tensor, lengths: torch.Tensor,
-                           cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                           cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX,
+                           ) -> Tuple[torch.Tensor, KVCache]:
     """The decode engine over the paged pool: one token against this
     layer's pages (N, Hkv, bs, ·), walked through ``block_tables`` (B, P).
     Same contract as ``attention_decode``."""
@@ -608,7 +724,7 @@ def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
         return paged_decode_attention(qd, k_arr, v_arr, block_tables, lengths,
                                       return_stats=True, **qkw)
 
-    return _decode_new_token(params, x, lengths[:, None], cfg, attend)
+    return _decode_new_token(params, x, lengths[:, None], cfg, attend, pctx)
 
 
 class VerifyPlan(NamedTuple):

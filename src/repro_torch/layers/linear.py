@@ -20,8 +20,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.kernels.tlmm.ops import tlmm_matmul
-from repro_torch.quant.act_quant import quantize_activations_int8
+from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel, tlmm_matmul
+from repro_torch.kernels.tlmm.ref import tlmm_reference
+from repro_torch.layers import collectives as C
+from repro_torch.quant.act_quant import quantize_activations_int8, quantize_and_fold
 from repro_torch.quant.ternary import (
     TernaryWeight,
     pack_ternary,
@@ -70,6 +72,54 @@ def linear_apply(params: dict, x: torch.Tensor, quant: QuantConfig, *,
         y = (tlmm_matmul(x.float(), unit) * beta).to(x.dtype)
     else:
         y = x @ w.to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def linear_apply_row_parallel(params: dict, x: torch.Tensor, quant: QuantConfig, group, *,
+                              whole_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A row-parallel linear on a mesh: ``x`` (..., K/k) is this rank's
+    slice of the input along K, ``params["w"]`` the matching (K/k, N) rows
+    (packed: (K/4k, N) bytes), and the k ranks of ``group`` sum their
+    partial products.  Returns the whole (..., N) output on every rank.
+
+    A packed weight gives the unsharded linear's bits.  The per-token int8
+    scale of the activations is taken over the whole row: its absmax is
+    the MAX over the ranks' partial absmaxes (or the absmax of
+    ``whole_row``, the whole input where every rank holds it).  It enters
+    the ``act_quant`` kernel as one extra column of the slice, so the
+    kernel quantizes the slice with the whole row's scale.  Each rank's
+    TLMM runs with a unit scale and returns its int32 partial sum as an
+    f32 integer (exact while 127 * K < 2**24), the ranks sum those
+    exactly, and the one rounding is the final scale, as in the unsharded
+    kernel.  A dense weight sums f32 partial products, rounded once to
+    x's dtype at the end (a rounding the unsharded product does not
+    make)."""
+    w = params["w"]
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k)
+    if isinstance(w, TernaryWeight):
+        src = x2 if whole_row is None else whole_row.reshape(x2.shape[0], -1)
+        absmax = src.float().abs().amax(dim=-1, keepdim=True)
+        if whole_row is None:
+            absmax = C.all_reduce(absmax, group, op="max")
+        pad = torch.zeros((x2.shape[0], 3), dtype=x2.dtype, device=x2.device)
+        x_aug = torch.cat([x2, absmax.to(x2.dtype), pad], dim=-1)
+        unit = torch.ones((x2.shape[0], 1), dtype=torch.float32, device=x2.device)
+        if x2.is_cuda:
+            x_q, scale = act_quant_kernel(x_aug, w.scale)
+            acc = tlmm_kernel(x_q[:, :k], w.packed, unit)
+        else:
+            x_q, scale = quantize_and_fold(x_aug, w.scale)
+            acc = tlmm_reference(x_q[:, :k], w.packed, unit)
+        y = (C.all_reduce(acc, group) * scale).to(x.dtype)
+    elif quant.ternary:
+        raise NotImplementedError("a row-parallel ternary linear takes packed weights "
+                                  "(models.transformer.convert_for_inference)")
+    else:
+        y = C.all_reduce(x2.float() @ w.float(), group).to(x.dtype)
+    y = y.reshape(*lead, y.shape[-1])
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

@@ -5,7 +5,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.layers.linear import linear_apply, linear_init
+from repro_torch.layers.linear import linear_apply, linear_apply_row_parallel, linear_init
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 
 
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
@@ -22,12 +23,20 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              training: bool = False) -> torch.Tensor:
+              training: bool = False, pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
+    """The FFN of x (..., d).  On a mesh (``pctx``, SwiGLU) w_gate and w_up
+    are column-parallel (this rank's d_ff / tp columns) and w_down is
+    row-parallel over them: the ranks sum its partial products."""
     if cfg.act == "silu":
         g = linear_apply(params["w_gate"], x, cfg.quant, training=training)
         u = linear_apply(params["w_up"], x, cfg.quant, training=training)
         h = F.silu(g.float()).to(x.dtype) * u
+        if pctx.mesh is not None:
+            return linear_apply_row_parallel(params["w_down"], h, cfg.quant,
+                                             pctx.mesh.group(pctx.axes.tp))
         return linear_apply(params["w_down"], h, cfg.quant, training=training)
+    if pctx.mesh is not None:
+        raise NotImplementedError(f"{cfg.act} MLP on a mesh: only SwiGLU is tensor-parallel")
     h = linear_apply(params["w_in"], x, cfg.quant, training=training)
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)

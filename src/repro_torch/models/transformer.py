@@ -43,13 +43,16 @@ from repro_torch.layers.attention import (
     attention_verify_paged,
     scatter_new_tokens_paged_q,
     scatter_new_tokens_q,
+    scatter_new_tokens_seq_shard_q,
     verify_plan,
     write_chunk_kv_q,
     write_prefill_pages_q,
 )
+from repro_torch.layers import collectives as C
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_forward, moe_init
 from repro_torch.layers.norm import apply_norm, apply_norm_blocks, rmsnorm_init
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 from repro_torch.quant.ternary import TernaryWeight, quantize_and_pack_stacked
 from repro_torch.train.losses import chunked_ce_loss
@@ -194,25 +197,85 @@ def convert_for_inference(params: dict, cfg: ModelConfig) -> dict:
     return {**params, "layers": layers}
 
 
-def _embed(params, tokens):
-    return params["emb"][tokens]
+def _embed(params, tokens, pctx: PartitionCtx = NULL_CTX):
+    """The embedding rows of ``tokens``.  On a mesh ``emb`` holds this
+    model rank's Vp / tp vocabulary rows: each rank looks up the tokens in
+    its range, zeros elsewhere, and the ranks' sum (the row from one rank,
+    zeros from the others) is the row itself, bit for bit."""
+    emb = params["emb"]
+    if pctx.mesh is None:
+        return emb[tokens]
+    n = emb.shape[0]
+    ids = tokens - pctx.index(pctx.axes.tp) * n
+    mine = (ids >= 0) & (ids < n)
+    x = torch.where(mine[..., None], emb[ids.clamp(0, n - 1)].float(),
+                    torch.zeros((), device=emb.device))
+    return C.all_reduce(x, pctx.mesh.group(pctx.axes.tp)).to(emb.dtype)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["emb"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params, x, cfg: ModelConfig, norm=apply_norm) -> torch.Tensor:
+def _logits(params, x, cfg: ModelConfig, norm=apply_norm,
+            pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
+    """f32 logits (..., Vp).  On a mesh each model rank multiplies by its
+    Vp / tp vocabulary columns and the ranks gather them, so a greedy
+    argmax over the whole row picks the lowest index on a tie, as
+    ``jnp.argmax`` does."""
     x = norm(params["ln_f"], x, cfg.norm, cfg.norm_eps)
-    return x.float() @ _head(params, cfg).float()  # full f32: TF32 is off (see repro_torch)
+    logits = x.float() @ _head(params, cfg).float()  # full f32: TF32 is off (see repro_torch)
+    if pctx.mesh is None:
+        return logits
+    return C.all_gather(logits, pctx.mesh.group(pctx.axes.tp), dim=-1)
 
 
-def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def batch_rows(pctx: PartitionCtx, n: int):
+    """This rank's [lo, hi) of a batch of ``n`` rows (all of them where the
+    batch axis does not divide ``n``, or with no mesh)."""
+    if pctx.mesh is None:
+        return 0, n
+    return pctx.local_range(n, "batch")
+
+
+def _gather_rows(t: torch.Tensor, pctx: PartitionCtx, n: int, dim: int = 0) -> torch.Tensor:
+    """The whole batch of ``n`` rows (along ``dim``) on every rank, from
+    this rank's rows of it."""
+    if pctx.mesh is None:
+        return t
+    ax = pctx.spec((n,), "batch")[0]
+    if ax is None:
+        return t
+    return C.all_gather(t, pctx.mesh.group(ax), dim=dim)
+
+
+def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx) -> None:
+    """Refuse, by name, a model the mesh programs do not shard: another
+    family, an MoE FFN, a sliding window, or dims the model axis does not
+    divide (heads, KV heads, d_ff, vocabulary rows, packed K rows)."""
+    if pctx.mesh is None:
+        return
+    if cfg.family != "transformer" or cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the mesh programs shard the dense transformer family; MoE expert "
+            "parallelism and the other families on a mesh are ROADMAP A.13")
+    _check_window(cfg)
+    tp = pctx.tp_size
+    dims = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+            "d_ff / 4": cfg.d_ff // 4, "num_heads * head_dim / 4": cfg.num_heads * cfg.head_dim // 4,
+            "padded_vocab": cfg.padded_vocab()}
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(f"{cfg.name}: the model axis ({tp}) does not divide {bad}")
+
+
+def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
+         pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
     """A layer's FFN: the MoE (its aux loss, which serving discards, is not
     computed) or the dense SwiGLU."""
     if cfg.moe:
         return moe_forward(lp["moe"], h, cfg)
-    return mlp_apply(lp["mlp"], h, cfg)
+    return mlp_apply(lp["mlp"], h, cfg, pctx=pctx)
 
 
 def _block_train(x, lp, positions, cfg: ModelConfig):
@@ -261,12 +324,12 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0
     return loss + aux_weight * aux / max(cfg.num_layers, 1), {"nll": loss, "aux": aux}
 
 
-def _block_prefill(x, lp, positions, cfg):
+def _block_prefill(x, lp, positions, cfg, pctx: PartitionCtx = NULL_CTX):
     h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg)
+    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, pctx=pctx)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg), kv
+    return x + _ffn(lp, h, cfg, pctx), kv
 
 
 def _at(x, last_pos):
@@ -280,41 +343,55 @@ def _at(x, last_pos):
 
 
 def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-                    split_tail: bool = False, last_pos: Optional[int] = None):
+                    split_tail: bool = False, last_pos: Optional[int] = None,
+                    pctx: PartitionCtx = NULL_CTX):
     """The prefill engine.  Returns (logits of position ``last_pos`` (default
     S-1) (B, Vp), KVCache of (L, B, Hkv, S, D)), or with ``split_tail=True``
     (x_mid (B, S, d), KVCache) after the last layer's attention: the KV is
     complete there, so the relayout can run while ``prefill_tail`` does.
     Right-padded prompts pass their true last position as ``last_pos``;
-    causality keeps it independent of the padding."""
+    causality keeps it independent of the padding.
+
+    On a mesh (``pctx``, the prefill rules) every rank takes the whole
+    ``tokens``: it runs its rows of the batch (all of them where the data
+    axis does not divide it) on its Hkv / tp heads, and returns the whole
+    batch's logits, its own KV (L, B_local, Hkv / tp, S, D), and x_mid of
+    its rows."""
     _check_window(cfg)
     b, s = tokens.shape
-    x = _embed(params, tokens)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    lo, hi = batch_rows(pctx, b)
+    tokens = tokens[lo:hi]
+    x = _embed(params, tokens, pctx)
+    positions = torch.arange(s, device=tokens.device).expand(hi - lo, s)
     n_main = cfg.num_layers - 1 if split_tail else cfg.num_layers
     ks, vs = [], []
     for li in range(n_main):
-        x, (k, v) = _block_prefill(x, layer_params(params["layers"], li), positions, cfg)
+        x, (k, v) = _block_prefill(x, layer_params(params["layers"], li), positions, cfg, pctx)
         ks.append(k)
         vs.append(v)
     if not split_tail:
-        logits = _logits(params, _at(x, last_pos), cfg)
-        return logits[:, -1, :], KVCache(torch.stack(ks), torch.stack(vs))
+        logits = _logits(params, _at(x, last_pos), cfg, pctx=pctx)
+        return (_gather_rows(logits[:, -1, :], pctx, b),
+                KVCache(torch.stack(ks), torch.stack(vs)))
     last = layer_params(params["layers"], cfg.num_layers - 1)
     h = apply_norm(last["ln1"], x, cfg.norm, cfg.norm_eps)
-    attn_out, (k, v) = attention_prefill(last["attn"], h, positions, cfg)
+    attn_out, (k, v) = attention_prefill(last["attn"], h, positions, cfg, pctx=pctx)
     ks.append(k)
     vs.append(v)
     return x + attn_out, KVCache(torch.stack(ks), torch.stack(vs))
 
 
 def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
-                 last_pos: Optional[int] = None) -> torch.Tensor:
-    """The tail after the split: last FFN + norm + logits, (B, Vp)."""
+                 last_pos: Optional[int] = None, *, pctx: PartitionCtx = NULL_CTX,
+                 batch: Optional[int] = None) -> torch.Tensor:
+    """The tail after the split: last FFN + norm + logits, (B, Vp).  On a
+    mesh ``x_mid`` holds this rank's rows of a batch of ``batch``, and the
+    whole batch's logits come back."""
     last = layer_params(params["layers"], cfg.num_layers - 1)
     h2 = apply_norm(last["ln2"], x_mid, cfg.norm, cfg.norm_eps)
-    x_out = x_mid + _ffn(last, h2, cfg)
-    return _logits(params, _at(x_out, last_pos), cfg)[:, -1, :]
+    x_out = x_mid + _ffn(last, h2, cfg, pctx)
+    logits = _logits(params, _at(x_out, last_pos), cfg, pctx=pctx)[:, -1, :]
+    return _gather_rows(logits, pctx, x_mid.shape[0] if batch is None else batch)
 
 
 def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len,
@@ -459,13 +536,13 @@ def _layer_view(leaf, li: int):
 
 
 def _decode_layers(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attend_layer,
-                   norm=apply_norm):
+                   norm=apply_norm, pctx: PartitionCtx = NULL_CTX):
     """The layer walk of one decode step over W tokens a sequence (W = 1,
     or a verify block, which takes ``apply_norm_blocks``):
     ``attend_layer(lp, h, li)`` runs layer li's attention over the cache.
     Returns (logits (B, W, Vp), the new tokens' K and V, each (L, B, Hkv,
     W, D))."""
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, pctx)
     tok_k, tok_v = [], []
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
@@ -473,14 +550,14 @@ def _decode_layers(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attend_
         attn_out, new_kv = attend_layer(lp["attn"], h, li)
         x = x + attn_out
         h = norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg, pctx)
         tok_k.append(new_kv.k)
         tok_v.append(new_kv.v)
-    return _logits(params, x, cfg, norm), torch.stack(tok_k), torch.stack(tok_v)
+    return _logits(params, x, cfg, norm, pctx), torch.stack(tok_k), torch.stack(tok_v)
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """One decode step for every slot: token (B,) int, cache (B, L, Hkv,
     Smax, ·), lengths (B,) int32 tokens already cached.  Returns (logits
     (B, Vp), cache).
@@ -489,7 +566,14 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torc
     its strided slice ``cache[:, li]`` and merges its fresh token in f32);
     afterwards one ``scatter_new_tokens_q`` per leaf writes all layers' new
     tokens in place, cast to the cache dtype or quantized from f32.  Writing
-    a token before attending would count it twice."""
+    a token before attending would count it twice.
+
+    On a mesh (``pctx``, the decode rules) ``token`` and ``lengths`` are
+    the whole batch's and ``cache`` is this rank's block of it: its rows of
+    the batch, and its rows [r * Sl, (r + 1) * Sl) of the sequence, r its
+    index on the sequence axis (``_decode_step_sharded``)."""
+    if pctx.mesh is not None:
+        return _decode_step_sharded(params, token, cache, lengths, cfg, pctx)
 
     def attend(lp, h, li):
         layer = KVCache(_slice_layer(cache.k, li), _slice_layer(cache.v, li))
@@ -501,22 +585,61 @@ def decode_step(params: dict, token: torch.Tensor, cache: KVCache, lengths: torc
     return logits[:, 0], cache
 
 
+def _decode_step_sharded(params: dict, token: torch.Tensor, cache: KVCache,
+                         lengths: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx):
+    """``decode_step`` on this rank's block of the cache.  Each rank walks
+    its own rows of the sequence (local length ``clamp(len - r * Sl, 0,
+    Sl)``; an empty shard walks nothing), the ranks of the sequence axis
+    merge their partials, and the new token is written by the one rank
+    that holds its row.  Returns the whole batch's logits."""
+    bg = token.shape[0]
+    lo, hi = batch_rows(pctx, bg)
+    lens = lengths[lo:hi]
+    leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
+    sl = leaf.shape[3]
+    ax = pctx.resolve(["kv_seq"])[0]
+    r = pctx.index(ax)
+    walk = None
+    if ax is not None:
+        walk = (torch.clamp(lens - r * sl, 0, sl).to(torch.int32), pctx.mesh.group(ax))
+
+    def attend(lp, h, li):
+        layer = KVCache(_slice_layer(cache.k, li), _slice_layer(cache.v, li))
+        return attention_decode(lp, h, layer, lens, cfg, pctx=pctx, walk=walk)
+
+    logits, tok_k, tok_v = _decode_layers(params, token[lo:hi, None], cfg, attend, pctx=pctx)
+    smax = sl * pctx.size(ax)
+    scatter_new_tokens_seq_shard_q(cache.k, tok_k, lens, r, smax)
+    scatter_new_tokens_seq_shard_q(cache.v, tok_v, lens, r, smax)
+    return _gather_rows(logits[:, 0], pctx, bg), cache
+
+
 def decode_step_paged(params: dict, token: torch.Tensor, pages: KVCache,
-                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig):
+                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg: ModelConfig,
+                      pctx: PartitionCtx = NULL_CTX):
     """One decode step over the paged pool (N, L, Hkv, bs, ·) walked through
     ``block_tables`` (B, P) int32: the structure of ``decode_step``, with
     one ``scatter_new_tokens_paged_q`` per leaf writing every layer's token
     into each sequence's current page.  Slots of length 0 write nothing.
-    Returns (logits (B, Vp), pages)."""
+    Returns (logits (B, Vp), pages).
+
+    On a mesh the pool is whole on every rank (any slot's table may name
+    any page) and each rank walks its rows of the batch.  The ranks gather
+    every slot's new token and each writes all of them, so every rank's
+    copy of a page is the same bytes: a prefix page written by a slot of
+    one data rank reads the same on another."""
+    bg = token.shape[0]
+    lo, hi = batch_rows(pctx, bg)
 
     def attend(lp, h, li):
         return attention_decode_paged(lp, h, _slice_layer(pages.k, li), _slice_layer(pages.v, li),
-                                      block_tables, lengths, cfg)
+                                      block_tables[lo:hi], lengths[lo:hi], cfg, pctx)
 
-    logits, tok_k, tok_v = _decode_layers(params, token[:, None], cfg, attend)
+    logits, tok_k, tok_v = _decode_layers(params, token[lo:hi, None], cfg, attend, pctx=pctx)
+    tok_k, tok_v = (_gather_rows(t, pctx, bg, dim=1) for t in (tok_k, tok_v))
     scatter_new_tokens_paged_q(pages.k, tok_k, block_tables, lengths)
     scatter_new_tokens_paged_q(pages.v, tok_v, block_tables, lengths)
-    return logits[:, 0], pages
+    return _gather_rows(logits[:, 0], pctx, bg), pages
 
 
 def verify(params: dict, tokens: torch.Tensor, cache: KVCache, lengths: torch.Tensor,

@@ -70,6 +70,7 @@ from repro_torch.core.phase_engine import PhaseEngine, ProgramSignature, TensorS
 from repro_torch.core.sampling import accept_length
 from repro_torch.core.staging import StagedTensor
 from repro_torch.core.swap import SwapAggregates, SwapController, SwapTiming
+from repro_torch.launch.sharding_rules import local_params
 from repro_torch.models import transformer as T
 from repro_torch.obs.engine import engine_registry, engine_snapshot, snapshot_v2
 from repro_torch.obs.trace import TRACER
@@ -251,8 +252,12 @@ class ModelRunner:
         spec_decode: Optional[int] = None,
         spec_ngram: int = 3,
         device=None,
+        mesh=None,
     ):
         check_served_family(cfg)
+        if mesh is not None and (prefill_chunk is not None or spec_decode):
+            raise NotImplementedError("chunked prefill and speculative decoding on a mesh are "
+                                      "ROADMAP A.13")
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
         if spec_decode == 0:
@@ -267,9 +272,12 @@ class ModelRunner:
             if cache_layout == "paged" and prefill_chunk % block_size:
                 raise ValueError(f"prefill_chunk ({prefill_chunk}) must be a multiple of "
                                  f"block_size ({block_size}): each chunk writes whole pages")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        # on a mesh each rank runs on its slice: given (``shard_params``),
+        # or cut here from the whole tree it is given
+        self.params = params if mesh is None else local_params(params, cfg, mesh)
         self.mode = mode
         self.overlap = overlap and mode == "pdswap"
         self.max_len = max_len
@@ -280,7 +288,7 @@ class ModelRunner:
         self.spec_decode = spec_decode
         self.spec_ngram = spec_ngram
         self.slots = KVSlotManager(n_slots, self.device)
-        self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
+        self.engine = PhaseEngine(cfg, mesh, cache_layout=cache_layout, kv_dtype=kv_dtype)
         self._bucket_progs: Dict[int, dict] = {}
         self._chunk_progs: Dict[tuple, object] = {}
         if cache_layout == "paged":
@@ -295,7 +303,7 @@ class ModelRunner:
         else:
             self.paged = None
             self.decode_prog = self.engine.decode_program(n_slots, max_len)
-            self.cache = T.init_cache(cfg, n_slots, max_len, kv_dtype=kv_dtype, device=self.device)
+            self.cache = self.engine.init_cache(n_slots, max_len, device=self.device)
         # the inputs of the captured programs, static and written in place
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._replay_in = StagedTensor((2, n_slots), torch.int32, self.device)  # tokens, lengths
@@ -371,7 +379,7 @@ class ModelRunner:
                 p["full"] = self.engine.prefill_program_varlen(1, bucket)
             if self.paged is not None:
                 p["write"] = self.engine.page_write_program(bucket, self.block_size)
-            elif self.mode == "pdswap":
+            elif self.mode == "pdswap" or self.mesh is not None:  # a mesh's install exchanges
                 p["relayout"] = self.engine.relayout_program(1, bucket, self.max_len)
             self._bucket_progs[bucket] = p
         return self._bucket_progs[bucket]
@@ -651,7 +659,7 @@ class ModelRunner:
             if self.paged is not None:
                 ids = self.paged.page_ids_for_write(match, bucket // self.block_size)
                 return progs["write"].fn(self.paged.kv, kv, ids)
-            if self.mode == "pdswap":
+            if "relayout" in progs:
                 return progs["relayout"].fn(kv, self.cache, slot)
             return insert_prefill_kv(self.cache, kv, slot)
 
@@ -942,7 +950,20 @@ class EngineCore:
     """The incremental serving core; one ``step()`` = one scheduling quantum.
     Runs on CUDA unless ``device`` says otherwise; params must lie on that
     device (``models.transformer.init`` + ``convert_for_inference``, or
-    ``interop.params_from_numpy``)."""
+    ``interop.params_from_numpy``).
+
+    On a mesh (``mesh``, ``launch.mesh.Mesh``; one process a rank) every
+    rank builds its own replica on its slice of the params (a
+    ``launch.sharding_rules.shard_params`` slice, or a whole tree it cuts
+    its slice from) and its block of the cache, and runs the same programs.
+    The replicas make the same scheduling decisions (admissions, slots,
+    pages, preemptions, sampler keys), so the ranks' ``snapshot()`` agree
+    on everything but times.  Rank 0 admits: ``submit`` and ``abort`` are
+    its calls, and each ``step`` starts by broadcasting the requests and
+    aborts rank 0 took since the last one.  The other ranks call
+    ``follow()``, which steps with rank 0 until rank 0 calls
+    ``stop_followers()``.  Only rank 0's outputs are streamed.  The swap
+    policy must decide from host state alone (``DrainPolicy``)."""
 
     # The runner to build: the one seam a subclass changes to move what is
     # built and where it runs while keeping every scheduling, preemption,
@@ -969,13 +990,28 @@ class EngineCore:
         spec_decode: Optional[int] = None,  # draft depth k (None/0: speculation off)
         spec_ngram: int = 3,  # the drafter's n-gram size
         device=None,
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and swap_policy not in (None, "drain") and not isinstance(
+                swap_policy, DrainPolicy):
+            raise ValueError("on a mesh the swap policy must decide from host state alone "
+                             "(drain): a measured cost or a clock differs from rank to rank")
+        kw = {}
+        if mesh is not None:
+            if self.runner_cls is not ModelRunner:
+                raise NotImplementedError(f"{type(self).__name__} on a mesh (the pod split of "
+                                          "the disaggregated pools) is ROADMAP A.13")
+            kw["mesh"] = mesh
         self.runner = self.runner_cls(
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
             mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
             kv_dtype=kv_dtype, overlap=overlap, prefill_chunk=prefill_chunk,
-            spec_decode=spec_decode, spec_ngram=spec_ngram, device=device)
+            spec_decode=spec_decode, spec_ngram=spec_ngram, device=device, **kw)
+        # rank 0 on a mesh: the submissions and aborts the next step broadcasts
+        self._outbox: List[tuple] = []
+        self._following = False
         # slot -> the partially prefilled request (chunked prefill); in
         # admission order
         self._prefilling: Dict[int, PrefillProgress] = {}
@@ -997,7 +1033,64 @@ class EngineCore:
         return self.runner.device
 
     def submit(self, request: Request) -> None:
+        self._admitting("submit")
         self.scheduler.submit(request)
+        if self.mesh is not None:
+            self._outbox.append(("submit", request))
+
+    # ------------------------------------------------------------ mesh --
+
+    def _admitting(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.rank != 0 and not self._following:
+            raise RuntimeError(f"{what}: on a mesh rank 0 admits and aborts; rank "
+                               f"{self.mesh.rank} follows it (follow())")
+
+    def _sync_host(self) -> bool:
+        """The start of a step on a mesh: rank 0 broadcasts what it took
+        since the last step, the other ranks apply it.  False when rank 0
+        has stopped its followers.  Over the mesh's host group (gloo, CPU
+        tensors): first the number of entries, a fixed-size tensor, then
+        the entries themselves only when there are any.  A world of one
+        rank sends nothing."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        if mesh.size == 1:
+            self._outbox = []
+            return True
+        n = torch.tensor([len(self._outbox) if mesh.rank == 0 else 0], dtype=torch.int64)
+        dist.broadcast(n, src=0, group=mesh.host_group)
+        box = [self._outbox if mesh.rank == 0 else []]
+        if int(n):
+            dist.broadcast_object_list(box, src=0, group=mesh.host_group)
+        self._outbox = []
+        if mesh.rank == 0:
+            return True
+        for op, x in box[0]:
+            if op == "stop":
+                self._following = False
+                return False
+            if op == "submit":
+                self.scheduler.submit(x)
+            else:
+                self.abort(x)
+        return True
+
+    def follow(self) -> None:
+        """A rank other than 0: step with rank 0 until it stops its
+        followers, applying its submissions and aborts as they come."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() is for the ranks other than 0 of a mesh")
+        self._following = True
+        while self._following:
+            self.step()
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the other ranks' ``follow()``."""
+        if self.mesh is None or self.mesh.rank != 0:
+            raise RuntimeError("stop_followers() is rank 0's call on a mesh")
+        self._outbox.append(("stop", None))
+        self._sync_host()
 
     def has_unfinished(self) -> bool:
         return bool(self.scheduler.queue or self.runner.slots.active_slots())
@@ -1008,6 +1101,9 @@ class EngineCore:
         (shared prefix pages only lose a reference).  Returns the terminal
         zero-delta output (``finish_reason="abort"``), or None when the id
         is unknown or already finished.  Call between steps."""
+        self._admitting("abort")
+        if self.mesh is not None and self.mesh.rank == 0:
+            self._outbox.append(("abort", request_id))
         req = self.scheduler.remove_queued(request_id)
         if req is None:
             for slot, prog in list(self._prefilling.items()):
@@ -1083,6 +1179,8 @@ class EngineCore:
         policy's ``prefill_quanta`` may grant several back to back.  First
         the policy's ``should_shed`` drops the queue heads that can no
         longer meet their TTFT target (``finish_reason="shed"``)."""
+        if self.mesh is not None and not self._sync_host():
+            return []
         t_step0 = time.perf_counter() if TRACER.enabled else 0.0  # analysis: allow(det:wallclock) — trace-span stamp, recorded only while tracing
         outs: List[RequestOutput] = []
         sched, runner = self.scheduler, self.runner

@@ -66,7 +66,9 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
                    "repro_torch.analysis.__main__", "repro_torch.analysis.common",
                    "repro_torch.analysis.locklint", "repro_torch.analysis.determinism",
                    "repro_torch.analysis.kernel_check", "repro_torch.analysis.progcheck",
-                   "repro_torch.analysis.report"])
+                   "repro_torch.analysis.report", "repro_torch.launch.mesh",
+                   "repro_torch.launch.sharding_rules", "repro_torch.layers.sharding",
+                   "repro_torch.layers.collectives", "repro_torch.examples.serve_mesh"])
         assert new <= set(names), sorted(new - set(names))
         import chip_smoke
         bad = sorted(m for m in sys.modules
