@@ -205,6 +205,26 @@ Phases (any failure raises and the script exits non-zero):
     and gradient each against the CPU port (``GRAD_CPU_TOL`` of each
     leaf's max |g|); then each kernel launcher refuses an input that
     requires grad;
+(MT) training on a mesh of processes, bitnet-730m QAT at full width and
+    depth on T2's batches: (MT1) 3 steps on a (data 1, model 1) NCCL mesh
+    in a process of its own, started before the build and run while the
+    kernels build (it launches none), equal bit for bit to the single
+    card's (losses, grad norms, every leaf of params, mu, nu), its report
+    printed here; then a (data 2, model 2) gloo world of 4 processes on
+    this card (``--mesh-train-worker``), the model cut to ``MT_LAYERS``
+    (4) of its 24 layers: (MT2) 5 steps, each rank's MiB of params and
+    moments, ms a step and collectives a step, the losses, grad norms and
+    moments after step 3 within ``MT_LIMITS`` of the single card's (the
+    params read, unlimited), a planted fault (the data axis's gradient
+    reduction dropped; 3 steps) breaking each limit, the step-3 checkpoint
+    (gathered, written by rank 0) restored onto a (data 1, model 4) mesh
+    and onto one card, each running steps 3-4 within the limits of the
+    (2, 2) run's; (MT4) the int8 compressed mean over data of the ranks'
+    full-width gradients within its bound, its bytes against f32's, the
+    JAX test's toy regression on a (pod 4) mesh; (MT3) the trained weights
+    packed and served on the (2, 2) mesh (B1 at its shards, B2 on 12
+    heads, B3 over sequence halves, as the stats imply), the single-card
+    engine's tokens up to near ties;
 13. how many sentinels the profiler windows kept (see ``_profiled``), the
     results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
@@ -1203,7 +1223,16 @@ def eager_round_f32(torch, eng, cfg, card):
         raise AssertionError(f"(a)'s eager round allocates f32 {big[0]}: a dequantized layer cache")
 
 
-def main() -> int:
+_T0 = time.perf_counter()
+
+
+def _elapsed(what: str) -> None:
+    """The script's seconds so far, printed where a phase starts: where the
+    1,200 s the smoke may take go."""
+    print(f"elapsed {time.perf_counter() - _T0:.1f} s at the start of {what}", flush=True)
+
+
+def main(only_mesh_train: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1245,9 +1274,16 @@ def main() -> int:
           f"(the H100_SXM ChipSpec's hbm_bytes: {H100_SXM.hbm_bytes})")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # ---- 2. build
+    # ---- 2. build, with (MT1) in a process of its own meanwhile (it launches
+    # no kernel, and the card is idle while nvcc runs on the host)
+    mt1 = mesh_train_m1_start()
     t0 = time.perf_counter()
-    info = build.build_all()
+    try:
+        info = build.build_all()
+    except BaseException:
+        mt1.kill()
+        mt1.wait()
+        raise
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
     for name, rec in info.items():
         print(f"  {name}: {rec['seconds']:.1f} s{' (cached)' if rec['cached'] else ''}")
@@ -1255,6 +1291,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
+    mt1_report = mesh_train_m1_wait(mt1)
+    if only_mesh_train:  # a development run of phase (MT) alone: no result line
+        mesh_train_phase(torch, np, card, mt1_report)
+        return 0
+
+    _elapsed("kernel checks")
     # ---- 3. kernels against their plain versions
     ops = {"act_quant": act_quant_kernel, "tlmm": tlmm_kernel, "matmul": tlmm_matmul,
            "prefill": prefill_attention_kernel,
@@ -1278,6 +1320,7 @@ def main() -> int:
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
     del flush
+    _elapsed("the analysis phase")
     analysis_phase(torch, card)
     for name, r in checks.items():
         for c in r.get("cases", [r]):
@@ -1289,6 +1332,7 @@ def main() -> int:
                   f"plain {c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}){extra}  [{card}]")
 
+    _elapsed("the main path")
     # ---- 4. the main path at full width
     cfg = get_config("bitnet-730m")
     n_slots, max_len, max_tokens = 4, 2048, 32
@@ -1362,23 +1406,29 @@ def main() -> int:
     del eng
 
     # eager against graph decode rounds, in alternation within this run
+    _elapsed("eager against graph")
     eager_vs_graph(torch, np, cfg, params, n_slots, max_len, card)
 
+    _elapsed("(M1)")
     # ---- (M1) the main path on a (data 1, model 1) NCCL mesh in this process
     m1_launches = mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len,
                                 main_streams, main_rec, main_round, (dev_p, per_round), card)
 
+    _elapsed("paths (a)-(j)")
     # ---- 5. the other cache options at full width
     path_launches, path_i, paths_bd = cache_option_paths(torch, np, cfg, params, prompts,
                                                          max_tokens, n_slots, max_len, card)
+    _elapsed("(M2)")
     # ---- (M2) the same model on a (data 2, model 2) gloo mesh of 4 processes on this card
     mesh_launches, m2a = mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv,
                                        {"a": {"streams": main_streams, "recorder": main_rec},
                                         **paths_bd}, card)
     del paths_bd
+    _elapsed("(E), (F)")
     mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
                      m2a, card)
     del m2a
+    _elapsed("paths (k)-(m)")
     spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
     for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
@@ -1393,12 +1443,16 @@ def main() -> int:
     err, scale = chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens)
     print(f"reference: full-width 2-layer chunked prefill (2 chunks, int8 cache) logits vs CPU "
           f"plain versions: max abs err {err:.3g} (max |logit| {scale:.3g})")
+    _elapsed("the abort phase")
     abort_launches = abort_phase(torch, np, cfg, params, card)
     if not (abort_launches["tlmm"] and abort_launches["paged_decode_attention_quant"]
             and not abort_launches["prefill_attention"]):
         raise AssertionError(f"abort phase: launches {abort_launches}")
+    _elapsed("path (n)")
     front_launches = frontend_phase(torch, np, cfg, params, max_tokens, path_i, card)
+    _elapsed("path (o)")
     cli_launches, cli_tokens = cli_phase(torch, np, card)
+    _elapsed("paths (p), (q)")
     disagg_launches = disagg_phase(torch, np, cfg, params, max_tokens, path_i, main_streams,
                                    card)
     del path_i
@@ -1406,18 +1460,24 @@ def main() -> int:
     del params
     _free(torch)
 
+    _elapsed("phase 10")
     # ---- 10. the transformer family at full width
     family_launches = family_phase(torch, np, card)
     cli_smollm_launches, _ = cli_phase(torch, np, card, arch="smollm-135m")
 
+    _elapsed("phase 11")
     # ---- 11. the other families at full width, and the long_500k context
     other_launches = other_families_phase(torch, np, card)
 
+    _elapsed("phase 12")
     # ---- 12. training
     train_launches = training_phase(torch, np, card, ops)
+    _elapsed("(MT)")
+    # ---- (MT) training on a mesh of processes
+    mt_launches = mesh_train_phase(torch, np, card, mt1_report)
     for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches, front_launches, cli_launches,
                  disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches,
-                 other_launches, train_launches):
+                 other_launches, train_launches, mt_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1460,6 +1520,7 @@ def main() -> int:
           f"work; opening sentinels kept {min(kept) - 1} to {max(kept) - 1} of "
           f"{PROFILE_MARKS * MARKS_EACH} ({PROFILE_MARKS} bursts "
           f"{PROFILE_EDGE_S / PROFILE_MARKS * 1e3:.0f} ms apart)  [{card}]")
+    _elapsed("the result lines")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1516,8 +1577,9 @@ def _shape_lines(shapes):
 def mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len, main_streams,
                   main_rec, main_round, main_profile, card):
     """(M1): the main path's engine on a (data 1, model 1) NCCL mesh in
-    this process.  Every collective runs (on groups of one), the decode
-    program is captured as a CUDA graph with its collectives inside, and
+    this process.  Every collective runs on its group of one (but the
+    embedding's sum, which a group of one skips), the decode program is
+    captured as a CUDA graph with its collectives inside, and
     the tokens must be the main path's.  The timed run keeps no logits
     (a second, untimed run records them); its decode round is printed
     beside the main path's (``main_round``: seconds a round and tok/s),
@@ -3324,6 +3386,7 @@ def family_phase(torch, np, card):
     paged_kw = dict(eng_kw, cache_layout="paged", kv_dtype="int8", block_size=16,
                     prefill_chunk=CHUNK)
     for key, chunk_key, arch in (("r", "s", "qwen2.5-14b"), ("t", "u", "granite-moe-3b-a800m")):
+        _elapsed(f"path ({key}), {arch}")
         cfg = get_config(arch)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3365,6 +3428,7 @@ def family_phase(torch, np, card):
                   f"{sum(full)} in all ({full})")
         del params, p_gpu, p_cpu
         _free(torch)
+    _elapsed("path (v)")
     for arch, depth in FAMILY_V:
         cfg = get_config(arch)
         if depth is not None:
@@ -4184,6 +4248,7 @@ def other_families_phase(torch, np, card):
     before and read just after.  Returns the launches summed."""
     total = {}
     for path in (hymba_path, xlstm_path, whisper_path, long_context_path):
+        _elapsed(path.__name__)
         for name, n in path(torch, np, card).items():
             total[name] = total.get(name, 0) + n
     return total
@@ -4651,10 +4716,589 @@ def training_phase(torch, np, card, ops):
     Returns the launches summed."""
     total = {}
     for path in (smollm_training, bitnet_qat, granite_moe_training, family_gradients):
+        _elapsed(path.__name__)
         for name, n in path(torch, np, card).items():
             total[name] = total.get(name, 0) + n
     refusal_checks(torch, ops)
     return total
+
+
+# ---- phase (MT): training on a mesh of processes --
+
+MT_DIR = Path("chiprun_out") / "mesh_train"  # the (MT) worlds' stores, results and checkpoint
+MT_TIMEOUT_S = 600  # the (MT2)-(MT4) world
+MT_STEPS, MT_MORE = 3, 2  # (MT1), (MT2): steps, then 2 more after the checkpoint
+MT_PROMPTS, MT_PROMPT_LEN, MT_NEW = 4, 256, 16  # (MT3)
+MT_TOY_STEPS = 300  # (MT4): the JAX test's toy regression
+# (MT2)-(MT4) run bitnet-730m at full width, cut to 4 of its 24 layers: at
+# full depth the 4-rank world took 275 s (12.3 s a step, 1,408 gloo
+# collectives; H100 80GB HBM3, 700 W), over the 240 s the phase may take,
+# and at 8 layers 115 s, when the smoke before it ran 970 s of its 1,200
+MT_LAYERS = 4
+# (MT2) against the single card, relative (loss and grad norm a step; mu
+# and nu after step 3, each leaf's largest difference over its largest
+# |value|): a model rank sums a row-parallel product from two partial
+# products (another order of f32 sums), and in QAT a residual an ulp away
+# can cross an int8 rounding step of the next fake quantizer; the steps
+# carry it on.  Read on one H100 80GB HBM3 (700 W) at 4 layers: loss
+# 4.6e-4, grad norm 2.1e-3, mu 0.012, nu 0.017; the planted fault (3
+# steps): loss 2.5e-3 (step 2; steps 0-1 move no weight), grad norm
+# 0.47-0.50, mu 0.35, nu 0.63 (PERF.md §6).  The params after step 3 are
+# read and held to no limit: AdamW moves an element by at most the sum of
+# the rates whatever the gradient, so the sound run read 0.012 and the
+# fault 0.014; the moments carry a wrong gradient.  The planted fault must
+# break every limit here.
+MT_LIMITS = {"loss": 1e-3, "grad_norm": 1e-2, "mu": 0.05, "nu": 0.05}
+
+
+def _mt_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _mt_tree_rel(torch, got, want):
+    """Each leaf's largest |difference| over its largest |value| (want's),
+    worst leaf: (value, name)."""
+    from repro_torch.common.tree import named_leaves
+
+    want = dict(named_leaves(want))
+    worst = (0.0, "")
+    for name, g in named_leaves(got):
+        w = want[name].to(g.device)
+        d = float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+        worst = max(worst, (d, name))
+    return worst
+
+
+def _mt_state_rel(torch, whole, p1, o1):
+    """A gathered (params, AdamWState) against the single card's, by
+    ``_mt_tree_rel``: {"params" | "mu" | "nu": (value, leaf)}."""
+    return {k: _mt_tree_rel(torch, a, b) for k, a, b in
+            (("params", whole[0], p1), ("mu", whole[1].mu, o1.mu), ("nu", whole[1].nu, o1.nu))}
+
+
+def _mt_worst(hist, ref, state_rel):
+    """Each limited reading's worst: {"loss" | "grad_norm" over the steps,
+    "mu" | "nu" after step ``MT_STEPS``: value}."""
+    out = {k: max(_mt_rel(h[k], r[k]) for h, r in zip(hist, ref)) for k in ("loss", "grad_norm")}
+    return {**out, **{k: v for k, (v, _) in state_rel.items() if k in MT_LIMITS}}
+
+
+def _mt_faults(hist, ref, state_rel=None, limits=MT_LIMITS):
+    """Where a run's losses and grad norms, and (``state_rel``) its state
+    after step ``MT_STEPS``, break the limits against ``ref``."""
+    out = [f"step {i} {k} {h[k]} against {r[k]} (relative {_mt_rel(h[k], r[k]):.3g}, limit "
+           f"{limits[k]})" for i, (h, r) in enumerate(zip(hist, ref))
+           for k in ("loss", "grad_norm") if _mt_rel(h[k], r[k]) > limits[k]]
+    return out + [f"{k} after step {MT_STEPS}: {name} {v:.3g} (limit {limits[k]})"
+                  for k, (v, name) in (state_rel or {}).items() if k in limits and v > limits[k]]
+
+
+def _mt_batches(np, cfg, n):
+    from repro_torch.data.pipeline import DataConfig, make_source
+
+    source = make_source(DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    return [source.batch(s) for s in range(n)]
+
+
+def _mt_steps(torch, step_fn, params, opt, batches, lo, hi, dev, on_step=None):
+    """Steps lo..hi-1: (params, opt, [metrics + "ms" by CUDA events])."""
+    hist = []
+    for s in range(lo, hi):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[s].items()}
+        if on_step is not None:
+            on_step()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, m = step_fn(params, opt, batch, s)
+        e1.record()
+        e1.synchronize()
+        hist.append({**{k: float(v) for k, v in m.items()}, "ms": e0.elapsed_time(e1)})
+    return params, opt, hist
+
+
+def mesh_train_m1(torch, np, card):
+    """(MT1): bitnet-730m QAT at full width and depth, f32 latent weights,
+    8 x 256 (T2's batches), 3 steps on a (data 1, model 1) NCCL mesh in its
+    process against the single-card step on the same weights and batches:
+    every collective is a group of one, so the loss, the grad norm and every
+    leaf of params, mu and nu after step 3 must be equal, bit for bit; no
+    kernel is launched."""
+    import torch.distributed as dist
+
+    from repro_torch.common.tree import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    MT_DIR.mkdir(parents=True, exist_ok=True)
+    store = MT_DIR / "m1_store"
+    store.unlink(missing_ok=True)
+    cfg = get_config("bitnet-730m")
+    tcfg = TrainConfig(schedule="wsd", warmup=1, total_steps=MT_STEPS + MT_MORE)
+    batches = _mt_batches(np, cfg, MT_STEPS)
+    p1, o1 = init_train_state(cfg, 0, "cuda")
+    p1, o1, ref = _mt_steps(torch, make_train_step(cfg, tcfg), p1, o1, batches, 0, MT_STEPS, "cuda")
+    join_process_group("nccl", init_method=f"file://{store.resolve()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        reset_counts()
+        p2, o2 = init_train_state(cfg, 0, mesh=mesh)
+        p2, o2, got = _mt_steps(torch, make_train_step(cfg, tcfg, mesh), p2, o2, batches, 0,
+                                MT_STEPS, mesh.device)
+        torch.cuda.synchronize()
+        _no_launches("(MT1)", dict(COUNTS))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    differ = [f"step {i} {k}: {g[k]!r} against {r[k]!r}" for i, (g, r) in enumerate(zip(got, ref))
+              for k in ("loss", "grad_norm") if g[k] != r[k]]
+    for what, a, b in (("params", p2, p1), ("mu", o2.mu, o1.mu), ("nu", o2.nu, o1.nu)):
+        for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+            if not torch.equal(x, y):
+                differ.append(f"{what} {name}: {float((x - y).abs().max())} apart")
+    if differ:
+        raise AssertionError("(MT1): the (1, 1) mesh's steps differ from the single card's: "
+                             + "; ".join(differ[:8]))
+    print(f"(MT1) bitnet-730m QAT at full width and depth (f32 latent weights, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {MT_STEPS} steps, WSD) on a (1, 1) NCCL mesh in a process of its own: "
+          f"losses "
+          + " ".join(f"{h['loss']:.6f}" for h in got) + ", grad norms "
+          + " ".join(f"{h['grad_norm']:.6f}" for h in got)
+          + "; equal to the single card's bit for bit, and every leaf of params, mu and nu after "
+          f"step {MT_STEPS}; {statistics.median(h['ms'] for h in got[1:]):.1f} ms a step on the "
+          f"mesh against {statistics.median(h['ms'] for h in ref[1:]):.1f} (CUDA events, median "
+          f"of steps 1-{MT_STEPS - 1}); no kernel launched; the phase "
+          f"{time.perf_counter() - t0:.1f} s, run while the kernels built (nvcc on the host's "
+          f"other cores)  [{card}]")
+    del p1, o1, p2, o2
+    _free(torch)
+
+
+def mesh_train_m1_main() -> int:
+    """(MT1) in a process of its own (``chip_smoke.py --mesh-train-m1``): a
+    second NCCL world in the process that ran (M1) and destroyed its own
+    crashed it (a segmentation fault on an H100 80GB HBM3)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    mesh_train_m1(torch, np, smi())
+    return 0
+
+
+def mesh_train_m1_start():
+    """Start (MT1) in a process of its own (``chip_smoke.py
+    --mesh-train-m1``), to run while the kernels build."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-train-m1"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def mesh_train_m1_wait(proc) -> str:
+    """(MT1)'s report, once its process has ended; raises if it failed."""
+    try:
+        out, err = proc.communicate(timeout=MT_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"(MT1) exited {proc.returncode}:\n{(out + err)[-6000:]}")
+    return out.strip()
+
+
+def mesh_train_phase(torch, np, card, mt1_report):
+    """(MT1)'s report (its process ran while the kernels built), then
+    (MT2)-(MT4) in a (data 2, model 2) gloo world of 4 processes sharing
+    this card (``python -m torch.distributed.run --standalone
+    --nproc-per-node 4 chip_smoke.py --mesh-train-worker DIR``), whose rank
+    0 checks each phase and writes its report.  Returns rank 0's launches
+    (the (MT3) serving run; no training step launches a kernel)."""
+    import shutil
+
+    print(mt1_report)
+    t0 = time.perf_counter()
+    shutil.rmtree(MT_DIR, ignore_errors=True)
+    MT_DIR.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={MESH_WORLD}", str(Path(__file__).resolve()), "--mesh-train-worker",
+           str(MT_DIR.resolve())]
+    try:
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=MT_TIMEOUT_S)
+        (MT_DIR.parent / "mesh_train_world.log").write_text(run.stdout + run.stderr)
+        if run.returncode != 0:
+            raise AssertionError(f"(MT2)-(MT4): the 4-rank world exited {run.returncode}:\n"
+                                 f"{(run.stdout + run.stderr)[-8000:]}")
+        result = json.loads((MT_DIR / "result.json").read_text())
+    finally:
+        shutil.rmtree(MT_DIR, ignore_errors=True)
+    print(f"(MT2) launched with: {' '.join(cmd[1:])}")
+    for line in result["report"]:
+        print(f"{line}  [{card}]")
+    print(f"(MT) the 4-rank world {time.perf_counter() - t0:.1f} s  [{card}]")
+    return result["launches"]
+
+
+def mesh_train_worker(out: Path) -> int:
+    """One rank of (MT2)-(MT4), started by ``torch.distributed.run``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.tree import leaves, named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh, make_mesh
+    from repro_torch.launch.sharding_rules import gather_params, shard_params
+    from repro_torch.launch.train import gather_state, state_specs
+    from repro_torch.layers import collectives as C
+    from repro_torch.layers.sharding import TRAIN_RULES, MeshAxes, PartitionCtx
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as Z
+    from repro_torch.serving import EngineCore, Request, SamplingParams
+    from repro_torch.train import trainer as TR
+
+    t_start = time.perf_counter()
+    join_process_group("gloo")
+    mesh = make_host_mesh(data=2, model=2)
+    rank, dev = mesh.rank, mesh.device
+    report = []
+
+    def say(line):
+        if rank == 0:
+            report.append(line)
+            print(line, flush=True)
+
+    failures = []
+
+    def check(ok, what):  # read on, and raise at the end: one run prints every reading
+        if not ok:
+            failures.append(what)
+            say(f"FAILED: {what}")
+
+    # the collectives, counted where they reach torch.distributed
+    tally = {"calls": 0, "bytes": 0}
+    for name in ("broadcast", "all_reduce", "all_gather", "reduce_scatter_tensor",
+                 "all_to_all_single"):
+        fn = getattr(dist, name)
+
+        def counted(*args, _fn=fn, **kw):
+            tally["calls"] += 1
+            t = args[1] if _fn.__name__ in ("all_gather", "reduce_scatter_tensor") else args[0]
+            t = t[0] if isinstance(t, list) else t
+            tally["bytes"] += t.numel() * t.element_size()
+            return _fn(*args, **kw)
+
+        setattr(dist, name, counted)
+
+    full = get_config("bitnet-730m")
+    cfg = dataclasses.replace(full, num_layers=MT_LAYERS)
+    say(f"(MT2)-(MT4) bitnet-730m at full width, cut to {cfg.num_layers} of its "
+        f"{full.num_layers} layers (MT_LAYERS: the phase at full depth would take over 240 s)")
+    tcfg = TR.TrainConfig(schedule="wsd", warmup=1, total_steps=MT_STEPS + MT_MORE)
+    n_steps = MT_STEPS + MT_MORE
+    batches = _mt_batches(np, cfg, n_steps)
+    marks = []
+
+    def mark():  # each step's collectives
+        torch.cuda.synchronize()
+        marks.append(dict(tally))
+
+    # ---- (MT2): the (2, 2) run, steps 0-2
+    t0 = time.perf_counter()
+    reset_counts()
+    params, opt = TR.init_train_state(cfg, 0, mesh=mesh)
+    mib = [None] * mesh.size
+    dist.all_gather_object(mib, (_tree_bytes(params) / 2**20,
+                                 (_tree_bytes(opt.mu) + _tree_bytes(opt.nu)) / 2**20))
+    step22 = TR.make_train_step(cfg, tcfg, mesh)
+    params, opt, h22 = _mt_steps(torch, step22, params, opt, batches, 0, MT_STEPS, dev, mark)
+    mark()
+    per_step = [(b["calls"] - a["calls"], b["bytes"] - a["bytes"]) for a, b in zip(marks, marks[1:])]
+    whole = gather_state(params, opt, cfg, mesh, only=0)  # the host copy on rank 0 alone
+    ckpt = out / "ckpt"
+    t_save = 0.0
+    if rank == 0:
+        t_save = time.perf_counter()
+        CheckpointManager(str(ckpt)).save(MT_STEPS, whole)
+        t_save = time.perf_counter() - t_save
+    dist.barrier()
+    # the single card on rank 0 (the others wait): steps 0-2, its state then
+    # held against the (2, 2) run's and the planted fault's, then steps 3-4
+    ref, tree_rel = None, None
+    if rank == 0:
+        p1, o1 = TR.init_train_state(cfg, 0, dev)
+        one = TR.make_train_step(cfg, tcfg)
+        p1, o1, ref = _mt_steps(torch, one, p1, o1, batches, 0, MT_STEPS, dev)
+        tree_rel = _mt_state_rel(torch, whole, p1, o1)
+    del whole
+    _free(torch)
+
+    # the planted fault: the data axis's gradient reduction dropped (each data
+    # rank's FSDP shard takes its own rows' gradient, the replicated leaves
+    # are not summed), so each data rank steps on its own half batch; steps
+    # 0-2 as the sound run, and its state after them
+    reduce_scatter, reduce_dp = C.reduce_scatter, TR.reduce_dp_grads
+
+    def own_rows(x, group, *, dim, how=None):
+        per = x.shape[dim] // dist.get_world_size(group)
+        return x.narrow(dim, dist.get_rank(group) * per, per).contiguous()
+
+    C.reduce_scatter, TR.reduce_dp_grads = own_rows, lambda grads, pctx, rep: grads
+    try:
+        pf, of = TR.init_train_state(cfg, 0, mesh=mesh)
+        pf, of, hf = _mt_steps(torch, TR.make_train_step(cfg, tcfg, mesh), pf, of, batches, 0,
+                               MT_STEPS, dev)
+    finally:
+        C.reduce_scatter, TR.reduce_dp_grads = reduce_scatter, reduce_dp
+    whole_f = gather_state(pf, of, cfg, mesh, only=0)
+    del pf, of
+    fault_rel = None
+    if rank == 0:
+        fault_rel = _mt_state_rel(torch, whole_f, p1, o1)
+        p1, o1, more = _mt_steps(torch, one, p1, o1, batches, MT_STEPS, n_steps, dev)
+        ref += more
+        del p1, o1
+    del whole_f
+    _free(torch)
+    ref, tree_rel, fault_rel = _bcast_obj(dist, (ref, tree_rel, fault_rel))
+    params, opt, more = _mt_steps(torch, step22, params, opt, batches, MT_STEPS, n_steps, dev)
+    h22 += more
+    launches = dict(COUNTS)
+    check(not any(launches.values()), f"(MT2): training launched kernels {launches}")
+    check(not _mt_faults(h22, ref, tree_rel), "(MT2) against the single card: "
+          + "; ".join(_mt_faults(h22, ref, tree_rel)))
+    calls = [c for c, _ in per_step]
+    say("(MT2) per step, relative to the single card: loss "
+        + " ".join(f"{_mt_rel(h['loss'], r['loss']):.3g}" for h, r in zip(h22, ref))
+        + "; grad norm " + " ".join(f"{_mt_rel(h['grad_norm'], r['grad_norm']):.3g}"
+                                    for h, r in zip(h22, ref)))
+    say(f"(MT2) bitnet-730m QAT at full width ({cfg.num_layers} layers) on a (data 2, model 2) gloo mesh of 4 "
+        f"processes on this card, {TRAIN_BATCH} x {TRAIN_SEQ} (T2's batches), "
+        f"{n_steps} steps: losses " + " ".join(f"{h['loss']:.6f}" for h in h22)
+        + " against the single card's " + " ".join(f"{h['loss']:.6f}" for h in ref)
+        + f" (largest relative {max(_mt_rel(h['loss'], r['loss']) for h, r in zip(h22, ref)):.3g}); "
+        f"grad norms largest relative "
+        f"{max(_mt_rel(h['grad_norm'], r['grad_norm']) for h, r in zip(h22, ref)):.3g}; after step "
+        f"{MT_STEPS}: " + ", ".join(f"{k} {v:.3g} ({name})" for k, (v, name) in tree_rel.items())
+        + f" of a leaf's largest |value|; limits {MT_LIMITS}")
+    say(f"(MT2) rank 0: {statistics.median(h['ms'] for h in h22[1:]):.1f} ms a step (CUDA events, "
+        f"median of steps 1-{n_steps - 1}; {min(h['ms'] for h in h22[1:]):.1f}-"
+        f"{max(h['ms'] for h in h22[1:]):.1f}) against the single card's "
+        f"{statistics.median(h['ms'] for h in ref[1:]):.1f}; {calls[-1]} collectives a step "
+        f"({', '.join(map(str, calls))} in steps 0-{MT_STEPS - 1}; each gloo broadcast of a "
+        f"gather counted), {per_step[-1][1] / 2**20:.1f} MiB through them a step; no kernel "
+        f"launched; the checkpoint at step {MT_STEPS} gathered and written by rank 0 in "
+        f"{t_save:.1f} s")
+    for r, (p_mib, m_mib) in enumerate(mib):
+        say(f"(MT2) rank {r}: params {p_mib:.1f} MiB, moments {m_mib:.1f} MiB (the whole tree's "
+            f"{_tree_bytes_cfg(cfg) / 2**20:.1f} and {2 * _tree_bytes_cfg(cfg) / 2**20:.1f})")
+    say("(MT2) planted fault per step, relative to the single card: loss "
+        + " ".join(f"{_mt_rel(h['loss'], r['loss']):.3g}" for h, r in zip(hf, ref))
+        + "; grad norm " + " ".join(f"{_mt_rel(h['grad_norm'], r['grad_norm']):.3g}"
+                                    for h, r in zip(hf, ref))
+        + f"; after step {MT_STEPS}: "
+        + ", ".join(f"{k} {v:.3g} ({name})" for k, (v, name) in fault_rel.items()))
+    # the fault must break every limit, so that each has a reading above it
+    planted = _mt_faults(hf, ref[:MT_STEPS], fault_rel)
+    worst = _mt_worst(hf, ref[:MT_STEPS], fault_rel)
+    unbroken = [k for k, v in worst.items() if v <= MT_LIMITS[k]]
+    check(not unbroken, f"(MT2): the planted fault passes the limits of {unbroken}: {worst}")
+    say(f"(MT2) planted fault (the data axis's gradient reduction dropped): fails the limits: "
+        + "; ".join(planted))
+
+    # restore the step-3 checkpoint onto (data 1, model 4) and onto one card
+    mgr = CheckpointManager(str(ckpt))
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    t_r = time.perf_counter()
+    template = TR.init_train_state(cfg, 0, mesh=mesh14)
+    state, at = mgr.restore(template, device=dev, shardings=state_specs(template[0], cfg, mesh14),
+                            mesh=mesh14)
+    del template
+    t_r = time.perf_counter() - t_r
+    _, _, h14 = _mt_steps(torch, TR.make_train_step(cfg, tcfg, mesh14), *state, batches, at,
+                          n_steps, dev)
+    del state
+    _free(torch)
+    h1 = None
+    if rank == 0:
+        template = TR.init_train_state(cfg, 0, dev)
+        state, at1 = mgr.restore(template, device=dev)
+        del template
+        _, _, h1 = _mt_steps(torch, TR.make_train_step(cfg, tcfg), *state, batches, at1, n_steps,
+                             dev)
+        del state
+        _free(torch)
+    h1 = _bcast_obj(dist, h1)
+    say("(MT2) restored runs per step, relative to the (2, 2) run's: loss "
+        + " / ".join(" ".join(f"{_mt_rel(h['loss'], r['loss']):.3g}"
+                              for h, r in zip(hh, h22[MT_STEPS:])) for hh in (h14, h1))
+        + "; grad norm " + " / ".join(" ".join(f"{_mt_rel(h['grad_norm'], r['grad_norm']):.3g}"
+                                               for h, r in zip(hh, h22[MT_STEPS:]))
+                                      for hh in (h14, h1)))
+    faults = _mt_faults(h14, h22[MT_STEPS:]) + _mt_faults(h1, h22[MT_STEPS:])
+    check(at == MT_STEPS and not faults, f"(MT2) restores (at step {at}): " + "; ".join(faults))
+    say(f"(MT2) the step-{MT_STEPS} checkpoint restored onto a (data 1, model 4) mesh in the same "
+        f"world ({t_r:.1f} s, every rank reading the whole tree on the host and keeping its "
+        f"slice) and onto one card with no mesh: steps {MT_STEPS}-{n_steps - 1} losses "
+        + " / ".join(" ".join(f"{h['loss']:.6f}" for h in hh) for hh in (h14, h1))
+        + " against the (2, 2) run's " + " ".join(f"{h['loss']:.6f}" for h in h22[MT_STEPS:])
+        + f"; grad norms largest relative "
+        f"{max(_mt_rel(h['grad_norm'], r['grad_norm']) for hh in (h14, h1) for h, r in zip(hh, h22[MT_STEPS:])):.3g}"
+        f"; within the limits")
+
+    # ---- (MT4) first: the compressed mean over data of the ranks' gradients
+    latent = gather_params(params, cfg, mesh, train=True)  # the trained weights, whole, on the card
+    del params, opt
+    _free(torch)
+    tp_ctx = PartitionCtx(mesh=mesh, axes=MeshAxes(dp="data", tp="model", fsdp=None),
+                          rules=dict(TRAIN_RULES))
+    ptp = shard_params(latent, cfg, mesh, train=False)  # tensor-parallel, whole over data
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+    _, _, grads = TR.loss_and_grads(lambda p, b: T.loss_fn(p, b, cfg, pctx=tp_ctx), ptp,
+                                    TR.local_rows(tp_ctx, batch))
+    del ptp
+    data = mesh.group("data")
+    n = dist.get_world_size(data)
+    err = Z.init_error_feedback(grads)
+    mean, err = Z.compressed_mean_over_axis(grads, err, mesh, "data")
+    worst, ratio_worst = 0.0, (0.0, "")
+    for name, g in named_leaves(grads):
+        exact = C.all_reduce(g.float(), data) / n
+        scales = C.all_gather(Z._quant_int8(g)[1].reshape(1), data, dim=0)
+        bound = float(scales.sum()) / 2 / n  # each rank's rounding within half its scale
+        d = float((dict(named_leaves(mean))[name] - exact).abs().max())
+        ratio_worst = max(ratio_worst, (d / max(bound, 1e-30), name))
+        worst = max(worst, d)
+    check(ratio_worst[0] <= 1.0 + 1e-5, f"(MT4): a mean {ratio_worst} of its int8 bound")
+    # a rank receives each rank's int8 payload and f32 scale, against its f32 gradient
+    int8_b = n * sum(g.numel() + 4 for g in leaves(grads))
+    f32_b = n * sum(4 * g.numel() for g in leaves(grads))
+    del grads, mean, err
+    _free(torch)
+    # the JAX test's toy regression, on a (pod 4) mesh of the same ranks
+    meshp = make_mesh((4,), ("pod",))
+    rng = np.random.default_rng(0)
+    w_true = torch.from_numpy(rng.normal(size=(8,)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(64, 8)).astype(np.float32)).to(dev)
+    y = x @ w_true
+
+    def toy_loss(w, b):
+        xb, yb = b
+        return torch.mean((xb @ w - yb) ** 2)
+
+    grads_fn = Z.compressed_dp_grads(toy_loss, meshp)
+    w_c, w_e = torch.zeros(8, device=dev), torch.zeros(8, device=dev)
+    ef = Z.init_error_feedback(w_c)
+    t_toy = time.perf_counter()
+    for _ in range(MT_TOY_STEPS):
+        _, g_c, ef = grads_fn(w_c, ef, (x, y))
+        w_c = w_c - 0.05 * g_c
+        w_e = w_e.requires_grad_()
+        (g_e,) = torch.autograd.grad(toy_loss(w_e, (x, y)), w_e)
+        w_e = (w_e - 0.05 * g_e).detach()
+    t_toy = time.perf_counter() - t_toy
+    final_c, final_e = float(toy_loss(w_c, (x, y))), float(toy_loss(w_e, (x, y)))
+    check(final_c < 1e-3 and abs(final_c - final_e) < 1e-3,
+          f"(MT4) toy regression: compressed {final_c}, exact {final_e}")
+    say(f"(MT4) the compressed mean over the data axis of the 4 ranks' full-width gradients "
+        f"(step 0's batch, a tensor-parallel slice whole over data, {len(leaves(latent))} leaves): "
+        f"every leaf within its int8 bound (the ranks' half scales summed over the group size; "
+        f"worst {ratio_worst[0]:.3f} of it, {ratio_worst[1]}; largest difference {worst:.3g}); "
+        f"{int8_b / 2**20:.1f} MiB received a rank in int8 + scales against {f32_b / 2**20:.1f} "
+        f"in f32 ({int8_b / f32_b:.3f}); the toy regression on a (pod 4) mesh, {MT_TOY_STEPS} "
+        f"steps in {t_toy:.1f} s: final loss {final_c:.3g} compressed, {final_e:.3g} exact")
+
+    # ---- (MT3): the (2, 2)-trained weights packed, sliced and served on the (2, 2) mesh
+    packed = T.convert_for_inference(latent, cfg)
+    del latent
+    local = shard_params(packed, cfg, mesh)
+    if rank != 0:
+        del packed
+    _free(torch)
+    prompts = make_prompts(np, cfg, [MT_PROMPT_LEN] * MT_PROMPTS)
+    kw = dict(n_slots=MT_PROMPTS, max_len=2048, cache_layout="contiguous", kv_dtype="fp",
+              mode="pdswap", overlap=True)
+    eng = EngineCore(cfg, local, mesh=mesh, **kw)
+    rec = TargetRecorder(eng) if rank == 0 else None
+    prefills, prefill = [], eng.runner.prefill
+
+    def counted_prefill(*args, **kw_):
+        prefills.append(1)
+        return prefill(*args, **kw_)
+
+    eng.runner.prefill = counted_prefill
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    t_serve = time.perf_counter()
+    if rank == 0:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"q{i}", p, max_new=MT_NEW))
+        eng.run()
+        eng.stop_followers()
+    else:
+        eng.follow()
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t_serve
+    mt3 = dict(COUNTS)
+    st = eng.stats
+    stats = {"decode_rounds": st.decode_rounds}
+    want = _mesh_expect(cfg, kw, stats, len(prefills))
+    shapes = {f"{name} {shape}": k for (name, shape), k in COUNTS.shapes().items()}
+    check(mt3 == want, f"(MT3) rank {rank}: launches {mt3} != {want}")
+    every = [None] * mesh.size
+    dist.all_gather_object(every, (mt3, shapes))
+    if rank == 0:
+        got = {k: list(map(int, r.out_tokens)) for k, r in sorted(eng.finished.items())}
+        ref_eng = EngineCore(cfg, packed, device=dev, **kw)
+        ref_rec = TargetRecorder(ref_eng)
+        for i, p in enumerate(prompts):
+            ref_eng.submit(Request(f"q{i}", p, max_new=MT_NEW))
+        ref_eng.run()
+        want_streams = {k: list(map(int, r.out_tokens)) for k, r in sorted(ref_eng.finished.items())}
+        try:
+            parted = check_near_ties(torch, "(MT3)", got, want_streams, rec, ref_rec,
+                                     lambda rid: SamplingParams(), tol=MESH_TIE_TOL,
+                                     agree_tol=MESH_AGREE_TOL)
+        except AssertionError as e:
+            check(False, str(e))
+            parted = "not at near ties"
+        say(f"(MT3) the (2, 2)-trained weights gathered, packed (convert_for_inference) and "
+            f"sliced, served on the (2, 2) mesh: {MT_PROMPTS} prompts of {MT_PROMPT_LEN}, "
+            f"{MT_NEW} new, greedy: {len(prefills)} prefills, {st.decode_rounds} decode rounds, "
+            f"{t_serve:.1f} s; streams "
+            f"{'equal' if not parted else f'part at near ties {parted} from'} the single-card "
+            f"engine's on the same packed weights (margins within {MESH_TIE_TOL}, logits within "
+            f"{MESH_AGREE_TOL}); rank 0's launches {mt3}")
+        for r, (_, sh) in enumerate(every):
+            for line in _shape_lines(sh):
+                say(f"    (MT3) rank {r} {line}")
+        del ref_eng, ref_rec, packed
+    del eng, rec
+    say(f"(MT2)-(MT4) rank 0's seconds {time.perf_counter() - t_start:.1f}")
+    if failures:
+        raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+    if rank == 0:
+        (out / "result.json").write_text(json.dumps({"report": report, "launches": mt3}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _bcast_obj(dist, obj):
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _tree_bytes_cfg(cfg) -> int:
+    """The whole latent f32 tree's bytes."""
+    return 4 * cfg.param_count()
 
 
 def _to_f32(tree):
@@ -4676,4 +5320,10 @@ def _to_cpu(tree):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":  # one rank of phase (M2)
         sys.exit(mesh_worker(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-train-worker":  # one rank of (MT2)-(MT4)
+        sys.exit(mesh_train_worker(Path(sys.argv[2])))
+    if sys.argv[1:] == ["--mesh-train-m1"]:  # (MT1), in its own process
+        sys.exit(mesh_train_m1_main())
+    if sys.argv[1:] == ["--only-mesh-train"]:  # phase (MT) alone, for development
+        sys.exit(main(only_mesh_train=True))
     sys.exit(main())

@@ -12,8 +12,9 @@ restores exactly into a bf16 template in either package.
 
 ``save_async`` takes a completed host copy of every leaf before it returns
 (the training step updates the parameters in place right after), then
-writes on a background thread.  ``restore`` takes a device where the JAX
-one takes shardings.
+writes on a background thread.  ``restore`` takes a device, and for a
+mesh each leaf's spec (the JAX one takes shardings): every rank reads the
+whole leaf on the host and keeps its block.
 """
 from __future__ import annotations
 
@@ -114,22 +115,29 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, int]:
+    def restore(self, template: Any, step: Optional[int] = None, device=None,
+                shardings: Optional[dict] = None, mesh=None) -> tuple[Any, int]:
         """Restore ``step`` (the latest by default) into the structure of
         ``template``: each leaf in its template leaf's dtype, on ``device``
-        (by default the template leaf's)."""
+        (by default the template leaf's).  ``shardings`` (a leaf's name ->
+        its ``PartitionSpec``; a spec is a tuple, so the map is keyed by
+        name where JAX takes a tree) with ``mesh`` is the elastic path: each
+        leaf is read whole on the host, this rank's block of it under its
+        spec is kept for the mesh it runs on now (which may be another than
+        the one that saved it), and the whole leaf is dropped before the
+        next is read."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        from repro_torch.launch.sharding_rules import local_slice
+
         with np.load(self.dir / f"step_{step:08d}" / "arrays.npz") as data:
-            arrays = {k: data[k] for k in data.files}
+            def load(p, t):
+                out = torch.from_numpy(np.array(data[p], order="C"))  # np.array keeps a 0-d leaf 0-d
+                if shardings is not None and shardings.get(p) is not None:
+                    out = local_slice(out, shardings[p], mesh).contiguous()
+                assert tuple(out.shape) == tuple(t.shape), (p, tuple(out.shape), tuple(t.shape))
+                return out.to(t.dtype).to(t.device if device is None else device)
 
-        def load(p, t):
-            a = arrays[p]
-            assert a.shape == tuple(t.shape), (p, a.shape, t.shape)
-            out = torch.from_numpy(np.array(a, order="C")).to(t.dtype)  # np.array keeps a 0-d leaf 0-d
-            return out.to(t.device if device is None else device)
-
-        return tree_map_with_path_names(load, template), step
+            return tree_map_with_path_names(load, template), step

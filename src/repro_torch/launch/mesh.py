@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -78,6 +79,8 @@ class Mesh:
     # the whole world over gloo, for the host's own messages (rank 0's
     # admissions): CPU tensors, so no step waits on a card for them
     host_group: object = None
+    # this rank's group of each tuple of axes asked for (``group``)
+    tuple_groups: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -99,18 +102,40 @@ class Mesh:
         return self.device_mesh.get_coordinate()[self.axis_names.index(axis)]
 
     def group(self, axis):
-        """The process group of mesh axis ``axis``; a tuple of every axis
-        names the whole world (its ranks in the first axis's major order)."""
+        """The process group of mesh axis ``axis``.  A tuple of axes (in the
+        mesh's order) names the ranks that differ from this one only along
+        those axes, ordered major to minor as JAX orders them: every axis is
+        the whole world, ``("pod", "data")`` the multi-pod mesh's batch
+        group.  A tuple's groups are built once, on first use, by every
+        rank together (the same call on every rank, as all collectives)."""
         if isinstance(axis, tuple):
             if len(axis) == 1:
                 axis = axis[0]
-            elif set(axis) == set(self.axis_names) and len(axis) == len(self.axis_names):
-                if list(axis) != list(self.axis_names):
-                    raise ValueError(f"axes {axis} out of the mesh's order {self.axis_names}")
-                return dist.group.WORLD
             else:
-                raise NotImplementedError(f"a group over axes {axis} of {self.axis_names}")
+                if [a for a in self.axis_names if a in axis] != list(axis):
+                    raise ValueError(f"axes {axis} out of the mesh's order {self.axis_names}")
+                if len(axis) == len(self.axis_names):
+                    return dist.group.WORLD
+                return self._tuple_group(axis)
         return self.device_mesh.get_group(axis)
+
+    def _tuple_group(self, axes: Tuple[str, ...]):
+        groups = self.tuple_groups
+        if axes not in groups:
+            names = self.axis_names
+            ids = self.device_mesh.mesh  # (sizes...) of global ranks
+            rest = [names.index(a) for a in names if a not in axes]
+            rows = ids.permute(*rest, *[names.index(a) for a in axes]).reshape(
+                -1, math.prod(self.shape[a] for a in axes))
+            mine = None
+            for row in rows.tolist():  # every rank makes every group, in one order
+                # ranks ascend along axes taken in the mesh's order, so the
+                # group's (sorted) order is JAX's major-to-minor order
+                g = dist.new_group(ranks=row, backend=self.backend)
+                if self.rank in row:
+                    mine = g
+            groups[axes] = mine
+        return groups[axes]
 
     @property
     def backend(self) -> str:
@@ -149,6 +174,12 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]) -> Mesh:
                           backend_override={name: backend for name in names})
     host = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
     return Mesh(dm, device, host)
+
+
+def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...]) -> Mesh:
+    """A mesh of ``shape`` over the world's ranks, row-major (``jax.make_mesh``'s
+    order): it must cover the world."""
+    return _mesh(tuple(shape), tuple(axis_names))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

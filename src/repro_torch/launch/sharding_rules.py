@@ -167,3 +167,44 @@ def local_params(params: Any, cfg: ModelConfig, mesh, *, train: bool = False) ->
                              f"given to a rank at {_place(mesh)} (train={train})")
         return params
     return shard_params(params, cfg, mesh, train=train)
+
+
+def leaf_specs(local: Any, cfg: ModelConfig, mesh, *, train: bool) -> dict:
+    """The spec each leaf of a latent slice was cut under, keyed by the
+    leaf's name (``common.tree.named_leaves``): the ``param_pspec`` rules
+    unsanitized.  A slice's shapes cannot tell a sharded dim from one its
+    axis did not divide, so this needs a tree whose every sharded dim
+    divides (``check_mesh_model`` makes sure of that for the mesh
+    programs); then sanitizing changes nothing."""
+    from repro_torch.common.tree import named_leaves
+
+    tp, fsdp, ep = _axes(cfg, mesh, train, "model", "data")
+    return {name: param_pspec(name, leaf, tp=tp, fsdp=fsdp, ep=ep)
+            for name, leaf in named_leaves(local)}
+
+
+def gather_params(local: Any, cfg: ModelConfig, mesh, *, train: bool, device=None,
+                  only: Optional[int] = None) -> dict:
+    """The whole latent tree from the ranks' slices: ``shard_params``'s
+    inverse.  Every rank calls it (each leaf is all-gathered over the axes
+    of its spec, in the spec's dim order) and every rank gets the whole
+    tree, each leaf moved to ``device`` (by default where the slice lies)
+    as soon as it is whole, so a gather onto the host holds one whole leaf
+    on the card at a time.  With ``only`` the other ranks drop each whole
+    leaf at once and get None leaves (rank 0 writing a checkpoint holds the
+    host copy alone).  A moment tree (AdamW's mu, nu) is gathered the same
+    way: its leaves take their parameter's spec."""
+    from repro_torch.common.tree import tree_map_with_path_names
+    from repro_torch.layers import collectives as C
+
+    specs = leaf_specs(local, cfg, mesh, train=train)
+
+    def whole(name, leaf):
+        for d, ax in enumerate(specs[name]):
+            if ax is not None:
+                leaf = C.all_gather(leaf, mesh.group(ax), dim=d)
+        if only is not None and mesh.rank != only:
+            return None
+        return leaf if device is None else leaf.to(device)
+
+    return tree_map_with_path_names(whole, dict(local))

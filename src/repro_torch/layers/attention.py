@@ -61,7 +61,12 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
 from repro_torch.layers import collectives as C
-from repro_torch.layers.linear import linear_apply, linear_apply_row_parallel, linear_init
+from repro_torch.layers.linear import (
+    linear_apply,
+    linear_apply_row_parallel,
+    linear_apply_train_sharded,
+    linear_init,
+)
 from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.quant.kv_quant import QuantKV, infer_kv_dtype, quantize_kv
@@ -129,6 +134,12 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False,
         q = _project_q(params, x, cfg, positions, training=training)
         k = linear_apply(params["wk"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
         v = linear_apply(params["wv"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
+    elif training:  # this rank's heads, the weights gathered over data
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+        q, k, v = (linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
+                   .reshape(b, s, -1, hd) for n in ("wq", "wk", "wv"))
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
     else:
         q, k, v = (linear_apply(params[n], x, cfg.quant) for n in ("wq", "wk", "wv"))
         if _heads_whole(pctx):
@@ -148,6 +159,8 @@ def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx,
     it holds in prefill, its slice of the whole heads in decode)."""
     if pctx.mesh is None:
         return linear_apply(params["wo"], y, cfg.quant, training=training)
+    if training:
+        return linear_apply_train_sharded(params["wo"], y, cfg.quant, pctx, parallel="row")
     group = pctx.mesh.group(pctx.axes.tp)
     if not _heads_whole(pctx):
         return linear_apply_row_parallel(params["wo"], y, cfg.quant, group)

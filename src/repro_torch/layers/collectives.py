@@ -39,11 +39,14 @@ def _form(group, how: Optional[str]) -> str:
 
 def _broadcast_each(x: torch.Tensor, group) -> List[torch.Tensor]:
     """Every group rank's ``x`` (same shape and dtype on each), in group
-    order, by one broadcast from each rank."""
+    order, by one broadcast from each rank.  A broadcast counts as writing
+    its buffer, also on the rank that sends, so this rank sends a copy:
+    ``x`` may be a view that autograd forbids to modify (a layer of an
+    unbound stack)."""
     me = dist.get_rank(group)
     out = []
     for i in range(dist.get_world_size(group)):
-        buf = x if i == me else torch.empty_like(x)
+        buf = x.clone() if i == me else torch.empty_like(x)
         dist.broadcast(buf, src=dist.get_global_rank(group, i), group=group)
         out.append(buf)
     return out
@@ -95,3 +98,99 @@ def broadcast(x: torch.Tensor, group, *, src: int = 0) -> torch.Tensor:
     x = x.contiguous()
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, group, *, dim: int, how: Optional[str] = None) -> torch.Tensor:
+    """The SUM of the group ranks' ``x`` cut into k equal parts along
+    ``dim`` (k the group size), group rank i keeping part i.  gloo
+    documents no reduce-scatter for CUDA tensors, so the portable form is
+    an ``all_reduce`` and a slice."""
+    k = dist.get_world_size(group)
+    if x.shape[dim] % k:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split {k} ways")
+    me, per = dist.get_rank(group), x.shape[dim] // k
+    if _form(group, how) == "native":
+        send = x.movedim(dim, 0).contiguous()
+        recv = torch.empty((per,) + send.shape[1:], dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(recv, send, group=group)
+        return recv.movedim(0, dim)
+    return all_reduce(x, group).narrow(dim, me * per, per)
+
+
+# ---- the collectives with gradients: the conjugate pairs a sharded
+# training step needs (Megatron's f and g, the FSDP gather).  A group of one
+# rank is the identity both ways, so a (1, 1) mesh runs the unsharded ops.
+
+
+def _trivial(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, dim=ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.n, ctx.n).contiguous(), None, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """(a) Into a tensor-parallel region: the identity forward; backward
+    the SUM over ``group`` of the ranks' partial gradients."""
+    return x if _trivial(group) else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """(b) Out of a row-parallel product: the SUM over ``group`` forward;
+    backward the identity (every rank holds the whole gradient)."""
+    return x if _trivial(group) else _ReduceFromTP.apply(x, group)
+
+
+def fsdp_gather(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:
+    """(c) A parameter's FSDP shards gathered along ``dim`` over ``group``;
+    backward the SUM reduce-scatter, each rank keeping the gradient of its
+    own shard summed over the ranks' batches."""
+    return x if _trivial(group) else _FSDPGather.apply(x, group, dim)
+
+
+def gather_replicated(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:
+    """(d) An all-gather whose output every rank uses alike (the vocab
+    shards of a chunk's logits): backward this rank's slice of the
+    gradient, which every rank holds whole."""
+    return x if _trivial(group) else _GatherReplicated.apply(x, group, dim)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.kernels.tlmm.ops import act_quant_kernel, tlmm_kernel, tlmm_matmul
@@ -43,14 +44,60 @@ def linear_init(gen: torch.Generator, k: int, n: int, *, bias: bool = False,
     return p
 
 
-def _act_fake_quant_ste(x: torch.Tensor) -> torch.Tensor:
+def _act_fake_quant_ste(x: torch.Tensor, group=None) -> torch.Tensor:
     """Per-token int8 fake quantization with a straight-through gradient:
     forward ``x + (deq - x)``, deq the int8 codes times their row scale in
-    x's dtype; backward the identity."""
+    x's dtype; backward the identity.  Where ``x`` is this rank's slice of
+    each row (a row-parallel linear over ``group``), the row's absmax is the
+    MAX of the ranks' partial absmaxes."""
     with torch.no_grad():
-        x_q, scale = quantize_activations_int8(x)
+        absmax = None
+        if group is not None and dist.get_world_size(group) > 1:
+            absmax = C.all_reduce(x.float().abs().amax(dim=-1, keepdim=True), group, op="max")
+        x_q, scale = quantize_activations_int8(x, absmax=absmax)
         deq = (x_q.float() * scale).to(x.dtype)
     return x + (deq - x).detach()
+
+
+def linear_apply_train_sharded(params: dict, x: torch.Tensor, quant: QuantConfig, pctx, *,
+                               parallel: str) -> torch.Tensor:
+    """A linear of the training pass on a mesh (``pctx``, the train rules).
+    This rank holds the weight's FSDP x TP block: (K/data, N/model) for a
+    ``column``-parallel linear (wq, wk, wv, w_gate, w_up; ``x`` whole, the
+    caller having passed it through ``copy_to_tp``), (K/model, N/data) for
+    a ``row``-parallel one (wo, w_down; ``x`` this rank's K/model slice).
+    The block is gathered over data (``fsdp_gather``: its gradient is
+    reduce-scattered back, summed over the data ranks' batches), multiplied
+    as ``linear_apply(training=True)`` multiplies (a ternary config's QAT
+    with the whole weight's beta and the whole row's activation scale),
+    and a row-parallel product is summed over the model axis
+    (``reduce_from_tp``).  A column bias is this rank's columns."""
+    if parallel not in ("column", "row"):
+        raise ValueError(f"parallel must be 'column' or 'row', got {parallel!r}")
+    mesh = pctx.mesh
+    tp = mesh.group(pctx.axes.tp) if pctx.axes.tp else None
+    fsdp = pctx.axes.fsdp
+    w = params["w"]
+    if isinstance(w, TernaryWeight):
+        raise ValueError("a packed TernaryWeight has no latent weights to train; "
+                         "train the latent weights and pack them afterwards")
+    if fsdp is not None:
+        w = C.fsdp_gather(w, mesh.group(fsdp), dim=w.dim() - 2 if parallel == "column" else w.dim() - 1)
+    row = tp if parallel == "row" else None
+    if quant.ternary:
+        wf, beta = w.float(), None
+        if tp is not None and dist.get_world_size(tp) > 1:
+            with torch.no_grad():  # the whole (K, N) weight's absmean, not this shard's
+                beta = C.all_reduce(wf.abs().sum(), tp) / (wf.numel() * dist.get_world_size(tp))
+        w_ste, _ = ternary_quantize_ste(wf, beta=beta)
+        y = (_act_fake_quant_ste(x, row).float() @ w_ste).to(x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
+    if parallel == "row" and tp is not None:
+        y = C.reduce_from_tp(y, tp)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
 
 
 def linear_apply(params: dict, x: torch.Tensor, quant: QuantConfig, *,

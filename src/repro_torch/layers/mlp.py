@@ -5,7 +5,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.layers.linear import linear_apply, linear_apply_row_parallel, linear_init
+from repro_torch.layers import collectives as C
+from repro_torch.layers.linear import (
+    linear_apply,
+    linear_apply_row_parallel,
+    linear_apply_train_sharded,
+    linear_init,
+)
 from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 
 
@@ -26,7 +32,15 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               training: bool = False, pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
     """The FFN of x (..., d).  On a mesh (``pctx``, SwiGLU) w_gate and w_up
     are column-parallel (this rank's d_ff / tp columns) and w_down is
-    row-parallel over them: the ranks sum its partial products."""
+    row-parallel over them: the ranks sum its partial products.  In
+    training on a mesh each weight is also gathered over data
+    (``linear_apply_train_sharded``)."""
+    if cfg.act == "silu" and training and pctx.mesh is not None:
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+        g, u = (linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
+                for n in ("w_gate", "w_up"))
+        h = F.silu(g.float()).to(x.dtype) * u
+        return linear_apply_train_sharded(params["w_down"], h, cfg.quant, pctx, parallel="row")
     if cfg.act == "silu":
         g = linear_apply(params["w_gate"], x, cfg.quant, training=training)
         u = linear_apply(params["w_up"], x, cfg.quant, training=training)

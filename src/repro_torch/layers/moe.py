@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN with sort-based capacity routing: the JAX
 package's ``repro.layers.moe`` on one device.
 
-Every expert is local (the JAX package's expert- and tensor-parallel
-distribution is mesh tooling, ROADMAP A.10).  Routing is sort-based
+Every expert is local: the JAX package's expert- and tensor-parallel
+distribution on a mesh is ROADMAP A.13.3, and a mesh refuses an MoE config.  Routing is sort-based
 (argsort + per-expert rank), never materializing the (T, E, C) one-hot
 dispatch tensor.  The expert products are batched matmuls, as the JAX
 package's are einsums outside any Pallas kernel.

@@ -197,20 +197,20 @@ def convert_for_inference(params: dict, cfg: ModelConfig) -> dict:
     return {**params, "layers": layers}
 
 
-def _embed(params, tokens, pctx: PartitionCtx = NULL_CTX):
-    """The embedding rows of ``tokens``.  On a mesh ``emb`` holds this
-    model rank's Vp / tp vocabulary rows: each rank looks up the tokens in
-    its range, zeros elsewhere, and the ranks' sum (the row from one rank,
-    zeros from the others) is the row itself, bit for bit."""
-    emb = params["emb"]
-    if pctx.mesh is None:
+def _embed(emb: torch.Tensor, tokens, pctx: PartitionCtx = NULL_CTX):
+    """The rows of the embedding ``emb`` for ``tokens``.  On a mesh ``emb``
+    holds this model rank's Vp / tp vocabulary rows: each rank looks up the
+    tokens in its range, zeros elsewhere, and the ranks' sum (the row from
+    one rank, zeros from the others) is the row itself, bit for bit; in
+    training its gradient reaches every rank whole (``reduce_from_tp``)."""
+    if pctx.mesh is None or not pctx.axes.tp:
         return emb[tokens]
     n = emb.shape[0]
     ids = tokens - pctx.index(pctx.axes.tp) * n
     mine = (ids >= 0) & (ids < n)
     x = torch.where(mine[..., None], emb[ids.clamp(0, n - 1)].float(),
                     torch.zeros((), device=emb.device))
-    return C.all_reduce(x, pctx.mesh.group(pctx.axes.tp)).to(emb.dtype)
+    return C.reduce_from_tp(x, pctx.mesh.group(pctx.axes.tp)).to(emb.dtype)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -249,16 +249,18 @@ def _gather_rows(t: torch.Tensor, pctx: PartitionCtx, n: int, dim: int = 0) -> t
     return C.all_gather(t, pctx.mesh.group(ax), dim=dim)
 
 
-def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx) -> None:
+def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = False) -> None:
     """Refuse, by name, a model the mesh programs do not shard: another
     family, an MoE FFN, a sliding window, or dims the model axis does not
-    divide (heads, KV heads, d_ff, vocabulary rows, packed K rows)."""
+    divide (heads, KV heads, d_ff, vocabulary rows, packed K rows).  In
+    training (``train``) the data axis shards every weight's d_model dim
+    (FSDP) and must divide it too."""
     if pctx.mesh is None:
         return
     if cfg.family != "transformer" or cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: the mesh programs shard the dense transformer family; MoE expert "
-            "parallelism and the other families on a mesh are ROADMAP A.13")
+            "parallelism on a mesh is ROADMAP A.13.3, the other families on a mesh A.13")
     _check_window(cfg)
     tp = pctx.tp_size
     dims = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
@@ -267,6 +269,11 @@ def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx) -> None:
     bad = {k: v for k, v in dims.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: the model axis ({tp}) does not divide {bad}")
+    if train:
+        fsdp = pctx.size(pctx.axes.fsdp)
+        if cfg.d_model % fsdp:
+            raise ValueError(f"{cfg.name}: the data axis ({fsdp}) does not divide d_model "
+                             f"{cfg.d_model}")
 
 
 def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -278,33 +285,58 @@ def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
     return mlp_apply(lp["mlp"], h, cfg, pctx=pctx)
 
 
-def _block_train(x, lp, positions, cfg: ModelConfig):
-    """One layer of the training pass: (x, the layer's aux loss, f32)."""
+def _block_train(x, lp, positions, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
+    """One layer of the training pass: (x, the layer's aux loss, f32).  On a
+    mesh the layer's weights are gathered over data inside it, so remat
+    recomputes the gathers in backward rather than keeping whole weights."""
     h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
-    attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, training=True)
+    attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, training=True, pctx=pctx)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
     if cfg.moe:
         ffn_out, aux = moe_apply(lp["moe"], h, cfg, training=True)
     else:
-        ffn_out = mlp_apply(lp["mlp"], h, cfg, training=True)
+        ffn_out = mlp_apply(lp["mlp"], h, cfg, training=True, pctx=pctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + ffn_out, aux
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+def _train_top(params: dict, cfg: ModelConfig, pctx: PartitionCtx):
+    """(the embedding rows, the head) the training pass multiplies by.  On
+    a mesh this rank's vocabulary shard of each, gathered over data once
+    (``fsdp_gather``): emb (Vp/tp, d), head (d, Vp/tp); a tied head is the
+    gathered embedding's transpose, so its gradient and the lookup's reach
+    the shard through one reduce-scatter."""
+    if pctx.mesh is None or pctx.axes.fsdp is None:
+        return params["emb"], _head(params, cfg)
+    data = pctx.mesh.group(pctx.axes.fsdp)
+    emb = C.fsdp_gather(params["emb"], data, dim=1)
+    if cfg.tie_embeddings:
+        return emb, emb.T
+    return emb, C.fsdp_gather(params["lm_head"], data, dim=0)
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   pctx: PartitionCtx = NULL_CTX, *, emb: Optional[torch.Tensor] = None):
     """The training pass over tokens (B, S): (the final normed hidden state
     (B, S, d), the layers' aux losses summed, f32).  Every layer takes the
     plain attention paths, and the linears of a ternary config are
-    quantization-aware.  Each layer runs under ``cfg.remat``."""
+    quantization-aware.  Each layer runs under ``cfg.remat``.  On a mesh
+    (``pctx``, the train rules; ``tokens`` this data rank's rows) the heads
+    and d_ff are over the model axis and every weight is gathered over data
+    where it is used; ``emb``, where given, is the gathered embedding shard
+    (``_train_top``)."""
     _check_window(cfg)
+    check_mesh_model(cfg, pctx, train=True)
     b, s = tokens.shape
-    x = _embed(params, tokens)
+    if emb is None:
+        emb = _train_top(params, cfg, pctx)[0]
+    x = _embed(emb, tokens, pctx)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     body = remat(_block_train, cfg.remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unbind_layers(params["layers"]):
-        x, aux_l = body(x, lp, positions, cfg)
+        x, aux_l = body(x, lp, positions, cfg, pctx)
         aux = aux + aux_l
     return apply_norm(params["ln_f"], x, cfg.norm, cfg.norm_eps), aux
 
@@ -316,11 +348,19 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     return x.float() @ _head(params, cfg).float(), aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.01):
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.01,
+            pctx: PartitionCtx = NULL_CTX):
     """batch: tokens (B, S), targets (B, S), mask (B, S).  Returns (nll +
-    aux_weight * aux / num_layers, {"nll", "aux"}), as the JAX ``loss_fn``."""
-    x, aux = forward_hidden(params, batch["tokens"], cfg)
-    loss = chunked_ce_loss(x, _head(params, cfg), batch["targets"], batch["mask"])
+    aux_weight * aux / num_layers, {"nll", "aux"}), as the JAX ``loss_fn``.
+    On a mesh ``batch`` holds this data rank's rows and the nll is this
+    rank's share of the global mean: its rows' sum over the mask summed
+    over the batch axis, so the ranks' losses (and gradients) sum to the
+    global ones; the head is vocab-parallel (``chunked_ce_loss``)."""
+    emb, head = _train_top(params, cfg, pctx)
+    x, aux = forward_hidden(params, batch["tokens"], cfg, pctx, emb=emb)
+    if pctx.mesh is not None and pctx.axes.tp:  # the head is a column-parallel product
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+    loss = chunked_ce_loss(x, head, batch["targets"], batch["mask"], pctx=pctx)
     return loss + aux_weight * aux / max(cfg.num_layers, 1), {"nll": loss, "aux": aux}
 
 
@@ -361,7 +401,7 @@ def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     b, s = tokens.shape
     lo, hi = batch_rows(pctx, b)
     tokens = tokens[lo:hi]
-    x = _embed(params, tokens, pctx)
+    x = _embed(params["emb"], tokens, pctx)
     positions = torch.arange(s, device=tokens.device).expand(hi - lo, s)
     n_main = cfg.num_layers - 1 if split_tail else cfg.num_layers
     ks, vs = [], []
@@ -415,7 +455,7 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
     cap = prefix.k.shape[3]
     if not isinstance(prefix_len, torch.Tensor) and prefix_len + c > cap:
         raise ValueError(f"chunk rows [{prefix_len}, {prefix_len + c}) overflow the mirror's {cap}")
-    x = _embed(params, tokens)
+    x = _embed(params["emb"], tokens)
     positions = (prefix_len + torch.arange(c, device=tokens.device)).expand(b, c)
     width = cap if prefix_width is None else min(prefix_width, cap)
     ks, vs = [], []
@@ -542,7 +582,7 @@ def _decode_layers(params: dict, tokens: torch.Tensor, cfg: ModelConfig, attend_
     ``attend_layer(lp, h, li)`` runs layer li's attention over the cache.
     Returns (logits (B, W, Vp), the new tokens' K and V, each (L, B, Hkv,
     W, D))."""
-    x = _embed(params, tokens, pctx)
+    x = _embed(params["emb"], tokens, pctx)
     tok_k, tok_v = [], []
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)

@@ -5,7 +5,7 @@ oracle: the kernel must return the same bits.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,7 +15,8 @@ import torch
 INV_127 = float(np.float32(1.0 / 127.0))
 
 
-def quantize_activations_int8(x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations_int8(x: torch.Tensor, eps: float = 1e-5, *,
+                              absmax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: x (..., K) float ->
     (x_q int8 (..., K), scale f32 (..., 1)) with x ~= x_q * scale.
 
@@ -27,9 +28,11 @@ def quantize_activations_int8(x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch
     a true fused multiply-add only by double rounding, at most once in about
     2**29 rows.  The CUDA kernel computes ``fmaf(absmax, f32(1/127), eps)``.
     Then x / scale is a true f32 division, rounded half to even and clipped
-    to +-127."""
+    to +-127.  ``absmax`` (..., 1), where given, is the whole row's where
+    ``x`` is a slice of it (a row-parallel linear on a mesh)."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
     eps32 = float(np.float32(eps))
     scale = (absmax.double() * INV_127 + eps32).float()
     x_q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)

@@ -8,7 +8,7 @@ Packing format (the same bytes as ``repro.quant.ternary``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,23 +30,29 @@ class TernaryWeight:
         return TernaryWeight(self.packed[i], self.scale[i])
 
 
-def ternary_quantize(w: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+def ternary_quantize(w: torch.Tensor, eps: float = 1e-5, *,
+                     beta: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Absmean quantizer: W_q = RoundClip(W / (mean|W| + eps), -1, 1),
     beta = mean|W|.  Returns (w_q int8 in {-1,0,1}, beta f32 scalar).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  ``beta``,
+    where given, is the whole tensor's where ``w`` is a shard of it (a
+    tensor-parallel linear on a mesh)."""
     wf = w.float()
-    beta = wf.abs().mean()
+    if beta is None:
+        beta = wf.abs().mean()
     w_q = torch.clamp(torch.round(wf / (beta + eps)), -1, 1)
     return w_q.to(torch.int8), beta
 
 
-def ternary_quantize_ste(w: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+def ternary_quantize_ste(w: torch.Tensor, eps: float = 1e-5, *,
+                         beta: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The straight-through version for quantization-aware training.
     Forward: the dequantized ternary weights ``w_q * beta``, as the JAX
     expression ``w + stop_gradient(deq - w)`` rounds them (in float that is
-    not always ``deq``); backward: the identity to the latent weights."""
+    not always ``deq``); backward: the identity to the latent weights.
+    ``beta`` as in ``ternary_quantize``."""
     with torch.no_grad():
-        w_q, beta = ternary_quantize(w, eps)
+        w_q, beta = ternary_quantize(w, eps, beta=beta)
         deq = w_q.to(w.dtype) * beta.to(w.dtype)
     return w + (deq - w).detach(), beta
 

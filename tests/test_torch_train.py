@@ -400,8 +400,15 @@ def test_train_cli_matches_the_jax_cli_and_resumes(tmp_path, capsys):
     for s in range(3):
         assert abs(res.history[s]["loss"] - want[s]) <= PRINT_TOL
         assert set(res.history[s]) == {"loss", "lr", "nll", "aux", "grad_norm"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        train_cli.main(CLI + ["--device", "cpu", "--steps", "1", "--mesh", "host"])
+    # on a mesh of one process (a (data 1, model 1) world of one, which the
+    # CLI joins itself) the same losses; the production mesh needs 256 ranks
+    mesh = ["--device", "cpu", "--steps", "3", "--mesh", "host", "--backend", "gloo"]
+    assert train_cli.main(CLI + mesh) == 0
+    assert _printed_losses(capsys.readouterr().out) == {s: round(res.history[s]["loss"], 4)
+                                                        for s in range(3)}
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        train_cli.main(CLI + ["--device", "cpu", "--steps", "1", "--mesh", "single",
+                              "--backend", "gloo"])
 
 
 def test_train_cli_fault_loop_restores_and_replays(tmp_path, monkeypatch, capsys):
