@@ -210,8 +210,9 @@ Phases (any failure raises and the script exits non-zero):
     in a process of its own, started before the build and run while the
     kernels build (it launches none), equal bit for bit to the single
     card's (losses, grad norms, every leaf of params, mu, nu), its report
-    printed here; then a (data 2, model 2) gloo world of 4 processes on
-    this card (``--mesh-train-worker``), the model cut to ``MT_LAYERS``
+    printed with the 4-rank world's reports; in that (data 2, model 2) gloo
+    world of 4 processes on this card (``--mesh-worker``, which runs (M2),
+    then these, then (ME2) and (ME3)), the model cut to ``MT_LAYERS``
     (4) of its 24 layers: (MT2) 5 steps, each rank's MiB of params and
     moments, ms a step and collectives a step, the losses, grad norms and
     moments after step 3 within ``MT_LIMITS`` of the single card's (the
@@ -225,6 +226,28 @@ Phases (any failure raises and the script exits non-zero):
     packed and served on the (2, 2) mesh (B1 at its shards, B2 on 12
     heads, B3 over sequence halves, as the stats imply), the single-card
     engine's tokens up to near ties;
+(ME) MoE expert parallelism on a mesh, granite-moe-3b-a800m (40 experts
+    top-8, EP on a model axis of 2: 20 experts a rank, one exchange out and
+    one back a layer): in the 4-rank world, (ME2) (t)'s weights at full
+    width and depth, each rank keeping its ``shard_params`` slice, the main
+    path's first 4 prompts with 16 new tokens on (ME2a) contiguous bf16
+    (pdswap, overlap) and (ME2b) paged int8: each rank's launches by shape
+    as its stats imply, KV and weight MiB, the exchanges and their bytes a
+    round, each layer's dropped assignments, the ranks' snapshots equal;
+    (ME3) granite training at 4 of 32 layers (f32, capacity factor 8, so
+    nothing drops), 3 steps on T2's batches: the losses, grad norms, aux
+    losses and (after step 3) mu and nu within ``ME_LIMITS`` of one card,
+    the planted fault (the exchange's backward left out) breaking each;
+    then in phase 10, right after (t), on (t)'s weights: (ME1) (t)'s engine
+    on (M1)'s (data 1, model 1) NCCL mesh (the exchanges on groups of one,
+    the decode graph captured), (t)'s tokens bit for bit; (E4a), (E4b) each
+    (ME2) configuration on one card with every MoE call routed in the ranks'
+    dispatch groups (a prefill's sequence halves, a round's data-rank rows),
+    which (ME2)'s streams must give up to near ties within the (M2) limits,
+    each layer's drops by rank printed beside (ME2)'s; (F2) (E4a) with
+    expert shard 1's outputs zeroed, the planted fault, breaking the
+    limits; phase 3 and the kernel pass also hold B2, B3 and B6 at
+    granite's shard shapes (G = 3);
 13. how many sentinels the profiler windows kept (see ``_profiled``), the
     results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
@@ -1090,6 +1113,106 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
     return out
 
 
+# the shard shapes of phase (ME): granite-moe-3b-a800m on a (data 2, model 2)
+# mesh: 24 heads over 8 KV heads of 64; prefill 12 of them over 4 KV heads,
+# decode every head (G = 3) over a sequence half or a data rank's slots
+MOE_MESH_PREFILL = (12, 4, 64)  # H, Hkv, D a model rank prefills
+MOE_MESH_WALK = (8, 3, 64, 32)  # Hkv, G, D, layers of a decode step
+
+
+def moe_mesh_kernel_checks(torch, ops, refs, flush, gen):
+    """Phase 3 at the shard shapes of phase (ME): B2 on 12 of granite's 24
+    heads over 4 of its 8 KV heads (S 256 and 1,536); B3 on each model
+    rank's half of the sequence (a layer slice of a (2, 32, 8, 1024, 64)
+    block, ``MESH_LENGTHS`` cut to the half) at G = 3; B6 over a data
+    rank's 2 slots of a whole int8 pool at G = 3.  Each against its plain
+    version, timed beside its bound and SDPA with ``enable_gqa``.  Returns
+    [(kernel, case)]."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    h, hkv, d = MOE_MESH_PREFILL
+    for s in (256, 1536):
+        q = torch.randn((1, h, s, d), generator=gen, device=dev)
+        k, v = (torch.randn((1, hkv, s, d), generator=gen, device=dev) for _ in range(2))
+        err = (ops["prefill"](q, k, v) - refs["prefill"](q, k, v)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"prefill attention kernel off by {err} at granite's shard "
+                                 f"(1,{h},{s},{d}) Hkv={hkv}")
+        cost = costs.prefill_attention_cost(1, h, hkv, s, d)
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
+        out.append(("prefill_attention", {
+            "shape": f"(1,{h},{s},{d}) Hkv={hkv} f32 (12 of granite's 24 heads)",
+            "max_abs_err": err,
+            "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
+            "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
+            "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                                   flush)}))
+        del q, k, v
+    hkv, g, d, layers = MOE_MESH_WALK
+    b, smax, bs, pool_pages = 2, 2048, 16, 512
+    half = smax // 2
+    glob = torch.tensor(MESH_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev)
+    qb = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
+
+    def entry(kernel, what, err, run, plain, lib, cost):
+        b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
+        out.append((kernel, {"shape": what, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                             "call_ms": timed_ms(torch, run, flush, busy=False),
+                             "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush)}))
+
+    whole = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2)]
+    for r in range(2):
+        lengths = torch.clamp(glob - r * half, 0, half).to(torch.int32)
+        kv = [t[:, 7, :, r * half:(r + 1) * half] for t in whole]
+        got = ops["decode"](q, *kv, lengths)
+        err = _check_err(f"B3 granite sequence half {r}", got, refs["decode"](q, *kv, lengths))
+        mask = (torch.arange(half, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        entry("decode_attention",
+              f"granite, model rank {r}'s sequence half: B={b} Hkv={hkv} G={g} D={d} local "
+              f"lengths {lengths.tolist()} of {half} rows bf16 layer slice of "
+              f"({b},{layers},{hkv},{half},{d})",
+              err, lambda: ops["decode"](q, *kv, lengths), lambda: refs["decode"](q, *kv, lengths),
+              lambda: sdpa(qb, *kv, attn_mask=mask, enable_gqa=True),
+              costs.decode_attention_cost(lengths.tolist(), hkv, g, d, cap=half))
+    del whole
+    used = [-(-n // bs) for n in MESH_LENGTHS]
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
+    tables = torch.zeros((b, smax // bs), dtype=torch.int32, device=dev)
+    tables[0, :used[0]] = perm[:used[0]]
+    tables[1, :used[1]] = perm[used[0]:used[0] + used[1]]
+    mask = (torch.arange(smax, device=dev)[None, :] < glob[:, None])[:, None, None, :]
+    (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (pool_pages, layers, hkv, bs, d),
+                                            "int8") for _ in range(2))
+    planes = [kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7]]
+    kd, vd = (dequantize_kv(gather_pages(p_, tables), gather_scales(s_, tables),
+                            "int8").to(torch.bfloat16)
+              for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
+    args = (q, *planes, tables, glob)
+    got = ops["paged_quant"](*args, kv_dtype="int8")
+    err = _check_err("B6 granite a data rank's slots", got,
+                     refs["paged_quant"](*args, kv_dtype="int8"))
+    entry("paged_decode_attention_quant",
+          f"granite, a data rank's 2 slots: B={b} Hkv={hkv} G={g} D={d} N={pool_pages} bs={bs} "
+          f"lengths={MESH_LENGTHS} int8 whole pool",
+          err, lambda: ops["paged_quant"](*args, kv_dtype="int8"),
+          lambda: refs["paged_quant"](*args, kv_dtype="int8"),
+          lambda: sdpa(qb, kd, vd, attn_mask=mask, enable_gqa=True),
+          costs.decode_attention_cost(MESH_LENGTHS, hkv, g, d, kv_dtype="int8", paged=True,
+                                      bs=bs, cap=smax))
+    return out
+
+
 # ---- the analysis phase --
 
 SANITIZER_TIMEOUT_S = 120  # each compute-sanitizer run of the kernel pass
@@ -1232,7 +1355,42 @@ def _elapsed(what: str) -> None:
     print(f"elapsed {time.perf_counter() - _T0:.1f} s at the start of {what}", flush=True)
 
 
-def main(only_mesh_train: bool = False) -> int:
+class _EarlyRuns:
+    """Checks that read nothing a phase before them left, run in this
+    process while the 4-rank world runs (this process would only wait on
+    it), each with its printout held and printed, and its failure raised,
+    where the check stands in the run (``take``)."""
+
+    def __init__(self):
+        self.done = {}
+
+    def run(self, key, fn):
+        import io
+
+        buf, t0 = io.StringIO(), time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                got = (True, fn())
+        except Exception as e:  # noqa: BLE001 — raised by take, where the check stands
+            got = (False, e)
+        self.done[key] = got + (buf.getvalue(), time.perf_counter() - t0)
+
+    def take(self, key, fn):
+        """``fn()``'s result, from the early run where there was one."""
+        if key not in self.done:
+            return fn()
+        ok, got, out, seconds = self.done.pop(key)
+        sys.stdout.write(out)
+        print(f"  ({key}: run beside the 4-rank world, {seconds:.1f} s)")
+        if not ok:
+            raise got
+        return got
+
+
+EARLY = _EarlyRuns()
+
+
+def main(only: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1292,8 +1450,11 @@ def main(only_mesh_train: bool = False) -> int:
                 print(f"    {line.strip()}")
 
     mt1_report = mesh_train_m1_wait(mt1)
-    if only_mesh_train:  # a development run of phase (MT) alone: no result line
-        mesh_train_phase(torch, np, card, mt1_report)
+    if only == "mesh-train":  # a development run of phase (MT) alone: no result line
+        mesh_world_phase(torch, card, parts=("MT",), mt1_report=mt1_report)
+        return 0
+    if only == "moe-mesh":  # a development run of phase (ME) alone: no result line
+        moe_mesh_only(torch, np, card)
         return 0
 
     _elapsed("kernel checks")
@@ -1315,7 +1476,9 @@ def main(only_mesh_train: bool = False) -> int:
                        + other_family_kernel_checks(torch, ops, refs, flush,
                                                     torch.Generator(device="cuda").manual_seed(2))
                        + mesh_kernel_checks(torch, ops, refs, flush,
-                                            torch.Generator(device="cuda").manual_seed(3))):
+                                            torch.Generator(device="cuda").manual_seed(3))
+                       + moe_mesh_kernel_checks(torch, ops, refs, flush,
+                                                torch.Generator(device="cuda").manual_seed(4))):
         r = checks[name]
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
@@ -1411,36 +1574,50 @@ def main(only_mesh_train: bool = False) -> int:
 
     _elapsed("(M1)")
     # ---- (M1) the main path on a (data 1, model 1) NCCL mesh in this process
-    m1_launches = mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len,
-                                main_streams, main_rec, main_round, (dev_p, per_round), card)
+    m1_launches, m1_mesh = mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots,
+                                         max_len, main_streams, main_rec, main_round,
+                                         (dev_p, per_round), card)
 
     _elapsed("paths (a)-(j)")
     # ---- 5. the other cache options at full width
     path_launches, path_i, paths_bd = cache_option_paths(torch, np, cfg, params, prompts,
                                                          max_tokens, n_slots, max_len, card)
-    _elapsed("(M2)")
-    # ---- (M2) the same model on a (data 2, model 2) gloo mesh of 4 processes on this card
-    mesh_launches, m2a = mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv,
-                                       {"a": {"streams": main_streams, "recorder": main_rec},
-                                        **paths_bd}, card)
-    del paths_bd
+    _elapsed("(M2), (MT2)-(MT4), (ME2), (ME3)")
+    # ---- the 4-rank world on this card: (M2) the same model on a (data 2,
+    # model 2) gloo mesh; (MT) and (ME3) training; (ME2) granite served.
+    # Meanwhile this process runs the CPU references that need no earlier
+    # phase's results (printed where they stand)
+
+    def main_references():
+        return (list(decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng)),
+                list(verify_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng)),
+                chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens))
+
+    beside = ([("main references", main_references)] + family_reference_jobs(torch)
+              + [("(T4)", lambda: family_gradients(torch, np, card))])
+    world = mesh_world_phase(torch, card, m2_args=(
+        cfg, main_kv, {"a": {"streams": main_streams, "recorder": main_rec}, **paths_bd}),
+        mt1_report=mt1_report, beside=beside)
+    (mesh_launches, m2a), mt_launches, me2 = world["M2"], world["MT"], world["ME"]
+    del paths_bd, world
     _elapsed("(E), (F)")
     mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
                      m2a, card)
     del m2a
     _elapsed("paths (k)-(m)")
     spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
-    for name, err, scale in decode_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+    decoded, verified, chunked = EARLY.take("main references", main_references)
+    for name, err, scale in decoded:
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
               f"max abs err {err:.3g} (max |logit| {scale:.3g})")
-    for name, err, scale in verify_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng):
+    for name, err, scale in verified:
         print(f"reference: full-width 2-layer {name} logits vs the CPU port: max abs err "
               f"{err:.3g} (max |logit| {scale:.3g})")
-    err, scale = verify_against_decode(torch, T, cfg, params, rng)
+    err, scale = verify_against_decode(torch, T, cfg, params, rng)  # rng: after the references
     print(f"reference: full-depth int8 verify pass (W={SPEC_K + 1}) vs {SPEC_K + 1} decode steps "
           f"on the card: the same cache bytes, logits max abs err {err:.3g} (max |logit| "
           f"{scale:.3g})  [{card}]")
-    err, scale = chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens)
+    err, scale = chunked
     print(f"reference: full-width 2-layer chunked prefill (2 chunks, int8 cache) logits vs CPU "
           f"plain versions: max abs err {err:.3g} (max |logit| {scale:.3g})")
     _elapsed("the abort phase")
@@ -1461,8 +1638,16 @@ def main(only_mesh_train: bool = False) -> int:
     _free(torch)
 
     _elapsed("phase 10")
-    # ---- 10. the transformer family at full width
-    family_launches = family_phase(torch, np, card)
+    # ---- 10. the transformer family at full width; (ME1), (E4), (F2) beside (t)
+    try:
+        family_launches = family_phase(torch, np, card, me2=me2, m1_mesh=m1_mesh)
+    finally:
+        close_m1_world()
+    me2_launches = {}  # rank 0's, over the (ME2) configurations
+    for path in me2.values():
+        for name, n in path["launches"].items():
+            me2_launches[name] = me2_launches.get(name, 0) + n
+    del me2, m1_mesh
     cli_smollm_launches, _ = cli_phase(torch, np, card, arch="smollm-135m")
 
     _elapsed("phase 11")
@@ -1472,12 +1657,10 @@ def main(only_mesh_train: bool = False) -> int:
     _elapsed("phase 12")
     # ---- 12. training
     train_launches = training_phase(torch, np, card, ops)
-    _elapsed("(MT)")
-    # ---- (MT) training on a mesh of processes
-    mt_launches = mesh_train_phase(torch, np, card, mt1_report)
-    for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches, front_launches, cli_launches,
-                 disagg_launches, cli_disagg_launches, family_launches, cli_smollm_launches,
-                 other_launches, train_launches, mt_launches):
+    for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches,
+                 front_launches, cli_launches, disagg_launches, cli_disagg_launches,
+                 family_launches, cli_smollm_launches, other_launches, train_launches,
+                 mt_launches, me2_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1491,13 +1674,13 @@ def main(only_mesh_train: bool = False) -> int:
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:107",
                              "masked SDPA, bf16"),
-        "decode_attention_quant": ("src/repro_torch/csrc/decode_attention.cu",
+        "decode_attention_quant": ("src/repro_torch/csrc/decode_attention_quant.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:236",
                                    "masked SDPA over the dequantized bf16 view (made outside the time)"),
         "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention/kernel.py:95",
                                    "masked SDPA over the gathered bf16 view (made outside the time)"),
-        "paged_decode_attention_quant": ("src/repro_torch/csrc/paged_attention.cu",
+        "paged_decode_attention_quant": ("src/repro_torch/csrc/paged_attention_quant.cu",
                                          "src/repro/kernels/paged_attention/kernel.py:226",
                                          "masked SDPA over the gathered, dequantized bf16 view "
                                          "(made outside the time)"),
@@ -1533,7 +1716,8 @@ def main(only_mesh_train: bool = False) -> int:
 
 MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
 MESH_WORLD = 4
-MESH_TIMEOUT_S = 600  # the (M2) world, all three configurations
+MESH_PARTS = ("M2", "MT", "ME")  # the world's phases, in the order its ranks run them
+MESH_TIMEOUT_S = 900  # the 4-rank world: (M2), (MT2)-(MT4), (ME2), (ME3)
 # (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
 # options, and the path whose streams it must give
 MESH_PATHS = (
@@ -1553,13 +1737,15 @@ MESH_NATIVE = ("M2a-native", "(M2a) with the native gathers and exchange", False
 
 def _mesh_expect(cfg, kw, stats, prefills):
     """One rank's launches on a mesh path: each rank runs every linear
-    (its shard) and B2 (its heads) on every prefill, and its walk once a
-    layer a decode round, as the single card does."""
+    (its shard; B1 under a ternary config, no kernel on bf16 weights) and
+    B2 (its heads) on every prefill, and its walk once a layer a decode
+    round, as the single card does."""
     kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention" + (
         "" if kw["kv_dtype"] == "fp" else "_quant")
     passes = prefills + stats["decode_rounds"]
+    linears = 7 * cfg.num_layers * passes if cfg.quant.ternary else 0
     expect = {name: 0 for name in DECODE_KERNELS}
-    expect.update({"tlmm": 7 * cfg.num_layers * passes, "act_quant": 7 * cfg.num_layers * passes,
+    expect.update({"tlmm": linears, "act_quant": linears,
                    "prefill_attention": cfg.num_layers * prefills,
                    kernel: cfg.num_layers * stats["decode_rounds"]})
     return expect
@@ -1585,63 +1771,76 @@ def mesh_m1_phase(torch, np, cfg, params, prompts, max_tokens, n_slots, max_len,
     beside the main path's (``main_round``: seconds a round and tok/s),
     and 4 decode rounds are profiled beside the main path's
     (``main_profile``: device seconds and operations a round of its 4
-    profiled rounds).  Returns the launches."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    profiled rounds).  Returns the launches and the mesh, whose world
+    stays up for (ME1) (``close_m1_world`` ends it: a second NCCL world in
+    this process crashed it)."""
     from repro_torch.serving import SamplingParams
 
     t0 = time.perf_counter()
-    MESH_DIR.mkdir(parents=True, exist_ok=True)
-    store = MESH_DIR / "m1_store"
-    store.unlink(missing_ok=True)
-    join_process_group("nccl", init_method=f"file://{store.resolve()}", rank=0, world_size=1)
-    try:
-        mesh = make_host_mesh(data=1, model=1)
-        print(f"(M1) {mesh.describe()}")
-        kw = dict(n_slots=n_slots, max_len=max_len, mode="pdswap", overlap=True, mesh=mesh)
-        eng, stats, wall, launches, _, _, grid = serve(cfg, params, prompts, max_tokens, **kw)
-        decode_key = f"decode:{n_slots}x{max_len}"
-        if decode_key not in grid["captured"]:
-            raise AssertionError(f"(M1): the decode program was not captured ({grid['captured']})")
-        per_pass = 7 * cfg.num_layers
-        expect = {name: 0 for name in DECODE_KERNELS}
-        expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
-                       "act_quant": per_pass * (stats.swaps + stats.decode_rounds),
-                       "prefill_attention": cfg.num_layers * stats.swaps,
-                       "decode_attention": cfg.num_layers * stats.decode_rounds})
-        if launches != expect:
-            raise AssertionError(f"(M1): launches {launches} != expected {expect}")
-        got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
-        rec, _ = recorded(cfg, params, prompts, max_tokens, got, "(M1)", **kw)
-        parted = check_near_ties(torch, "(M1)", got, main_streams, rec, main_rec,
-                                 lambda rid: SamplingParams())
-        print(f"(M1) main path on a (1, 1) NCCL mesh: {stats.swaps} prefills, "
-              f"{stats.decode_rounds} decode rounds, {wall:.2f} s wall, decode "
-              f"{stats.decode_round_cost() * 1e3:.2f} ms/round ({stats.decode_tput():.1f} tok/s) "
-              f"against the main path's {main_round[0] * 1e3:.2f} "
-              f"({main_round[1]:.1f} tok/s), neither timed run recording; "
-              f"{grid['graphs']} graphs captured, {decode_key} among "
-              f"them with its collectives inside; tokens "
-              f"{'equal the main path' if not parted else f'part at near ties {parted}'}; "
-              f"launches {launches}  [{card}]")
-        wall_p, dev_p, top, per_round = profile_decode(torch, eng)
-        main_dev, main_ops = main_profile
-        if dev_p is None or main_dev is None:
-            print("(M1) profile: the profiler saw no device time; not measured")
-        else:
-            print(f"(M1) profile: 4 decode rounds (4 slots, 256-token prompts): "
-                  f"{dev_p / 4 * 1e3:.3f} ms device time and {per_round:.1f} device operations "
-                  f"a round, against the main path's {main_dev / 4 * 1e3:.3f} ms and "
-                  f"{main_ops:.1f}; {wall_p / 4 * 1e3:.3f} ms wall a round  [{card}]")
-            for name, sec, calls in top[:8]:
-                print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
-        print(f"(M1) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
-        del eng, rec
-    finally:
+    mesh = open_m1_world()
+    print(f"(M1) {mesh.describe()}")
+    kw = dict(n_slots=n_slots, max_len=max_len, mode="pdswap", overlap=True, mesh=mesh)
+    eng, stats, wall, launches, _, _, grid = serve(cfg, params, prompts, max_tokens, **kw)
+    decode_key = f"decode:{n_slots}x{max_len}"
+    if decode_key not in grid["captured"]:
+        raise AssertionError(f"(M1): the decode program was not captured ({grid['captured']})")
+    per_pass = 7 * cfg.num_layers
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": per_pass * (stats.swaps + stats.decode_rounds),
+                   "act_quant": per_pass * (stats.swaps + stats.decode_rounds),
+                   "prefill_attention": cfg.num_layers * stats.swaps,
+                   "decode_attention": cfg.num_layers * stats.decode_rounds})
+    if launches != expect:
+        raise AssertionError(f"(M1): launches {launches} != expected {expect}")
+    got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+    rec, _ = recorded(cfg, params, prompts, max_tokens, got, "(M1)", **kw)
+    parted = check_near_ties(torch, "(M1)", got, main_streams, rec, main_rec,
+                             lambda rid: SamplingParams())
+    print(f"(M1) main path on a (1, 1) NCCL mesh: {stats.swaps} prefills, "
+          f"{stats.decode_rounds} decode rounds, {wall:.2f} s wall, decode "
+          f"{stats.decode_round_cost() * 1e3:.2f} ms/round ({stats.decode_tput():.1f} tok/s) "
+          f"against the main path's {main_round[0] * 1e3:.2f} "
+          f"({main_round[1]:.1f} tok/s), neither timed run recording; "
+          f"{grid['graphs']} graphs captured, {decode_key} among "
+          f"them with its collectives inside; tokens "
+          f"{'equal the main path' if not parted else f'part at near ties {parted}'}; "
+          f"launches {launches}  [{card}]")
+    wall_p, dev_p, top, per_round = profile_decode(torch, eng)
+    main_dev, main_ops = main_profile
+    if dev_p is None or main_dev is None:
+        print("(M1) profile: the profiler saw no device time; not measured")
+    else:
+        print(f"(M1) profile: 4 decode rounds (4 slots, 256-token prompts): "
+              f"{dev_p / 4 * 1e3:.3f} ms device time and {per_round:.1f} device operations "
+              f"a round, against the main path's {main_dev / 4 * 1e3:.3f} ms and "
+              f"{main_ops:.1f}; {wall_p / 4 * 1e3:.3f} ms wall a round  [{card}]")
+        for name, sec, calls in top[:8]:
+            print(f"    {sec * 1e3:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    print(f"(M1) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    del eng, rec
+    return launches, mesh
+
+
+M1_STORE = MESH_DIR.parent / "m1_store"  # (M1)'s and (ME1)'s world of one
+
+
+def open_m1_world():
+    """Join a world of one over NCCL in this process: the (data 1, model 1)
+    mesh of (M1) and (ME1)."""
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+
+    M1_STORE.parent.mkdir(parents=True, exist_ok=True)
+    M1_STORE.unlink(missing_ok=True)
+    join_process_group("nccl", init_method=f"file://{M1_STORE.resolve()}", rank=0, world_size=1)
+    return make_host_mesh(data=1, model=1)
+
+
+def close_m1_world():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
         dist.destroy_process_group()
-        store.unlink(missing_ok=True)
-    return launches
+    M1_STORE.unlink(missing_ok=True)
 
 
 class _RowsRecorder:
@@ -1655,17 +1854,20 @@ class _RowsRecorder:
         return self.rows.get((rid, pos))
 
 
-def mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv, refs, card):
-    """(M2): bitnet-730m on a (data 2, model 2) gloo mesh of 4 processes on
-    this card (``python -m torch.distributed.run --standalone
-    --nproc-per-node 4 chip_smoke.py --mesh-worker DIR``; each rank on
-    cuda:0, the programs eager), three configurations (``MESH_PATHS``).
-    Each rank's launches must be what its stats imply, by shape; the ranks'
-    snapshots (times left out) equal; rank 0's streams those of the path
-    they mirror, or parted at a near tie; a contiguous rank's KV a quarter
-    of the single card's; (M2a) with the native collectives the tokens of
-    (M2a).  Returns rank 0's launches summed over ``MESH_PATHS``, and
-    (M2a)'s streams and logits rows (``mesh_cause_phase`` reads them)."""
+def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=None, beside=()):
+    """One (data 2, model 2) gloo world of 4 processes on this card
+    (``python -m torch.distributed.run --standalone --nproc-per-node 4
+    chip_smoke.py --mesh-worker DIR PARTS``; each rank on cuda:0, the
+    programs eager) runs ``parts``: (M2) bitnet-730m served in three
+    configurations (``MESH_PATHS``) and again with the native collectives;
+    (MT2)-(MT4) bitnet-730m trained, checked on rank 0; (ME2) granite
+    served (``ME_PATHS``) and (ME3) granite trained, checked on rank 0.
+    Then (M2)'s checks against the single card (``m2_args``: cfg, main_kv,
+    refs), (MT1)'s report and the ranks' reports are printed.  Returns
+    {"M2": (rank 0's launches summed over ``MESH_PATHS``, (M2a)'s streams
+    and logits rows), "MT": rank 0's (MT3) launches, "ME": (ME2)'s results
+    (``me2_results``)}, each for the parts run.  ``beside``: [(key, fn)]
+    run in this process meanwhile (``EARLY``)."""
     import shutil
 
     t0 = time.perf_counter()
@@ -1673,21 +1875,51 @@ def mesh_m2_phase(torch, np, cfg, max_tokens, n_slots, max_len, main_kv, refs, c
     MESH_DIR.mkdir(parents=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={MESH_WORLD}", str(Path(__file__).resolve()), "--mesh-worker",
-           str(MESH_DIR.resolve())]
-    run = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
-    (MESH_DIR / "world.log").write_text(run.stdout + run.stderr)
-    if run.returncode != 0:
-        raise AssertionError(f"(M2): the 4-rank world exited {run.returncode}:\n"
-                             f"{(run.stdout + run.stderr)[-6000:]}")
-    print(f"(M2) launched with: {' '.join(cmd[1:])}")
+           str(MESH_DIR.resolve()), ",".join(parts)]
+    out = {}
+    log = MESH_DIR.parent / "mesh_world.log"
     try:
-        total, m2a = _mesh_m2_results(torch, cfg, main_kv, refs, card)
-    finally:  # the logits rows (about 100 MB) never stay behind
-        for f in MESH_DIR.glob("*_rows.pt"):
-            f.unlink()
-    shutil.rmtree(MESH_DIR, ignore_errors=True)
-    print(f"(M2) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
-    return total, m2a
+        with open(log, "w") as sink:
+            proc = subprocess.Popen(cmd, stdout=sink, stderr=subprocess.STDOUT, text=True)
+            threads = torch.get_num_threads()
+            torch.set_num_threads(max(1, threads // 2))  # leave the ranks half the host
+            try:
+                for key, fn in beside:
+                    EARLY.run(key, fn)
+                t_beside = time.perf_counter() - t0
+                proc.wait(timeout=max(MESH_TIMEOUT_S - t_beside, 1))
+            finally:
+                torch.set_num_threads(threads)
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"the 4-rank world exited {proc.returncode}:\n"
+                                 f"{log.read_text()[-8000:]}")
+        print(f"(M) the 4-rank world launched with: {' '.join(cmd[1:])}; its parts' seconds "
+              + ", ".join(f"({p}) {json.loads((MESH_DIR / f'{p}_seconds.json').read_text()):.1f}"
+                          for p in parts)
+              + (f"; beside it in this process, {t_beside:.1f} s: "
+                 + ", ".join(f"{k} {EARLY.done[k][3]:.1f} s" for k, _ in beside)
+                 if beside else "") + f"  [{card}]")
+        if "M2" in parts:
+            out["M2"] = _mesh_m2_results(torch, *m2_args, card)
+        if "MT" in parts:
+            print(mt1_report)
+            result = json.loads((MESH_DIR / "MT_result.json").read_text())
+            for line in result["report"]:
+                print(f"{line}  [{card}]")
+            out["MT"] = result["launches"]
+        if "ME" in parts:
+            for line in json.loads((MESH_DIR / "ME_result.json").read_text())["report"]:
+                print(f"{line}  [{card}]")
+            from repro_torch.configs import get_config
+
+            out["ME"] = me2_results(torch, get_config(ME_ARCH), card)
+    finally:  # the logits rows (about 100 MB) and the checkpoint never stay behind
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"(M) the world's phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    return out
 
 
 def _mesh_m2_results(torch, cfg, main_kv, refs, card):
@@ -1842,31 +2074,119 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def mesh_worker(out: Path) -> int:
-    """One rank of (M2), started by ``torch.distributed.run``: join the
-    gloo world on this card, build the (2, 2) mesh, draw the main path's
-    weights and keep this rank's slice of them (the whole tree dropped),
-    serve each of ``MESH_PATHS`` and then ``MESH_NATIVE`` (rank 0 admits,
-    the others follow), and write this rank's launches by shape, KV and
-    weight bytes, the exchange's bytes, the snapshot and rank 0's streams
-    and logits rows (recorded within the timed run, the recorder's host
-    time measured)."""
-    import numpy as np
-    import torch
+def mesh_worker(out: Path, parts) -> int:
+    """One rank of the 4-rank world, started by ``torch.distributed.run``:
+    join the gloo world on this card, build the (2, 2) mesh, and run
+    ``parts`` of ``MESH_PARTS`` in turn, each writing its results under
+    ``out``: (M2) ``_m2_rank``, (MT2)-(MT4) ``_mt_rank``, (ME2) and (ME3)
+    ``_me_rank``."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import COUNTS, reset_counts
     from repro_torch.launch.mesh import join_process_group, make_host_mesh
-    from repro_torch.launch.sharding_rules import shard_params
-    from repro_torch.layers import collectives as C
-    from repro_torch.models import transformer as T
-    from repro_torch.serving import EngineCore, Request
 
     t_start = time.perf_counter()
     join_process_group("gloo")
     mesh = make_host_mesh(data=2, model=2)
+    runs = {"M2": _m2_rank, "MT": _mt_rank, "ME": _me_rank}
+    for part in parts:
+        t0 = time.perf_counter()
+        runs[part](mesh, out)
+        dist.barrier()
+        if mesh.rank == 0:
+            (out / f"{part}_seconds.json").write_text(json.dumps(time.perf_counter() - t0))
+    rank = mesh.rank
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def _serve_rank(torch, dist, mesh, cfg, params, prompts, max_new, kw, record, phase=None):
+    """Serve ``prompts`` greedily on this rank's engine over ``mesh`` (rank
+    0 admits, the others follow), the launch counters set to 0 just
+    before; with ``record`` rank 0 keeps its logits rows; ``phase["now"]``
+    reads "prefill" while a prefill runs, else "decode".  Returns (engine,
+    recorder or None, monolithic prefill calls, wall seconds)."""
+    from repro_torch.kernels import reset_counts
+    from repro_torch.serving import EngineCore, Request
+
+    eng = EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw)
+    rec = TargetRecorder(eng) if mesh.rank == 0 and record else None
+    prefills, prefill = [], eng.runner.prefill
+    phase = {} if phase is None else phase
+
+    def counted(*args, **kw_):
+        prefills.append(1)
+        phase["now"] = "prefill"
+        try:
+            return prefill(*args, **kw_)
+        finally:
+            phase["now"] = "decode"
+
+    eng.runner.prefill = counted
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    t_run = time.perf_counter()
+    if mesh.rank == 0:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"req{i}", p, max_new=max_new))
+        eng.run()
+        eng.stop_followers()
+    else:
+        eng.follow()
+    torch.cuda.synchronize()
+    return eng, rec, len(prefills), time.perf_counter() - t_run
+
+
+def _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0):
+    """One rank's record of a served path: launches (by shape), KV and
+    weight MiB, the swap's exchange, the snapshot, the streams and stats."""
+    from repro_torch.kernels import COUNTS
+
+    st = eng.stats
+    return {
+        "describe": mesh.describe(), "launches": dict(COUNTS),
+        "weights_mib": _tree_bytes(params) / 2**20, "whole_weights_mib": whole_bytes / 2**20,
+        "recorder_ms_round": (rec.seconds / max(len(rec.rounds), 1) * 1e3
+                              if rec is not None else 0.0),
+        "shapes": {f"{name} {shape}": n for (name, shape), n in COUNTS.shapes().items()},
+        "kv_bytes": eng.kv_bytes()["allocated"], "kv_mib": eng.kv_bytes()["allocated"] / 2**20,
+        "exchange_bytes": eng.runner.engine.exchange_bytes,
+        "exchanges": eng.runner.engine.exchanges,
+        "relayout_ms": (statistics.mean(t.t_relayout for t in st.swap_timings) * 1e3
+                        if st.swap_timings else 0.0),
+        "snapshot": _decisions(eng.snapshot()),
+        "streams": {r: list(map(int, q.out_tokens)) for r, q in eng.finished.items()},
+        "stats": {"swaps": st.swaps, "prefills": prefills, "decode_rounds": st.decode_rounds,
+                  "decode_round_ms": st.decode_round_cost() * 1e3,
+                  "decode_tput": st.decode_tput(), "ttft_mean_ms": st.ttft.mean * 1e3},
+        "wall": wall, "seconds": time.perf_counter() - t0}
+
+
+def _save_rows(torch, rec, streams, path):
+    rows = {(rid, pos): rec.row(rid, pos).cpu()
+            for rid, toks in streams.items() for pos in range(1, len(toks))}
+    torch.save(rows, path)
+
+
+def _m2_rank(mesh, out: Path) -> None:
+    """(M2) on this rank: draw the main path's weights and keep this rank's
+    slice of them (the whole tree dropped), serve each of ``MESH_PATHS``
+    and then ``MESH_NATIVE``, and write this rank's launches by shape, KV
+    and weight bytes, the exchange's bytes, the snapshot and rank 0's
+    streams and logits rows (recorded within the timed run, the
+    recorder's host time measured)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.layers import collectives as C
+    from repro_torch.models import transformer as T
+
     rank = mesh.rank
     cfg = get_config("bitnet-730m")
     whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
@@ -1880,59 +2200,19 @@ def mesh_worker(out: Path) -> int:
         if key == MESH_NATIVE[0]:
             C.form = lambda group: "native"
         prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256 if shared else 0)
-        eng = EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw)
-        rec = TargetRecorder(eng) if rank == 0 and key != MESH_NATIVE[0] else None
-        prefills, prefill = [], eng.runner.prefill
-
-        def counted(*args, prefill=prefill, prefills=prefills, **kw_):
-            prefills.append(1)
-            return prefill(*args, **kw_)
-
-        eng.runner.prefill = counted
-        torch.cuda.synchronize()
-        dist.barrier()
-        reset_counts()
-        t_run = time.perf_counter()
-        if rank == 0:
-            for i, p in enumerate(prompts):
-                eng.submit(Request(f"req{i}", p, max_new=32))
-            eng.run()
-            eng.stop_followers()
-        else:
-            eng.follow()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_run
-        st = eng.stats
-        C.form = form
-        result = {
-            "describe": mesh.describe(), "launches": dict(COUNTS),
-            "weights_mib": _tree_bytes(params) / 2**20, "whole_weights_mib": whole_bytes / 2**20,
-            "recorder_ms_round": (rec.seconds / max(len(rec.rounds), 1) * 1e3
-                                  if rec is not None else 0.0),
-            "shapes": {f"{name} {shape}": n for (name, shape), n in COUNTS.shapes().items()},
-            "kv_bytes": eng.kv_bytes()["allocated"], "kv_mib": eng.kv_bytes()["allocated"] / 2**20,
-            "exchange_bytes": eng.runner.engine.exchange_bytes,
-            "exchanges": eng.runner.engine.exchanges,
-            "relayout_ms": (statistics.mean(t.t_relayout for t in st.swap_timings) * 1e3
-                            if st.swap_timings else 0.0),
-            "snapshot": _decisions(eng.snapshot()),
-            "streams": {r: list(map(int, q.out_tokens)) for r, q in eng.finished.items()},
-            "stats": {"swaps": st.swaps, "prefills": len(prefills),
-                      "decode_rounds": st.decode_rounds,
-                      "decode_round_ms": st.decode_round_cost() * 1e3,
-                      "decode_tput": st.decode_tput(), "ttft_mean_ms": st.ttft.mean * 1e3},
-            "wall": wall, "seconds": time.perf_counter() - t0}
+        try:
+            eng, rec, prefills, wall = _serve_rank(torch, dist, mesh, cfg, params, prompts, 32,
+                                                   kw, record=key != MESH_NATIVE[0])
+        finally:
+            C.form = form
+        result = _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0)
         (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
         if rec is not None:
-            rows = {(rid, pos): rec.row(rid, pos).cpu()
-                    for rid, toks in result["streams"].items() for pos in range(1, len(toks))}
-            torch.save(rows, out / f"{key}_rows.pt")
+            _save_rows(torch, rec, result["streams"], out / f"{key}_rows.pt")
         del eng, rec
         torch.cuda.empty_cache()
-    dist.barrier()
-    dist.destroy_process_group()
-    print(f"rank {rank}: {time.perf_counter() - t_start:.1f} s")
-    return 0
+    del params
+    _free(torch)
 
 
 def _decisions(tree):
@@ -3337,6 +3617,37 @@ def family_references(torch, T, cfg, key, chunked=False):
     return p_gpu, p_cpu
 
 
+def _family_refs(torch, T, cfg, key, chunk_key):
+    """Phase 10's references of one arch: (key)'s prefill and (chunk_key)'s
+    (``family_references``), and for an MoE the plain version's drops at 2
+    layers in the first chunk of the 1,536-token prompt.  Returns (p_gpu,
+    p_cpu, those drops or None)."""
+    import numpy as np
+
+    family_references(torch, T, cfg, key)
+    p_gpu, p_cpu = family_references(torch, T, cfg, chunk_key, chunked=True)
+    plain = None
+    if cfg.moe:
+        longest = make_prompts(np, cfg, PROMPT_LENS)[PROMPT_LENS.index(1536)]
+        plain = moe_drops(torch, T, dataclasses.replace(cfg, num_layers=2), p_cpu,
+                          torch.from_numpy(longest[None]).long(), "cpu")
+    return p_gpu, p_cpu, plain
+
+
+FAMILY_REFS = (("r", "s", "qwen2.5-14b"), ("t", "u", "granite-moe-3b-a800m"))
+
+
+def family_reference_jobs(torch):
+    """Phase 10's references as (key, fn) jobs for ``EARLY``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    return [(f"references ({key}), ({chunk_key})",
+             lambda key=key, chunk_key=chunk_key, arch=arch:
+             _family_refs(torch, T, get_config(arch), key, chunk_key))
+            for key, chunk_key, arch in FAMILY_REFS]
+
+
 def moe_drops(torch, T, cfg, params, tokens, dev):
     """Expert assignments dropped in each layer (capacity of a ``CHUNK``-row
     chunk) while the first ``CHUNK``-token chunk of ``tokens`` runs through
@@ -3363,7 +3674,7 @@ def moe_drops(torch, T, cfg, params, tokens, dev):
     return drops
 
 
-def family_phase(torch, np, card):
+def family_phase(torch, np, card, me2=None, m1_mesh=None):
     """Phase 10, the transformer family at full width on bf16 weights from
     seed 0, each model's engine and weights freed before the next: (r)
     qwen2.5-14b at full depth, contiguous bf16, pdswap, (d)'s 8 prompts,
@@ -3372,7 +3683,9 @@ def family_phase(torch, np, card):
     with the experts' dropped assignments in the first chunk of the
     1,536-token prompt; (v) the other five archs on one 300-token prompt,
     8 new tokens (chameleon-34b and moonshot-v1-16b-a3b at cut depth).
-    Returns the launches summed."""
+    With (ME2)'s results ``me2`` and (M1)'s mesh, (ME1), (E4) and (F2) run
+    on (t)'s weights right after (t) (``moe_mesh_card_phase``).  Returns
+    the launches summed."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
@@ -3385,7 +3698,7 @@ def family_phase(torch, np, card):
     max_tokens, eng_kw = 32, dict(n_slots=4, max_len=2048, mode="pdswap", overlap=True)
     paged_kw = dict(eng_kw, cache_layout="paged", kv_dtype="int8", block_size=16,
                     prefill_chunk=CHUNK)
-    for key, chunk_key, arch in (("r", "s", "qwen2.5-14b"), ("t", "u", "granite-moe-3b-a800m")):
+    for key, chunk_key, arch in FAMILY_REFS:
         _elapsed(f"path ({key}), {arch}")
         cfg = get_config(arch)
         torch.cuda.reset_peak_memory_stats()
@@ -3404,20 +3717,23 @@ def family_phase(torch, np, card):
         eng, _, launches = family_path(torch, np, key, f"{arch}, contiguous bf16, pdswap", cfg,
                                        params, prompts, max_tokens, card, **eng_kw)
         add(launches)
+        streams = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
         del eng
         _free(torch)
-        family_references(torch, T, cfg, key)
+        if cfg.moe and me2 is not None:
+            _elapsed("(ME1), (E4), (F2)")
+            add(moe_mesh_card_phase(torch, np, cfg, params, streams, me2, m1_mesh, card))
         eng, _, launches = family_path(
             torch, np, chunk_key, f"{arch}, paged int8, 512 pages, {CHUNK}-token chunks", cfg,
             params, prompts, max_tokens, card, eager_graph=False, **paged_kw)
         add(launches)
         del eng
         _free(torch)
-        p_gpu, p_cpu = family_references(torch, T, cfg, chunk_key, chunked=True)
+        p_gpu, p_cpu, plain = EARLY.take(f"references ({key}), ({chunk_key})",
+                                         lambda: _family_refs(torch, T, cfg, key, chunk_key))
         if cfg.moe:
             longest = torch.from_numpy(prompts[PROMPT_LENS.index(1536)][None]).long()
             cfg2 = dataclasses.replace(cfg, num_layers=2)
-            plain = moe_drops(torch, T, cfg2, p_cpu, longest, "cpu")
             card2 = moe_drops(torch, T, cfg2, p_gpu, longest, "cuda")
             full = moe_drops(torch, T, cfg, params, longest, "cuda")
             cap = max(8, int(CHUNK * cfg.top_k / cfg.num_experts * cfg.moe_capacity_factor))
@@ -4717,10 +5033,481 @@ def training_phase(torch, np, card, ops):
     total = {}
     for path in (smollm_training, bitnet_qat, granite_moe_training, family_gradients):
         _elapsed(path.__name__)
-        for name, n in path(torch, np, card).items():
+        launches = (EARLY.take("(T4)", lambda: family_gradients(torch, np, card))
+                    if path is family_gradients else path(torch, np, card))
+        for name, n in launches.items():
             total[name] = total.get(name, 0) + n
     refusal_checks(torch, ops)
     return total
+
+
+# ---- phase (ME): MoE expert parallelism on a mesh of processes --
+
+ME_ARCH = "granite-moe-3b-a800m"
+ME_PROMPTS, ME_NEW = 4, 16  # (ME2): the main path's first 4 prompts, 16 new tokens
+# (ME2)'s configurations: key, what, the engine's options
+ME_PATHS = (
+    ("ME2a", "contiguous bf16, pdswap with the overlapped swap",
+     dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap", overlap=True)),
+    ("ME2b", "paged int8, bs 16, full pool of 512 pages, pdswap",
+     dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")),
+)
+ME3_STEPS = 3
+ME3_CAPACITY = 8.0  # (ME3): C = 1.6 T, over the T rows an expert can receive, so nothing drops
+# (ME3) against the single card, relative (loss, grad norm and aux loss a
+# step; mu and nu after step 3, each leaf's largest difference over its
+# largest |value|): f32 with TF32 off, the ranks' sums of partial products,
+# the data ranks' aux counts and the exchanged experts' rows taken in other
+# orders than one card's.  Read on one H100 80GB HBM3 (700 W): loss
+# 1.16e-7, grad norm 1.31e-7, aux 8.9e-8, mu 4.2e-6, nu 2.9e-6; the planted
+# fault (the exchange's backward left out): loss 2.5e-3 (step 2; steps 0-1
+# move no weight), grad norm 0.095-0.35, aux 0.078, mu 1.27, nu 1.22.  The
+# limits lie between, each about 100 times the sound reading.
+ME_LIMITS = {"loss": 1e-5, "grad_norm": 1e-5, "aux": 1e-5, "mu": 1e-3, "nu": 1e-3}
+
+
+def _moe_counters(phase):
+    """Count, on this rank, each MoE call's dropped assignments (device
+    tensors, read once at the end) and the exchanges (calls and bytes),
+    each under ``phase["now"]`` ("prefill", "decode", "step").  Returns
+    (the record, a function putting ``_route`` and ``exchange`` back)."""
+    from repro_torch.layers import collectives as C
+    from repro_torch.layers import moe as M
+
+    rec = {"drops": [], "exchanges": {"prefill": [0, 0], "decode": [0, 0], "step": [0, 0]}}
+    route, exchange = M._route, C.exchange
+
+    def counting(gate_logits, k, capacity, num_experts):
+        out = route(gate_logits, k, capacity, num_experts)
+        rec["drops"].append((phase["now"], (out[1] == num_experts * capacity).sum()))
+        return out
+
+    def counted(x, group, *, split_dim, cat_dim):
+        c = rec["exchanges"][phase["now"]]
+        c[0] += 1
+        c[1] += x.numel() * x.element_size()
+        return exchange(x, group, split_dim=split_dim, cat_dim=cat_dim)
+
+    M._route, C.exchange = counting, counted
+
+    def restore():
+        M._route, C.exchange = route, exchange
+    return rec, restore
+
+
+def _drops_by_layer(drops, layers):
+    """{"prefill" | "decode": [dropped assignments of layer l, summed over
+    the calls]} from calls in order (each forward runs layers 0..L-1, one
+    routing a layer: no prompt reaches ``MOE_TOKEN_CHUNK`` rows)."""
+    out = {"prefill": [0] * layers, "decode": [0] * layers}
+    seen = {"prefill": 0, "decode": 0}
+    for phase, n in drops:
+        out[phase][seen[phase] % layers] += int(n)
+        seen[phase] += 1
+    return out
+
+
+def _me_rank(mesh, out: Path) -> None:
+    """(ME2) and (ME3) on this rank of the world."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.models import transformer as T
+
+    rank = mesh.rank
+    cfg = get_config(ME_ARCH)
+    t_draw = time.perf_counter()
+    whole = T.init(cfg, seed=0, device=mesh.device)  # (t)'s weights
+    whole_bytes = _tree_bytes(whole)
+    params = shard_params(whole, cfg, mesh)
+    del whole
+    _free(torch)
+    t_draw = time.perf_counter() - t_draw
+    prompts = make_prompts(np, cfg, PROMPT_LENS[:ME_PROMPTS])
+    for key, _, kw in ME_PATHS:
+        t0 = time.perf_counter()
+        phase = {"now": "decode"}
+        rec_moe, restore = _moe_counters(phase)
+        try:
+            eng, rec, prefills, wall = _serve_rank(torch, dist, mesh, cfg, params, prompts,
+                                                   ME_NEW, kw, record=True, phase=phase)
+        finally:
+            restore()
+        result = _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0)
+        result.update(drops=_drops_by_layer(rec_moe["drops"], cfg.num_layers),
+                      moe_exchanges=rec_moe["exchanges"], draw_s=t_draw)
+        (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
+        if rec is not None:
+            _save_rows(torch, rec, result["streams"], out / f"{key}_rows.pt")
+        del eng, rec
+        _free(torch)
+    del params
+    _free(torch)
+    _me3_rank(mesh, out)
+
+
+def _me3_rank(mesh, out: Path) -> None:
+    """(ME3) on this rank: granite training at full width, cut to
+    ``MOE_TRAIN_LAYERS`` layers, capacity ``ME3_CAPACITY``, ``ME3_STEPS``
+    steps on (T2)'s batches on the (2, 2) mesh, against one card (rank 0)
+    within ``ME_LIMITS``; then the planted fault (the exchange's backward
+    left out) must break every limit.  Rank 0 writes the report to
+    ``ME_result.json``; a broken check fails the world."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.sharding_rules import gather_params
+    from repro_torch.layers import collectives as C
+    from repro_torch.train import trainer as TR
+
+    rank, dev = mesh.rank, mesh.device
+    t_start = time.perf_counter()
+    report, failures = [], []
+
+    def say(line):
+        if rank == 0:
+            report.append(line)
+            print(line, flush=True)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            say(f"FAILED: {what}")
+
+    cfg = dataclasses.replace(get_config(ME_ARCH), num_layers=MOE_TRAIN_LAYERS,
+                              moe_capacity_factor=ME3_CAPACITY)
+    tcfg = TR.TrainConfig(schedule="wsd", warmup=1, total_steps=ME3_STEPS)
+    batches = _mt_batches(np, cfg, ME3_STEPS)
+    rec_moe, restore = _moe_counters({"now": "step"})
+    tally, untally = _tally_collectives(dist)
+    reset_counts()
+    try:
+        params, opt = TR.init_train_state(cfg, 0, mesh=mesh)
+        params, opt, hist = _mt_steps(torch, TR.make_train_step(cfg, tcfg, mesh), params, opt,
+                                      batches, 0, ME3_STEPS, dev)
+    finally:
+        restore()
+        untally()
+    launches = dict(COUNTS)
+    drops = sum(int(n) for _, n in rec_moe["drops"])
+    calls, nbytes = rec_moe["exchanges"]["step"]
+
+    def moments(opt):  # mu and nu gathered whole onto rank 0's card
+        return {k: gather_params(getattr(opt, k), cfg, mesh, train=True, only=0)
+                for k in ("mu", "nu")}
+
+    whole = moments(opt)
+    del params, opt
+    _free(torch)
+    ref, rel = None, None
+    if rank == 0:  # one card, the others waiting at the fault run's first collective
+        p1, o1 = TR.init_train_state(cfg, 0, dev)
+        p1, o1, ref = _mt_steps(torch, TR.make_train_step(cfg, tcfg), p1, o1, batches, 0,
+                                ME3_STEPS, dev)
+        del p1
+        rel = {k: _mt_tree_rel(torch, whole[k], getattr(o1, k)) for k in whole}
+    del whole
+    _free(torch)
+    exchange = C.exchange
+
+    def forward_only(x, group, *, split_dim, cat_dim):  # the planted fault
+        return C.all_to_all(x.detach(), group, split_dim=split_dim, cat_dim=cat_dim)
+
+    C.exchange = forward_only
+    try:
+        pf, of = TR.init_train_state(cfg, 0, mesh=mesh)
+        pf, of, hf = _mt_steps(torch, TR.make_train_step(cfg, tcfg, mesh), pf, of, batches, 0,
+                               ME3_STEPS, dev)
+    finally:
+        C.exchange = exchange
+    whole_f = moments(of)
+    del pf, of
+    fault_rel = None
+    if rank == 0:
+        fault_rel = {k: _mt_tree_rel(torch, whole_f[k], getattr(o1, k)) for k in whole_f}
+        del o1
+    del whole_f
+    _free(torch)
+    ref, rel, fault_rel = _bcast_obj(dist, (ref, rel, fault_rel))
+    check(not any(launches.values()), f"(ME3): training launched kernels {launches}")
+    check(drops == 0, f"(ME3): {drops} assignments dropped at capacity factor {ME3_CAPACITY}")
+    check(not _mt_faults(hist, ref, rel, ME_LIMITS, ME3_STEPS),
+          "(ME3) against the single card: " + "; ".join(_mt_faults(hist, ref, rel, ME_LIMITS,
+                                                                    ME3_STEPS)))
+    worst = _mt_worst(hist, ref, rel, ME_LIMITS)
+    fault_worst = _mt_worst(hf, ref, fault_rel, ME_LIMITS)
+    unbroken = [k for k, v in fault_worst.items() if v <= ME_LIMITS[k]]
+    check(not unbroken, f"(ME3): the planted fault passes the limits of {unbroken}: "
+          f"{fault_worst}")
+    say(f"(ME3) {ME_ARCH} training at full width, {cfg.num_layers} of 32 layers (f32 weights "
+        f"as (T3), capacity factor {ME3_CAPACITY}), on a (data 2, model 2) gloo mesh of 4 "
+        f"processes on this card, {TRAIN_BATCH} x {TRAIN_SEQ} (T2's batches), {ME3_STEPS} steps: "
+        f"losses " + " ".join(f"{h['loss']:.6f}" for h in hist) + ", aux "
+        + " ".join(f"{h['aux']:.6f}" for h in hist) + "; against the single card's "
+        + " ".join(f"{h['loss']:.6f}" for h in ref) + ", aux "
+        + " ".join(f"{h['aux']:.6f}" for h in ref) + "; worst relative "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (after step {ME3_STEPS}, mu and nu gathered onto rank 0's card: "
+        + ", ".join(f"{k} in {name}" for k, (v, name) in rel.items())
+        + f"); limits {ME_LIMITS}; {drops} assignments dropped; no kernel launched")
+    say(f"(ME3) rank 0: {statistics.median(h['ms'] for h in hist[1:]):.1f} ms a step (CUDA events, "
+        f"median of steps 1-{ME3_STEPS - 1}) against the single card's "
+        f"{statistics.median(h['ms'] for h in ref[1:]):.1f}; {calls // ME3_STEPS} exchanges a "
+        f"step (remat and backward included), {nbytes / ME3_STEPS / 2**20:.1f} MiB sent through "
+        f"them a step; {tally['calls'] // ME3_STEPS} collectives and "
+        f"{tally['bytes'] / ME3_STEPS / 2**20:.1f} MiB through them a step in all")
+    say(f"(ME3) planted fault (the exchange's backward left out): worst relative "
+        + ", ".join(f"{k} {v:.3g}" for k, v in fault_worst.items()) + "; fails the limits: "
+        + "; ".join(_mt_faults(hf, ref, fault_rel, ME_LIMITS, ME3_STEPS)))
+    say(f"(ME3) rank 0's seconds {time.perf_counter() - t_start:.1f}")
+    if failures:
+        raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+    if rank == 0:
+        (out / "ME_result.json").write_text(json.dumps({"report": report}))
+
+
+def me2_results(torch, cfg, card):
+    """(ME2)'s per-rank checks and printout from the ranks' files (the
+    ranks' snapshots equal, each rank's launches by shape those its stats
+    imply); returns {key: rank 0's streams, its logits rows, every rank's
+    drops by layer, rank 0's launches} for the single-card comparison
+    (``moe_mesh_card_phase``)."""
+    out = {}
+    for key, what, kw in ME_PATHS:
+        ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            if got["snapshot"] != r0["snapshot"]:
+                raise AssertionError(f"({key}): rank {r}'s host decisions differ from rank 0's")
+            want = _mesh_expect(cfg, kw, got["stats"], got["stats"]["prefills"])
+            if got["launches"] != want or sum(got["shapes"].values()) != sum(want.values()):
+                raise AssertionError(f"({key}) rank {r}: launches {got['launches']} != {want}")
+            ex = got["moe_exchanges"]
+            rounds = max(got["stats"]["decode_rounds"], 1)
+            print(f"({key}) rank {r}: {got['describe']}")
+            for line in _shape_lines(got["shapes"]):
+                print(f"    {line}")
+            print(f"    KV {got['kv_mib']:.1f} MiB and weights {got['weights_mib']:.1f} MiB (the "
+                  f"whole tree's {got['whole_weights_mib']:.1f}, drawn in {got['draw_s']:.1f} s "
+                  f"and dropped once sliced) on this rank; the MoE's exchanges: "
+                  f"{ex['decode'][0] / rounds:.1f} a decode round, "
+                  f"{ex['decode'][1] / rounds / 2**20:.2f} MiB sent a round; "
+                  f"{ex['prefill'][0]} in the prefills, {ex['prefill'][1] / 2**20:.1f} MiB; the "
+                  f"swap's exchange {got['exchange_bytes']} bytes  [{card}]")
+        st = r0["stats"]
+        print(f"({key}) {ME_ARCH} {what} on the (2, 2) gloo mesh: {st['prefills']} prefills, "
+              f"{st['decode_rounds']} decode rounds, {r0['wall']:.2f} s wall, decode "
+              f"{st['decode_round_ms']:.2f} ms/round ({st['decode_tput']:.1f} tok/s), TTFT mean "
+              f"{st['ttft_mean_ms']:.1f} ms; the 4 ranks' snapshots equal; the rank's seconds "
+              f"{r0['seconds']:.1f}  [{card}]")
+        out[key] = {"streams": r0["streams"], "launches": r0["launches"],
+                    "recorder": _RowsRecorder(torch.load(MESH_DIR / f"{key}_rows.pt"), "cpu"),
+                    "drops": [got["drops"] for got in ranks]}
+    return out
+
+
+class _GroupedMoE:
+    """Each MoE call of an engine on one card routed in the dispatch groups
+    of the (2, 2) mesh's ranks, by wrapping ``transformer.moe_forward``: a
+    prefill's sequence cut in the model ranks' halves, a decode round's rows
+    in the data ranks' halves (every model rank routes all of them), each
+    group routed alone at its own capacity.  Counts each group's drops by
+    layer; with ``fault`` the experts of shard 1 (the second half) give
+    zeros, as if their outputs were lost after the inverse exchange."""
+
+    def __init__(self, cfg, fault: bool = False):
+        self.cfg, self.fault = cfg, fault
+        self.reset()
+        self._calls = {"prefill": 0, "decode": 0}
+
+    def reset(self):
+        """Forget the drops counted so far (a warm-up's, a capture's)."""
+        self.drops = {"prefill": [[[] for _ in range(self.cfg.num_layers)] for _ in range(2)],
+                      "decode": [[[] for _ in range(self.cfg.num_layers)] for _ in range(2)]}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.layers import moe as M
+        from repro_torch.models import transformer as T
+
+        self.T, self.M = T, M
+        self.plain, self.route, self.ffn = T.moe_forward, M._route, M._expert_ffn
+        self.group = None
+
+        def route(gate_logits, k, capacity, num_experts):
+            got = self.route(gate_logits, k, capacity, num_experts)
+            if not torch.cuda.is_current_stream_capturing():  # a replay runs no Python
+                phase, g, layer = self.group
+                self.drops[phase][g][layer].append((got[1] == num_experts * capacity).sum())
+            return got
+
+        def ffn(buf, *w):
+            y = self.ffn(buf, *w)
+            if self.fault:
+                y[buf.shape[0] // 2:] = 0
+            return y
+
+        def grouped(params, x, cfg, **kw):
+            b, s, _ = x.shape
+            phase = "decode" if s == 1 else "prefill"
+            dim = 0 if s == 1 else 1
+            layer = self._calls[phase] % cfg.num_layers
+            self._calls[phase] += 1
+            if x.shape[dim] % 2:
+                raise AssertionError(f"(E4): a {phase} of {tuple(x.shape)} does not split in two")
+            ys = []
+            for g, part in enumerate(x.chunk(2, dim=dim)):
+                self.group = (phase, g, layer)
+                ys.append(self.plain(params, part.contiguous(), cfg, **kw))
+            return torch.cat(ys, dim=dim)
+
+        T.moe_forward, M._route, M._expert_ffn = grouped, route, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe_forward, self.M._route, self.M._expert_ffn = self.plain, self.route, self.ffn
+
+    def by_rank(self):
+        """The prefill drops by layer a rank (d, m) of the mesh makes: those
+        of the prefill half m, as rank r = 2 d + m.  The decode rounds are
+        replayed graphs, which run no Python: their groups of 2 rows route
+        under a capacity of 8 and drop nothing."""
+        return [[int(sum(int(n) for n in cell)) for cell in self.drops["prefill"][r % 2]]
+                for r in range(MESH_WORLD)]
+
+
+def moe_mesh_card_phase(torch, np, cfg, params, t_streams, me2, m1_mesh, card):
+    """On one card, on (t)'s weights: (ME1) (t)'s engine on the (data 1,
+    model 1) NCCL mesh of (M1) (the MoE's exchanges on groups of one, the
+    decode graph captured with them), whose tokens must be (t)'s bit for
+    bit; (E4) the engine of each (ME2) configuration with every MoE call
+    routed in the ranks' dispatch groups (``_GroupedMoE``), which (ME2)'s
+    streams must equal up to near ties within the (M2) limits, each layer's
+    drops by rank printed beside (ME2)'s; (F2) (E4a) with expert shard 1's
+    outputs zeroed, the planted fault, which must break the limits.
+    Returns the launches summed."""
+    from repro_torch.serving import SamplingParams
+
+    t0 = time.perf_counter()
+    greedy = lambda rid: SamplingParams()  # noqa: E731
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    prompts = make_prompts(np, cfg, PROMPT_LENS)
+    kw = dict(n_slots=4, max_len=2048, mode="pdswap", overlap=True)
+    eng, st, wall, launches, prefills, _, grid = serve(cfg, params, prompts, 32, mesh=m1_mesh,
+                                                       **kw)
+    decode_key = "decode:4x2048"
+    if decode_key not in grid["captured"]:
+        raise AssertionError(f"(ME1): the decode program was not captured ({grid['captured']})")
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": 0, "act_quant": 0, "prefill_attention": cfg.num_layers * prefills,
+                   "decode_attention": cfg.num_layers * st.decode_rounds})
+    if launches != expect:
+        raise AssertionError(f"(ME1): launches {launches} != expected {expect}")
+    got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+    if got != t_streams:
+        raise AssertionError(f"(ME1): the (1, 1) mesh's tokens differ from (t)'s")
+    add(launches)
+    print(f"(ME1) {ME_ARCH} at full width and depth on (t)'s weights on a (1, 1) NCCL mesh: "
+          f"{st.swaps} prefills, {st.decode_rounds} decode rounds, {wall:.2f} s wall, decode "
+          f"{st.decode_round_cost() * 1e3:.2f} ms/round ({st.decode_tput():.1f} tok/s); "
+          f"{grid['graphs']} graphs captured, {decode_key} among them with the MoE's exchanges "
+          f"on groups of one; tokens equal (t)'s bit for bit; launches {launches}  [{card}]")
+    del eng
+    _free(torch)
+    me_prompts = prompts[:ME_PROMPTS]
+    runs = [(key, f"(E4{key[-1]})", kw_, False) for key, _, kw_ in ME_PATHS]
+    runs.append((ME_PATHS[0][0], "(F2)", ME_PATHS[0][2], True))
+    for key, tag, path_kw, fault in runs:
+        rec = []
+        with _GroupedMoE(cfg, fault=fault) as grouped:
+            eng, st, wall, launches, *_ = serve(
+                cfg, params, me_prompts, ME_NEW, n_slots=4, max_len=2048, block_size=16,
+                on_engine=lambda e: (grouped.reset(), rec.append(TargetRecorder(e))), **path_kw)
+        rec[0].stop()
+        add(launches)
+        mine = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(ME_PROMPTS)}
+        del eng
+        ref = me2[key]
+        try:
+            reading = compare_streams(torch, f"{tag} against ({key})", ref["streams"], mine,
+                                      ref["recorder"], _OnDevice(rec[0], "cpu"), greedy)
+            faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        except AssertionError as e:  # a stream parts at its prefill's token: no near tie there
+            if not fault:
+                raise
+            faults = [str(e)]
+        print(f"{tag} {ME_ARCH} on one card, ({key})'s configuration with each MoE call routed "
+              f"in the ranks' dispatch groups{' and expert shard 1 zeroed' if fault else ''}: "
+              f"{st.decode_rounds} decode rounds, {wall:.2f} s wall  [{card}]")
+        if fault:
+            if not faults:
+                raise AssertionError(f"(F2): the planted fault passes the (M2) limits (tie "
+                                     f"{MESH_TIE_TOL}, logits {MESH_AGREE_TOL})")
+            print(f"(F2) fails the (M2) limits against ({key}), as it must: {'; '.join(faults)}")
+            continue
+        if faults:
+            raise AssertionError(f"({key}) against {tag}: " + "; ".join(faults))
+        for r, (mesh_drops, card_drops) in enumerate(zip(ref["drops"], grouped.by_rank())):
+            print(f"({key}) rank {r} (data {r // 2}, model {r % 2}) assignments dropped by "
+                  f"layer in its prefills {mesh_drops['prefill']} (sum "
+                  f"{sum(mesh_drops['prefill'])}), in its decode rounds "
+                  f"{sum(mesh_drops['decode'])}; {tag}'s for the same group "
+                  f"{card_drops} (sum {sum(card_drops)})")
+        print(f"({key}) streams {'equal' if not reading['parts'] else 'part at near ties from'} "
+              f"{tag}'s, within the (M2) limits (margins {MESH_TIE_TOL}, logits "
+              f"{MESH_AGREE_TOL})  [{card}]")
+        del rec
+        _free(torch)
+    print(f"(ME1), (E4), (F2) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+    return total
+
+
+class _OnDevice:
+    """A recorder's rows moved to ``device`` as they are read."""
+
+    def __init__(self, rec, device):
+        self.rec, self.device = rec, device
+
+    def row(self, rid, pos):
+        got = self.rec.row(rid, pos)
+        return None if got is None else got.to(self.device)
+
+
+def moe_mesh_only(torch, np, card):
+    """A development run of phase (ME) alone (``--only-moe-mesh``): the
+    world's (ME2) and (ME3), then (t)'s engine on the card for its tokens
+    (unchecked: phase 10 checks them) and ``moe_mesh_card_phase`` on a
+    world of one of its own."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    me2 = mesh_world_phase(torch, card, parts=("ME",))["ME"]
+    cfg = get_config(ME_ARCH)
+    params = T.init(cfg, seed=0, device="cuda")
+    prompts = make_prompts(np, cfg, PROMPT_LENS)
+    eng, *_ = serve(cfg, params, prompts, 32, n_slots=4, max_len=2048, mode="pdswap",
+                    overlap=True)
+    streams = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+    del eng
+    _free(torch)
+    mesh = open_m1_world()
+    try:
+        moe_mesh_card_phase(torch, np, cfg, params, streams, me2, mesh, card)
+    finally:
+        close_m1_world()
 
 
 # ---- phase (MT): training on a mesh of processes --
@@ -4776,20 +5563,25 @@ def _mt_state_rel(torch, whole, p1, o1):
             (("params", whole[0], p1), ("mu", whole[1].mu, o1.mu), ("nu", whole[1].nu, o1.nu))}
 
 
-def _mt_worst(hist, ref, state_rel):
-    """Each limited reading's worst: {"loss" | "grad_norm" over the steps,
-    "mu" | "nu" after step ``MT_STEPS``: value}."""
-    out = {k: max(_mt_rel(h[k], r[k]) for h, r in zip(hist, ref)) for k in ("loss", "grad_norm")}
-    return {**out, **{k: v for k, (v, _) in state_rel.items() if k in MT_LIMITS}}
+def _step_keys(limits):
+    """The per-step readings ``limits`` bounds: loss, grad norm (and aux)."""
+    return [k for k in ("loss", "grad_norm", "aux") if k in limits]
 
 
-def _mt_faults(hist, ref, state_rel=None, limits=MT_LIMITS):
-    """Where a run's losses and grad norms, and (``state_rel``) its state
-    after step ``MT_STEPS``, break the limits against ``ref``."""
+def _mt_worst(hist, ref, state_rel, limits=MT_LIMITS):
+    """Each limited reading's worst: {"loss" | "grad_norm" (| "aux") over
+    the steps, "mu" | "nu" after the last step: value}."""
+    out = {k: max(_mt_rel(h[k], r[k]) for h, r in zip(hist, ref)) for k in _step_keys(limits)}
+    return {**out, **{k: v for k, (v, _) in state_rel.items() if k in limits}}
+
+
+def _mt_faults(hist, ref, state_rel=None, limits=MT_LIMITS, after=MT_STEPS):
+    """Where a run's per-step readings, and (``state_rel``) its state after
+    step ``after``, break the limits against ``ref``."""
     out = [f"step {i} {k} {h[k]} against {r[k]} (relative {_mt_rel(h[k], r[k]):.3g}, limit "
            f"{limits[k]})" for i, (h, r) in enumerate(zip(hist, ref))
-           for k in ("loss", "grad_norm") if _mt_rel(h[k], r[k]) > limits[k]]
-    return out + [f"{k} after step {MT_STEPS}: {name} {v:.3g} (limit {limits[k]})"
+           for k in _step_keys(limits) if _mt_rel(h[k], r[k]) > limits[k]]
+    return out + [f"{k} after step {after}: {name} {v:.3g} (limit {limits[k]})"
                   for k, (v, name) in (state_rel or {}).items() if k in limits and v > limits[k]]
 
 
@@ -4909,50 +5701,18 @@ def mesh_train_m1_wait(proc) -> str:
     return out.strip()
 
 
-def mesh_train_phase(torch, np, card, mt1_report):
-    """(MT1)'s report (its process ran while the kernels built), then
-    (MT2)-(MT4) in a (data 2, model 2) gloo world of 4 processes sharing
-    this card (``python -m torch.distributed.run --standalone
-    --nproc-per-node 4 chip_smoke.py --mesh-train-worker DIR``), whose rank
-    0 checks each phase and writes its report.  Returns rank 0's launches
-    (the (MT3) serving run; no training step launches a kernel)."""
-    import shutil
-
-    print(mt1_report)
-    t0 = time.perf_counter()
-    shutil.rmtree(MT_DIR, ignore_errors=True)
-    MT_DIR.mkdir(parents=True)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={MESH_WORLD}", str(Path(__file__).resolve()), "--mesh-train-worker",
-           str(MT_DIR.resolve())]
-    try:
-        run = subprocess.run(cmd, capture_output=True, text=True, timeout=MT_TIMEOUT_S)
-        (MT_DIR.parent / "mesh_train_world.log").write_text(run.stdout + run.stderr)
-        if run.returncode != 0:
-            raise AssertionError(f"(MT2)-(MT4): the 4-rank world exited {run.returncode}:\n"
-                                 f"{(run.stdout + run.stderr)[-8000:]}")
-        result = json.loads((MT_DIR / "result.json").read_text())
-    finally:
-        shutil.rmtree(MT_DIR, ignore_errors=True)
-    print(f"(MT2) launched with: {' '.join(cmd[1:])}")
-    for line in result["report"]:
-        print(f"{line}  [{card}]")
-    print(f"(MT) the 4-rank world {time.perf_counter() - t0:.1f} s  [{card}]")
-    return result["launches"]
-
-
-def mesh_train_worker(out: Path) -> int:
-    """One rank of (MT2)-(MT4), started by ``torch.distributed.run``."""
+def _mt_rank(mesh, out: Path) -> None:
+    """(MT2)-(MT4) on this rank of the world; rank 0 checks each and writes
+    the report to ``MT_result.json``."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.common.tree import leaves, named_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import COUNTS, reset_counts
-    from repro_torch.launch.mesh import join_process_group, make_host_mesh, make_mesh
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.sharding_rules import gather_params, shard_params
     from repro_torch.launch.train import gather_state, state_specs
     from repro_torch.layers import collectives as C
@@ -4963,8 +5723,6 @@ def mesh_train_worker(out: Path) -> int:
     from repro_torch.train import trainer as TR
 
     t_start = time.perf_counter()
-    join_process_group("gloo")
-    mesh = make_host_mesh(data=2, model=2)
     rank, dev = mesh.rank, mesh.device
     report = []
 
@@ -4981,19 +5739,7 @@ def mesh_train_worker(out: Path) -> int:
             say(f"FAILED: {what}")
 
     # the collectives, counted where they reach torch.distributed
-    tally = {"calls": 0, "bytes": 0}
-    for name in ("broadcast", "all_reduce", "all_gather", "reduce_scatter_tensor",
-                 "all_to_all_single"):
-        fn = getattr(dist, name)
-
-        def counted(*args, _fn=fn, **kw):
-            tally["calls"] += 1
-            t = args[1] if _fn.__name__ in ("all_gather", "reduce_scatter_tensor") else args[0]
-            t = t[0] if isinstance(t, list) else t
-            tally["bytes"] += t.numel() * t.element_size()
-            return _fn(*args, **kw)
-
-        setattr(dist, name, counted)
+    tally, restore = _tally_collectives(dist)
 
     full = get_config("bitnet-730m")
     cfg = dataclasses.replace(full, num_layers=MT_LAYERS)
@@ -5280,14 +6026,37 @@ def mesh_train_worker(out: Path) -> int:
                 say(f"    (MT3) rank {r} {line}")
         del ref_eng, ref_rec, packed
     del eng, rec
+    restore()
+    _free(torch)
     say(f"(MT2)-(MT4) rank 0's seconds {time.perf_counter() - t_start:.1f}")
     if failures:
         raise AssertionError(f"rank {rank}: " + "; ".join(failures))
     if rank == 0:
-        (out / "result.json").write_text(json.dumps({"report": report, "launches": mt3}))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+        (out / "MT_result.json").write_text(json.dumps({"report": report, "launches": mt3}))
+
+
+def _tally_collectives(dist):
+    """Count the calls and bytes that reach ``torch.distributed``'s
+    collectives (each gloo broadcast of a gather counted).  Returns (the
+    tally, a function putting the collectives back)."""
+    tally = {"calls": 0, "bytes": 0}
+    names = ("broadcast", "all_reduce", "all_gather", "reduce_scatter_tensor", "all_to_all_single")
+    real = {name: getattr(dist, name) for name in names}
+    for name, fn in real.items():
+
+        def counted(*args, _fn=fn, **kw):
+            tally["calls"] += 1
+            t = args[1] if _fn.__name__ in ("all_gather", "reduce_scatter_tensor") else args[0]
+            t = t[0] if isinstance(t, list) else t
+            tally["bytes"] += t.numel() * t.element_size()
+            return _fn(*args, **kw)
+
+        setattr(dist, name, counted)
+
+    def restore():
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    return tally, restore
 
 
 def _bcast_obj(dist, obj):
@@ -5318,12 +6087,10 @@ def _to_cpu(tree):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":  # one rank of phase (M2)
-        sys.exit(mesh_worker(Path(sys.argv[2])))
-    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-train-worker":  # one rank of (MT2)-(MT4)
-        sys.exit(mesh_train_worker(Path(sys.argv[2])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-worker":  # one rank of the 4-rank world
+        sys.exit(mesh_worker(Path(sys.argv[2]), sys.argv[3].split(",")))
     if sys.argv[1:] == ["--mesh-train-m1"]:  # (MT1), in its own process
         sys.exit(mesh_train_m1_main())
-    if sys.argv[1:] == ["--only-mesh-train"]:  # phase (MT) alone, for development
-        sys.exit(main(only_mesh_train=True))
+    if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"]):  # for development
+        sys.exit(main(only=sys.argv[1][len("--only-"):]))
     sys.exit(main())

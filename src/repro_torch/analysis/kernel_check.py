@@ -550,7 +550,10 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
     column (K/2 + 4), B1 at the column shards (N/2) and the row shards
     (K/2, unit scale: the rank's int32 partial), B2 on 12 of 24 heads, B3
     and B4 over a sequence half with an empty slot, B5 and B6 over a data
-    rank's 2 slots."""
+    rank's 2 slots; then granite-moe-3b-a800m's on the same mesh: B2 on 12
+    of 24 heads over 4 of 8 KV heads, B3 over a sequence half and B6 over a
+    data rank's 2 slots of int8 pages, both at G = 3 (decode keeps the
+    heads whole), D = 64."""
     rng = np.random.default_rng(15)
     cases = []
     for m in (2, 4):
@@ -633,7 +636,48 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
         else:
             args = ("q", "k", "v", "tables", "lengths", None)
             cases.append(KernelCase(kernel, label, ops, args, {}, args, {}))
+    cases += _granite_mesh_cases(rng, tables, lengths, live)
     return [c for c in cases if kernels is None or c.kernel in kernels]
+
+
+def _granite_mesh_cases(rng, tables, lengths, page_live) -> List[KernelCase]:
+    """granite-moe-3b-a800m's launches on a rank of a (data 2, model 2)
+    mesh: 24 heads over 8 KV heads (G = 3) of 64."""
+    cases = []
+    for s_ in (65, 257):
+        q = rng.standard_normal((1, 12, s_, 64)).astype(np.float32)
+        k, v = (rng.standard_normal((1, 4, s_, 64)).astype(np.float32) for _ in range(2))
+        ops = {n: Operand(a, torch.float32, "float", extra_rows=EXTRA_ROWS)
+               for n, a in (("q", q), ("k", k), ("v", v))}
+        cases.append(KernelCase("prefill_attention", f"prefill H=12 Hkv=4 S={s_} D=64 (granite: "
+                                "12 of 24 heads)", ops, ("q", "k", "v"), {}, ("q", "k", "v"), {}))
+    hkv, g, half, d = 8, 3, 48, 64
+    for lens in ([0, half], [30, 0]):
+        live = np.zeros((2, half), bool)
+        for b_, n_ in enumerate(lens):
+            live[b_, :n_] = True
+        dead = np.broadcast_to(~live[:, None, :], (2, hkv, half)).copy()
+        ops = _walk_tensors(rng, (2, hkv, half), "bf16", d, dead, EXTRA_ROWS)
+        ops["q"] = Operand(rng.standard_normal((2, hkv, g, d)).astype(np.float32), torch.float32,
+                           "float")
+        ops["lengths"] = Operand(np.array(lens, np.int32), torch.int32, "index")
+        cases.append(KernelCase("decode_attention", f"decode_attention bf16 D={d} G={g} "
+                                f"Hkv={hkv} a sequence half of {half} lengths={lens} (granite)",
+                                ops, ("q", "k", "v", "lengths", None), {},
+                                ("q", "k_r", "v_r", "lengths", None), {}))
+    n_pages, bs = page_live.shape
+    dead = np.broadcast_to(~page_live[:, None, :], (n_pages, hkv, bs)).copy()
+    ops = _walk_tensors(rng, (n_pages, hkv, bs), "int8", d, dead, EXTRA_ROWS)
+    ops["q"] = Operand(rng.standard_normal((2, hkv, g, d)).astype(np.float32), torch.float32,
+                       "float")
+    ops["tables"] = Operand(tables.copy(), torch.int32, "index")
+    ops["lengths"] = Operand(np.array(lengths, np.int32), torch.int32, "index")
+    args = ("q", "k", "k_scale", "v", "v_scale", "tables", "lengths", None)
+    cases.append(KernelCase("paged_decode_attention_quant", f"paged_decode_attention_quant int8 "
+                            f"D={d} G={g} Hkv={hkv} a data rank's 2 slots lengths={lengths} "
+                            "(granite)", ops, args, {"kv_dtype": "int8"}, args,
+                            {"kv_dtype": "int8"}, fp_elems=n_pages * hkv * bs * d))
+    return cases
 
 
 def device_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:

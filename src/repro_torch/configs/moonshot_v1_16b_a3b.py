@@ -1,8 +1,8 @@
 """moonshot-v1-16b-a3b  [moe]  (hf:moonshotai/Moonlight-16B-A3B)
 
 48L d_model=2048 16H (GQA kv=16) per-expert d_ff=1408 vocab=163840,
-MoE 64e top-6.  Every expert is local: the JAX package's expert-parallel
-path on a mesh is ROADMAP A.13.3.
+MoE 64e top-6.  On a mesh whose model axis divides 64 the experts are
+expert-parallel (``layers.moe``: E / tp a rank, one exchange out and back).
 """
 from repro_torch.configs.base import ModelConfig
 

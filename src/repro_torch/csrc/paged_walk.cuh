@@ -710,18 +710,22 @@ int dispatch(int D, const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launchers' common entry.  format: 0 bf16, 1 f32, 2 int8, 3 int4.
-// strides: 12 values in elements, (page or batch, head, row) of k, v,
-// k_scale and v_scale (the scales' ignored for formats 0 and 1).  The rows
-// of a page or slot must be contiguous: row stride = row length, and 1 for
-// the scale planes; any other strides give cudaErrorInvalidValue.  Fills
-// in the payload and scale strides of p and launches.
-template <Src kSrc>
+// The launchers' common entry.  format: 0 bf16, 1 f32 (kScaled false), 2
+// int8, 3 int4 (kScaled true): each source instantiates the walks of its
+// own formats only, so the unscaled and the scaled walks build as two
+// sources at once.  strides: 12 values in elements, (page or batch, head,
+// row) of k, v, k_scale and v_scale (the scales' ignored for formats 0 and
+// 1).  The rows of a page or slot must be contiguous: row stride = row
+// length, and 1 for the scale planes; any other strides give
+// cudaErrorInvalidValue.  Fills in the payload and scale strides of p and
+// launches.
+template <Src kSrc, bool kScaled>
 int run(int format, int D, Params p, const long long* strides, int B, cudaStream_t stream) {
   static const int kElemBytes[4] = {2, 4, 1, 1};
-  if (format < 0 || format > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (format < (kScaled ? 2 : 0) || format > (kScaled ? 3 : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long row = format == 3 ? D / 2 : D;  // payload elements of a row
-  const bool scaled = format >= 2;
+  const bool scaled = kScaled;
   if (strides[2] != row || strides[5] != row || (scaled && (strides[8] != 1 || strides[11] != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int eb = kElemBytes[format];
@@ -731,11 +735,12 @@ int run(int format, int D, Params p, const long long* strides, int B, cudaStream
     p.ks_st[i] = scaled ? strides[6 + i] : 0;
     p.vs_st[i] = scaled ? strides[9 + i] : 0;
   }
-  switch (format) {
-    case 0: return dispatch<decode_walk::Bf16, kSrc>(D, p, B, stream);
-    case 1: return dispatch<decode_walk::F32, kSrc>(D, p, B, stream);
-    case 2: return dispatch<decode_walk::Int8, kSrc>(D, p, B, stream);
-    default: return dispatch<decode_walk::Int4, kSrc>(D, p, B, stream);
+  if constexpr (kScaled) {
+    return format == 2 ? dispatch<decode_walk::Int8, kSrc>(D, p, B, stream)
+                       : dispatch<decode_walk::Int4, kSrc>(D, p, B, stream);
+  } else {
+    return format == 0 ? dispatch<decode_walk::Bf16, kSrc>(D, p, B, stream)
+                       : dispatch<decode_walk::F32, kSrc>(D, p, B, stream);
   }
 }
 

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
-SOURCES = ("tlmm", "prefill_attention", "decode_attention", "paged_attention")
+SOURCES = ("tlmm", "prefill_attention", "decode_attention", "decode_attention_quant",
+           "paged_attention", "paged_attention_quant")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,6 @@
 """Decode attention ops: the CUDA kernels (``csrc/decode_attention.cu``, B3
-over a bf16/f32 cache and B4 over a quantized one) on CUDA tensors, their
-plain versions on CPU tensors.
+over a bf16/f32 cache, and ``csrc/decode_attention_quant.cu``, B4 over a
+quantized one) on CUDA tensors, their plain versions on CPU tensors.
 
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads the
 cache through its batch and head strides (query row b reads cache slot
@@ -157,13 +157,13 @@ def decode_attention_quant_kernel(q, k_q, k_scale, v_q, v_scale, lengths, starts
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
     l = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
-    fn = build.function("decode_attention", "decode_attention_quant_launch", _QUANT_ARGS)
+    fn = build.function("decode_attention_quant", "decode_attention_quant_launch", _QUANT_ARGS)
     rc = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(), v_scale.data_ptr(),
             lengths.data_ptr(), None if starts is None else starts.contiguous().data_ptr(),
             out.data_ptr(), l.data_ptr(), m.data_ptr(), b, hkv, g, s, d,
             int(kv_dtype == "int4"), strides_arg(k_q, v_q, k_scale, v_scale),
             int(rows_per_slot), float(sm_scale), build.stream_ptr(q.device))
-    build.check(rc, "decode_attention_quant_launch", "decode_attention")
+    build.check(rc, "decode_attention_quant_launch", "decode_attention_quant")
     COUNTS.add("decode_attention_quant", shape=(tuple(q.shape), tuple(k_q.shape)))
     return out, l, m
 

@@ -1,6 +1,6 @@
 """Paged decode attention ops: the CUDA kernels (``csrc/paged_attention.cu``,
-B5 over bf16/f32 pages and B6 over quantized ones) on CUDA tensors, their
-plain versions on CPU tensors.
+B5 over bf16/f32 pages, and ``csrc/paged_attention_quant.cu``, B6 over
+quantized ones) on CUDA tensors, their plain versions on CPU tensors.
 
 Takes flat (B, H, D) queries, regroups them to (B, Hkv, G, D), and reads one
 layer's pages through their strides: the slice ``pages[:, li]`` of the
@@ -121,7 +121,8 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
     lengths = lengths.contiguous()
     block_tables = block_tables.contiguous()
     out, l, m = _outputs(q)
-    fn = build.function("paged_attention", "paged_decode_attention_quant_launch", _QUANT_ARGS)
+    fn = build.function("paged_attention_quant", "paged_decode_attention_quant_launch",
+                        _QUANT_ARGS)
     rc = fn(q.data_ptr(), k_pages_q.data_ptr(), k_scales.data_ptr(), v_pages_q.data_ptr(),
             v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
             None if starts is None else starts.contiguous().data_ptr(),
@@ -129,7 +130,7 @@ def paged_decode_attention_quant_kernel(q, k_pages_q, k_scales, v_pages_q, v_sca
             block_tables.shape[1], d, int(kv_dtype == "int4"),
             strides_arg(k_pages_q, v_pages_q, k_scales, v_scales), float(sm_scale),
             build.stream_ptr(q.device))
-    build.check(rc, "paged_decode_attention_quant_launch", "paged_attention")
+    build.check(rc, "paged_decode_attention_quant_launch", "paged_attention_quant")
     COUNTS.add("paged_decode_attention_quant",
                shape=(tuple(q.shape), tuple(block_tables.shape)))
     return out, l, m

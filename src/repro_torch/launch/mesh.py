@@ -106,8 +106,13 @@ class Mesh:
         mesh's order) names the ranks that differ from this one only along
         those axes, ordered major to minor as JAX orders them: every axis is
         the whole world, ``("pod", "data")`` the multi-pod mesh's batch
-        group.  A tuple's groups are built once, on first use, by every
-        rank together (the same call on every rank, as all collectives)."""
+        group.  No axis (None, or an empty tuple: a model axis the mesh
+        lacks) is this rank alone, a group of one, on which every helper
+        of ``layers.collectives`` is the identity.  A tuple's groups are
+        built once, on first use, by every rank together (the same call on
+        every rank, as all collectives)."""
+        if axis is None or axis == ():
+            return self._tuple_group(())
         if isinstance(axis, tuple):
             if len(axis) == 1:
                 axis = axis[0]

@@ -8,8 +8,9 @@ place (``form``):
 * ``native`` (NCCL): the backend's own all-gather and all-to-all;
 * ``portable`` (gloo): written with ``broadcast`` and ``all_reduce``
   alone, the two collectives gloo documents for CUDA tensors.  A gather
-  or an exchange is one broadcast per rank of the group, so every rank
-  receives the very bits that were sent.
+  or an exchange is one broadcast per rank of the group (an exchange's
+  carries the sender's chunks for the other ranks, not its own), so every
+  rank receives the very bits that were sent.
 
 Both forms return the same bits.  ``all_reduce`` (sum and max) and
 ``broadcast`` are native in both.
@@ -76,9 +77,24 @@ def all_to_all(x: torch.Tensor, group, *, split_dim: int, cat_dim: int,
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=group)
         return torch.cat(recv.unbind(0), dim=cat_dim)
+    # each rank broadcasts the chunks of the other ranks (not its own), and
+    # each receiver keeps its one
     me = dist.get_rank(group)
-    whole = _broadcast_each(x.contiguous(), group)
-    return torch.cat([w.chunk(k, dim=split_dim)[me] for w in whole], dim=cat_dim)
+    chunks = x.chunk(k, dim=split_dim)
+    if k == 1:
+        return torch.cat(chunks, dim=cat_dim)
+    shape = list(chunks[0].shape)
+    shape[split_dim] *= k - 1
+    parts = []
+    for i in range(k):
+        if i == me:
+            buf = torch.cat([c for j, c in enumerate(chunks) if j != me], dim=split_dim)
+        else:
+            buf = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.broadcast(buf, src=dist.get_global_rank(group, i), group=group)
+        parts.append(chunks[me] if i == me else
+                     buf.chunk(k - 1, dim=split_dim)[me if me < i else me - 1])
+    return torch.cat(parts, dim=cat_dim)
 
 
 def all_reduce(x: torch.Tensor, group, *, op: str = "sum") -> torch.Tensor:
@@ -118,7 +134,8 @@ def reduce_scatter(x: torch.Tensor, group, *, dim: int, how: Optional[str] = Non
 
 
 # ---- the collectives with gradients: the conjugate pairs a sharded
-# training step needs (Megatron's f and g, the FSDP gather).  A group of one
+# training step needs (Megatron's f and g, the FSDP gather, the MoE's
+# exchange).  A group of one
 # rank is the identity both ways, so a (1, 1) mesh runs the unsharded ops.
 
 
@@ -158,6 +175,17 @@ class _FSDPGather(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, dim=ctx.dim), None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.group, ctx.split_dim, ctx.cat_dim = group, split_dim, cat_dim
+        return all_to_all(x, group, split_dim=split_dim, cat_dim=cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group, split_dim=ctx.cat_dim, cat_dim=ctx.split_dim), None, None, None
+
+
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -187,6 +215,15 @@ def fsdp_gather(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:
     backward the SUM reduce-scatter, each rank keeping the gradient of its
     own shard summed over the ranks' batches."""
     return x if _trivial(group) else _FSDPGather.apply(x, group, dim)
+
+
+def exchange(x: torch.Tensor, group, *, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """(e) ``all_to_all`` with a gradient: the MoE's expert-parallel
+    exchange (chunk j of ``split_dim`` to group rank j, the received chunks
+    concatenated along ``cat_dim`` in group order); backward the inverse
+    exchange, ``split_dim`` and ``cat_dim`` swapped, which hands each
+    rank's gradient chunk back to the rank that sent it."""
+    return x if _trivial(group) else _Exchange.apply(x, group, split_dim, cat_dim)
 
 
 def gather_replicated(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:

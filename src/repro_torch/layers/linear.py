@@ -142,7 +142,7 @@ def linear_apply_row_parallel(params: dict, x: torch.Tensor, quant: QuantConfig,
     exactly, and the one rounding is the final scale, as in the unsharded
     kernel.  A dense weight sums f32 partial products, rounded once to
     x's dtype at the end (a rounding the unsharded product does not
-    make)."""
+    make); on a group of one it is the unsharded product, bit for bit."""
     w = params["w"]
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
@@ -164,6 +164,8 @@ def linear_apply_row_parallel(params: dict, x: torch.Tensor, quant: QuantConfig,
     elif quant.ternary:
         raise NotImplementedError("a row-parallel ternary linear takes packed weights "
                                   "(models.transformer.convert_for_inference)")
+    elif C._trivial(group):
+        return linear_apply(params, x, quant)
     else:
         y = C.all_reduce(x2.float() @ w.float(), group).to(x.dtype)
     y = y.reshape(*lead, y.shape[-1])

@@ -251,21 +251,28 @@ def _gather_rows(t: torch.Tensor, pctx: PartitionCtx, n: int, dim: int = 0) -> t
 
 def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = False) -> None:
     """Refuse, by name, a model the mesh programs do not shard: another
-    family, an MoE FFN, a sliding window, or dims the model axis does not
-    divide (heads, KV heads, d_ff, vocabulary rows, packed K rows).  In
+    family, a sliding window, or dims the model axis does not divide
+    (heads, KV heads, d_ff, vocabulary rows, packed K rows; an MoE's
+    experts are over it where it divides their count, else its d_ff).  In
     training (``train``) the data axis shards every weight's d_model dim
     (FSDP) and must divide it too."""
     if pctx.mesh is None:
         return
-    if cfg.family != "transformer" or cfg.moe:
+    if cfg.family != "transformer":
         raise NotImplementedError(
-            f"{cfg.name}: the mesh programs shard the dense transformer family; MoE expert "
-            "parallelism on a mesh is ROADMAP A.13.3, the other families on a mesh A.13")
-    _check_window(cfg)
+            f"{cfg.name}: the mesh programs shard the transformer family; the other families "
+            "on a mesh are ROADMAP A.13")
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: a sliding window on a mesh is ROADMAP A.13")
     tp = pctx.tp_size
     dims = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
-            "d_ff / 4": cfg.d_ff // 4, "num_heads * head_dim / 4": cfg.num_heads * cfg.head_dim // 4,
+            "num_heads * head_dim / 4": cfg.num_heads * cfg.head_dim // 4,
             "padded_vocab": cfg.padded_vocab()}
+    if not cfg.moe:
+        dims["d_ff / 4"] = cfg.d_ff // 4
+    elif cfg.num_experts % tp:  # the experts whole on every rank, their d_ff over the axis
+        dims["moe_d_ff"] = cfg.moe_d_ff
     bad = {k: v for k, v in dims.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: the model axis ({tp}) does not divide {bad}")
@@ -279,22 +286,23 @@ def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = Fals
 def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
          pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
     """A layer's FFN: the MoE (its aux loss, which serving discards, is not
-    computed) or the dense SwiGLU."""
+    computed) or the dense SwiGLU, each on the mesh of ``pctx``."""
     if cfg.moe:
-        return moe_forward(lp["moe"], h, cfg)
+        return moe_forward(lp["moe"], h, cfg, pctx=pctx)
     return mlp_apply(lp["mlp"], h, cfg, pctx=pctx)
 
 
 def _block_train(x, lp, positions, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """One layer of the training pass: (x, the layer's aux loss, f32).  On a
     mesh the layer's weights are gathered over data inside it, so remat
-    recomputes the gathers in backward rather than keeping whole weights."""
+    recomputes the gathers in backward rather than keeping whole weights;
+    an MoE layer's aux loss is this rank's share of the batch's."""
     h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
     attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, training=True, pctx=pctx)
     x = x + attn_out
     h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
     if cfg.moe:
-        ffn_out, aux = moe_apply(lp["moe"], h, cfg, training=True)
+        ffn_out, aux = moe_apply(lp["moe"], h, cfg, training=True, pctx=pctx)
     else:
         ffn_out = mlp_apply(lp["mlp"], h, cfg, training=True, pctx=pctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

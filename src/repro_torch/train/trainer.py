@@ -126,7 +126,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
     [i B/n, (i+1) B/n), each rank taking its rows of it, so each
     microbatch's mean runs over the same rows' mask as in JAX.  The loss
     and nll are summed over the batch axes: a rank's share is its rows' nll
-    over the global mask sum."""
+    over the global mask sum; an MoE's aux loss too (its share of the
+    whole batch's, ``layers.moe._aux_share``)."""
     api = get_model(cfg)
     sched = SCHEDULES[tcfg.schedule]
     pctx = train_pctx(mesh)
@@ -161,10 +162,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None) -> Callable:
         if mesh is not None:
             reduce_dp_grads(grads, pctx, replicated)
             dp = _axes_of(pctx.axes.dp)
-            if pctx.size(dp) > 1:  # the ranks' shares of the global mean
+            if pctx.size(dp) > 1:  # the ranks' shares of the global mean (and aux loss)
                 group = _group_over(mesh, dp)
+                shared = ("nll", "aux") if cfg.moe else ("nll",)
                 loss = C.all_reduce(loss, group)
-                metrics = {k: C.all_reduce(v, group) if k == "nll" else v
+                metrics = {k: C.all_reduce(v, group) if k in shared else v
                            for k, v in metrics.items()}
         lr = sched(step, peak_lr=tcfg.lr, warmup=tcfg.warmup, total=tcfg.total_steps)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr, tcfg.adamw,

@@ -708,7 +708,7 @@ def test_walk_merge_with_an_empty_shard():
 
 
 def test_mesh_refusals():
-    """A mesh refuses what it does not shard, by name: an MoE config,
+    """A mesh refuses what it does not shard, by name: another family,
     chunked prefill and speculative decoding, a swap policy that reads a
     clock or a measured cost, and dims the model axis does not divide."""
     from repro_torch.configs import reduced_config
@@ -718,7 +718,7 @@ def test_mesh_refusals():
 
     mesh = _StubMesh({"data": 0, "model": 0})
     with pytest.raises(NotImplementedError, match="A.13"):
-        PhaseEngine(reduced_config("granite-moe-3b-a800m"), mesh)
+        PhaseEngine(reduced_config("hymba-1.5b"), mesh)
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 0, device="cpu"), cfg)
     for kw in (dict(prefill_chunk=8), dict(spec_decode=2)):
@@ -744,9 +744,10 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     shard shapes (``kernel_check.mesh_cases``): act-quant over a row
     shard with its absmax column, B1 at the column and row shards (a row
     shard at a unit scale), B2 on 12 of 24 heads, the walks over a
-    sequence half with an empty slot and over a data rank's slots.  Here
-    each case's plain version runs and a row shard's B1 returns the exact
-    int32 partial."""
+    sequence half with an empty slot and over a data rank's slots; and
+    granite-moe-3b-a800m's: B2 on 12 of 24 heads over 4 KV heads, B3 and
+    B6 at G = 3.  Here each case's plain version runs and a row shard's B1
+    returns the exact int32 partial."""
     from repro_torch.analysis import kernel_check as K
     from repro_torch.quant.ternary import unpack_ternary
 
@@ -758,6 +759,8 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
                           (2048, 1536, "row")):
             assert f"M={m} K={k} N={n} (a model rank's {how} shard)" in shards
     assert any("H=12 Hkv=12" in c.label for c in cases if c.kernel == "prefill_attention")
+    granite = [c.label for c in cases if "granite" in c.label]  # G = 3 shards of a MoE mesh
+    assert sum("H=12 Hkv=4" in x for x in granite) == 2 and len(granite) == 5, granite
     assert any("lengths=[0, 48]" in c.label for c in cases if c.kernel == "decode_attention_quant")
     plains = K._plains()
     for case in cases:

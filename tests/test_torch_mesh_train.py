@@ -603,8 +603,8 @@ def _printed_losses(text):
 def test_train_cli_on_a_mesh_of_one_and_its_refusals(tmp_path, capsys):
     """``--mesh host`` on a world of one prints the ``--mesh none`` run's
     losses and restores its own checkpoint; ``--mesh single`` raises that
-    the world lacks 256 ranks; a mesh needs a backend; an MoE arch on a
-    mesh is refused, citing A.13."""
+    the world lacks 256 ranks; a mesh needs a backend; an MoE arch on
+    ``--mesh host`` prints its ``--mesh none`` losses too."""
     from repro_torch.launch import train as train_cli
 
     ck = str(tmp_path / "ck")
@@ -621,8 +621,12 @@ def test_train_cli_on_a_mesh_of_one_and_its_refusals(tmp_path, capsys):
         train_cli.main(CLI + ["--mesh", "single", "--backend", "gloo"])
     with pytest.raises(ValueError, match="needs --backend"):
         train_cli.main(CLI + ["--mesh", "host"])
-    with pytest.raises(NotImplementedError, match="A.13"):
-        train_cli.main(["--arch", "granite-moe-3b-a800m"] + CLI[2:] + mesh)
+    moe = ["--arch", "granite-moe-3b-a800m"] + CLI[2:]
+    assert train_cli.main(moe) == 0
+    want = _printed_losses(capsys.readouterr().out)
+    assert train_cli.main(moe + mesh) == 0
+    text = capsys.readouterr().out
+    assert _printed_losses(text) == want and sorted(want) == [0, 1, 2], text
     import torch.distributed as dist
 
     assert not dist.is_initialized()  # each run left the world it made
