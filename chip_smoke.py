@@ -965,12 +965,10 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
     (2, 24, 24, 1024, 64) block, lengths cut to the half: the second half
     holds an empty slot), the two halves' walks merged as the ranks merge
     them against the whole walk; B5 and B6 over a data rank's 2 slots of
-    a whole pool.  Each against its plain version, timed beside its bound
-    and its library yardstick.  Returns [(kernel, case)]."""
+    a whole pool (``walk_shard_checks``).  Each against its plain version,
+    timed beside its bound and its library yardstick.  Returns [(kernel,
+    case)]."""
     from repro_torch.kernels import costs
-    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
-    from repro_torch.layers.attention import combine_partials
-    from repro_torch.quant.kv_quant import dequantize_kv
 
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1017,9 +1015,32 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
             "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
             "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush)}))
         del q, k, v
-    b, layers, hkv, d, smax, bs = 2, 24, 24, 64, 2048, 16
+    return out + walk_shard_checks(
+        torch, ops, refs, flush, gen, MESH_LENGTHS, ("int8", "int4"), ("fp", "int8"),
+        "model rank {r}'s sequence half", "a data rank's 2 slots")
+
+
+def walk_shard_checks(torch, ops, refs, flush, gen, lengths_, quant_half, paged_formats,
+                      half_what, pool_what):
+    """The walks at a decode rank's shard shapes of bitnet-730m (24 heads of
+    64, max_len 2,048, 16-token pages): B3 over each model rank's half of
+    the sequence (a layer slice of a (B, 24, 24, 1024, 64) block, the
+    lengths cut to the half), the two halves merged as the ranks merge them
+    against the whole walk; B4 (``quant_half``) on model rank 1's half; B5
+    and B6 (``paged_formats``) over B slots' tables into a whole pool of 512
+    pages.  B = len(lengths_).  Each against its plain version, timed beside
+    its bound and its library yardstick.  Returns [(kernel, case)]."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
+    from repro_torch.layers.attention import combine_partials
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    b, layers, hkv, d, smax, bs = len(lengths_), 24, 24, 64, 2048, 16
     half = smax // 2
-    glob = torch.tensor(MESH_LENGTHS, dtype=torch.int32, device=dev)
+    glob = torch.tensor(lengths_, dtype=torch.int32, device=dev)
     halves = [torch.clamp(glob - r * half, 0, half).to(torch.int32) for r in range(2)]
     q = torch.randn((b, hkv, 1, d), generator=gen, device=dev)
     qb = q.to(torch.bfloat16)
@@ -1043,7 +1064,7 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
         parts.append(got)
         mask = (torch.arange(half, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         entry("decode_attention",
-              f"model rank {r}'s sequence half: B={b} Hkv={hkv} D={d} local lengths "
+              f"{half_what.format(r=r)}: B={b} Hkv={hkv} D={d} local lengths "
               f"{lengths.tolist()} of {half} rows bf16 layer slice of ({b},{layers},{hkv},{half},{d})",
               err, lambda: ops["decode"](q, *kv, lengths), lambda: refs["decode"](q, *kv, lengths),
               lambda: sdpa(qb, *kv, attn_mask=mask),
@@ -1054,10 +1075,10 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
     merr = (merged[0] - full[0].reshape(b, hkv, -1)).abs().max().item()
     if not merr <= 1e-4:
         raise AssertionError(f"the two sequence halves' walks merge {merr} off the whole walk")
-    print(f"kernel decode_attention: the two model ranks' halves merged = the whole walk "
-          f"within {merr:.3g}")
+    print(f"kernel decode_attention: the two model ranks' halves of {b} slots merged = the "
+          f"whole walk within {merr:.3g}")
     del whole
-    for kv_dtype in ("int8", "int4"):
+    for kv_dtype in quant_half:
         lengths = halves[1]
         (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, half, d),
                                                 kv_dtype) for _ in range(2))
@@ -1069,7 +1090,7 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
                   for p_, s_ in ((args[1], args[2]), (args[3], args[4])))
         mask = (torch.arange(half, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         entry("decode_attention_quant",
-              f"model rank 1's sequence half: B={b} Hkv={hkv} D={d} local lengths "
+              f"{half_what.format(r=1)}: B={b} Hkv={hkv} D={d} local lengths "
               f"{lengths.tolist()} of {half} rows {kv_dtype} layer slice",
               err, lambda: ops["decode_quant"](*args, kv_dtype=kv_dtype),
               lambda: refs["decode_quant"](*args, kv_dtype=kv_dtype),
@@ -1078,13 +1099,15 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
                                           cap=half))
         del kc, ksc, vc, vsc, kd, vd
     pool_pages, n_pages = 512, smax // bs
-    used = [-(-n // bs) for n in MESH_LENGTHS]
+    used = [-(-n // bs) for n in lengths_]
     perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
     tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
-    tables[0, :used[0]] = perm[:used[0]]
-    tables[1, :used[1]] = perm[used[0]:used[0] + used[1]]
+    at = 0
+    for i, u in enumerate(used):
+        tables[i, :u] = perm[at:at + u]
+        at += u
     mask = (torch.arange(smax, device=dev)[None, :] < glob[:, None])[:, None, None, :]
-    for kv_dtype in ("fp", "int8"):
+    for kv_dtype in paged_formats:
         name = "paged" if kv_dtype == "fp" else "paged_quant"
         kernel = "paged_decode_attention" + ("" if kv_dtype == "fp" else "_quant")
         kw = {} if kv_dtype == "fp" else {"kv_dtype": kv_dtype}
@@ -1102,15 +1125,30 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
                       for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
         args = (q, *planes, tables, glob)
         got = ops[name](*args, **kw)
-        err = _check_err(f"{kernel} a data rank's slots", got, refs[name](*args, **kw))
-        entry(kernel, f"a data rank's 2 slots: B={b} Hkv={hkv} N={pool_pages} bs={bs} "
-              f"lengths={MESH_LENGTHS} {'bf16' if kv_dtype == 'fp' else kv_dtype} whole pool",
+        err = _check_err(f"{kernel} {pool_what}", got, refs[name](*args, **kw))
+        entry(kernel, f"{pool_what}: B={b} Hkv={hkv} N={pool_pages} bs={bs} "
+              f"lengths={lengths_} {'bf16' if kv_dtype == 'fp' else kv_dtype} whole pool",
               err, lambda: ops[name](*args, **kw), lambda: refs[name](*args, **kw),
               lambda: sdpa(qb, kd, vd, attn_mask=mask),
-              costs.decode_attention_cost(MESH_LENGTHS, hkv, 1, d, kv_dtype=kv_dtype, paged=True,
+              costs.decode_attention_cost(lengths_, hkv, 1, d, kv_dtype=kv_dtype, paged=True,
                                           bs=bs, cap=smax))
         del planes, args, kd, vd
     return out
+
+
+
+
+SPLIT_LENGTHS = [80, 1552, 316, 916]  # (MD)'s 4 slots after 16 tokens: its prompts + 16
+
+
+def split_kernel_checks(torch, ops, refs, flush, gen):
+    """Phase 3 at a decode rank's shapes on the pod split (MD): B3 over each
+    model rank's half of the sequence at the pool's 4 slots (data 1: every
+    slot on every rank), B6 over 4 slots of the whole pool of 512 int8
+    pages (MD2) (``walk_shard_checks``)."""
+    return walk_shard_checks(torch, ops, refs, flush, gen, SPLIT_LENGTHS, (), ("int8",),
+                             "the split's decode rank {r}, 4 slots", "the split's decode rank, "
+                             "data 1: 4 slots")
 
 
 # the shard shapes of phase (ME): granite-moe-3b-a800m on a (data 2, model 2)
@@ -1456,6 +1494,16 @@ def main(only: str | None = None) -> int:
     if only == "moe-mesh":  # a development run of phase (ME) alone: no result line
         moe_mesh_only(torch, np, card)
         return 0
+    if only == "disagg-mesh":  # a development run of phase (MD) alone: no result line
+        cfg = get_config("bitnet-730m")
+        params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
+
+        def refs():
+            return md_references(torch, np, cfg, params)
+
+        mesh_world_phase(torch, card, parts=("MD",), beside=[("(MD) references", refs)],
+                         md_refs=lambda: EARLY.take("(MD) references", refs))
+        return 0
 
     _elapsed("kernel checks")
     # ---- 3. kernels against their plain versions
@@ -1478,7 +1526,9 @@ def main(only: str | None = None) -> int:
                        + mesh_kernel_checks(torch, ops, refs, flush,
                                             torch.Generator(device="cuda").manual_seed(3))
                        + moe_mesh_kernel_checks(torch, ops, refs, flush,
-                                                torch.Generator(device="cuda").manual_seed(4))):
+                                                torch.Generator(device="cuda").manual_seed(4))
+                       + split_kernel_checks(torch, ops, refs, flush,
+                                             torch.Generator(device="cuda").manual_seed(5))):
         r = checks[name]
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
@@ -1580,8 +1630,8 @@ def main(only: str | None = None) -> int:
 
     _elapsed("paths (a)-(j)")
     # ---- 5. the other cache options at full width
-    path_launches, path_i, paths_bd = cache_option_paths(torch, np, cfg, params, prompts,
-                                                         max_tokens, n_slots, max_len, card)
+    path_launches, path_i = cache_option_paths(torch, np, cfg, params, prompts, max_tokens,
+                                               n_slots, max_len, card)
     _elapsed("(M2), (MT2)-(MT4), (ME2), (ME3)")
     # ---- the 4-rank world on this card: (M2) the same model on a (data 2,
     # model 2) gloo mesh; (MT) and (ME3) training; (ME2) granite served.
@@ -1593,16 +1643,27 @@ def main(only: str | None = None) -> int:
                 list(verify_references(torch, T, cfg2, p_gpu, p_cpu, kv_c, rng)),
                 chunk_reference(torch, T, cfg2, p_gpu, p_cpu, tokens))
 
-    beside = ([("main references", main_references)] + family_reference_jobs(torch)
+    def md_refs():
+        return md_references(torch, np, cfg, params)
+
+    def cut_refs():
+        return mesh_cut_references(torch, np)
+
+    beside = ([("(MD) references", md_refs), ("(M2) cut references", cut_refs),
+               ("main references", main_references)]
+              + family_reference_jobs(torch)
               + [("(T4)", lambda: family_gradients(torch, np, card))])
     world = mesh_world_phase(torch, card, m2_args=(
-        cfg, main_kv, {"a": {"streams": main_streams, "recorder": main_rec}, **paths_bd}),
-        mt1_report=mt1_report, beside=beside)
+        cfg, main_kv, {"a": {"streams": main_streams, "recorder": main_rec}},
+        lambda: EARLY.take("(M2) cut references", cut_refs)),
+        mt1_report=mt1_report, beside=beside,
+        md_refs=lambda: EARLY.take("(MD) references", md_refs))
     (mesh_launches, m2a), mt_launches, me2 = world["M2"], world["MT"], world["ME"]
-    del paths_bd, world
+    md_launches, md_parts = world["MD"]
+    del world
     _elapsed("(E), (F)")
     mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
-                     m2a, card)
+                     m2a, card, md_parts=md_parts)
     del m2a
     _elapsed("paths (k)-(m)")
     spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
@@ -1660,7 +1721,7 @@ def main(only: str | None = None) -> int:
     for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches,
                  front_launches, cli_launches, disagg_launches, cli_disagg_launches,
                  family_launches, cli_smollm_launches, other_launches, train_launches,
-                 mt_launches, me2_launches):
+                 mt_launches, me2_launches, md_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1716,7 +1777,7 @@ def main(only: str | None = None) -> int:
 
 MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
 MESH_WORLD = 4
-MESH_PARTS = ("M2", "MT", "ME")  # the world's phases, in the order its ranks run them
+MESH_PARTS = ("M2", "MD", "MT", "ME")  # the world's phases, in the order its ranks run them
 MESH_TIMEOUT_S = 900  # the 4-rank world: (M2), (MT2)-(MT4), (ME2), (ME3)
 # (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
 # options, and the path whose streams it must give
@@ -1733,6 +1794,35 @@ MESH_PATHS = (
 # form (one broadcast a rank) that ``layers.collectives.form`` picks there
 MESH_NATIVE = ("M2a-native", "(M2a) with the native gathers and exchange", False,
                MESH_PATHS[0][3], None)
+# (M2b) and (M2c) at a smaller depth: bitnet-730m at full width cut to
+# MESH_CUT_LAYERS of its 24 layers (``T.init`` of the cut config, seed 0),
+# with every request and new token of the full paths (8 x 32: both data
+# ranks serve live requests, and later requests take freed slots and pages
+# while others decode).  Each is held to a one-card run of the cut model in
+# its configuration (``mesh_cut_references``, beside the world); (Fc), the
+# cut model in (M2a)'s configuration with the walk's second half dropped
+# (the planted fault), must fail the limits against the sound run of it.
+# Read on one H100 80GB HBM3 (700 W): (M2b) and (M2c) no parting, logits
+# on common tokens 0.0721 and 0.0738 apart; (Fc) parts at req1's first
+# decode token (margins 0.341, 0.254), 0.895 apart: the (M2) limits lie
+# between at this depth too
+MESH_CUT_LAYERS = 6
+MESH_CUT = ("M2b", "M2c")
+MESH_CUT_SOUND, MESH_CUT_FAULT = "Fc-sound", "Fc"
+MESH_NEW = 32  # new tokens a request of (M2)
+# The native rerun keeps (M2a)'s depth, for its tokens must equal the
+# portable form's bit for bit: the first 4 requests (one live on each data
+# rank), 8 new tokens.  Every slot holds one of them until its 8th token,
+# so the batches are (M2a)'s and the tokens (M2a)'s first 8
+MESH_NATIVE_RUN = (4, 8)
+def _prefix(want, got):
+    """``want``'s streams cut to ``got``'s requests and lengths."""
+    return {rid: list(want[rid])[:len(got[rid])] for rid in got}
+
+
+def _mesh_cut(cfg):
+    """bitnet-730m at full width, cut to ``MESH_CUT_LAYERS``."""
+    return dataclasses.replace(cfg, num_layers=MESH_CUT_LAYERS)
 
 
 def _mesh_expect(cfg, kw, stats, prefills):
@@ -1854,7 +1944,8 @@ class _RowsRecorder:
         return self.rows.get((rid, pos))
 
 
-def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=None, beside=()):
+def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=None, beside=(),
+                     md_refs=None):
     """One (data 2, model 2) gloo world of 4 processes on this card
     (``python -m torch.distributed.run --standalone --nproc-per-node 4
     chip_smoke.py --mesh-worker DIR PARTS``; each rank on cuda:0, the
@@ -1865,9 +1956,11 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
     Then (M2)'s checks against the single card (``m2_args``: cfg, main_kv,
     refs), (MT1)'s report and the ranks' reports are printed.  Returns
     {"M2": (rank 0's launches summed over ``MESH_PATHS``, (M2a)'s streams
-    and logits rows), "MT": rank 0's (MT3) launches, "ME": (ME2)'s results
-    (``me2_results``)}, each for the parts run.  ``beside``: [(key, fn)]
-    run in this process meanwhile (``EARLY``)."""
+    and logits rows), "MD": ranks 0's and 2's launches over (MD1) and (MD2),
+    "MT": rank 0's (MT3) launches, "ME": (ME2)'s results (``me2_results``)},
+    each for the parts run.  ``beside``: [(key, fn)] run in this process
+    meanwhile (``EARLY``); ``md_refs()``: (MD)'s one-card references, read
+    once the world has ended."""
     import shutil
 
     t0 = time.perf_counter()
@@ -1904,6 +1997,9 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
                  if beside else "") + f"  [{card}]")
         if "M2" in parts:
             out["M2"] = _mesh_m2_results(torch, *m2_args, card)
+        if "MD" in parts:
+            out["MD"] = _mesh_md_results(torch, m2_args[0] if m2_args else _bitnet(), md_refs(),
+                                         card)
         if "MT" in parts:
             print(mt1_report)
             result = json.loads((MESH_DIR / "MT_result.json").read_text())
@@ -1922,20 +2018,34 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
     return out
 
 
-def _mesh_m2_results(torch, cfg, main_kv, refs, card):
-    """(M2)'s checks and printout from the ranks' files."""
+def _bitnet():
+    from repro_torch.configs import get_config
+
+    return get_config("bitnet-730m")
+
+
+def _mesh_m2_results(torch, cfg, main_kv, refs, cut_refs, card):
+    """(M2)'s checks and printout from the ranks' files: (M2a) against the
+    main path, the native rerun against (M2a) bit for bit, the cut paths
+    (``MESH_CUT``) against the cut model's one-card runs (``cut_refs()``,
+    read once the world has ended), each reading beside the limits, and
+    (Fc) failing them."""
     from repro_torch.serving import SamplingParams
 
+    greedy = lambda rid: SamplingParams()  # noqa: E731
+    cut = _mesh_cut(cfg)
+    cut_refs = cut_refs()
     total, m2a = {}, None
     for key, what, _, kw, ref in MESH_PATHS + (MESH_NATIVE,):
         ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
                  for r in range(MESH_WORLD)]
         r0 = ranks[0]
+        model = cut if key in MESH_CUT else cfg
         for r, got in enumerate(ranks):
             if got["snapshot"] != r0["snapshot"]:
                 raise AssertionError(f"({key}): rank {r}'s host decisions differ from rank 0's")
             shapes = got["shapes"]
-            want = _mesh_expect(cfg, kw, got["stats"], got["stats"]["prefills"])
+            want = _mesh_expect(model, kw, got["stats"], got["stats"]["prefills"])
             if got["launches"] != want or sum(shapes.values()) != sum(want.values()):
                 raise AssertionError(f"({key}) rank {r}: launches {got['launches']} != {want}")
             if key == MESH_NATIVE[0]:
@@ -1952,38 +2062,77 @@ def _mesh_m2_results(torch, cfg, main_kv, refs, card):
         st = r0["stats"]
         if key == MESH_NATIVE[0]:
             base = json.loads((MESH_DIR / f"{MESH_PATHS[0][0]}_rank0.json").read_text())
-            if r0["streams"] != base["streams"]:
+            if r0["streams"] != _prefix(base["streams"], r0["streams"]):
                 raise AssertionError(f"({key}): the native collectives' tokens differ from "
                                      f"({MESH_PATHS[0][0]})'s")
+            n, new = MESH_NATIVE_RUN
             print(f"({key}) {what}: decode {st['decode_round_ms']:.2f} ms/round "
                   f"({st['decode_tput']:.1f} tok/s) against the portable form's "
                   f"{base['stats']['decode_round_ms']:.2f}, swap mean {r0['relayout_ms']:.3f} ms "
                   f"against {base['relayout_ms']:.3f}, TTFT mean {st['ttft_mean_ms']:.1f} ms "
-                  f"against {base['stats']['ttft_mean_ms']:.1f}; the same tokens; the 4 ranks' "
-                  f"snapshots equal  [{card}]")
+                  f"against {base['stats']['ttft_mean_ms']:.1f} (its first {n} requests, {new} "
+                  f"new, at (M2a)'s depth); the same tokens as (M2a)'s first {new}; the 4 ranks' "
+                  f"snapshots equal; the rank's seconds {r0['seconds']:.1f}  [{card}]")
             continue
         rows = _RowsRecorder(torch.load(MESH_DIR / f"{key}_rows.pt"), "cuda")
-        parted = check_near_ties(torch, f"({key})", {k: v for k, v in r0["streams"].items()},
-                                 refs[ref]["streams"], rows,
-                                 refs[ref]["recorder"], lambda rid: SamplingParams(),
-                                 tol=MESH_TIE_TOL, agree_tol=MESH_AGREE_TOL)
-        if key == MESH_PATHS[0][0]:
+        if key in MESH_CUT:
+            one = cut_refs[key]
+            reading = compare_streams(torch, f"({key}) against the cut model on one card",
+                                      r0["streams"], one["streams"], rows, one["recorder"],
+                                      greedy)
+            faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+            if faults:
+                raise AssertionError(f"({key}): " + "; ".join(faults))
+            against = ("equal" if not reading["parts"] else "part at near ties from") + (
+                " the cut model's one-card run in its configuration")
+            _print_reading(key, reading, card)
+        else:
+            parted = check_near_ties(torch, f"({key})", r0["streams"], refs[ref]["streams"],
+                                     rows, refs[ref]["recorder"], greedy, tol=MESH_TIE_TOL,
+                                     agree_tol=MESH_AGREE_TOL)
             m2a = {"streams": r0["streams"], "recorder": rows}
+            against = (f"{'equal' if not parted else f'part at near ties {parted} from'} path "
+                       f"({ref})'s")
         if kw["cache_layout"] == "contiguous" and kw["kv_dtype"] == "fp":
             if r0["kv_bytes"] * 4 != main_kv:
                 raise AssertionError(f"({key}): a rank holds {r0['kv_bytes']} KV bytes, not a "
                                      f"quarter of the single card's {main_kv}")
-        print(f"({key}) {what} on the (2, 2) gloo mesh: {st['prefills']} prefills, "
+        depth = (f" (cut to {model.num_layers} of {cfg.num_layers} layers)"
+                 if key in MESH_CUT else "")
+        print(f"({key}) {what}{depth} on the (2, 2) gloo mesh: {st['prefills']} prefills, "
               f"{st['decode_rounds']} decode rounds, {r0['wall']:.2f} s wall, decode "
               f"{st['decode_round_ms']:.2f} ms/round ({st['decode_tput']:.1f} tok/s), TTFT mean "
               f"{st['ttft_mean_ms']:.1f} ms; rank 0's recorder, inside this window, "
               f"{r0['recorder_ms_round']:.3f} ms of host time a round; the 4 ranks' snapshots "
-              f"equal; streams "
-              f"{'equal' if not parted else f'part at near ties {parted} from'} path ({ref})'s; "
-              f"the rank's seconds {r0['seconds']:.1f}  [{card}]")
+              f"equal; streams {against}; the rank's seconds {r0['seconds']:.1f}  [{card}]")
         for name, n in r0["launches"].items():
             total[name] = total.get(name, 0) + n
+    sound, fault = cut_refs[MESH_CUT_SOUND], cut_refs[MESH_CUT_FAULT]
+    try:
+        reading = compare_streams(torch, f"({MESH_CUT_FAULT}) against its sound run",
+                                  fault["streams"], sound["streams"], fault["recorder"],
+                                  sound["recorder"], greedy)
+        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+    except AssertionError as e:  # a stream parts at its prefill's token: no near tie there
+        faults = [str(e)]
+    if not faults:
+        raise AssertionError(f"({MESH_CUT_FAULT}): the planted fault passes the (M2) limits "
+                             f"(tie {MESH_TIE_TOL}, logits {MESH_AGREE_TOL}) at "
+                             f"{cut.num_layers} layers")
+    print(f"({MESH_CUT_FAULT}) the cut model on one card in ({MESH_PATHS[0][0]})'s "
+          f"configuration with the walk's second half dropped (the planted fault) fails the "
+          f"(M2) limits against its sound run, as it must: {'; '.join(faults)}  [{card}]")
     return total, m2a
+
+
+def _print_reading(key, reading, card):
+    """A cut path's reading beside the (M2) limits: each parting's two
+    margins, and how far the logits on the tokens both gave lie apart."""
+    parts = "; ".join(f"{p['rid']} parts at token {p['pos']}, margins {p['margins'][0]:.4f} "
+                      f"and {p['margins'][1]:.4f}" for p in reading["parts"]) or "no parting"
+    print(f"({key}) readings against the limits: {parts} (limit {MESH_TIE_TOL} each); logits "
+          f"on the tokens both gave within {reading['agree']:.4f} (limit {MESH_AGREE_TOL})  "
+          f"[{card}]")
 
 
 def _split_walk(torch, drop: bool = False):
@@ -2012,7 +2161,7 @@ def _split_walk(torch, drop: bool = False):
 
 
 def mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_streams, main_rec,
-                     m2a, card):
+                     m2a, card, md_parts=None):
     """What (M2a)'s logits differ from the single card's by, reproduced on
     this card: the main path served (E1) with the decode walk split into
     two sequence halves merged as the model ranks merge them, (E2) in
@@ -2048,6 +2197,14 @@ def mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_stre
         reading = compare_streams(torch, f"({key}) against the main path", got, main_streams,
                                   rec[0], main_rec, greedy)
         faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        if key == "E1" and md_parts is not None:  # the split's decode pod walks in halves too
+            e1 = {(p["rid"], p["pos"]) for p in reading["parts"]}
+            for md, parts in md_parts.items():
+                if md == "FD" or not parts:
+                    continue
+                print(f"({md}) parts at {parts}; (E1), the walk in two sequence halves as the "
+                      f"split's decode ranks walk it, parts at {sorted(e1)}: "
+                      f"{'it reorders the sums as the ranks do' if set(map(tuple, parts)) <= e1 else 'another parting'}")
         if key == "E3":
             same = compare_streams(torch, "(E3) against (M2a)", got, m2a["streams"], rec[0],
                                    m2a["recorder"], greedy)
@@ -2088,7 +2245,7 @@ def mesh_worker(out: Path, parts) -> int:
     t_start = time.perf_counter()
     join_process_group("gloo")
     mesh = make_host_mesh(data=2, model=2)
-    runs = {"M2": _m2_rank, "MT": _mt_rank, "ME": _me_rank}
+    runs = {"M2": _m2_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank}
     for part in parts:
         t0 = time.perf_counter()
         runs[part](mesh, out)
@@ -2102,17 +2259,21 @@ def mesh_worker(out: Path, parts) -> int:
     return 0
 
 
-def _serve_rank(torch, dist, mesh, cfg, params, prompts, max_new, kw, record, phase=None):
+def _serve_rank(torch, dist, mesh, cfg, params, prompts, max_new, kw, record, phase=None,
+                make=None):
     """Serve ``prompts`` greedily on this rank's engine over ``mesh`` (rank
     0 admits, the others follow), the launch counters set to 0 just
-    before; with ``record`` rank 0 keeps its logits rows; ``phase["now"]``
-    reads "prefill" while a prefill runs, else "decode".  Returns (engine,
+    before; with ``record`` this rank keeps its logits rows; ``phase["now"]``
+    reads "prefill" while a prefill runs, else "decode"; ``make()`` builds
+    the engine in place of an ``EngineCore`` on ``mesh``.  Returns (engine,
     recorder or None, monolithic prefill calls, wall seconds)."""
     from repro_torch.kernels import reset_counts
     from repro_torch.serving import EngineCore, Request
 
-    eng = EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw)
-    rec = TargetRecorder(eng) if mesh.rank == 0 and record else None
+    eng = (make() if make is not None else
+           EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw))
+    mesh = eng.mesh
+    rec = TargetRecorder(eng) if record else None
     prefills, prefill = [], eng.runner.prefill
     phase = {} if phase is None else phase
 
@@ -2188,24 +2349,177 @@ def _m2_rank(mesh, out: Path) -> None:
     from repro_torch.models import transformer as T
 
     rank = mesh.rank
+    full = get_config("bitnet-730m")
+    form = C.form
+    for cfg in (full, _mesh_cut(full)):  # (M2a) and the native rerun, then the cut paths
+        whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
+        whole_bytes = _tree_bytes(whole)
+        params = shard_params(whole, cfg, mesh)  # the rank keeps its slice only
+        del whole
+        torch.cuda.empty_cache()
+        for key, _, shared, kw, _ in MESH_PATHS + (MESH_NATIVE,):
+            if (key in MESH_CUT) != (cfg is not full):
+                continue
+            t0 = time.perf_counter()
+            if key == MESH_NATIVE[0]:
+                C.form = lambda group: "native"
+            n, new = MESH_NATIVE_RUN if key == MESH_NATIVE[0] else (len(PROMPT_LENS), MESH_NEW)
+            prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256 if shared else 0)[:n]
+            try:
+                eng, rec, prefills, wall = _serve_rank(torch, dist, mesh, cfg, params, prompts,
+                                                       new, kw, record=rank == 0)
+            finally:
+                C.form = form
+            result = _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0)
+            (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
+            if rec is not None:
+                _save_rows(torch, rec, result["streams"], out / f"{key}_rows.pt")
+            del eng, rec
+            torch.cuda.empty_cache()
+        del params
+    _free(torch)
+
+
+def mesh_cut_references(torch, np):
+    """The one-card runs the cut (M2) paths are held to: the cut model
+    (``_mesh_cut``, ``T.init`` seed 0) in each path's configuration, its
+    requests and new tokens, logits recorded; and in (M2a)'s, sound
+    (``MESH_CUT_SOUND``) and with the walk's second half dropped (the
+    planted fault ``MESH_CUT_FAULT``).  Run beside the 4-rank world, with
+    no serving grid built first."""
+    from repro_torch.layers import attention as A
+    from repro_torch.models import transformer as T
+
+    cfg = _mesh_cut(_bitnet())
+    params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
+    plain, walk = _split_walk(torch, drop=True)
+    out = {}
+    runs = [(p[0], p[2], p[3]) for p in MESH_PATHS if p[0] in MESH_CUT]
+    runs += [(key, MESH_PATHS[0][2], MESH_PATHS[0][3])
+             for key in (MESH_CUT_SOUND, MESH_CUT_FAULT)]
+    for key, shared, kw in runs:
+        prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256 if shared else 0)
+        rec = []
+        if key == MESH_CUT_FAULT:
+            A.decode_attention = walk
+        try:
+            eng, *_ = serve(cfg, params, prompts, MESH_NEW, n_slots=4, max_len=2048,
+                            block_size=16, grid=False,
+                            on_engine=lambda e: rec.append(TargetRecorder(e)), **kw)
+        finally:
+            A.decode_attention = plain
+        rec[0].stop()
+        out[key] = {"streams": {f"req{i}": eng.finished[f"req{i}"].out_tokens
+                                for i in range(len(prompts))}, "recorder": rec[0]}
+        del eng
+    del params
+    return out
+
+
+# ---- (MD): the pod split of the disaggregated pools, in the 4-rank world --
+
+MD_NEW = 16  # new tokens a request of the (MD) paths
+MD_LEN = 2048  # max_len of the (MD) paths, (q)'s and (p)'s
+MD_RECORDER = 2  # the rank that keeps the logits rows: the first decode rank
+# key, what, how many of the main path's prompts, new tokens, the engine's
+# options, the one-card DisaggEngine configuration its streams are held to;
+# (FD)'s fault shows at the first decode token
+MD_PATHS = (
+    ("MD1", "contiguous bf16, pdswap with the overlapped swap, monolithic prefill", 4, MD_NEW,
+     dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap", overlap=True), "q"),
+    ("MD2", f"paged int8, 16-token pages, 512 pages, {CHUNK}-token chunks", 4, MD_NEW,
+     dict(cache_layout="paged", kv_dtype="int8", mode="pdswap", num_blocks=512,
+          prefill_chunk=CHUNK), "p"),
+    ("FD", "(MD1) with prefill rank 1's heads sent into the other half's rows (the planted "
+           "fault)", 2, 4, dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap",
+                                overlap=True), "q"),
+)
+
+
+def _plant_wrong_rows(eng, max_len: int) -> None:
+    """(FD): this prefill rank's relayed heads rolled by half the rows before
+    their exchange, so that they land in the other decode rank's rows."""
+    pool = eng.prefill_pool.engine
+    exchange = pool._heads_to_rows
+
+    def wrong(seg):
+        return exchange(type(seg)(*(t.roll(max_len // 2, dims=3) for t in seg)))
+
+    pool._heads_to_rows = wrong
+
+
+def _md_expect(cfg, role, stats, prefills):
+    """One rank's launches on the split: a prefill rank runs B1 (its shard)
+    on every prefill and chunk and B2 (its heads) on every monolithic
+    prefill; a decode rank B1 and its walk on every decode round and
+    replayed token."""
+    expect = {name: 0 for name in DECODE_KERNELS}
+    if role == "prefill":
+        linears = 7 * cfg.num_layers * (prefills + stats["prefill_chunks"])
+        expect.update({"tlmm": linears, "act_quant": linears,
+                       "prefill_attention": cfg.num_layers * prefills})
+        return expect
+    steps = stats["decode_rounds"] + stats["replayed_tokens"]
+    walk = "paged_decode_attention_quant" if stats["paged"] else "decode_attention"
+    expect.update({"tlmm": 7 * cfg.num_layers * steps, "act_quant": 7 * cfg.num_layers * steps,
+                   "prefill_attention": 0, walk: cfg.num_layers * steps})
+    return expect
+
+
+def _md_rank(mesh, out: Path) -> None:
+    """(MD) on this rank: split a (pod 2, data 1, model 2) mesh of the
+    world (ranks 0-1 prefill, 2-3 decode), draw the main path's weights and
+    keep this rank's slice of them, and serve each of ``MD_PATHS`` on the
+    split ``DisaggEngine``; write this rank's launches by shape, handoff
+    counters, the bytes between the pods, the transfer's time, TTFT, decode
+    ms a round, weight MiB and snapshot, and the recording rank's logits
+    rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.disagg import split_pod_meshes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.disagg import DisaggEngine
+
+    rank = mesh.rank
     cfg = get_config("bitnet-730m")
+    pools = split_pod_meshes(make_mesh((2, 1, 2), ("pod", "data", "model")))
+    mine = next(m for m in pools if hasattr(m, "parent"))
+    role = "prefill" if mine is pools[0] else "decode"
     whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
     whole_bytes = _tree_bytes(whole)
-    params = shard_params(whole, cfg, mesh)  # the rank keeps its slice only
+    params = shard_params(whole, cfg, mine)  # the rank keeps its slice only
     del whole
     torch.cuda.empty_cache()
-    form = C.form
-    for key, _, shared, kw, _ in MESH_PATHS + (MESH_NATIVE,):
+    for key, _, n, new, kw, _ in MD_PATHS:
         t0 = time.perf_counter()
-        if key == MESH_NATIVE[0]:
-            C.form = lambda group: "native"
-        prompts = make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256 if shared else 0)
-        try:
-            eng, rec, prefills, wall = _serve_rank(torch, dist, mesh, cfg, params, prompts, 32,
-                                                   kw, record=key != MESH_NATIVE[0])
-        finally:
-            C.form = form
-        result = _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0)
+        prompts = make_prompts(np, cfg, PROMPT_LENS[:n])
+
+        def make():
+            eng = DisaggEngine(cfg, params, prefill_mesh=pools[0], decode_mesh=pools[1],
+                               n_slots=4, max_len=MD_LEN, block_size=16, **kw)
+            if key == "FD" and role == "prefill" and mine.coordinate("model") == 1:
+                _plant_wrong_rows(eng, MD_LEN)
+            return eng
+
+        eng, rec, prefills, wall = _serve_rank(torch, dist, mesh, cfg, params, prompts, new,
+                                               kw, record=rank == MD_RECORDER, make=make)
+        result = _rank_result(mine, eng, rec, prefills, wall, params, whole_bytes, t0)
+        if role == "prefill":  # the relay's exchange; no cache here (its bookkeeping on meta)
+            result.update(kv_mib=0.0, exchange_bytes=eng.prefill_pool.engine.exchange_bytes,
+                          exchanges=eng.prefill_pool.engine.exchanges)
+        st = eng.stats
+        ho = eng.snapshot()["disagg"]["handoff"]
+        result.update(role=role, handoff=ho, pools=(eng.snapshot()["disagg"]["prefill_pool"],
+                                                    eng.snapshot()["disagg"]["decode_pool"]))
+        result["stats"].update(prefill_chunks=st.prefill_chunks, replayed_tokens=st.replayed_tokens,
+                               paged=eng.runner.paged is not None,
+                               ttft_p50_ms=st.ttft.percentile(50) * 1e3,
+                               transfer_ms=ho["t_dispatch_s"] / max(ho["segments"], 1) * 1e3)
         (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
         if rec is not None:
             _save_rows(torch, rec, result["streams"], out / f"{key}_rows.pt")
@@ -2213,6 +2527,120 @@ def _m2_rank(mesh, out: Path) -> None:
         torch.cuda.empty_cache()
     del params
     _free(torch)
+
+
+def md_references(torch, np, cfg, params):
+    """The one-card ``DisaggEngine`` runs the (MD) paths are held to: the
+    main path's first 4 prompts, ``MD_NEW`` new tokens, in (q)'s
+    configuration (contiguous bf16, pdswap, monolithic) and in (p)'s
+    (paged int8, 512 pages, 256-token chunks), each with its logits
+    recorded.  Run beside the 4-rank world, with no serving grid built
+    first (its programs capture at their first call): the world's ranks
+    share the host."""
+    from repro_torch.serving import DisaggEngine
+
+    prompts = make_prompts(np, cfg, PROMPT_LENS[:4])
+    out = {}
+    for ref, kw in (("q", MD_PATHS[0][4]), ("p", MD_PATHS[1][4])):
+        rec = []
+        eng, *_ = serve(cfg, params, prompts, MD_NEW, engine_cls=DisaggEngine, n_slots=4,
+                            max_len=MD_LEN, block_size=16, grid=False,
+                            on_engine=lambda e: rec.append(TargetRecorder(e)), **kw)
+        rec[0].stop()
+        out[ref] = {"streams": {f"req{i}": eng.finished[f"req{i}"].out_tokens
+                                for i in range(len(prompts))},
+                    "recorder": rec[0]}
+        del eng
+    return out
+
+
+def md_predicted_mib(cfg, key, n_prompts):
+    """The MiB a rank sends or receives between the pods on an (MD) path,
+    reckoned from the shapes before the run: a monolithic segment is the
+    relaid f32 KV (the cast to bf16 happens on install) of max_len rows, a
+    rank's half of it (its block of rows, every head); a chunk the f32 KV of
+    the rank's 12 heads at its padded length; each prompt's logits row (f32,
+    the padded vocabulary) too."""
+    tok_half = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4 // 2
+    lens = PROMPT_LENS[:n_prompts]
+    if key == "MD2":
+        rows = sum(sum(-(-min(CHUNK, n - a) // 16) * 16 for a in range(0, n, CHUNK))
+                   for n in lens)
+    else:
+        rows = MD_LEN * len(lens)
+    return (rows * tok_half + len(lens) * cfg.padded_vocab() * 4) / 2**20
+
+
+def _mesh_md_results(torch, cfg, refs, card):
+    """(MD)'s checks and printout from the ranks' files: each rank's
+    launches, the ranks' snapshots equal, the streams held to the one-card
+    references within the (M2) limits ((FD) must fail them).  Returns
+    (ranks 0's and 2's launches over (MD1) and (MD2), each path's
+    partings)."""
+    from repro_torch.serving import SamplingParams
+
+    launches, partings = {}, {}
+    for key, what, n, new, kw, ref in MD_PATHS:
+        ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            if got["snapshot"] != r0["snapshot"]:
+                raise AssertionError(f"({key}): rank {r}'s host decisions differ from rank 0's")
+            want = _md_expect(cfg, got["role"], got["stats"], got["stats"]["prefills"])
+            if got["launches"] != want:
+                raise AssertionError(f"({key}) rank {r} ({got['role']}): launches "
+                                     f"{got['launches']} != {want}")
+        st, ho = r0["stats"], r0["handoff"]
+        rows = _RowsRecorder(torch.load(MESH_DIR / f"{key}_rows.pt"), "cuda")
+        want = _prefix(refs[ref]["streams"], r0["streams"])
+        reading = compare_streams(torch, f"({key}) against the one-card DisaggEngine ({ref}'s "
+                                  "configuration)", r0["streams"], want, rows,
+                                  refs[ref]["recorder"], lambda rid: SamplingParams())
+        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        if key == "FD":
+            if not faults:
+                raise AssertionError(f"(FD): the planted fault passes the (M2) limits (tie "
+                                     f"{MESH_TIE_TOL}, logits {MESH_AGREE_TOL})")
+            print(f"(FD) fails the (M2) limits, as it must: {'; '.join(faults)}")
+        elif faults:
+            raise AssertionError(f"({key}): " + "; ".join(faults))
+        chunks = st["prefill_chunks"]
+        counts = (ho["segments"], ho["eager_segments"], ho["installs"], ho["discarded"],
+                  ho["pending"])
+        if counts != ((chunks, chunks - n, chunks, 0, 0) if chunks else (n, 0, 0, 0, 0)):
+            raise AssertionError(f"({key}): handoff {ho} for {n} prompts and {chunks} chunks")
+        parted = [(p["rid"], p["pos"]) for p in reading["parts"]]
+        partings[key] = parted
+        pred = md_predicted_mib(cfg, key, n)
+        print(f"({key}) {what}, on the (pod 2, data 1, model 2) split (ranks 0-1 prefill, 2-3 "
+              f"decode): {n} requests x {new}, {st['prefills']} monolithic prefills and "
+              f"{st['prefill_chunks']} chunks on the prefill pod, {st['decode_rounds']} decode "
+              f"rounds, {r0['wall']:.2f} s wall; handoff {ho['segments']} segments "
+              f"({ho['eager_segments']} eager), {ho['installs']} installs, {ho['discarded']} "
+              f"discarded, {ho['pending']} pending, {ho['bytes_shipped'] / 2**20:.1f} MiB "
+              f"shipped; TTFT p50 {st['ttft_p50_ms']:.1f} ms, decode "
+              f"{st['decode_round_ms']:.2f} ms a round on rank 0; the 4 ranks' snapshots "
+              f"equal; streams "
+              f"{'equal' if not parted else f'part at {parted} from'} the one-card "
+              f"DisaggEngine's; the rank's seconds {r0['seconds']:.1f}  [{card}]")
+        for r, got in enumerate(ranks):
+            g = got["handoff"]
+            print(f"({key}) rank {r} ({got['role']}): between the pods "
+                  f"{g['pod_bytes'] / 2**20:.1f} MiB (predicted {pred:.1f}), the transfer "
+                  f"{got['stats']['transfer_ms']:.2f} ms a segment ({g['segments']} segments, "
+                  f"{g['t_dispatch_s'] * 1e3:.1f} ms in all), decode "
+                  f"{got['stats']['decode_round_ms']:.2f} ms a round, weights "
+                  f"{got['weights_mib']:.1f} MiB (the whole tree's "
+                  f"{got['whole_weights_mib']:.1f}), KV {got['kv_mib']:.1f} MiB, the exchange "
+                  f"{got['exchange_bytes']} bytes in {got['exchanges']} swaps  [{card}]")
+            if r in (0, MD_RECORDER):
+                for line in _shape_lines(got["shapes"]):
+                    print(f"    {line}")
+            if key != "FD" and r in (0, MD_RECORDER):
+                for name, c in got["launches"].items():
+                    launches[name] = launches.get(name, 0) + c
+    return launches, partings
 
 
 def _decisions(tree):
@@ -2252,7 +2680,7 @@ def recorded(cfg, params, prompts, max_tokens, want, what, params_of=None, **eng
 
 
 def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, engine_cls=None,
-          **engine_kw):
+          grid=True, **engine_kw):
     """Drive ``EngineCore`` on the card over the requests (greedy, or with
     ``params_of(i)`` for request i), after ``build_serving_grid`` (every
     reachable program built, the decode, chunk and sampler programs captured
@@ -2264,7 +2692,8 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, engi
     evicted part-way through its chunked prefill, the grid: its build
     seconds, graphs and the device memory their pool reserved).
     ``on_engine(eng)`` runs after the warm-up, before the requests;
-    ``engine_cls`` (``EngineCore`` by default) is the engine built."""
+    ``engine_cls`` (``EngineCore`` by default) is the engine built; with
+    ``grid`` False no serving grid is built (the grid returned is None)."""
     import numpy as np
     import torch
 
@@ -2272,7 +2701,7 @@ def serve(cfg, params, prompts, max_tokens, params_of=None, on_engine=None, engi
     from repro_torch.serving import EngineCore, Request, SamplingParams
 
     eng = (engine_cls or EngineCore)(cfg, params, device="cuda", **engine_kw)
-    grid = build_grid(torch, eng)
+    grid = build_grid(torch, eng) if grid else None
     list(eng.generate(np.arange(64) % cfg.vocab_size, SamplingParams(max_tokens=2)))  # warm-up
     eng.reset_stats()
     if on_engine is not None:
@@ -2487,9 +2916,6 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
         del eng
-        if key in ("b", "d"):  # (M2c) and (M2b) are held to their logits
-            recs[key], _ = recorded(cfg, params, ps, max_tokens, streams[key], f"path ({key})",
-                                    n_slots=n_slots, max_len=max_len, block_size=16, **kw)
     for key, ref in (("e", "d"), ("h", "g"), ("j", "i")):
         if streams[key] != streams[ref]:
             raise AssertionError(f"path ({key}): the preempted run's tokens differ from ({ref})'s")
@@ -2511,9 +2937,7 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
     print(f"path (i): {same} of {len(requests)} streams equal (d)'s (monolithic prefill runs "
           "B2, chunks f32 matmuls: equal only to float rounding, not asserted)")
     return total, {"streams": {r: t for r, t in streams["i"].items() if r in requests},
-                   "recorder": recs["i"], "latency": latency["i"], "tput": tput_i}, {
-        key: {"streams": {r: t for r, t in streams[key].items() if r in requests},
-              "recorder": recs[key]} for key in ("b", "d")}
+                   "recorder": recs["i"], "latency": latency["i"], "tput": tput_i}
 
 
 class TargetRecorder:
@@ -5045,6 +5469,10 @@ def training_phase(torch, np, card, ops):
 
 ME_ARCH = "granite-moe-3b-a800m"
 ME_PROMPTS, ME_NEW = 4, 16  # (ME2): the main path's first 4 prompts, 16 new tokens
+# (ME2b) keeps the full depth: cut to 8 of its 32 layers (4 x 16) it read
+# 0.221 against (E4b) on the logits of common tokens, over the (M2) limit
+# of 0.2 (a capacity-bound routing flips on another float order; H100 80GB
+# HBM3, 700 W), and one reading sets no new limit
 # (ME2)'s configurations: key, what, the engine's options
 ME_PATHS = (
     ("ME2a", "contiguous bf16, pdswap with the overlapped swap",
@@ -6091,6 +6519,7 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(Path(sys.argv[2]), sys.argv[3].split(",")))
     if sys.argv[1:] == ["--mesh-train-m1"]:  # (MT1), in its own process
         sys.exit(mesh_train_m1_main())
-    if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"]):  # for development
+    if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"],
+                        ["--only-disagg-mesh"]):  # for development
         sys.exit(main(only=sys.argv[1][len("--only-"):]))
     sys.exit(main())

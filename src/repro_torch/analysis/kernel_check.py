@@ -553,7 +553,9 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
     rank's 2 slots; then granite-moe-3b-a800m's on the same mesh: B2 on 12
     of 24 heads over 4 of 8 KV heads, B3 over a sequence half and B6 over a
     data rank's 2 slots of int8 pages, both at G = 3 (decode keeps the
-    heads whole), D = 64."""
+    heads whole), D = 64; and a decode rank's of the pod split of the
+    disaggregated pools (data 1): B3 over a sequence half at 4 slots, B6
+    over 4 slots of the whole pool."""
     rng = np.random.default_rng(15)
     cases = []
     for m in (2, 4):
@@ -637,7 +639,50 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
             args = ("q", "k", "v", "tables", "lengths", None)
             cases.append(KernelCase(kernel, label, ops, args, {}, args, {}))
     cases += _granite_mesh_cases(rng, tables, lengths, live)
+    cases += _split_pool_cases(rng)
     return [c for c in cases if kernels is None or c.kernel in kernels]
+
+
+def _split_pool_cases(rng) -> List[KernelCase]:
+    """A decode rank's walks on the pod split of the disaggregated pools,
+    (pod 2, data 1, model 2) at bitnet-730m's widths: B3 over a sequence
+    half at the pool's 4 slots (data 1: every slot on every rank), an
+    empty slot and a full half among them; B6 over 4 slots' tables into
+    the decode pool's whole int8 pages."""
+    hkv, half, d = 24, 48, 64
+    cases = []
+    lens = [0, 30, half, 17]
+    live = np.zeros((4, half), bool)
+    for b_, n_ in enumerate(lens):
+        live[b_, :n_] = True
+    dead = np.broadcast_to(~live[:, None, :], (4, hkv, half)).copy()
+    ops = _walk_tensors(rng, (4, hkv, half), "bf16", d, dead, EXTRA_ROWS)
+    ops["q"] = Operand(rng.standard_normal((4, hkv, 1, d)).astype(np.float32), torch.float32,
+                       "float")
+    ops["lengths"] = Operand(np.array(lens, np.int32), torch.int32, "index")
+    cases.append(KernelCase("decode_attention", f"decode_attention bf16 D={d} G=1 Hkv={hkv} a "
+                            f"sequence half of {half}, 4 slots lengths={lens} (the split's "
+                            "decode pool)", ops, ("q", "k", "v", "lengths", None), {},
+                            ("q", "k_r", "v_r", "lengths", None), {}))
+    n_pages, bs = 16, PAGE
+    tables = rng.permutation(n_pages).astype(np.int32).reshape(4, 4)
+    lens = [5, 64, 33, 0]
+    page_live = np.zeros((n_pages, bs), bool)
+    for b_ in range(4):
+        for pos in range(lens[b_]):
+            page_live[tables[b_, pos // bs], pos % bs] = True
+    dead = np.broadcast_to(~page_live[:, None, :], (n_pages, hkv, bs)).copy()
+    ops = _walk_tensors(rng, (n_pages, hkv, bs), "int8", d, dead, EXTRA_ROWS)
+    ops["q"] = Operand(rng.standard_normal((4, hkv, 1, d)).astype(np.float32), torch.float32,
+                       "float")
+    ops["tables"] = Operand(tables, torch.int32, "index")
+    ops["lengths"] = Operand(np.array(lens, np.int32), torch.int32, "index")
+    args = ("q", "k", "k_scale", "v", "v_scale", "tables", "lengths", None)
+    cases.append(KernelCase("paged_decode_attention_quant", f"paged_decode_attention_quant int8 "
+                            f"D={d} G=1 Hkv={hkv} 4 slots lengths={lens} over the whole pool "
+                            "(the split's decode pool, data 1)", ops, args, {"kv_dtype": "int8"},
+                            args, {"kv_dtype": "int8"}, fp_elems=n_pages * hkv * bs * d))
+    return cases
 
 
 def _granite_mesh_cases(rng, tables, lengths, page_live) -> List[KernelCase]:

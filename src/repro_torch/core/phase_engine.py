@@ -361,7 +361,8 @@ class PhaseEngine:
 
     def _no_mesh(self, what: str) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(f"{what} on a mesh is ROADMAP A.13")
+            raise NotImplementedError(f"{what} on a mesh (colocated chunked prefill, speculative "
+                                      "decoding) is ROADMAP A.13.5")
 
     # ------------------------------------------------------ mesh shards --
 
@@ -418,6 +419,41 @@ class PhaseEngine:
         both = self.prefill_ctx.shard(both, dims, dims[:3] + (None,) + dims[4:],
                                       both.shape[:3] + (self.cfg.num_kv_heads,) + both.shape[4:])
         return KVCache(both[0], both[1])
+
+    def _heads_to_rows(self, seg):
+        """A relayed segment of this rank's heads (1, L, Hkv / tp, max_len,
+        ·) as this rank's block of the sequence (1, L, Hkv, max_len / tp, ·),
+        every leaf exchanged over the model axis."""
+        tp = self.prefill_ctx.axes.tp
+        group = self.mesh.group(tp)
+        k = self.prefill_ctx.size(tp)
+        out = []
+        for leaf in seg:
+            parts = (leaf.q, leaf.scale) if isinstance(leaf, QuantKV) else (leaf,)
+            moved = []
+            for t in parts:
+                moved.append(C.all_to_all(t, group, split_dim=3, cat_dim=2))
+                self.exchange_bytes += t.numel() * t.element_size() * (k - 1) // k
+            out.append(QuantKV(*moved) if isinstance(leaf, QuantKV) else moved[0])
+        self.exchanges += 1
+        return type(seg)(*out)
+
+    def _write_chunk_rows(self, cache: KVCache, kv: KVCache, slot: int, start: int) -> KVCache:
+        """Write the rows of a whole-heads chunk (L, 1, Hkv, C, D) at [start,
+        start + C) of slot ``slot`` that fall in this rank's block of the
+        sequence (and its rows of the batch)."""
+        leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
+        sl = leaf.shape[3]
+        lo, hi = T.batch_rows(self.decode_ctx, self.n_slots)
+        if not lo <= slot < hi:
+            return cache
+        base = self.decode_ctx.index(self.decode_ctx.resolve(["kv_seq"])[0]) * sl
+        c = kv.k.shape[3]
+        a, b = max(0, base - start), min(c, base + sl - start)
+        if b <= a:
+            return cache
+        return KVCache(write_chunk_kv_q(cache.k, kv.k[:, :, :, a:b], slot - lo, start + a - base),
+                       write_chunk_kv_q(cache.v, kv.v[:, :, :, a:b], slot - lo, start + a - base))
 
     def before_capture(self, hook: Callable[[], None]) -> None:
         """Call ``hook`` before each capture of this engine's graphs."""
@@ -590,13 +626,17 @@ class PhaseEngine:
         installs the returned KV with their writers (``chunk_write`` or
         ``page_write``).  A replay returns the graph's output buffers, which
         its next replay overwrites: a caller that keeps the KV longer copies
-        it out."""
-        self._no_mesh("prefill_chunk_kv_program")
-        cfg = self.cfg
+        it out.
+
+        On a mesh (the prefill pod of the split) the chunk runs on this
+        rank's heads under the prefill rules: the mirror ``prefix`` holds
+        those heads (L, 1, Hkv / tp, Cap, D), so a chunk attends its prefix
+        head by head with no merge, and the KV returned is those heads."""
+        cfg, pctx = self.cfg, self.prefill_ctx
 
         def fn(params, tokens, prefix, prefix_len, last_pos):
             return T.prefill_chunk_kv(params, tokens, prefix, prefix_len, last_pos, cfg,
-                                      prefix_width=prefix_width)
+                                      prefix_width=prefix_width, pctx=pctx)
 
         return self._program(f"prefill_chunk_kv:{chunk}+{prefix_width}", fn, phase="prefill",
                              capturable=True,
@@ -608,12 +648,18 @@ class PhaseEngine:
         cache``, in place, quantized on write under int8/int4: the
         ``write_chunk_kv_q`` scatter the fused ``prefill_chunk`` program
         runs, so the two pools store the colocated engine's bytes.  The
-        paged counterpart is ``page_write``."""
-        self._no_mesh("chunk_write_program")
+        paged counterpart is ``page_write``.
+
+        On a mesh (the decode pod of the split) ``kv`` holds this rank's
+        heads: the ranks gather every head over the model axis, and each
+        writes the chunk's rows that fall in its block of the sequence
+        (``slot`` and ``prefix_len`` host ints there)."""
 
         def fn(cache, kv, slot, prefix_len):
-            return KVCache(write_chunk_kv_q(cache.k, kv.k, slot, prefix_len),
-                           write_chunk_kv_q(cache.v, kv.v, slot, prefix_len))
+            if self.mesh is None:
+                return KVCache(write_chunk_kv_q(cache.k, kv.k, slot, prefix_len),
+                               write_chunk_kv_q(cache.v, kv.v, slot, prefix_len))
+            return self._write_chunk_rows(cache, self._gather_kv_heads(kv), slot, prefix_len)
 
         return self._program(f"chunk_write:{chunk}", fn, phase="swap", pinned=(0,))
 
@@ -624,11 +670,11 @@ class PhaseEngine:
         (``core.kv_cache.relay_prefill_kv``).  The decode pool copies it into
         the slot (``install_relayed_kv``); the two halves store what
         ``relayout`` stores."""
-        self._no_mesh("relay_program")
         kv_dtype = self.kv_dtype
 
         def fn(kv):
-            return relay_prefill_kv(kv, max_len, kv_dtype)
+            seg = relay_prefill_kv(kv, max_len, kv_dtype)
+            return seg if self.mesh is None else self._heads_to_rows(seg)
 
         return self._program(f"relay:{seq}->{max_len}", fn, phase="swap")
 

@@ -9,6 +9,16 @@ store's address; name the backend (``nccl`` on cards, ``gloo`` anywhere):
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.examples.serve_mesh --backend gloo --device cpu --reduced --check
 
+With ``--disagg`` the world is the pod split of the disaggregated pools
+instead: a (pod 2, model ``--model``) mesh, pod 0 prefilling, pod 1
+decoding, every prompt's KV crossing between them (``DisaggEngine``; the
+world must have ``2 * --model`` ranks, and ``--check`` compares with the
+two pools on one device):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.examples.serve_mesh --backend gloo --model 2 --disagg \\
+        [--device cpu --reduced --check --prefill-chunk 16 --cache-layout paged]
+
 Rank r lives on ``cuda:(r % device_count)``: on a machine with one card
 every rank shares ``cuda:0``.  Every rank builds the same weights from
 ``--seed``, keeps its slice and drops the whole tree (``--check`` keeps it
@@ -28,7 +38,8 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch.mesh import BACKENDS, join_process_group, make_host_mesh
 from repro_torch.launch.sharding_rules import shard_params
 from repro_torch.models import transformer as T
-from repro_torch.serving import EngineCore, Request
+from repro_torch.serving import DisaggEngine, EngineCore, Request
+from repro_torch.serving.disagg import make_disagg_meshes
 
 
 def main(argv=None) -> int:
@@ -49,10 +60,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check", action="store_true",
                     help="rank 0 also serves the requests without a mesh and compares")
+    ap.add_argument("--disagg", action="store_true",
+                    help="the pod split of the disaggregated pools: (pod 2, model --model)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="--disagg: chunked prefill, each chunk crossing the pods at once")
     args = ap.parse_args(argv)
 
     join_process_group(args.backend, device_type=args.device)
-    mesh = make_host_mesh(data=args.data, model=args.model)
+    if args.disagg:
+        pools = make_disagg_meshes(tp=args.model)
+        mesh = next(m for m in pools if hasattr(m, "parent"))  # this rank's pool
+    else:
+        mesh = make_host_mesh(data=args.data, model=args.model)
     print(mesh.describe(), flush=True)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     whole = T.convert_for_inference(T.init(cfg, args.seed, device=mesh.device), cfg)
@@ -60,8 +79,14 @@ def main(argv=None) -> int:
     if not (args.check and mesh.rank == 0):
         del whole
     kw = dict(n_slots=args.slots, max_len=args.max_len, cache_layout=args.cache_layout,
-              kv_dtype=args.kv_dtype, block_size=16, device=mesh.device)
-    eng = EngineCore(cfg, params, mesh=mesh, **kw)
+              kv_dtype=args.kv_dtype, block_size=16)
+    if args.disagg:
+        kw["prefill_chunk"] = args.prefill_chunk
+        eng = DisaggEngine(cfg, params, prefill_mesh=pools[0], decode_mesh=pools[1], **kw)
+        mesh = eng.mesh  # the world: rank 0 admits
+    else:
+        eng = EngineCore(cfg, params, mesh=mesh, device=mesh.device, **kw)
+    kw["device"] = mesh.device
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
                for _ in range(args.requests)]
@@ -79,12 +104,13 @@ def main(argv=None) -> int:
         for rid, toks in streams.items():
             print(f"{rid}: {toks}")
         if args.check:
-            ref = EngineCore(cfg, whole, **kw)
+            ref = (DisaggEngine if args.disagg else EngineCore)(cfg, whole, **kw)
             for i, p in enumerate(prompts):
                 ref.submit(Request(f"req{i}", p, max_new=args.max_new))
             ref.run()
             same = streams == {r: q.out_tokens for r, q in sorted(ref.finished.items())}
-            print(f"streams {'equal' if same else 'differ from'} the unsharded engine's")
+            print(f"streams {'equal' if same else 'differ from'} the unsharded engine's"
+                  + (" (both pools on one device)" if args.disagg else ""))
             if not same:
                 return 1
     dist.destroy_process_group()

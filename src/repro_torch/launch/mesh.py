@@ -20,7 +20,7 @@ import dataclasses
 import datetime
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -159,6 +159,103 @@ class Mesh:
         graphs = "graphs captured" if self.capturable else "programs eager"
         return (f"rank {self.rank} of {self.size} on {self.device} ({self.backend}; mesh {axes}; "
                 f"at {coords}; {graphs})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Pod:
+    """One pod of a mesh whose leading axis is ``pod``, as every rank sees
+    it: its index on that axis, its ranks (global, in the mesh's row-major
+    order) and the sizes of the other axes."""
+
+    index: int
+    ranks: Tuple[int, ...]
+    axes: Tuple[Tuple[str, int], ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+@dataclasses.dataclass(eq=False)
+class PodMesh(Mesh):
+    """This rank's pod of a (pod, ...) mesh, as a mesh of its own: the
+    other axes, with their names, sizes and groups (each axis's group lies
+    inside one pod), and this rank's coordinates on them.  A tuple of axes
+    takes its group from the whole mesh (``parent``), which builds the
+    groups of every pod in one order on every rank; ``pod_submesh`` builds
+    the ones a pool asks for up front, since the two pods run different
+    programs.  ``pod_group`` is the pod axis's group: the ranks at this
+    rank's coordinates in every pod, over which a KV segment crosses."""
+
+    parent: Optional[Mesh] = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.parent.axis_names[1:]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {a: n for a, n in self.parent.shape.items() if a != "pod"}
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def pod(self) -> Pod:
+        return pods(self.parent)[self.parent.coordinate("pod")]
+
+    @property
+    def pod_group(self):
+        return self.parent.group("pod")
+
+    def coordinate(self, axis: str) -> int:
+        if axis == "pod":
+            raise ValueError("a pod's mesh has no pod axis")
+        return self.parent.coordinate(axis)
+
+    def group(self, axis):
+        if axis is None or axis == ():
+            return self.parent.group(())
+        if isinstance(axis, tuple) and len(axis) > 1:
+            if "pod" in axis or [a for a in self.axis_names if a in axis] != list(axis):
+                raise ValueError(f"axes {axis} out of the pod's axes {self.axis_names}")
+            return self.parent._tuple_group(axis)
+        name = axis[0] if isinstance(axis, tuple) else axis
+        if name == "pod":
+            raise ValueError("a pod's mesh has no pod axis (pod_group crosses the pods)")
+        return self.parent.group(name)
+
+    def describe(self) -> str:
+        return (f"{self.parent.describe()}; its pod {self.parent.coordinate('pod')} a mesh of "
+                + ", ".join(f"{a}={n}" for a, n in self.shape.items()))
+
+
+def pods(mesh: Mesh) -> List[Pod]:
+    """Every pod of ``mesh`` (leading axis ``pod``), in pod order."""
+    if not mesh.axis_names or mesh.axis_names[0] != "pod":
+        raise ValueError(f"the mesh's leading axis is not 'pod' ({mesh.axis_names})")
+    ids = mesh.device_mesh.mesh
+    axes = tuple((a, n) for a, n in mesh.shape.items() if a != "pod")
+    return [Pod(i, tuple(int(r) for r in ids[i].reshape(-1).tolist()), axes)
+            for i in range(ids.shape[0])]
+
+
+def pod_submesh(mesh: Mesh) -> PodMesh:
+    """This rank's pod of ``mesh`` (leading axis ``pod``) as a ``PodMesh``.
+    Every rank must call it, in the same order as its other group-building
+    calls: it builds the groups a pool's programs take from the whole mesh
+    (the group of one, the pod's axes together), one set for every pod."""
+    pods(mesh)  # the leading axis is pod
+    sub = PodMesh(mesh.device_mesh, mesh.device, mesh.host_group, parent=mesh)
+    mesh._tuple_group(())
+    if len(sub.axis_names) > 1:
+        mesh._tuple_group(sub.axis_names)
+    return sub
 
 
 def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...]) -> Mesh:

@@ -247,8 +247,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="prompt-lookup n-gram size for --spec-decode")
     p.add_argument("--disagg", action="store_true",
                    help="disaggregated serving: prefill and decode run as two pools (on one "
-                        "device: the prefill pool on its own stream and thread) with a KV "
-                        "handoff channel between them")
+                        "device: the prefill pool on its own stream and thread; on a world of "
+                        "2 * tp ranks from torch.distributed.run: the pod split, a pool a pod) "
+                        "with a KV handoff channel between them")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="--disagg on a world of ranks: the process group's backend (default: "
+                        "nccl when every rank has a card of its own, else gloo)")
     p.add_argument("--ragged", action="store_true",
                    help="draw prompt lengths uniformly in [4, prompt_len]")
     p.add_argument("--requests", type=int, default=6)
@@ -295,6 +299,8 @@ def build(args) -> Tuple[ModelConfig, EngineCore, SamplingParams]:
     """The config, the engine on the JAX CLI's weights (its serving grid
     built on a card), and the default sampling parameters."""
     device = resolve_device(args.device)
+    if args.disagg and _world_size() > 1:  # the pod split: this rank's device
+        device = _join(args, device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     check_served_family(cfg)
     # drawn where they are used: a card draws a full-width model in seconds
@@ -304,12 +310,15 @@ def build(args) -> Tuple[ModelConfig, EngineCore, SamplingParams]:
               num_blocks=args.num_blocks, kv_dtype=args.kv_dtype, overlap=not args.no_overlap,
               swap_policy=args.swap_policy, prefill_chunk=args.prefill_chunk,
               spec_decode=args.spec_decode or None, spec_ngram=args.spec_ngram, device=device)
-    if args.disagg:
+    if args.disagg and _world_size() > 1:
+        eng = _split_engine(args, cfg, params, kw)
+    elif args.disagg:
         # both pools share one device, the prefill pool on its own stream and
-        # dispatch thread (the split across two cards is ROADMAP A.8)
+        # dispatch thread (two cards in one process are ROADMAP A.8)
         why = ("fewer than 2 local devices" if device.type != "cuda"
-               or torch.cuda.device_count() < 2 else "no two-card split in the port yet")
-        print(f"disagg: {why}, colocating both pools on {device}")
+               or torch.cuda.device_count() < 2 else "no two-card split in one process yet")
+        print(f"disagg: {why}, colocating both pools on {device} (the pod split runs on "
+              "2 * tp ranks started by torch.distributed.run)")
         eng = DisaggEngine(cfg, params, **kw)
     else:
         eng = EngineCore(cfg, params, **kw)
@@ -318,6 +327,49 @@ def build(args) -> Tuple[ModelConfig, EngineCore, SamplingParams]:
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
                         seed=args.seed, stop_tokens=tuple(args.stop_token or ()))
     return cfg, eng, sp
+
+
+def _world_size() -> int:
+    """The ranks ``torch.distributed.run`` started (1 without it)."""
+    import os
+
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _join(args, device: torch.device) -> torch.device:
+    """Join the world ``torch.distributed.run`` started; this rank's device.
+    The backend, unless named: nccl when every rank has a card of its own,
+    gloo on the CPU or when ranks share a card."""
+    from repro_torch.launch.mesh import join_process_group
+
+    backend = args.backend or ("nccl" if device.type == "cuda"
+                               and torch.cuda.device_count() >= _world_size() else "gloo")
+    if args.serve:
+        raise SystemExit("--serve on a world of ranks: the HTTP front end on a mesh is "
+                         "ROADMAP A.13")
+    return join_process_group(backend, device_type=device.type)
+
+
+def _leave_world() -> None:
+    """The pod split's end on this rank: every rank has stepped its last
+    step together; the process group goes with them."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _split_engine(args, cfg: ModelConfig, params, kw: dict) -> DisaggEngine:
+    """``--disagg`` on a world of ranks: split a (pod 2, model world / 2)
+    mesh (``make_disagg_meshes``) and build this rank's pool."""
+    from repro_torch.serving.disagg import make_disagg_meshes
+
+    kw.pop("device")
+    prefill, decode = make_disagg_meshes(tp=max(_world_size() // 2, 1))
+    mine = prefill if hasattr(prefill, "parent") else decode
+    print(f"disagg: {mine.describe()}; prefill pool {prefill.shape}, decode pool "
+          f"{decode.shape}", flush=True)
+    return DisaggEngine(cfg, params, prefill_mesh=prefill, decode_mesh=decode, **kw)
 
 
 def batch_requests(args, cfg, sp: SamplingParams) -> List[Request]:
@@ -410,6 +462,8 @@ def _report(args, eng: EngineCore, sp: SamplingParams) -> None:
         ho = eng.snapshot()["disagg"]["handoff"]
         print(f"  KV handoff        : {ho['segments']} segments ({ho['eager_segments']} eager), "
               f"{ho['bytes_shipped'] / 2**20:.2f} MiB shipped, {ho['installs']} installs")
+        if eng.mesh is not None:
+            print(f"  between the pods  : {ho['pod_bytes'] / 2**20:.2f} MiB on rank 0")
     if stats.swap_agg.count:
         print(f"  swap latency hidden by overlap: {100 * stats.swap_agg.mean_hidden_fraction:.0f}% "
               f"(paper: ~75%); mean exposed cost {1e3 * stats.swap_agg.mean_cost:.2f} ms")
@@ -442,7 +496,14 @@ def main(argv=None) -> int:
         finally:
             if args.trace_out:
                 _export_trace(args.trace_out)
+    if eng.mesh is not None and eng.mesh.rank != 0:  # the pod split: rank 0 drives
+        eng.follow()
+        _leave_world()
+        return 0
     _drive(args, eng, batch_requests(args, cfg, sp))
+    if eng.mesh is not None:
+        eng.stop_followers()
+        _leave_world()
     _report(args, eng, sp)
     if args.trace_out:
         _export_trace(args.trace_out, indent="  ")

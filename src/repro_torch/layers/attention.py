@@ -291,19 +291,24 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
 
 def attention_prefill_chunk(params: dict, x: torch.Tensor, k_prefix: torch.Tensor,
                             v_prefix: torch.Tensor, prefix_len: int, cfg: ModelConfig,
-                            positions: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                            positions: torch.Tensor, pctx: PartitionCtx = NULL_CTX,
+                            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Chunked-prefill attention: x (B, C, d), one chunk of the prompt at
     global positions ``prefix_len + [0, C)``; k_prefix/v_prefix (B, Hkv, W,
     D) the f32 mirror of the prompt's KV, valid in [0, prefix_len) and
     garbage beyond.  Query q may attend prefix key i < prefix_len and chunk
     keys at or before it.  Plain f32 matmuls and a softmax over the scores
     masked with -1e30, as the JAX package computes it (it has no kernel for
-    this path).  Returns (y, (k, v)) with the chunk's K/V (B, Hkv, C, D)."""
+    this path).  Returns (y, (k, v)) with the chunk's K/V (B, Hkv, C, D).
+    On a mesh (``pctx``, the prefill rules) the heads, the mirror's
+    included, are this rank's H / tp and Hkv / tp, and the output
+    projection sums over the ranks."""
     b, c, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     cap = k_prefix.shape[2]
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, pctx=pctx)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    h, hkv = qt.shape[1], kt.shape[1]
     kk = torch.cat([k_prefix.float(), kt.float()], dim=2)
     vv = torch.cat([v_prefix.float(), vt.float()], dim=2)
     if h > hkv:
@@ -318,7 +323,7 @@ def attention_prefill_chunk(params: dict, x: torch.Tensor, k_prefix: torch.Tenso
     mask = valid[None, :] & (qpos >= kpos[None, :])
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vv).to(x.dtype)
-    y = linear_apply(params["wo"], out.transpose(1, 2).reshape(b, c, h * hd), cfg.quant)
+    y = _out_proj(params, out.transpose(1, 2).reshape(b, c, h * hd), cfg, pctx)
     return y, (kt, vt)
 
 

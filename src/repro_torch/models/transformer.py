@@ -443,7 +443,8 @@ def prefill_tail(params: dict, x_mid: torch.Tensor, cfg: ModelConfig,
 
 
 def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len,
-                        cfg: ModelConfig, prefix_width: Optional[int] = None):
+                        cfg: ModelConfig, prefix_width: Optional[int] = None,
+                        pctx: PartitionCtx = NULL_CTX):
     """One prompt chunk (1, C) through the layer stack, each layer attending
     over the f32 ``prefix`` mirror (L, 1, Hkv, Cap, D) of the prompt's KV,
     valid in [0, prefix_len), plus the chunk itself.  Returns (hidden
@@ -457,13 +458,16 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
     positions, so a short prompt's chunks do not attend over its whole
     capacity.  The mirror holds f32 values, not the (possibly quantized)
     cache bytes: the chunk then computes what the whole-prompt prefill
-    would, and the per-token quantization on write stores the same bytes."""
+    would, and the per-token quantization on write stores the same bytes.
+
+    On a mesh (``pctx``, the prefill rules) the heads are this rank's: the
+    mirror holds them, and so does the KV returned."""
     _check_window(cfg)
     b, c = tokens.shape
     cap = prefix.k.shape[3]
     if not isinstance(prefix_len, torch.Tensor) and prefix_len + c > cap:
         raise ValueError(f"chunk rows [{prefix_len}, {prefix_len + c}) overflow the mirror's {cap}")
-    x = _embed(params["emb"], tokens)
+    x = _embed(params["emb"], tokens, pctx)
     positions = (prefix_len + torch.arange(c, device=tokens.device)).expand(b, c)
     width = cap if prefix_width is None else min(prefix_width, cap)
     ks, vs = [], []
@@ -472,10 +476,10 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
         h = apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
         attn_out, (k, v) = attention_prefill_chunk(
             lp["attn"], h, prefix.k[li, :, :, :width], prefix.v[li, :, :, :width], prefix_len,
-            cfg, positions)
+            cfg, positions, pctx=pctx)
         x = x + attn_out
         h = apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg, pctx)
         ks.append(k)
         vs.append(v)
     tok_k, tok_v = torch.stack(ks), torch.stack(vs)
@@ -519,16 +523,19 @@ def prefill_chunk_paged(params: dict, tokens: torch.Tensor, pages: KVCache, pref
 
 
 def prefill_chunk_kv(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len, last_pos,
-                     cfg: ModelConfig, prefix_width: Optional[int] = None):
+                     cfg: ModelConfig, prefix_width: Optional[int] = None,
+                     pctx: PartitionCtx = NULL_CTX):
     """One chunk computed with no install: the disaggregated prefill pool's
     chunk program.  The math of ``prefill_chunk`` / ``prefill_chunk_paged``
     (the same body, the same logits epilogue); the chunk's f32 KV is
     returned instead of written, so the decode pool can install it with the
     quantize-on-write writer the fused programs run.  Returns (logits (1,
-    Vp) of ``last_pos``, chunk KV (L, 1, Hkv, C, D) f32, prefix)."""
+    Vp) of ``last_pos``, chunk KV (L, 1, Hkv, C, D) f32, prefix).  On a mesh
+    (``pctx``) the heads are this rank's and the logits whole."""
     x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
-                                                  prefix_width)
-    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], KVCache(tok_k, tok_v), prefix
+                                                  prefix_width, pctx)
+    logits = _logits(params, _at(x, last_pos), cfg, pctx=pctx)[:, -1, :]
+    return logits, KVCache(tok_k, tok_v), prefix
 
 
 def _kv_buffer(shape, dtype, kv_dtype: str, device):

@@ -255,9 +255,8 @@ class ModelRunner:
         mesh=None,
     ):
         check_served_family(cfg)
-        if mesh is not None and (prefill_chunk is not None or spec_decode):
-            raise NotImplementedError("chunked prefill and speculative decoding on a mesh are "
-                                      "ROADMAP A.13")
+        if mesh is not None:
+            self._check_mesh_options(prefill_chunk, spec_decode)
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
         if spec_decode == 0:
@@ -295,7 +294,7 @@ class ModelRunner:
             if num_blocks is None:  # full provisioning: every slot can grow to max_len
                 num_blocks = n_slots * cdiv(max_len, block_size)
             pool = T.init_paged_pool(cfg, num_blocks, block_size, kv_dtype=kv_dtype,
-                                     device=self.device)
+                                     device=self._kv_device())
             self.paged: Optional[PagedKVCache] = PagedKVCache(
                 pool, n_slots=n_slots, max_len=max_len, block_size=block_size)
             self.decode_prog = self.engine.paged_decode_program(n_slots, self.paged.max_pages)
@@ -303,7 +302,7 @@ class ModelRunner:
         else:
             self.paged = None
             self.decode_prog = self.engine.decode_program(n_slots, max_len)
-            self.cache = self.engine.init_cache(n_slots, max_len, device=self.device)
+            self.cache = self.engine.init_cache(n_slots, max_len, device=self._kv_device())
         # the inputs of the captured programs, static and written in place
         self.last_tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._replay_in = StagedTensor((2, n_slots), torch.int32, self.device)  # tokens, lengths
@@ -330,8 +329,8 @@ class ModelRunner:
             self.chunk_cap = (cdiv(max_len, block_size) * block_size
                               if cache_layout == "paged" else max_len)
             shape = (cfg.num_layers, 1, cfg.num_kv_heads, self.chunk_cap, cfg.head_dim)
-            self.chunk_prefix = KVCache(torch.zeros(shape, device=self.device),
-                                        torch.zeros(shape, device=self.device))
+            self.chunk_prefix = KVCache(torch.zeros(shape, device=self._kv_device(mirror=True)),
+                                        torch.zeros(shape, device=self._kv_device(mirror=True)))
             # a chunk's tokens, its page ids and (slot, prefix_len, last_pos)
             self._chunk_tokens = StagedTensor((1, self.chunk_cap), torch.int64, self.device)
             self._chunk_pages = StagedTensor((cdiv(self.chunk_cap, block_size),), torch.int32,
@@ -346,6 +345,17 @@ class ModelRunner:
         self._top_ps = torch.ones((n_slots,), dtype=torch.float32, device=dev)
         self._steps_in = StagedTensor((n_slots,), torch.int32, dev)
         self._steps = self._steps_in.dev
+
+    def _check_mesh_options(self, prefill_chunk, spec_decode) -> None:
+        """Refuse on a mesh what the mesh programs do not shard."""
+        if prefill_chunk is not None or spec_decode:
+            raise NotImplementedError("chunked prefill and speculative decoding on a mesh are "
+                                      "ROADMAP A.13.5")
+
+    def _kv_device(self, mirror: bool = False) -> torch.device:
+        """Where the decode cache or page pool (``mirror``: the chunked
+        prefill's f32 mirror) is made: the runner's device."""
+        return self.device
 
     def bucket(self, n: int) -> int:
         """Prompt bucket for an n-token prompt (right-padded), the JAX
@@ -691,6 +701,13 @@ class ModelRunner:
             self.paged.register_prompt_pages(match)
         return logits
 
+    def decode_tokens(self, lengths: torch.Tensor, inflight: Dict[int, Request]):
+        """One decode round and its sampling: (the next token of every slot
+        on the device, the same on the host), the host copy waiting for
+        the round."""
+        next_tokens = self.sample_batch(self.decode_logits(lengths), inflight)
+        return next_tokens, next_tokens.cpu().numpy()
+
     def decode_logits(self, lengths: torch.Tensor) -> torch.Tensor:
         """One decode round of ``last_tokens``; updates the cache in place,
         returns (B, Vp) logits (valid until the next round)."""
@@ -998,12 +1015,7 @@ class EngineCore:
                 swap_policy, DrainPolicy):
             raise ValueError("on a mesh the swap policy must decide from host state alone "
                              "(drain): a measured cost or a clock differs from rank to rank")
-        kw = {}
-        if mesh is not None:
-            if self.runner_cls is not ModelRunner:
-                raise NotImplementedError(f"{type(self).__name__} on a mesh (the pod split of "
-                                          "the disaggregated pools) is ROADMAP A.13")
-            kw["mesh"] = mesh
+        kw = {} if mesh is None else self._mesh_runner_options(mesh)
         self.runner = self.runner_cls(
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
             mode=mode, cache_layout=cache_layout, block_size=block_size, num_blocks=num_blocks,
@@ -1027,6 +1039,11 @@ class EngineCore:
         self.finished: Dict[str, Request] = {}
         self._metrics_registry = None
         self._gen_seq = 0
+
+    def _mesh_runner_options(self, mesh) -> dict:
+        """The runner's options on a mesh: the mesh itself (the disaggregated
+        engine gives its runner this rank's pool instead)."""
+        return {"mesh": mesh}
 
     @property
     def device(self) -> torch.device:
@@ -1518,9 +1535,7 @@ class EngineCore:
         park = 0 if runner.paged is not None else runner.max_len
         lengths = runner.slots.lengths_array({slot: park for slot in self._prefilling})
         t0 = time.perf_counter()  # analysis: allow(det:wallclock) — decode-round wall time feeds t_decode stats only
-        logits = runner.decode_logits(lengths)
-        next_tokens = runner.sample_batch(logits, sched.inflight)
-        next_np = next_tokens.cpu().numpy()  # waits for the round
+        next_tokens, next_np = runner.decode_tokens(lengths, sched.inflight)  # waits for the round
         t1 = time.perf_counter()  # analysis: allow(det:wallclock) — decode-round wall time feeds t_decode stats only
         stats.t_decode += t1 - t0
         stats.decode_rounds += 1

@@ -8,11 +8,13 @@ pool (``DisaggRunner``: the base ``ModelRunner`` on the engine's stream), a
 ``KVHandoffChannel`` carrying finished prefill KV across (chunks shipped as
 they finish, installs deferred), and ``DisaggEngine``, the ``EngineCore``
 subclass routing requests across the pools with the colocated engine's
-tokens.  On one card both pools share the device.
+tokens.  On one card both pools share the device; on the pod split of a
+mesh each pool is its own ranks.
 """
 from repro_torch.serving.disagg.decode_pool import DisaggRunner
-from repro_torch.serving.disagg.engine import DisaggEngine
+from repro_torch.serving.disagg.engine import DisaggEngine, make_disagg_meshes
 from repro_torch.serving.disagg.handoff import KVHandoffChannel, Segment
 from repro_torch.serving.disagg.prefill_pool import PrefillPool
 
-__all__ = ["DisaggEngine", "DisaggRunner", "KVHandoffChannel", "PrefillPool", "Segment"]
+__all__ = ["DisaggEngine", "DisaggRunner", "KVHandoffChannel", "PrefillPool", "Segment",
+           "make_disagg_meshes"]

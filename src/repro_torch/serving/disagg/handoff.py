@@ -13,6 +13,15 @@ write) and marks the segment's memory as used by the consuming stream
 again before the decode stream has read it.  It makes no stream wait: a
 chunk shipped eagerly lets the decode stream run on.
 
+On the pod split of a mesh (``pod``, this rank's ``launch.mesh.PodMesh``,
+and its ``role``) the pools are processes of their own, and a segment does
+cross: ``ship()`` on a prefill rank sends its part over the pod axis's
+group to the decode rank at its coordinates (``core.disagg.kv_transfer``),
+and on that decode rank, called at the same point of the same step,
+receives it.  Both sides count what the JAX
+channel counts (``bytes_shipped`` the whole segment's bytes, every prefill
+rank's part), and ``pod_bytes`` what crossed to or from this rank.
+
 The channel also keeps the decode-side installs.  Installing a segment
 means scattering it into the decode pool's cache, and the install must first
 make the decode stream wait for the segment's event; a decode round after it
@@ -32,6 +41,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.disagg import kv_transfer
 from repro_torch.core.phase_engine import tensor_leaves
 from repro_torch.obs.trace import TRACER
 
@@ -65,7 +75,17 @@ class KVHandoffChannel:
     ``drain`` and ``discard`` run between quanta on it.
     """
 
-    def __init__(self):
+    def __init__(self, pod=None, role: Optional[str] = None):
+        # the split: this rank's pod mesh and pool, the prefill rank at this
+        # rank's coordinates (the sender) and how many prefill ranks each
+        # send a part of a segment
+        self.pod, self.role = pod, role
+        if pod is not None:
+            from repro_torch.launch.mesh import pods
+
+            prefill_pod = pods(pod.parent)[0]
+            self._src = prefill_pod.ranks[pod.pod.ranks.index(pod.rank)]
+            self._senders = prefill_pod.size
         # (slot, install thunk): installs run in ship order, and a slot's are
         # dropped before its pages can be reused (DisaggRunner.release)
         self._pending: List[Tuple[int, Callable[[], None]]] = []  # owned-by: engine-step
@@ -76,40 +96,63 @@ class KVHandoffChannel:
         self.installs = 0  # guarded-by: self._lock
         self.discarded = 0  # guarded-by: self._lock
         self.t_dispatch = 0.0  # guarded-by: self._lock
+        self.pod_bytes = 0  # guarded-by: self._lock
 
     # ------------------------------------------------------------ transfer --
 
+    def _cross(self, tree, like):
+        """The split: send ``tree`` (a prefill rank) or receive a tree
+        shaped as ``like`` (a decode rank); returns it and the bytes
+        moved."""
+        if self.role == "prefill":
+            return kv_transfer(tree, self.pod.pod_group, src=self._src)
+        return kv_transfer(None, self.pod.pod_group, src=self._src, like=like,
+                           device=self.pod.device)
+
     def ship(self, kv, *, eager: bool = False,
-             consumer: Optional["torch.cuda.Stream"] = None) -> Segment:
+             consumer: Optional["torch.cuda.Stream"] = None, like=None) -> Segment:
         """Hand one KV segment, made on the current stream, to the decode
         pool, whose stream ``consumer`` will read it.  Returns the
         ``Segment``; ``eager`` marks a mid-prefill chunk, shipped while the
-        rest of its prompt still computes."""
+        rest of its prompt still computes.  On the split a prefill rank
+        passes its part ``kv`` and a decode rank ``like`` (its shapes and
+        dtypes, as ``meta`` tensors will do), and the decode rank's
+        ``Segment`` holds what it received."""
         t0 = time.perf_counter()
-        leaves = tensor_leaves(kv)
-        ready = None
-        if leaves[0].is_cuda:
+        ready, moved, senders = None, 0, 1
+        if self.pod is not None:
+            kv, moved = self._cross(kv, like)
+            senders = self._senders
+        elif tensor_leaves(kv)[0].is_cuda:
             ready = torch.cuda.Event()
             ready.record()
             if consumer is not None:
-                for t in leaves:
+                for t in tensor_leaves(kv):
                     t.record_stream(consumer)
         t1 = time.perf_counter()
-        nbytes = sum(t.nbytes for t in leaves)
+        nbytes = sum(t.nbytes for t in tensor_leaves(kv)) * senders
         with self._lock:
             self.t_dispatch += t1 - t0
             self.segments += 1
             if eager:
                 self.eager_segments += 1
             self.bytes_shipped += nbytes
+            self.pod_bytes += moved
         if TRACER.enabled:
             TRACER.complete("handoff.ship", t0, t1, lane=TRACE_LANE, bytes=nbytes, eager=eager)
         return Segment(kv, ready)
 
-    def ship_aux(self, tree, producer: Optional["torch.cuda.Stream"] = None):
+    def ship_aux(self, tree, producer: Optional["torch.cuda.Stream"] = None, like=None):
         """Hand a small non-KV tree (a prompt's first-token logits) to the
         current stream, not counted as a segment: the current stream waits
-        for everything enqueued on ``producer`` so far."""
+        for everything enqueued on ``producer`` so far.  On the split it
+        crosses as ``ship`` does (``like`` on a decode rank), its bytes in
+        ``pod_bytes``."""
+        if self.pod is not None:
+            tree, moved = self._cross(tree, like)
+            with self._lock:
+                self.pod_bytes += moved
+            return tree
         if producer is not None:
             torch.cuda.current_stream(producer.device).wait_stream(producer)
             for t in tensor_leaves(tree):
@@ -169,4 +212,5 @@ class KVHandoffChannel:
                 "discarded": self.discarded,
                 "pending": self.pending,
                 "t_dispatch_s": self.t_dispatch,
+                "pod_bytes": self.pod_bytes,
             }

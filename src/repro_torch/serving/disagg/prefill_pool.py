@@ -10,6 +10,12 @@ chunk-prefix mirror, and pinned staging for a chunk's tokens and scalars.
 On one card it shares the decode pool's weights: the static region is one
 set of tensors, as the JAX pool's without a mesh.
 
+On the pod split of a mesh (``mesh``, this rank's ``PodMesh`` of the
+prefill pod) the pool is its own processes: each rank holds its slice of
+the weights and runs the programs on its heads, with no dispatch thread
+and no second stream (a chunk runs on the caller's thread, between the
+decode pod's rounds), and keeps the mirror of its heads.
+
 The decode pool (``DisaggRunner``) calls in here for every prefill and
 ships what comes out through the ``KVHandoffChannel``.  The tokens equal
 the colocated engine's because the programs are the same bodies on the same
@@ -70,7 +76,7 @@ class PrefillPool:
 
     def __init__(self, cfg: ModelConfig, params, *, device: torch.device, max_len: int,
                  mode: str = "pdswap", cache_layout: str = "contiguous", block_size: int = 16,
-                 kv_dtype: str = "fp", prefill_chunk: Optional[int] = None):
+                 kv_dtype: str = "fp", prefill_chunk: Optional[int] = None, mesh=None):
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
         self.cfg = cfg
@@ -81,16 +87,20 @@ class PrefillPool:
         self.max_len = max_len
         self.block_size = block_size
         self.prefill_chunk = prefill_chunk
-        self.params = params  # the decode pool's tensors: one copy of the weights
-        self.engine = PhaseEngine(cfg, cache_layout=cache_layout, kv_dtype=kv_dtype)
+        # one device: the decode pool's tensors, one copy of the weights; the
+        # split: this rank's slice
+        self.params = params
+        self.mesh = mesh
+        self.engine = PhaseEngine(cfg, mesh, cache_layout=cache_layout, kv_dtype=kv_dtype)
         # Its own stream, at the lowest priority (0, which the default stream
         # has too: it yields nothing to decode work on the default stream,
         # and takes nothing from a decode stream of higher priority).
-        self.stream = (torch.cuda.Stream(device, priority=0) if device.type == "cuda" else None)
+        self.stream = (torch.cuda.Stream(device, priority=0)
+                       if device.type == "cuda" and mesh is None else None)
         # the chunks' dispatch thread: a chunk enters from here, so the
         # engine's thread is free to dispatch decode rounds meanwhile
-        self._exec = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefill-pool",
-                                        initializer=_deprioritize)
+        self._exec = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefill-pool",
+                                         initializer=_deprioritize) if mesh is None else None)
         # The f32 chunk-prefix mirror lives where the chunks compute; only
         # the dispatch thread touches it after construction (one worker keeps
         # the chunks in order through it).
@@ -99,7 +109,8 @@ class PrefillPool:
         if prefill_chunk is not None:
             self.chunk_cap = (cdiv(max_len, block_size) * block_size
                               if cache_layout == "paged" else max_len)
-            shape = (cfg.num_layers, 1, cfg.num_kv_heads, self.chunk_cap, cfg.head_dim)
+            heads = cfg.num_kv_heads // self.engine.prefill_ctx.tp_size  # the split: its heads
+            shape = (cfg.num_layers, 1, heads, self.chunk_cap, cfg.head_dim)
             self.chunk_prefix = KVCache(torch.zeros(shape, device=device),
                                         torch.zeros(shape, device=device))
             # a chunk's tokens and (prefix_len, last_pos), staged on this
@@ -115,7 +126,13 @@ class PrefillPool:
 
     def submit(self, fn: Callable) -> Future:
         """Run ``fn`` (a chunk's compute and ship) on the pool's dispatch
-        thread, on the pool's stream.  One worker keeps the chunks in order."""
+        thread, on the pool's stream.  One worker keeps the chunks in order.
+        On the split it runs here and now (a finished ``Future``)."""
+        if self._exec is None:
+            fut: Future = Future()
+            fut.set_result(fn())
+            return fut
+
         def run():  # thread: prefill-pool
             with self.on_stream():
                 return fn()
@@ -126,7 +143,8 @@ class PrefillPool:
         """Wait until the dispatch thread has run everything submitted so
         far: a graph captured on another thread may not overlap its
         launches (the capture then waits for the card itself)."""
-        if not threading.current_thread().name.startswith("prefill-pool"):
+        if self._exec is not None and not threading.current_thread().name.startswith(
+                "prefill-pool"):
             self._exec.submit(int).result()
 
     def stage_chunk(self, tokens: np.ndarray, prefix_len: int,
@@ -182,6 +200,6 @@ class PrefillPool:
             _, start, last = self.stage_chunk(np.zeros((0,), np.int64), 0, 0)
             for prog, (padded, _) in zip(progs, chunk_shapes):
                 prog(self.params, self._tokens.dev[:, :padded], self.chunk_prefix, start, last)
-            self.stream.synchronize()
+            torch.cuda.synchronize(self.device)
 
         self.submit(warm).result()

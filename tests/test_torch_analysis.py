@@ -16,6 +16,7 @@
 """
 from __future__ import annotations
 
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import subprocess
 import sys
 import textwrap

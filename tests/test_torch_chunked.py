@@ -8,6 +8,7 @@ PyTorch versions, since these tensors lie on the CPU.  Greedy streams are
 compared token for token, quantized cache bytes byte for byte, and chunk
 logits and KV within 1e-4: f32 sums in another order than XLA's.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import jax
 import jax.numpy as jnp
 import numpy as np

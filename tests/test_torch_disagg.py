@@ -13,6 +13,7 @@ channel's, the writers the decode pool installs with byte for byte against
 the jitted JAX programs, and the chunk program's logits and KV within 1e-4
 (f32 sums in another order than XLA's).
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import sys
 import threading
 

@@ -18,6 +18,7 @@ table-lookup oracle, ``core/dse.py`` and the DSE example.
 """
 from __future__ import annotations
 
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import contextlib
 import importlib.util
 import io

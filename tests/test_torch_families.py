@@ -9,6 +9,7 @@ JAX function (jitted, its Pallas kernels in interpret mode:
 carried by ``params_from_numpy`` unless stated, and holds each output within
 ``F32_TOL`` of its largest magnitude.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import jax
 import jax.numpy as jnp
 import ml_dtypes

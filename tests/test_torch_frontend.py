@@ -9,6 +9,7 @@ from a seed, packed by the JAX package and carried across by
 ``interop.params_from_numpy``), and is held against a live run of the JAX
 package, token for token.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import asyncio
 import contextlib
 import copy

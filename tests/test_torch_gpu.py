@@ -4,6 +4,7 @@ Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips where there is none.  Run them on a machine with a card
 with ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import numpy as np
 import pytest
 import torch

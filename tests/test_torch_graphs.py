@@ -10,6 +10,7 @@ builds) against the JAX engine's.  The quickstart's port gives the JAX
 quickstart's greedy tokens.  On the CPU the programs run eagerly; their
 graphs are held to the eager calls on the card (``tests/test_torch_gpu.py``).
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import contextlib
 import io
 import runpy

@@ -7,6 +7,7 @@ plain PyTorch versions, since these tensors lie on the CPU).  Quantized
 payloads, scale planes, page writes and pool decisions are compared byte
 for byte, attention within 1e-5, and greedy streams token for token.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import shutil
 
 import jax

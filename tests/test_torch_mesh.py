@@ -23,6 +23,7 @@ int8/int4 KV payloads and scale planes) is compared bit for bit.
 """
 from __future__ import annotations
 
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import argparse
 import os
 import pickle
@@ -710,7 +711,8 @@ def test_walk_merge_with_an_empty_shard():
 def test_mesh_refusals():
     """A mesh refuses what it does not shard, by name: another family,
     chunked prefill and speculative decoding, a swap policy that reads a
-    clock or a measured cost, and dims the model axis does not divide."""
+    clock or a measured cost, and dims the model axis does not divide;
+    the disaggregated pools split a mesh with a pod axis only."""
     from repro_torch.configs import reduced_config
     from repro_torch.core.phase_engine import PhaseEngine
     from repro_torch.models import transformer as T
@@ -728,7 +730,7 @@ def test_mesh_refusals():
         EngineCore(cfg, params, mesh=mesh, swap_policy="swap-aware", **ENGINE_BASE)
     from repro_torch.serving import DisaggEngine
 
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="spatial disaggregation needs a pod axis"):
         DisaggEngine(cfg, params, mesh=mesh, device="cpu", **ENGINE_BASE)
     with pytest.raises(ValueError, match="does not divide"):
         PhaseEngine(reduced_config("bitnet-730m", num_heads=3, num_kv_heads=3), mesh)
@@ -746,8 +748,9 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     shard at a unit scale), B2 on 12 of 24 heads, the walks over a
     sequence half with an empty slot and over a data rank's slots; and
     granite-moe-3b-a800m's: B2 on 12 of 24 heads over 4 KV heads, B3 and
-    B6 at G = 3.  Here each case's plain version runs and a row shard's B1
-    returns the exact int32 partial."""
+    B6 at G = 3; the pod split's decode pool: B3 over a sequence half at 4
+    slots, B6 over 4 slots of the whole pool.  Here each case's plain
+    version runs and a row shard's B1 returns the exact int32 partial."""
     from repro_torch.analysis import kernel_check as K
     from repro_torch.quant.ternary import unpack_ternary
 
@@ -762,6 +765,8 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     granite = [c.label for c in cases if "granite" in c.label]  # G = 3 shards of a MoE mesh
     assert sum("H=12 Hkv=4" in x for x in granite) == 2 and len(granite) == 5, granite
     assert any("lengths=[0, 48]" in c.label for c in cases if c.kernel == "decode_attention_quant")
+    split = [c.kernel for c in cases if "the split's decode pool" in c.label]
+    assert split == ["decode_attention", "paged_decode_attention_quant"], split
     plains = K._plains()
     for case in cases:
         named = K._plain_named(case)

@@ -39,6 +39,7 @@ Tolerances (each read on this CPU and stated where it is used):
 """
 from __future__ import annotations
 
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import argparse
 import os
 import pickle

@@ -7,6 +7,7 @@ moonshot-v1-16b-a3b against a live JAX engine, the CLI's default arch, and
 Engines run f32 params with the JAX Pallas kernels in interpret mode
 (``use_pallas=True``), as the earlier slices' tests run them.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import dataclasses
 
 import jax

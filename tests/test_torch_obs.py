@@ -9,6 +9,7 @@ Engines run the tiny config of the JAX package's
 from a seed, carried across by ``interop.params_from_numpy``), beside a live
 JAX engine on the same requests.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import collections
 import dataclasses
 import json

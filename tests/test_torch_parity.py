@@ -6,6 +6,7 @@ by ``jax.vmap(quantize_and_pack)``) and through the port's counterpart (the
 plain PyTorch version of each kernel, since these tensors lie on the CPU).
 Integer work is compared bit for bit, float work within a stated tolerance.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import dataclasses
 
 import jax

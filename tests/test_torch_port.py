@@ -1,5 +1,6 @@
 """The PyTorch port on its own: what it imports, where it runs, its launch
 counters, and the pieces of the serving path that need no JAX run."""
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import subprocess
 import sys
 import textwrap

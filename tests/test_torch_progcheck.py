@@ -13,6 +13,7 @@ on the CPU at the signature serving dispatches.
 """
 from __future__ import annotations
 
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import types
 from pathlib import Path
 

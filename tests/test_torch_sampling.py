@@ -8,6 +8,7 @@ op-by-op call); engine streams token for token with a live JAX
 ``EngineCore`` on the same packed weights, made with numpy from a seed (the
 config of the JAX package's ``tests/test_chunked_prefill.py``).
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import jax
 import jax.numpy as jnp
 import numpy as np

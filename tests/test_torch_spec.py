@@ -15,6 +15,7 @@ that pin literal acceptance rates and stop tokens fail on the JAX package
 itself (its tiny model's greedy stream repeats one token), so they are not
 copied: the port's counters are held to the JAX engine's instead.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import functools
 
 import jax

@@ -8,6 +8,7 @@ it: XLA turns the act-quant scale's division into one multiply-add, which
 the port computes (ROADMAP C, "KV scale").  Inputs are numpy arrays made
 from a seed.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import re
 
 import jax

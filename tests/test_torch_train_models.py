@@ -9,6 +9,7 @@ Weights are the JAX ``init`` (f32) with the norms, biases, gates and SSM
 constants moved off 1 and 0; batches are numpy from a seed, with some
 targets masked out.  TF32 is off (``repro_torch``): every product is f32.
 """
+import omp_passive  # noqa: F401 -- before torch: the OpenMP wait policy
 import dataclasses
 
 import jax
