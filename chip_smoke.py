@@ -290,8 +290,15 @@ TIE_TOL = 0.01  # two runs' streams may part only where two tokens' scores lie t
 # half (the planted fault) parts at margins 0.1053 and 0.0449 with logits
 # 0.767 apart.  The limits lie between: a stream may part where both
 # margins are within MESH_TIE_TOL, the logits on common tokens within
-# MESH_AGREE_TOL
+# MESH_AGREE_TOL.  A sampled stream draws from both runs' rows with the
+# same noise, so it may part where the two rows lie within MESH_DRAW_TOL:
+# the reordered sums alone move the rows of the cut model up to 0.074
+# ((M2c)'s common tokens; (MSc)'s 0.0673, its sampled partings' rows
+# 0.0523, 0.0419 and 0.0163, each given by (ES3), its computation on one
+# card with no mesh code, within 8.34e-6), the planted faults 0.767 ((F))
+# and more ((FS) 0.985)
 MESH_TIE_TOL = 0.04
+MESH_DRAW_TOL = 0.1
 MESH_AGREE_TOL = 0.2
 PROFILE_EDGE_S = 0.1  # idle card at each end of a profiler window (see _profiled)
 PROFILE_MARKS = 10  # bursts of sentinel kernels through a window's opening margin
@@ -967,13 +974,17 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
     them against the whole walk; B5 and B6 over a data rank's 2 slots of
     a whole pool (``walk_shard_checks``).  Each against its plain version,
     timed beside its bound and its library yardstick.  Returns [(kernel,
-    case)]."""
+    case)].  Then the verify pass's walks at a data rank's verify rows
+    (``verify_shard_checks``), and B1 also at those rows (M = 10) and a
+    256-row chunk's."""
     from repro_torch.kernels import costs
 
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = []
-    for m in (2, 1024):
+    # decode rows (2 slots), a verify round's rows (2 slots x 5), a chunk's
+    # 256 rows, a prefill's 1,024
+    for m in (2, MESH_VERIFY_ROWS, CHUNK, 1024):
         for k, n in MESH_TLMM:
             x_q = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                                 dtype=torch.int32).to(torch.int8)
@@ -992,7 +1003,8 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
             cost = costs.tlmm_cost(m, k, n)
             b_ms, b_by = bound(cost.min_bytes, cost.flops, "int8")
             out.append(("tlmm", {
-                "shape": f"M={m} K={k} N={n} (a model rank's {'row' if k < n else 'column'} shard)",
+                "shape": f"M={m} K={k} N={n} (a model rank's "
+                         f"{'row' if (k, n) in MESH_TLMM[2:] else 'column'} shard)",
                 "max_abs_err": 0.0,
                 "ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush),
                 "call_ms": timed_ms(torch, lambda: ops["tlmm"](x_q, w, scale), flush, busy=False),
@@ -1017,7 +1029,141 @@ def mesh_kernel_checks(torch, ops, refs, flush, gen):
         del q, k, v
     return out + walk_shard_checks(
         torch, ops, refs, flush, gen, MESH_LENGTHS, ("int8", "int4"), ("fp", "int8"),
-        "model rank {r}'s sequence half", "a data rank's 2 slots")
+        "model rank {r}'s sequence half", "a data rank's 2 slots") + verify_shard_checks(
+        torch, ops, refs, flush, gen, MESH_VERIFY_BASE, ("int8", "fp"), ("fp", "int8"),
+        "model rank {r}'s sequence half, a data rank's 2 slots x {w} verify rows",
+        "a data rank's 2 slots x {w} verify rows")
+
+
+MESH_VERIFY_ROWS = 2 * (SPEC_K + 1)  # a data rank's verify rows: 2 slots x W
+# a data rank's 2 slots at a verify round of (MSc): slot 0's block of 5
+# rows [1,022, 1,027) straddles the two sequence halves of 1,024 rows
+MESH_VERIFY_BASE = [1022, 300]
+SPLIT_VERIFY_BASE = [80, 1021, 316, 916]  # (MD3)'s 4 slots, one block across the halves
+
+
+def verify_shard_checks(torch, ops, refs, flush, gen, base, quant, paged_formats, half_what,
+                        pool_what):
+    """The verify pass's walks at a decode rank's shard shapes of
+    bitnet-730m (24 heads of 64, max_len 2,048, 16-token pages),
+    ``rows_per_slot`` W = 5: B4 (``quant`` "int8") or B3 ("fp") over each
+    model rank's half of the sequence (a layer slice of a (B, 24, 24, 1024,
+    64) block), row (b, i) at its local length ``clamp(base[b] + i - r *
+    1024, 0, 1024)``; the two halves' walks merged as the ranks merge them
+    against the whole walk within the limit of ``verify_row_checks``; B5
+    and B6 (``paged_formats``) over B slots' tables, each table row W
+    times, into a whole pool of 512 pages.  B = len(base).  Each against
+    its plain version, timed beside its bound and its library yardstick.
+    Returns [(kernel, case)]."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.paged_attention.ref import gather_pages, gather_scales
+    from repro_torch.layers.attention import combine_partials
+    from repro_torch.quant.kv_quant import dequantize_kv
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    b, layers, hkv, d, smax, bs, w = len(base), 24, 24, 64, 2048, 16, SPEC_K + 1
+    half = smax // 2
+    glob = (torch.tensor(base, dtype=torch.int32, device=dev)[:, None]
+            + torch.arange(w, dtype=torch.int32, device=dev)).reshape(-1)
+    q = torch.randn((b * w, hkv, 1, d), generator=gen, device=dev)
+    qb = q.reshape(b, w, hkv, d).transpose(1, 2).to(torch.bfloat16)
+
+    def entry(kernel, what, err, run, plain, lib, cost):
+        b_ms, b_by = bound(cost.min_bytes, cost.flops, "f32")
+        out.append((kernel, {"shape": what, "max_abs_err": err, "ms": timed_ms(torch, run, flush),
+                             "call_ms": timed_ms(torch, run, flush, busy=False),
+                             "plain_ms": timed_ms(torch, plain, flush), "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": timed_ms(torch, lib, flush)}))
+
+    def rep(t):
+        return t.repeat_interleave(w, 0)
+
+    for kv_dtype in quant:
+        if kv_dtype == "fp":
+            whole = [torch.randn((b, layers, hkv, smax, d), generator=gen, device=dev,
+                                 dtype=torch.bfloat16)[:, 7] for _ in range(2)]
+            name, kernel, kw = "decode", "decode_attention", {}
+        else:
+            (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev, (b, layers, hkv, smax, d),
+                                                    kv_dtype) for _ in range(2))
+            whole = [kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7]]
+            name, kernel, kw = "decode_quant", "decode_attention_quant", {"kv_dtype": kv_dtype}
+        parts = []
+        for r in range(2):
+            planes = [t[:, :, r * half:(r + 1) * half] for t in whole]
+            local = torch.clamp(glob - r * half, 0, half).to(torch.int32)
+            got = ops[name](q, *planes, local, rows_per_slot=w, **kw)
+            err = _check_err(f"{kernel} verify rows, sequence half {r}", got,
+                             refs[name](q, *(rep(t) for t in planes), local, **kw))
+            parts.append(got)
+            if kv_dtype == "fp":
+                kd, vd = planes
+            else:
+                kd, vd = (dequantize_kv(p_, s_, kv_dtype).to(torch.bfloat16)
+                          for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
+            mask = (torch.arange(half, device=dev)[None, None, :]
+                    < local.reshape(b, w, 1))[:, None]
+            fmt = "bf16" if kv_dtype == "fp" else kv_dtype
+            entry(kernel, f"{half_what.format(r=r, w=w)}: B*W={b * w} Hkv={hkv} D={d} local "
+                  f"lengths {local.tolist()} of {half} rows, {fmt} layer slice, rows_per_slot "
+                  f"{w}", err,
+                  lambda: ops[name](q, *planes, local, rows_per_slot=w, **kw),
+                  lambda: refs[name](q, *(rep(t) for t in planes), local, **kw),
+                  lambda: sdpa(qb, kd, vd, attn_mask=mask),
+                  costs.decode_attention_cost(local.tolist(), hkv, 1, d, kv_dtype=kv_dtype,
+                                              cap=half, rows_per_slot=w))
+            del kd, vd
+        merged = combine_partials(*(torch.stack([p_[i].reshape(b * w, hkv, -1) for p_ in parts])
+                                    for i in range(3)))
+        full = refs[name](q, *(rep(t) for t in whole), glob, **kw)
+        merr = max((merged[0] - full[0].reshape(b * w, hkv, -1)).abs().max().item(),
+                   ((merged[1] - full[1].reshape(b * w, hkv, -1)).abs()
+                    / full[1].reshape(b * w, hkv, -1).clamp(min=1.0)).max().item())
+        if not merr <= 1e-4:
+            raise AssertionError(f"{kernel} verify rows: the two sequence halves' walks merge "
+                                 f"{merr} off the whole walk")
+        print(f"kernel {kernel}: verify rows of {b} slots x {w} over the two model ranks' "
+              f"halves (a block across the boundary) merged = the whole walk within {merr:.3g}")
+        del whole, parts
+    pool_pages, n_pages = 512, smax // bs
+    used = [-(-(n + w) // bs) for n in base]
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).to(torch.int32)
+    tables = torch.zeros((b, n_pages), dtype=torch.int32, device=dev)
+    at = 0
+    for i, u in enumerate(used):
+        tables[i, :u] = perm[at:at + u]
+        at += u
+    rows = rep(tables)
+    mask = (torch.arange(smax, device=dev)[None, None, :] < glob.reshape(b, w, 1))[:, None]
+    for kv_dtype in paged_formats:
+        name = "paged" if kv_dtype == "fp" else "paged_quant"
+        kernel = "paged_decode_attention" + ("" if kv_dtype == "fp" else "_quant")
+        kw = {} if kv_dtype == "fp" else {"kv_dtype": kv_dtype}
+        if kv_dtype == "fp":
+            planes = [torch.randn((pool_pages, layers, hkv, bs, d), generator=gen, device=dev,
+                                  dtype=torch.bfloat16)[:, 7] for _ in range(2)]
+            kd, vd = (gather_pages(p_, tables) for p_ in planes)
+        else:
+            (kc, ksc), (vc, vsc) = (_random_payload(torch, gen, dev,
+                                                    (pool_pages, layers, hkv, bs, d), kv_dtype)
+                                    for _ in range(2))
+            planes = [kc[:, 7], ksc[:, 7], vc[:, 7], vsc[:, 7]]
+            kd, vd = (dequantize_kv(gather_pages(p_, tables), gather_scales(s_, tables),
+                                    kv_dtype).to(torch.bfloat16)
+                      for p_, s_ in ((planes[0], planes[1]), (planes[2], planes[3])))
+        args = (q, *planes, rows, glob)
+        got = ops[name](*args, **kw)
+        err = _check_err(f"{kernel} {pool_what.format(w=w)}", got, refs[name](*args, **kw))
+        entry(kernel, f"{pool_what.format(w=w)}: B*W={b * w} Hkv={hkv} N={pool_pages} bs={bs} "
+              f"lengths {base} + 0..{w - 1}, {'bf16' if kv_dtype == 'fp' else kv_dtype} whole "
+              f"pool, each table row {w} times", err, lambda: ops[name](*args, **kw),
+              lambda: refs[name](*args, **kw), lambda: sdpa(qb, kd, vd, attn_mask=mask),
+              costs.decode_attention_cost(glob.tolist(), hkv, 1, d, kv_dtype=kv_dtype,
+                                          paged=True, bs=bs, cap=smax, rows_per_slot=w))
+        del planes, args, kd, vd
+    return out
 
 
 def walk_shard_checks(torch, ops, refs, flush, gen, lengths_, quant_half, paged_formats,
@@ -1145,10 +1291,14 @@ def split_kernel_checks(torch, ops, refs, flush, gen):
     """Phase 3 at a decode rank's shapes on the pod split (MD): B3 over each
     model rank's half of the sequence at the pool's 4 slots (data 1: every
     slot on every rank), B6 over 4 slots of the whole pool of 512 int8
-    pages (MD2) (``walk_shard_checks``)."""
+    pages (MD2) (``walk_shard_checks``); B4 over each half and B6 at (MD3)'s
+    verify rows, 4 slots x 5 (``verify_shard_checks``)."""
     return walk_shard_checks(torch, ops, refs, flush, gen, SPLIT_LENGTHS, (), ("int8",),
                              "the split's decode rank {r}, 4 slots", "the split's decode rank, "
-                             "data 1: 4 slots")
+                             "data 1: 4 slots") + verify_shard_checks(
+        torch, ops, refs, flush, gen, SPLIT_VERIFY_BASE, ("int8",), ("int8",),
+        "the split's decode rank {r}, 4 slots x {w} verify rows",
+        "the split's decode rank, data 1: 4 slots x {w} verify rows")
 
 
 # the shard shapes of phase (ME): granite-moe-3b-a800m on a (data 2, model 2)
@@ -1494,15 +1644,21 @@ def main(only: str | None = None) -> int:
     if only == "moe-mesh":  # a development run of phase (ME) alone: no result line
         moe_mesh_only(torch, np, card)
         return 0
-    if only == "disagg-mesh":  # a development run of phase (MD) alone: no result line
+    if only in ("disagg-mesh", "spec-mesh"):  # (MD), or (MS) and (MD): no result line
         cfg = get_config("bitnet-730m")
         params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
 
         def refs():
             return md_references(torch, np, cfg, params)
 
-        mesh_world_phase(torch, card, parts=("MD",), beside=[("(MD) references", refs)],
-                         md_refs=lambda: EARLY.take("(MD) references", refs))
+        def cut_refs():
+            return mesh_spec_references(torch, np)
+
+        parts = ("MD",) if only == "disagg-mesh" else ("MS", "MD")
+        mesh_world_phase(torch, card, parts=parts,
+                         beside=[("(MD) references", refs), ("(MS) references", cut_refs)],
+                         md_refs=lambda: EARLY.take("(MD) references", refs),
+                         ms_refs=lambda: EARLY.take("(MS) references", cut_refs))
         return 0
 
     _elapsed("kernel checks")
@@ -1649,16 +1805,21 @@ def main(only: str | None = None) -> int:
     def cut_refs():
         return mesh_cut_references(torch, np)
 
+    def spec_refs():
+        return mesh_spec_references(torch, np)
+
     beside = ([("(MD) references", md_refs), ("(M2) cut references", cut_refs),
-               ("main references", main_references)]
+               ("(MS) references", spec_refs), ("main references", main_references)]
               + family_reference_jobs(torch)
               + [("(T4)", lambda: family_gradients(torch, np, card))])
     world = mesh_world_phase(torch, card, m2_args=(
         cfg, main_kv, {"a": {"streams": main_streams, "recorder": main_rec}},
         lambda: EARLY.take("(M2) cut references", cut_refs)),
         mt1_report=mt1_report, beside=beside,
-        md_refs=lambda: EARLY.take("(MD) references", md_refs))
+        md_refs=lambda: EARLY.take("(MD) references", md_refs),
+        ms_refs=lambda: EARLY.take("(MS) references", spec_refs))
     (mesh_launches, m2a), mt_launches, me2 = world["M2"], world["MT"], world["ME"]
+    ms_launches = world["MS"]
     md_launches, md_parts = world["MD"]
     del world
     _elapsed("(E), (F)")
@@ -1666,7 +1827,12 @@ def main(only: str | None = None) -> int:
                      m2a, card, md_parts=md_parts)
     del m2a
     _elapsed("paths (k)-(m)")
-    spec_launches = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card)
+    spec_launches, path_k = spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens,
+                                       card)
+    _elapsed("(M1s), (M1c)")
+    m1s_launches = mesh_m1_spec_phase(torch, np, cfg, params, n_slots, max_len, max_tokens,
+                                      m1_mesh, path_k, path_i, card)
+    del path_k
     decoded, verified, chunked = EARLY.take("main references", main_references)
     for name, err, scale in decoded:
         print(f"reference: full-width 2-layer {name} decode logits vs CPU plain versions: "
@@ -1721,7 +1887,7 @@ def main(only: str | None = None) -> int:
     for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches,
                  front_launches, cli_launches, disagg_launches, cli_disagg_launches,
                  family_launches, cli_smollm_launches, other_launches, train_launches,
-                 mt_launches, me2_launches, md_launches):
+                 mt_launches, me2_launches, md_launches, ms_launches, m1s_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1777,7 +1943,7 @@ def main(only: str | None = None) -> int:
 
 MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
 MESH_WORLD = 4
-MESH_PARTS = ("M2", "MD", "MT", "ME")  # the world's phases, in the order its ranks run them
+MESH_PARTS = ("M2", "MS", "MD", "MT", "ME")  # the world's phases, in the order its ranks run them
 MESH_TIMEOUT_S = 900  # the 4-rank world: (M2), (MT2)-(MT4), (ME2), (ME3)
 # (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
 # options, and the path whose streams it must give
@@ -1945,7 +2111,7 @@ class _RowsRecorder:
 
 
 def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=None, beside=(),
-                     md_refs=None):
+                     md_refs=None, ms_refs=None):
     """One (data 2, model 2) gloo world of 4 processes on this card
     (``python -m torch.distributed.run --standalone --nproc-per-node 4
     chip_smoke.py --mesh-worker DIR PARTS``; each rank on cuda:0, the
@@ -1960,7 +2126,10 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
     "MT": rank 0's (MT3) launches, "ME": (ME2)'s results (``me2_results``)},
     each for the parts run.  ``beside``: [(key, fn)] run in this process
     meanwhile (``EARLY``); ``md_refs()``: (MD)'s one-card references, read
-    once the world has ended."""
+    once the world has ended; ``ms_refs()``: the cut model's one-card runs
+    that (MS) and (MD3) are held to (``mesh_spec_references``), with "MS"
+    the chunked, speculative and swap-aware paths on the mesh and their
+    planted faults, and the result "MS" rank 0's launches over them."""
     import shutil
 
     t0 = time.perf_counter()
@@ -1997,9 +2166,13 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
                  if beside else "") + f"  [{card}]")
         if "M2" in parts:
             out["M2"] = _mesh_m2_results(torch, *m2_args, card)
+        cfg = m2_args[0] if m2_args else _bitnet()
+        cut_refs = ms_refs() if ms_refs is not None and {"MS", "MD"} & set(parts) else {}
+        if "MS" in parts:
+            out["MS"] = _mesh_ms_results(torch, cfg, cut_refs, card)
         if "MD" in parts:
-            out["MD"] = _mesh_md_results(torch, m2_args[0] if m2_args else _bitnet(), md_refs(),
-                                         card)
+            refs = dict(md_refs(), **{k: cut_refs[k] for k in MD_CUT})
+            out["MD"] = _mesh_md_results(torch, cfg, refs, card)
         if "MT" in parts:
             print(mt1_report)
             result = json.loads((MESH_DIR / "MT_result.json").read_text())
@@ -2080,7 +2253,7 @@ def _mesh_m2_results(torch, cfg, main_kv, refs, cut_refs, card):
             reading = compare_streams(torch, f"({key}) against the cut model on one card",
                                       r0["streams"], one["streams"], rows, one["recorder"],
                                       greedy)
-            faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+            faults = mesh_faults(reading)
             if faults:
                 raise AssertionError(f"({key}): " + "; ".join(faults))
             against = ("equal" if not reading["parts"] else "part at near ties from") + (
@@ -2112,7 +2285,7 @@ def _mesh_m2_results(torch, cfg, main_kv, refs, cut_refs, card):
         reading = compare_streams(torch, f"({MESH_CUT_FAULT}) against its sound run",
                                   fault["streams"], sound["streams"], fault["recorder"],
                                   sound["recorder"], greedy)
-        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        faults = mesh_faults(reading)
     except AssertionError as e:  # a stream parts at its prefill's token: no near tie there
         faults = [str(e)]
     if not faults:
@@ -2128,31 +2301,45 @@ def _mesh_m2_results(torch, cfg, main_kv, refs, cut_refs, card):
 def _print_reading(key, reading, card):
     """A cut path's reading beside the (M2) limits: each parting's two
     margins, and how far the logits on the tokens both gave lie apart."""
-    parts = "; ".join(f"{p['rid']} parts at token {p['pos']}, margins {p['margins'][0]:.4f} "
-                      f"and {p['margins'][1]:.4f}" for p in reading["parts"]) or "no parting"
-    print(f"({key}) readings against the limits: {parts} (limit {MESH_TIE_TOL} each); logits "
+    parts = "; ".join(
+        f"{p['rid']} parts at token {p['pos']}, " + (
+            f"margins {p['margins'][0]:.4f} and {p['margins'][1]:.4f} (limit {MESH_TIE_TOL} "
+            "each)" if p["greedy"] else
+            f"sampled, rows {p['diff']:.4f} apart (limit {MESH_DRAW_TOL})")
+        for p in reading["parts"]) or "no parting"
+    print(f"({key}) readings against the limits: {parts}; logits "
           f"on the tokens both gave within {reading['agree']:.4f} (limit {MESH_AGREE_TOL})  "
           f"[{card}]")
 
 
 def _split_walk(torch, drop: bool = False):
-    """The decode walk as a model axis of 2 runs it, on one card: B3 over
-    each half of the cache's rows (local lengths ``clamp(len - r * S/2, 0,
-    S/2)``), the two (out, l, m) stacked in rank order and merged by
-    ``combine_partials``, as ``merge_partials`` merges the gathered ones.
-    With ``drop`` the second half's partials are left out: the planted
-    fault of ``mesh_cause_phase``.  Returns (the plain function, the walk)."""
+    """The contiguous cache's walk as a model axis of 2 runs it, on one
+    card: B3 or B4 over each half of the cache's rows (local lengths
+    ``clamp(len - r * S/2, 0, S/2)``, a quantized cache's scale planes
+    halved with its payload, a verify round's rows per slot kept), the two
+    (out, l, m) stacked in rank order and merged by ``combine_partials``,
+    as ``merge_partials`` merges the gathered ones.  With ``drop`` the
+    second half's partials are left out: the planted fault of
+    ``mesh_cause_phase``.  Returns (the plain function, the walk)."""
     from repro_torch.layers import attention as A
 
     plain = A.decode_attention
 
     def walk(q, k, v, lengths, starts=None, *, return_stats=False, **kw):
-        if not return_stats or starts is not None or kw:
-            raise AssertionError("the split walk takes the bf16 decode walk of the main path")
+        if not return_stats or starts is not None:
+            raise AssertionError("the split walk takes the serving walk, with its stats")
         half = k.shape[2] // 2
-        parts = [plain(q, k[:, :, r * half:(r + 1) * half], v[:, :, r * half:(r + 1) * half],
+
+        def part(t, r):
+            return t[:, :, r * half:(r + 1) * half]
+
+        def scales(r):
+            return {n: part(kw[n], r) for n in ("k_scales", "v_scales")
+                    if kw.get(n) is not None}
+
+        parts = [plain(q, part(k, r), part(v, r),
                        torch.clamp(lengths - r * half, 0, half).to(torch.int32),
-                       return_stats=True) for r in range(2)]
+                       return_stats=True, **{**kw, **scales(r)}) for r in range(2)]
         if drop:
             return parts[0]
         return A.combine_partials(*(torch.stack(t) for t in zip(*parts)))
@@ -2196,11 +2383,11 @@ def mesh_cause_phase(torch, cfg, params, prompts, max_tokens, max_len, main_stre
         print(f"({key}) {what}: {st.decode_rounds} decode rounds  [{card}]")
         reading = compare_streams(torch, f"({key}) against the main path", got, main_streams,
                                   rec[0], main_rec, greedy)
-        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        faults = mesh_faults(reading)
         if key == "E1" and md_parts is not None:  # the split's decode pod walks in halves too
             e1 = {(p["rid"], p["pos"]) for p in reading["parts"]}
             for md, parts in md_parts.items():
-                if md == "FD" or not parts:
+                if md in ("FD",) + MD_CUT or not parts:
                     continue
                 print(f"({md}) parts at {parts}; (E1), the walk in two sequence halves as the "
                       f"split's decode ranks walk it, parts at {sorted(e1)}: "
@@ -2245,7 +2432,7 @@ def mesh_worker(out: Path, parts) -> int:
     t_start = time.perf_counter()
     join_process_group("gloo")
     mesh = make_host_mesh(data=2, model=2)
-    runs = {"M2": _m2_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank}
+    runs = {"M2": _m2_rank, "MS": _ms_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank}
     for part in parts:
         t0 = time.perf_counter()
         runs[part](mesh, out)
@@ -2260,15 +2447,17 @@ def mesh_worker(out: Path, parts) -> int:
 
 
 def _serve_rank(torch, dist, mesh, cfg, params, prompts, max_new, kw, record, phase=None,
-                make=None):
-    """Serve ``prompts`` greedily on this rank's engine over ``mesh`` (rank
-    0 admits, the others follow), the launch counters set to 0 just
-    before; with ``record`` this rank keeps its logits rows; ``phase["now"]``
-    reads "prefill" while a prefill runs, else "decode"; ``make()`` builds
-    the engine in place of an ``EngineCore`` on ``mesh``.  Returns (engine,
-    recorder or None, monolithic prefill calls, wall seconds)."""
+                make=None, ids=None, params_of=None):
+    """Serve ``prompts`` on this rank's engine over ``mesh`` (rank 0 admits,
+    the others follow), the launch counters set to 0 just before; with
+    ``record`` this rank keeps its logits rows; ``phase["now"]`` reads
+    "prefill" while a prefill runs, else "decode"; ``make()`` builds the
+    engine in place of an ``EngineCore`` on ``mesh``.  Request j is
+    ``req{ids[j]}`` (``ids`` default 0, 1, ...), greedy or drawn with
+    ``params_of(ids[j])``.  Returns (engine, recorder or None, monolithic
+    prefill calls, wall seconds)."""
     from repro_torch.kernels import reset_counts
-    from repro_torch.serving import EngineCore, Request
+    from repro_torch.serving import EngineCore, Request, SamplingParams
 
     eng = (make() if make is not None else
            EngineCore(cfg, params, mesh=mesh, n_slots=4, max_len=2048, block_size=16, **kw))
@@ -2291,8 +2480,9 @@ def _serve_rank(torch, dist, mesh, cfg, params, prompts, max_new, kw, record, ph
     reset_counts()
     t_run = time.perf_counter()
     if mesh.rank == 0:
-        for i, p in enumerate(prompts):
-            eng.submit(Request(f"req{i}", p, max_new=max_new))
+        for i, p in zip(range(len(prompts)) if ids is None else ids, prompts):
+            sp = SamplingParams() if params_of is None else params_of(i)
+            eng.submit(Request(f"req{i}", p, max_new=max_new, params=sp))
         eng.run()
         eng.stop_followers()
     else:
@@ -2416,6 +2606,304 @@ def mesh_cut_references(torch, np):
     return out
 
 
+# ---- (MS): chunked prefill, speculative decoding and the swap policies, in
+# the 4-rank world
+
+MS_NEW = MESH_NEW  # new tokens a request of (MC), (MS), (MSc)
+# key, what, the requests (which prompts, by index: "chunk" (i)'s 8, "spec"
+# (k0)'s 8), their new tokens, sampled where (k0)'s are, the engine's
+# options, the one-card run of the cut model it is held to, and whether it
+# is a planted fault that must fail the (M2) limits.  bitnet-730m at full
+# width cut to MESH_CUT_LAYERS, each rank its slice.
+_PAGED8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
+_MC = dict(_PAGED8, prefill_chunk=CHUNK)
+_MSC = dict(cache_layout="contiguous", kv_dtype="int8", mode="pdswap", spec_decode=SPEC_K)
+MS_PATHS = (
+    ("MC", f"(i)'s configuration: paged int8, 512 pages, {CHUNK}-token chunks",
+     ("chunk", tuple(range(8))), MS_NEW, False, _MC, "MC", False),
+    ("MS", f"(k)'s configuration: paged int8, 512 pages, spec_decode={SPEC_K}",
+     ("spec", tuple(range(8))), MS_NEW, True, dict(_PAGED8, spec_decode=SPEC_K), "MS", False),
+    ("MSc", f"(m)'s configuration: contiguous int8, spec_decode={SPEC_K} (B4 on verify rows "
+     "over sequence halves)", ("spec", tuple(range(8))), MS_NEW, True, _MSC, "MSc", False),
+    ("MP", "(MC)'s configuration under swap_policy=\"swap-aware\", rank 0 deciding",
+     ("chunk", tuple(range(4))), 16, False, dict(_MC, swap_policy="swap-aware"), "MC", False),
+    # the 1,536-token prompt and the 1,024-token tiled one reach
+    # the second sequence half, which the fault drops from the verify walk
+    ("FS", "(MSc) with the verify walk's second sequence half dropped (the planted fault)",
+     ("spec", (3, 6)), 4, True, _MSC, "MSc", True),
+    ("FC", "(MC) with model rank 0's chunk heads installed into both heads' rows (the "
+           "planted fault)", ("chunk", (0, 1)), 4, False, _MC, "MC", True),
+)
+MS_SPEC = ("draft_tokens", "accepted_tokens", "verify_rounds")
+# (MSc)'s witnesses on one card (``mesh_spec_references``) and their slots
+MS_WITNESSES = (("ES1", 4), ("ES3", 2))
+
+
+def _ms_prompts(np, cfg, which):
+    return (spec_prompts(np, cfg) if which == "spec"
+            else make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256))
+
+
+def _ms_expect(cfg, kw, st):
+    """One rank's launches on a chunked or speculative mesh path: every
+    rank runs every linear (its shard) on every monolithic prefill, chunk,
+    decode or verify round and replayed token, B2 (its heads) on every
+    monolithic prefill, and its walk once a layer a round and a replayed
+    token (a verify round's over its slots' 5 rows each, one launch)."""
+    kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention" + (
+        "" if kw["kv_dtype"] == "fp" else "_quant")
+    steps = st["decode_rounds"] + st["replayed_tokens"]
+    linears = 7 * cfg.num_layers * (st["prefills"] + st["prefill_chunks"] + steps)
+    expect = {name: 0 for name in DECODE_KERNELS}
+    expect.update({"tlmm": linears, "act_quant": linears,
+                   "prefill_attention": cfg.num_layers * st["prefills"],
+                   kernel: cfg.num_layers * steps})
+    return expect
+
+
+def _plant_ms_fault(key, mesh):
+    """The planted fault of (FS) or (FC) on this rank; returns its undo.
+    (FS): model rank 1 walks none of the verify rows (its half of the
+    sequence drops out of every verify walk's merge).  (FC): every rank
+    installs the chunk's KV with model rank 0's heads in place of rank
+    1's."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    if key == "FS":
+        plan_of = T.verify_plan
+
+        def dropped(*args, seq_shard=None, **kw):
+            plan = plan_of(*args, seq_shard=seq_shard, **kw)
+            if seq_shard is not None and seq_shard[0] == 1:
+                plan = plan._replace(walk=torch.zeros_like(plan.walk))
+            return plan
+
+        T.verify_plan = dropped
+        return lambda: setattr(T, "verify_plan", plan_of)
+    gather = T.gather_kv_heads
+
+    def doubled(kv, cfg, pctx=T.NULL_CTX):
+        kv = gather(kv, cfg, pctx)
+        h = kv.k.shape[2] // 2
+        return type(kv)(*(torch.cat([t[:, :, :h], t[:, :, :h]], dim=2) for t in kv))
+
+    T.gather_kv_heads = doubled
+    return lambda: setattr(T, "gather_kv_heads", gather)
+
+
+def _ms_rank(mesh, out: Path) -> None:
+    """(MS) on this rank: draw the cut model's weights (bitnet-730m at full
+    width, ``MESH_CUT_LAYERS`` layers, seed 0) and keep this rank's slice,
+    serve each of ``MS_PATHS`` on ``EngineCore`` over the (2, 2) mesh (the
+    planted faults planted), and write this rank's launches by shape, the
+    snapshot, the policy's decisions, the speculation and chunk counts, and
+    rank 0's streams and logits rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.models import transformer as T
+
+    rank = mesh.rank
+    cfg = _mesh_cut(get_config("bitnet-730m"))
+    whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
+    whole_bytes = _tree_bytes(whole)
+    params = shard_params(whole, cfg, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    for key, _, (which, ids), new, sampled, kw, _, fault in MS_PATHS:
+        t0 = time.perf_counter()
+        prompts = _ms_prompts(np, cfg, which)
+        undo = _plant_ms_fault(key, mesh) if fault else None
+        try:
+            eng, rec, prefills, wall = _serve_rank(
+                torch, dist, mesh, cfg, params, [prompts[i] for i in ids], new, kw,
+                record=rank == 0, ids=ids, params_of=_sampled if sampled else None)
+        finally:
+            if undo is not None:
+                undo()
+        result = _rank_result(mesh, eng, rec, prefills, wall, params, whole_bytes, t0)
+        st = eng.stats
+        result["stats"].update({k: getattr(st, k) for k in MS_SPEC + (
+            "prefill_chunks", "replayed_tokens", "preemptions")})
+        result["policy"] = [list(d) for d in eng.decisions]
+        (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
+        if rec is not None:
+            _save_rows(torch, rec, result["streams"], out / f"{key}_rows.pt")
+        del eng, rec
+        torch.cuda.empty_cache()
+    del params
+    _free(torch)
+
+
+def mesh_spec_references(torch, np):
+    """The one-card runs the (MS) paths and (MD3) are held to: the cut model
+    (``_mesh_cut``, ``T.init`` seed 0) in (MC)'s, (MS)'s and (MSc)'s
+    configurations with their requests and new tokens, and the one-card
+    ``DisaggEngine`` in (MD3)'s, each with its logits recorded and its
+    speculation counts; and the witnesses of (MSc)'s partings, (MSc)'s
+    configuration on one card with its contiguous walks (decode and verify
+    rows) in two sequence halves merged as the model ranks merge them
+    (``_split_walk``): (ES1) on 4 slots, the halves alone, and (ES3) on 2
+    slots, a data rank's batches too.  Run beside the 4-rank world, with
+    no serving grid built first."""
+    from repro_torch.layers import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import DisaggEngine
+
+    cfg = _mesh_cut(_bitnet())
+    params = T.convert_for_inference(T.init(cfg, seed=0, device="cuda"), cfg)
+    runs = [(key, _ms_prompts(np, cfg, which), new, sampled, kw, None, 4)
+            for key, _, (which, _), new, sampled, kw, ref, fault in MS_PATHS
+            if key == ref and not fault]
+    msc = next(r for r in runs if r[0] == "MSc")
+    runs += [(key,) + msc[1:6] + (slots,) for key, slots in MS_WITNESSES]
+    md3 = next(p for p in MD_PATHS if p[0] == "MD3")
+    runs.append(("MD3", make_prompts(np, cfg, PROMPT_LENS[:md3[2]]), md3[3], False, md3[4],
+                 DisaggEngine, 4))
+    out = {}
+    for key, prompts, new, sampled, kw, cls, slots in runs:
+        rec = []
+        plain, walk = _split_walk(torch)
+        if key in dict(MS_WITNESSES):
+            A.decode_attention = walk
+        try:
+            eng, st, *_ = serve(cfg, params, prompts, new, _sampled if sampled else None,
+                                engine_cls=cls, n_slots=slots, max_len=2048, block_size=16,
+                                grid=False, on_engine=lambda e: rec.append(TargetRecorder(e)),
+                                **kw)
+        finally:
+            A.decode_attention = plain
+        rec[0].stop()
+        out[key] = {"streams": {f"req{i}": eng.finished[f"req{i}"].out_tokens
+                                for i in range(len(prompts))}, "recorder": rec[0],
+                    "spec": {k: getattr(st, k) for k in MS_SPEC},
+                    "chunks": st.prefill_chunks}
+        del eng
+    del params
+    return out
+
+
+def _ms_witnesses(torch, reading, streams, rows, refs, params_of, card):
+    """(MSc)'s witnesses (``MS_WITNESSES``), each read against the one-card
+    run as (MSc) is and against (MSc) itself: where each parts, whether
+    (MSc)'s partings are among its own (the reordered sums then part them
+    with no mesh code involved), and whether it gives (MSc)'s tokens and
+    logits.  Each must pass the (M2) limits, as (E1)-(E3) must, and (ES3),
+    a data rank's computation on one card, must give (MSc)'s tokens with
+    logits within 1e-4, as (E3) gives (M2a)'s."""
+    one = refs["MSc"]
+    mesh_parts = {(p["rid"], p["pos"]) for p in reading["parts"]}
+    for key, slots in MS_WITNESSES:
+        w = refs[key]
+        got = compare_streams(torch, f"({key}) against the cut model on one card", w["streams"],
+                              one["streams"], w["recorder"], one["recorder"], params_of)
+        _print_reading(key, got, card)
+        own = {(p["rid"], p["pos"]) for p in got["parts"]}
+        same = compare_streams(torch, f"({key}) against (MSc)", w["streams"], streams,
+                               w["recorder"], rows, params_of)
+        print(f"({key}) (MSc)'s configuration on one card, {slots} slots, the walks in two "
+              f"sequence halves: parts at {sorted(own)}, (MSc) at {sorted(mesh_parts)}: "
+              f"{'the same partings' if own == mesh_parts else 'other partings'}; against "
+              f"(MSc) {len(same['parts'])} partings, logits within {same['agree']:.3g}; "
+              f"{_spec_line(w['spec'])}  [{card}]")
+        faults = mesh_faults(got)
+        if faults:
+            raise AssertionError(f"({key}): " + "; ".join(faults))
+        if key == "ES3" and (same["parts"] or same["agree"] > 1e-4):
+            raise AssertionError(f"(ES3) does not reproduce (MSc): {same}")
+
+
+def _spec_line(st):
+    d, a, v = (st[k] for k in MS_SPEC)
+    return f"{v} verify rounds, {d} drafts, {a} accepted (rate {a / d if d else 0.0:.3f})"
+
+
+def _mesh_ms_results(torch, cfg, refs, card):
+    """(MS)'s checks and printout from the ranks' files: each rank's
+    launches, its snapshot and its policy decisions rank 0's, the streams
+    held to the cut model's one-card runs within the (M2) limits (the
+    planted faults must fail them), speculation beside the one-card run's.
+    Returns rank 0's launches over the paths that are no planted fault."""
+    import numpy as np
+
+    from repro_torch.serving import SamplingParams
+
+    cut = _mesh_cut(cfg)
+    total = {}
+    for key, what, (which, ids), new, sampled, kw, ref, fault in MS_PATHS:
+        ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            if got["snapshot"] != r0["snapshot"] or got["policy"] != r0["policy"]:
+                raise AssertionError(f"({key}): rank {r}'s host or policy decisions differ from "
+                                     "rank 0's")
+            want = _ms_expect(cut, kw, got["stats"])
+            if got["launches"] != want:
+                raise AssertionError(f"({key}) rank {r}: launches {got['launches']} != {want}")
+        st = r0["stats"]
+        one = refs[ref]
+        rows = _RowsRecorder(torch.load(MESH_DIR / f"{key}_rows.pt"), "cuda")
+        params_of = ((lambda rid: _sampled(int(rid[3:]))) if sampled
+                     else (lambda rid: SamplingParams()))
+        try:
+            reading = compare_streams(torch, f"({key}) against the cut model on one card",
+                                      r0["streams"], _prefix(one["streams"], r0["streams"]),
+                                      rows, one["recorder"], params_of)
+            faults = mesh_faults(reading)
+        except AssertionError as e:  # a stream parts at its prefill's token: no near tie there
+            if not fault:
+                raise
+            reading, faults = None, [str(e)]
+        if fault:
+            if not faults:
+                raise AssertionError(f"({key}): the planted fault passes the (M2) limits (tie "
+                                     f"{MESH_TIE_TOL}, logits {MESH_AGREE_TOL})")
+            print(f"({key}) {what}, {len(ids)} requests x {new}: fails the (M2) limits, as it "
+                  f"must: {'; '.join(faults)}  [{card}]")
+            continue
+        if key == "MSc":
+            _ms_witnesses(torch, reading, r0["streams"], rows, refs, params_of, card)
+        if faults:
+            raise AssertionError(f"({key}): " + "; ".join(faults))
+        _print_reading(key, reading, card)
+        extra = ""
+        if kw.get("spec_decode"):
+            if not (st["verify_rounds"] > 0 and st["accepted_tokens"] > 0):
+                raise AssertionError(f"({key}): {_spec_line(st)}")
+            extra = f"; {_spec_line(st)}, the one-card run {_spec_line(one['spec'])}"
+        if kw.get("prefill_chunk"):
+            prompts = _ms_prompts(np, cut, which)
+            want = sum(-(-len(prompts[i]) // CHUNK) for i in ids)
+            if st["prefill_chunks"] != want:
+                raise AssertionError(f"({key}): {st['prefill_chunks']} chunks, expected {want}")
+            extra += f"; {st['prefill_chunks']} chunks, the install's gather of each chunk's " \
+                     f"heads {r0['exchange_bytes']} bytes from rank 0"
+        if "swap_policy" in kw:
+            kinds = sorted({k for k, _ in r0["policy"]})
+            deferred = sum(k == "prefill" and not v for k, v in r0["policy"])
+            extra += (f"; {len(r0['policy'])} policy decisions ({', '.join(kinds)}) by rank 0, "
+                      f"{deferred} of them deferrals, each rank's list equal to it")
+        parted = [(p["rid"], p["pos"]) for p in reading["parts"]]
+        print(f"({key}) {what}, cut to {cut.num_layers} of {cfg.num_layers} layers, on the "
+              f"(2, 2) gloo mesh: {len(ids)} requests x {new}, {st['prefills']} monolithic "
+              f"prefills, {st['decode_rounds']} decode rounds, {r0['wall']:.2f} s wall, decode "
+              f"{st['decode_round_ms']:.2f} ms a round ({st['decode_tput']:.1f} tok/s), TTFT "
+              f"mean {st['ttft_mean_ms']:.1f} ms{extra}; the 4 ranks' snapshots equal; streams "
+              f"{'equal' if not parted else f'part at near ties {parted} from'} the cut "
+              f"model's one-card run; the rank's seconds {r0['seconds']:.1f}  [{card}]")
+        for line in _shape_lines(r0["shapes"]):
+            print(f"    {line}")
+        for name, n in r0["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 # ---- (MD): the pod split of the disaggregated pools, in the 4-rank world --
 
 MD_NEW = 16  # new tokens a request of the (MD) paths
@@ -2433,7 +2921,13 @@ MD_PATHS = (
     ("FD", "(MD1) with prefill rank 1's heads sent into the other half's rows (the planted "
            "fault)", 2, 4, dict(cache_layout="contiguous", kv_dtype="fp", mode="pdswap",
                                 overlap=True), "q"),
+    # at MESH_CUT_LAYERS, held to the one-card DisaggEngine of the cut model
+    # (``mesh_spec_references``)
+    ("MD3", f"(MD2) with spec_decode={SPEC_K}: the verify rounds on the decode pod", 4, MD_NEW,
+     dict(cache_layout="paged", kv_dtype="int8", mode="pdswap", num_blocks=512,
+          prefill_chunk=CHUNK, spec_decode=SPEC_K), "MD3"),
 )
+MD_CUT = ("MD3",)  # the (MD) paths at the cut depth
 
 
 def _plant_wrong_rows(eng, max_len: int) -> None:
@@ -2490,12 +2984,18 @@ def _md_rank(mesh, out: Path) -> None:
     pools = split_pod_meshes(make_mesh((2, 1, 2), ("pod", "data", "model")))
     mine = next(m for m in pools if hasattr(m, "parent"))
     role = "prefill" if mine is pools[0] else "decode"
-    whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
-    whole_bytes = _tree_bytes(whole)
-    params = shard_params(whole, cfg, mine)  # the rank keeps its slice only
-    del whole
-    torch.cuda.empty_cache()
+    params = None
     for key, _, n, new, kw, _ in MD_PATHS:
+        if params is None or (key in MD_CUT) != (cfg.num_layers == MESH_CUT_LAYERS):
+            if key in MD_CUT:
+                cfg = _mesh_cut(cfg)
+            del params
+            torch.cuda.empty_cache()
+            whole = T.convert_for_inference(T.init(cfg, seed=0, device=mesh.device), cfg)
+            whole_bytes = _tree_bytes(whole)
+            params = shard_params(whole, cfg, mine)  # the rank keeps its slice only
+            del whole
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         prompts = make_prompts(np, cfg, PROMPT_LENS[:n])
 
@@ -2518,6 +3018,7 @@ def _md_rank(mesh, out: Path) -> None:
                                                     eng.snapshot()["disagg"]["decode_pool"]))
         result["stats"].update(prefill_chunks=st.prefill_chunks, replayed_tokens=st.replayed_tokens,
                                paged=eng.runner.paged is not None,
+                               **{k: getattr(st, k) for k in MS_SPEC},
                                ttft_p50_ms=st.ttft.percentile(50) * 1e3,
                                transfer_ms=ho["t_dispatch_s"] / max(ho["segments"], 1) * 1e3)
         (out / f"{key}_rank{rank}.json").write_text(json.dumps(result))
@@ -2563,7 +3064,7 @@ def md_predicted_mib(cfg, key, n_prompts):
     the padded vocabulary) too."""
     tok_half = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4 // 2
     lens = PROMPT_LENS[:n_prompts]
-    if key == "MD2":
+    if key in ("MD2", "MD3"):
         rows = sum(sum(-(-min(CHUNK, n - a) // 16) * 16 for a in range(0, n, CHUNK))
                    for n in lens)
     else:
@@ -2580,7 +3081,9 @@ def _mesh_md_results(torch, cfg, refs, card):
     from repro_torch.serving import SamplingParams
 
     launches, partings = {}, {}
+    full = cfg
     for key, what, n, new, kw, ref in MD_PATHS:
+        cfg = _mesh_cut(full) if key in MD_CUT else full
         ranks = [json.loads((MESH_DIR / f"{key}_rank{r}.json").read_text())
                  for r in range(MESH_WORLD)]
         r0 = ranks[0]
@@ -2597,7 +3100,7 @@ def _mesh_md_results(torch, cfg, refs, card):
         reading = compare_streams(torch, f"({key}) against the one-card DisaggEngine ({ref}'s "
                                   "configuration)", r0["streams"], want, rows,
                                   refs[ref]["recorder"], lambda rid: SamplingParams())
-        faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+        faults = mesh_faults(reading)
         if key == "FD":
             if not faults:
                 raise AssertionError(f"(FD): the planted fault passes the (M2) limits (tie "
@@ -2613,8 +3116,16 @@ def _mesh_md_results(torch, cfg, refs, card):
         parted = [(p["rid"], p["pos"]) for p in reading["parts"]]
         partings[key] = parted
         pred = md_predicted_mib(cfg, key, n)
-        print(f"({key}) {what}, on the (pod 2, data 1, model 2) split (ranks 0-1 prefill, 2-3 "
-              f"decode): {n} requests x {new}, {st['prefills']} monolithic prefills and "
+        if kw.get("spec_decode"):
+            if not st["verify_rounds"] > 0:
+                raise AssertionError(f"({key}): {_spec_line(st)}")
+            print(f"({key}) speculation on the split: {_spec_line(st)} (the one-card "
+                  f"DisaggEngine: {_spec_line(refs[ref]['spec'])}); each round's targets "
+                  f"broadcast from decode rank 2 to every rank  [{card}]")
+        depth = (f", cut to {cfg.num_layers} of {full.num_layers} layers" if key in MD_CUT
+                 else "")
+        print(f"({key}) {what}{depth}, on the (pod 2, data 1, model 2) split (ranks 0-1 prefill, "
+              f"2-3 decode): {n} requests x {new}, {st['prefills']} monolithic prefills and "
               f"{st['prefill_chunks']} chunks on the prefill pod, {st['decode_rounds']} decode "
               f"rounds, {r0['wall']:.2f} s wall; handoff {ho['segments']} segments "
               f"({ho['eager_segments']} eager), {ho['installs']} installs, {ho['discarded']} "
@@ -2843,7 +3354,7 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
         if key in recs:
             recs[key].stop()  # the profiles below are not recorded
         if key == "i":
-            tput_i = st.decode_tput()
+            tput_i, chunks_i = st.decode_tput(), st.prefill_chunks
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         check_served(eng, cfg, len(ps), max_tokens)
         streams[key] = {r: q.out_tokens for r, q in eng.finished.items()}
@@ -2937,7 +3448,8 @@ def cache_option_paths(torch, np, cfg, params, prompts, max_tokens, n_slots, max
     print(f"path (i): {same} of {len(requests)} streams equal (d)'s (monolithic prefill runs "
           "B2, chunks f32 matmuls: equal only to float rounding, not asserted)")
     return total, {"streams": {r: t for r, t in streams["i"].items() if r in requests},
-                   "recorder": recs["i"], "latency": latency["i"], "tput": tput_i}
+                   "recorder": recs["i"], "latency": latency["i"], "tput": tput_i,
+                   "chunks": chunks_i}
 
 
 class TargetRecorder:
@@ -3047,19 +3559,28 @@ def compare_streams(torch, what, got, want, rec_got, rec_want, params_of):
     return {"parts": parts, "agree": agree}
 
 
-def near_tie_faults(reading, tol, agree_tol=None):
+def near_tie_faults(reading, tol, agree_tol=None, draw_tol=None):
     """What in a ``compare_streams`` reading breaks the near-tie rule: a
     greedy parting where either margin exceeds ``tol``, a sampled one
-    where the rows lie more than ``tol`` apart, or (with ``agree_tol``)
-    logits on common tokens further apart than ``agree_tol``."""
+    where the rows lie more than ``draw_tol`` (default ``tol``) apart, or
+    (with ``agree_tol``) logits on common tokens further apart than
+    ``agree_tol``."""
+    draw_tol = tol if draw_tol is None else draw_tol
     faults = [f"{p['rid']} parts at token {p['pos']}, not at a near tie (margins "
-              f"{p['margins'][0]}, {p['margins'][1]}; logits {p['diff']} apart; limit {tol})"
+              f"{p['margins'][0]}, {p['margins'][1]}; logits {p['diff']} apart; limit "
+              f"{tol if p['greedy'] else draw_tol})"
               for p in reading["parts"]
-              if (max(p["margins"]) if p["greedy"] else p["diff"]) > tol]
+              if (max(p["margins"]) if p["greedy"] else p["diff"]) > (
+                  tol if p["greedy"] else draw_tol)]
     if agree_tol is not None and reading["agree"] > agree_tol:
         faults.append(f"the two runs' logits part by {reading['agree']} on tokens both gave "
                       f"(limit {agree_tol})")
     return faults
+
+
+def mesh_faults(reading):
+    """``near_tie_faults`` under the (M2) limits."""
+    return near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL, MESH_DRAW_TOL)
 
 
 def check_near_ties(torch, what, got, want, rec_got, rec_want, params_of, tol=TIE_TOL,
@@ -3099,7 +3620,9 @@ def spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card):
     tokens and (l) (k)'s, by ``check_near_ties``; each path's launches are
     checked against its stats (a verify round runs B1 168 times at M = 20
     and the walk 24 times over 20 rows), and 4 verify rounds of tiled
-    prompts profiled.  Returns the launches summed over the paths."""
+    prompts profiled.  Returns the launches summed over the paths, and
+    (k)'s streams, speculation counts and decode ms a round ((M1s) is held
+    to them)."""
     prompts = spec_prompts(np, cfg)
     paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
     paths = [
@@ -3123,6 +3646,9 @@ def spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card):
                         for i in range(len(prompts))}  # not the warm-up's
         recorders[key] = rec[0]
         rec[0].stop()  # the profile below is not recorded
+        if key == "k":
+            path_k = {"streams": streams[key], "round_ms": st.decode_round_cost() * 1e3,
+                      "spec": {k: getattr(st, k) for k in MS_SPEC}}
         kernel = ("paged_" if kw["cache_layout"] == "paged" else "") + "decode_attention_quant"
         steps = st.decode_rounds + st.replayed_tokens
         expect = {name: 0 for name in DECODE_KERNELS}
@@ -3181,6 +3707,73 @@ def spec_paths(torch, np, cfg, params, n_slots, max_len, max_tokens, card):
                                  streams[ref], recorders[key], recorders[ref], params_of.get)
         print(f"path ({key}): {len(streams[key]) - len(parted)} of {len(streams[key])} streams "
               f"equal ({ref})'s; {len(parted)} part at a near tie (scores within {TIE_TOL})")
+    return total, path_k
+
+
+def mesh_m1_spec_phase(torch, np, cfg, params, n_slots, max_len, max_tokens, mesh, path_k,
+                       path_i, card):
+    """(M1s) and (M1c): paths (k) and (i) at full width and depth on (M1)'s
+    (data 1, model 1) NCCL world in this process, the verify and chunk
+    programs captured as CUDA graphs with their collectives (on groups of
+    one) inside, each at its first call (no serving grid first).  (M1s) must give (k)'s tokens bit for bit and its drafts,
+    accepted tokens and verify rounds; (M1c) (i)'s tokens bit for bit and
+    its chunks.  Returns the launches over both."""
+    t0 = time.perf_counter()
+    paged8 = dict(cache_layout="paged", kv_dtype="int8", mode="pdswap")
+    runs = (("M1s", f"(k)'s configuration: paged int8, 512 pages, spec_decode={SPEC_K}",
+             spec_prompts(np, cfg), _sampled, dict(paged8, spec_decode=SPEC_K), path_k,
+             "verify_paged:"),
+            ("M1c", f"(i)'s configuration: paged int8, 512 pages, {CHUNK}-token chunks",
+             make_prompts(np, cfg, PROMPT_LENS, shared_prefix=256), None,
+             dict(paged8, prefill_chunk=CHUNK), path_i, "prefill_chunk_paged:"))
+    total = {}
+    for key, what, prompts, params_of, kw, want, graph in runs:
+        # no serving grid: each program captures at its first call, so (M1c)
+        # captures the chunk shapes its prompts reach, not all 83 of (i)'s grid
+        eng, st, wall, launches, prefills, _, _ = serve(
+            cfg, params, prompts, max_tokens, params_of, n_slots=n_slots, max_len=max_len,
+            block_size=16, mesh=mesh, grid=False, **kw)
+        check_served(eng, cfg, len(prompts), max_tokens)
+        got = {f"req{i}": eng.finished[f"req{i}"].out_tokens for i in range(len(prompts))}
+        graphs = sorted(k for k, p in eng.runner.engine.programs.items()
+                        if p.captured is not None)
+        captured = [k for k in graphs if k.startswith(graph)]
+        if not captured:
+            raise AssertionError(f"({key}): no {graph} program was captured ({graphs})")
+        if got != want["streams"]:
+            bad = [r for r in got if got[r] != want["streams"][r]]
+            raise AssertionError(f"({key}): the tokens of {bad} differ from the card's path")
+        steps = st.decode_rounds + st.replayed_tokens
+        passes = prefills + st.prefill_chunks + steps
+        expect = {name: 0 for name in DECODE_KERNELS}
+        expect.update({"tlmm": 7 * cfg.num_layers * passes,
+                       "act_quant": 7 * cfg.num_layers * passes,
+                       "prefill_attention": cfg.num_layers * prefills,
+                       "paged_decode_attention_quant": cfg.num_layers * steps})
+        if launches != expect:
+            raise AssertionError(f"({key}): launches {launches} != expected {expect}")
+        if key == "M1s":
+            spec = {k: getattr(st, k) for k in MS_SPEC}
+            if spec != want["spec"]:
+                raise AssertionError(f"({key}): speculation {spec} != path (k)'s {want['spec']}")
+            extra = (f"{_spec_line(spec)}, as (k); decode {st.decode_round_cost() * 1e3:.2f} ms "
+                     f"a round against (k)'s {want['round_ms']:.2f}")
+        else:
+            if st.prefill_chunks != want["chunks"]:
+                raise AssertionError(f"({key}): {st.prefill_chunks} chunks, (i) "
+                                     f"{want['chunks']}")
+            extra = (f"{st.prefill_chunks} chunks, as (i); decode {st.decode_tput():.1f} tok/s "
+                     f"against (i)'s {want['tput']:.1f}")
+        shown = ", ".join(captured[:3]) + (", ..." if len(captured) > 3 else "")
+        print(f"({key}) {what}, on a (1, 1) NCCL mesh: {len(prompts)} requests x {max_tokens}, "
+              f"{prefills} monolithic prefills, {st.decode_rounds} decode rounds, {wall:.2f} s "
+              f"wall; {extra}; {len(captured)} {graph[:-1]} graphs captured with their "
+              f"collectives inside ({shown}); tokens equal the card's path bit for bit; "
+              f"launches {launches}  [{card}]")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del eng
+    print(f"(M1s), (M1c) the phase {time.perf_counter() - t0:.1f} s  [{card}]")
     return total
 
 
@@ -5872,7 +6465,7 @@ def moe_mesh_card_phase(torch, np, cfg, params, t_streams, me2, m1_mesh, card):
         try:
             reading = compare_streams(torch, f"{tag} against ({key})", ref["streams"], mine,
                                       ref["recorder"], _OnDevice(rec[0], "cpu"), greedy)
-            faults = near_tie_faults(reading, MESH_TIE_TOL, MESH_AGREE_TOL)
+            faults = mesh_faults(reading)
         except AssertionError as e:  # a stream parts at its prefill's token: no near tie there
             if not fault:
                 raise
@@ -6519,7 +7112,7 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(Path(sys.argv[2]), sys.argv[3].split(",")))
     if sys.argv[1:] == ["--mesh-train-m1"]:  # (MT1), in its own process
         sys.exit(mesh_train_m1_main())
-    if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"],
-                        ["--only-disagg-mesh"]):  # for development
+    if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"], ["--only-disagg-mesh"],
+                        ["--only-spec-mesh"]):  # for development
         sys.exit(main(only=sys.argv[1][len("--only-"):]))
     sys.exit(main())

@@ -80,7 +80,7 @@ EXTRA_ROWS = 8  # rows of junk past S (or past a page's bs) along dim 2 of a str
 
 # the serving grids the smem check walks: decode rows, verify rows (4 slots
 # x 5 block rows), chunk and prefill rows
-TLMM_ROWS = (1, 2, 4, 8, 9, 20, 130, 256, 2048)
+TLMM_ROWS = (1, 2, 4, 8, 9, 10, 20, 130, 256, 2048)
 CONTEXTS = (2048, 4096, 65536, 524288)  # the caches the smoke and the examples serve
 PAGE = 16
 
@@ -553,9 +553,11 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
     rank's 2 slots; then granite-moe-3b-a800m's on the same mesh: B2 on 12
     of 24 heads over 4 of 8 KV heads, B3 over a sequence half and B6 over a
     data rank's 2 slots of int8 pages, both at G = 3 (decode keeps the
-    heads whole), D = 64; and a decode rank's of the pod split of the
+    heads whole), D = 64; a decode rank's of the pod split of the
     disaggregated pools (data 1): B3 over a sequence half at 4 slots, B6
-    over 4 slots of the whole pool."""
+    over 4 slots of the whole pool; and the verify pass's and the chunks':
+    B1 at a data rank's verify rows (M = 10) and a 256-row chunk's, the
+    walks over verify rows (``_verify_mesh_cases``)."""
     rng = np.random.default_rng(15)
     cases = []
     for m in (2, 4):
@@ -572,7 +574,9 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
                 cases.append(KernelCase("act_quant", f"act_quant M={m} K={k} {str(dtype)[6:]} "
                                         "(a row shard + its absmax column)", ops, ("x", "beta"),
                                         {}, ("x", "beta"), {}))
-    for m in (2, 4, 130):
+    # decode rows, a verify round's rows of a data rank (2 slots x 5), a
+    # prefill's and a 256-row chunk's
+    for m in (2, 4, 10, 130, 256):
         for k, n, row in ((1536, 768, False), (1536, 2048, False), (768, 1536, True),
                           (2048, 1536, True)):
             # a row shard's B1 returns the rank's int32 partial: a unit scale
@@ -640,7 +644,86 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
             cases.append(KernelCase(kernel, label, ops, args, {}, args, {}))
     cases += _granite_mesh_cases(rng, tables, lengths, live)
     cases += _split_pool_cases(rng)
+    cases += _verify_mesh_cases(rng)
     return [c for c in cases if kernels is None or c.kernel in kernels]
+
+
+VERIFY_ROWS = 5  # a verify block's rows a slot (spec_decode 4)
+
+
+def _verify_mesh_cases(rng) -> List[KernelCase]:
+    """The verify pass's walks on a mesh at bitnet-730m's widths
+    (``rows_per_slot`` 5): B4 (int8) and B3 (bf16) over each sequence half
+    of a data rank's 2 slots, each row at its local length, slot 0's block
+    straddling the halves (global lengths 45-49 over halves of 48 rows);
+    B6 (int8) and B5 (bf16) over a data rank's 2 slots' tables, each row
+    5 times, into the whole pool; and on the pod split's decode rank (data
+    1) B4 over a sequence half and B6 at 4 slots x 5 rows."""
+    hkv, half, d, r = 24, 48, 64, VERIFY_ROWS
+    cases = []
+
+    def slot_walk(fmt, base, h, what):
+        rows = [min(max(b + i - h * half, 0), half) for b in base for i in range(r)]
+        slots = len(base)
+        live = np.zeros((slots, half), bool)
+        for j, n_ in enumerate(rows):
+            live[j // r, :n_] = True
+        dead = np.broadcast_to(~live[:, None, :], (slots, hkv, half)).copy()
+        ops = _walk_tensors(rng, (slots, hkv, half), fmt, d, dead, EXTRA_ROWS)
+        ops["q"] = Operand(rng.standard_normal((slots * r, hkv, 1, d)).astype(np.float32),
+                           torch.float32, "float")
+        ops["lengths"] = Operand(np.array(rows, np.int32), torch.int32, "index")
+        quant = fmt != "bf16"
+        kernel = "decode_attention_quant" if quant else "decode_attention"
+        label = (f"{kernel} {fmt} D={d} G=1 Hkv={hkv} sequence half {h} of {half}, {what}, "
+                 f"local lengths={rows} rows_per_slot={r}")
+        if quant:
+            args = ("q", "k", "k_scale", "v", "v_scale", "lengths", None)
+            plain = ("q", "k_r", "k_scale_r", "v_r", "v_scale_r", "lengths", None)
+            return KernelCase(kernel, label, ops, args, {"rows_per_slot": r, "kv_dtype": fmt},
+                              plain, {"kv_dtype": fmt}, fp_elems=slots * hkv * half * d,
+                              repeat=r)
+        return KernelCase(kernel, label, ops, ("q", "k", "v", "lengths", None),
+                          {"rows_per_slot": r}, ("q", "k_r", "v_r", "lengths", None), {},
+                          repeat=r)
+
+    for fmt in ("int8", "bf16"):
+        for h in (0, 1):
+            cases.append(slot_walk(fmt, [45, 10], h, "a data rank's 2 slots x 5 verify rows"))
+    cases.append(slot_walk("int8", [0, 45, 60, 20], 1,
+                           "4 slots x 5 verify rows (the split's decode rank)"))
+
+    def paged_walk(fmt, tables, lens, what):
+        n_pages, bs = int(tables.max()) + 1, PAGE
+        live = np.zeros((n_pages, bs), bool)
+        for b_ in range(len(lens)):
+            for pos in range(lens[b_] + r - 1):
+                live[tables[b_, pos // bs], pos % bs] = True
+        dead = np.broadcast_to(~live[:, None, :], (n_pages, hkv, bs)).copy()
+        ops = _walk_tensors(rng, (n_pages, hkv, bs), fmt, d, dead, EXTRA_ROWS)
+        rows = [b + i for b in lens for i in range(r)]
+        ops["q"] = Operand(rng.standard_normal((len(rows), hkv, 1, d)).astype(np.float32),
+                           torch.float32, "float")
+        ops["tables"] = Operand(np.repeat(tables, r, axis=0), torch.int32, "index")
+        ops["lengths"] = Operand(np.array(rows, np.int32), torch.int32, "index")
+        quant = fmt != "bf16"
+        kernel = "paged_decode_attention_quant" if quant else "paged_decode_attention"
+        label = (f"{kernel} {fmt} D={d} G=1 Hkv={hkv} {what}, each table row {r} times, "
+                 f"lengths={rows} over the whole pool")
+        if quant:
+            args = ("q", "k", "k_scale", "v", "v_scale", "tables", "lengths", None)
+            return KernelCase(kernel, label, ops, args, {"kv_dtype": fmt}, args,
+                              {"kv_dtype": fmt}, fp_elems=n_pages * hkv * bs * d)
+        args = ("q", "k", "v", "tables", "lengths", None)
+        return KernelCase(kernel, label, ops, args, {}, args, {})
+
+    two = rng.permutation(8).astype(np.int32).reshape(2, 4)
+    for fmt in ("int8", "bf16"):
+        cases.append(paged_walk(fmt, two, [37, 12], "a data rank's 2 slots x 5 verify rows"))
+    four = rng.permutation(16).astype(np.int32).reshape(4, 4)
+    cases.append(paged_walk("int8", four, [5, 59, 33, 1],
+                            "4 slots x 5 verify rows (the split's decode rank)"))
+    return cases
 
 
 def _split_pool_cases(rng) -> List[KernelCase]:

@@ -64,7 +64,12 @@ from repro_torch.core.kv_cache import insert_prefill_kv, relay_prefill_kv
 from repro_torch.core.sampling import sample_block_tokens, sample_tokens
 from repro_torch.kernels import COUNTS
 from repro_torch.layers import collectives as C
-from repro_torch.layers.attention import KVCache, write_chunk_kv_q, write_prefill_pages_q
+from repro_torch.layers.attention import (
+    KVCache,
+    write_chunk_kv_q,
+    write_chunk_kv_seq_shard_q,
+    write_prefill_pages_q,
+)
 from repro_torch.layers.sharding import (
     DECODE_RULES,
     LONG_DECODE_RULES,
@@ -359,11 +364,6 @@ class PhaseEngine:
                                                phase=phase)
         return self._programs[key]
 
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} on a mesh (colocated chunked prefill, speculative "
-                                      "decoding) is ROADMAP A.13.5")
-
     # ------------------------------------------------------ mesh shards --
 
     def init_cache(self, batch: int, max_len: int, device=None) -> KVCache:
@@ -412,13 +412,16 @@ class PhaseEngine:
     def _gather_kv_heads(self, kv: KVCache) -> KVCache:
         """Prefill KV of this rank's heads made whole over the model axis
         (the paged pool holds every head on every rank)."""
-        both = torch.stack([kv.k, kv.v])  # (2, L, B, Hkv / tp, S, D)
-        self.exchange_bytes += both.numel() * both.element_size()
+        self.count_head_gather(2 * kv.k.numel() * kv.k.element_size())
+        return T.gather_kv_heads(kv, self.cfg, self.prefill_ctx)
+
+    def count_head_gather(self, nbytes: int) -> None:
+        """Count one gather of a prompt's or chunk's heads (``nbytes`` of
+        this rank's K and V) in the exchange's bytes and calls.  A mesh
+        chunk program's gather is counted by its caller on every call,
+        since a captured graph's replay runs no Python."""
+        self.exchange_bytes += nbytes
         self.exchanges += 1
-        dims = (None, "layers", "batch", "kv_heads", "seq", "head_dim")
-        both = self.prefill_ctx.shard(both, dims, dims[:3] + (None,) + dims[4:],
-                                      both.shape[:3] + (self.cfg.num_kv_heads,) + both.shape[4:])
-        return KVCache(both[0], both[1])
 
     def _heads_to_rows(self, seg):
         """A relayed segment of this rank's heads (1, L, Hkv / tp, max_len,
@@ -438,22 +441,24 @@ class PhaseEngine:
         self.exchanges += 1
         return type(seg)(*out)
 
-    def _write_chunk_rows(self, cache: KVCache, kv: KVCache, slot: int, start: int) -> KVCache:
+    def _write_chunk_rows(self, cache: KVCache, kv: KVCache, slot, start) -> KVCache:
         """Write the rows of a whole-heads chunk (L, 1, Hkv, C, D) at [start,
         start + C) of slot ``slot`` that fall in this rank's block of the
-        sequence (and its rows of the batch)."""
-        leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
-        sl = leaf.shape[3]
-        lo, hi = T.batch_rows(self.decode_ctx, self.n_slots)
-        if not lo <= slot < hi:
-            return cache
-        base = self.decode_ctx.index(self.decode_ctx.resolve(["kv_seq"])[0]) * sl
-        c = kv.k.shape[3]
-        a, b = max(0, base - start), min(c, base + sl - start)
-        if b <= a:
-            return cache
-        return KVCache(write_chunk_kv_q(cache.k, kv.k[:, :, :, a:b], slot - lo, start + a - base),
-                       write_chunk_kv_q(cache.v, kv.v[:, :, :, a:b], slot - lo, start + a - base))
+        sequence, on the data rank whose rows of the batch hold the slot
+        (``write_chunk_kv_seq_shard_q``; ints or 0-d device tensors)."""
+        write = self._chunk_rows_writer(self.n_slots)
+        return KVCache(write(cache.k, kv.k, slot, start), write(cache.v, kv.v, slot, start))
+
+    def _chunk_rows_writer(self, n_slots: int):
+        """``write(leaf, kv, slot, start)`` into this rank's block of a cache
+        of ``n_slots`` slots (its rows of the batch and of the sequence)."""
+        lo, _ = T.batch_rows(self.decode_ctx, n_slots)
+        r = self.decode_ctx.index(self.decode_ctx.resolve(["kv_seq"])[0])
+
+        def write(leaf, kv, slot, start):
+            return write_chunk_kv_seq_shard_q(leaf, kv, slot, start, r, lo)
+
+        return write
 
     def before_capture(self, hook: Callable[[], None]) -> None:
         """Call ``hook`` before each capture of this engine's graphs."""
@@ -588,13 +593,20 @@ class PhaseEngine:
         ``prefix_len`` and ``last_pos`` are 0-d int32 device tensors (the JAX
         program's traced scalars), so one graph serves every chunk of the
         shape.  The install is part of the program: the fabric can flip
-        back to decode after every chunk."""
-        self._no_mesh("prefill_chunk_program")
-        cfg = self.cfg
+        back to decode after every chunk.
+
+        On a mesh the chunk runs on this rank's heads under the prefill
+        rules (the mirror holds them: (L, 1, Hkv / tp, Cap, D)), the install
+        gathers the chunk's heads over the model axis, and each rank writes
+        the chunk's rows that fall in its block of the cache, on the data
+        rank that holds the slot; the caller counts the gather
+        (``count_head_gather``)."""
+        cfg, pctx = self.cfg, self.prefill_ctx
+        write = write_chunk_kv_q if self.mesh is None else self._chunk_rows_writer(n_slots)
 
         def fn(params, tokens, cache, prefix, slot, prefix_len, last_pos):
             return T.prefill_chunk(params, tokens, cache, prefix, slot, prefix_len, last_pos, cfg,
-                                   prefix_width=prefix_width)
+                                   prefix_width=prefix_width, pctx=pctx, write=write)
 
         return self._program(f"prefill_chunk:{chunk}+{prefix_width}@{n_slots}x{max_len}", fn,
                              phase="prefill", capturable=True, pinned=(0, 2, 3))
@@ -604,15 +616,15 @@ class PhaseEngine:
         """Chunked prefill against the paged pool: ``fn(params, tokens (1, C),
         pages, prefix, page_ids (C/bs,), prefix_len, last_pos) -> (logits,
         pages, prefix)``, page ids and scalars on the device; C must be whole
-        pages."""
-        self._no_mesh("paged_prefill_chunk_program")
+        pages.  On a mesh every rank gathers the chunk's heads and writes
+        the pages into its whole pool."""
         if chunk % block_size:
             raise ValueError(f"a chunk of {chunk} tokens is not whole pages of {block_size}")
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.prefill_ctx
 
         def fn(params, tokens, pages, prefix, page_ids, prefix_len, last_pos):
             return T.prefill_chunk_paged(params, tokens, pages, prefix, page_ids, prefix_len,
-                                         last_pos, cfg, prefix_width=prefix_width)
+                                         last_pos, cfg, prefix_width=prefix_width, pctx=pctx)
 
         return self._program(f"prefill_chunk_paged:{chunk}+{prefix_width}@{max_pages}x{block_size}",
                              fn, phase="prefill", capturable=True, pinned=(0, 2, 3))
@@ -684,12 +696,12 @@ class PhaseEngine:
         the block's rows installed in place.  A decode-phase program like
         ``decode``, streaming the cache once a round but scoring W = k + 1
         positions a slot; per-slot draft depth varies through the device
-        tensor ``n_tokens``, so one graph serves every round."""
-        self._no_mesh("verify_program")
-        cfg = self.cfg
+        tensor ``n_tokens``, so one graph serves every round.  On a mesh it
+        runs under the decode rules, as ``decode`` (``transformer.verify``)."""
+        cfg, pctx = self.cfg, self.decode_ctx
 
         def fn(params, tokens, cache, lengths, n_tokens):
-            return T.verify(params, tokens, cache, lengths, n_tokens, cfg)
+            return T.verify(params, tokens, cache, lengths, n_tokens, cfg, pctx)
 
         return self._program(f"verify:{batch}x{width}@{max_len}", fn, phase="decode",
                              capturable=True,
@@ -699,11 +711,11 @@ class PhaseEngine:
         """Speculative verify over the paged pool: ``fn(params, tokens (B,
         W), pages, block_tables, lengths, n_tokens) -> (logits (B, W, Vp),
         pages)``; see ``verify_program``."""
-        self._no_mesh("paged_verify_program")
-        cfg = self.cfg
+        cfg, pctx = self.cfg, self.decode_ctx
 
         def fn(params, tokens, pages, block_tables, lengths, n_tokens):
-            return T.verify_paged(params, tokens, pages, block_tables, lengths, n_tokens, cfg)
+            return T.verify_paged(params, tokens, pages, block_tables, lengths, n_tokens, cfg,
+                                  pctx)
 
         return self._program(f"verify_paged:{n_slots}x{width}@{max_pages}", fn, phase="decode",
                              capturable=True,

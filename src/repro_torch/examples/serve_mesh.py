@@ -9,6 +9,14 @@ store's address; name the backend (``nccl`` on cards, ``gloo`` anywhere):
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         -m repro_torch.examples.serve_mesh --backend gloo --device cpu --reduced --check
 
+``--prefill-chunk``, ``--spec-decode`` and ``--swap-policy`` take the
+engine's options on any mesh (rank 0's policy decides for every rank):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.examples.serve_mesh --backend gloo --device cpu --reduced --check \\
+        --cache-layout paged --kv-dtype int8 --prefill-chunk 16 --spec-decode 2 \\
+        --swap-policy swap-aware
+
 With ``--disagg`` the world is the pod split of the disaggregated pools
 instead: a (pod 2, model ``--model``) mesh, pod 0 prefilling, pod 1
 decoding, every prompt's KV crossing between them (``DisaggEngine``; the
@@ -63,7 +71,14 @@ def main(argv=None) -> int:
     ap.add_argument("--disagg", action="store_true",
                     help="the pod split of the disaggregated pools: (pod 2, model --model)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="--disagg: chunked prefill, each chunk crossing the pods at once")
+                    help="chunked prefill (paged: a multiple of 16); with --disagg each chunk "
+                         "crosses the pods at once")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decoding draft depth (0 = off): the verify rounds run on "
+                         "the mesh (with --disagg on the decode pod)")
+    ap.add_argument("--swap-policy", default="drain",
+                    choices=("drain", "swap-aware", "slo-aware"),
+                    help="the prefill<->decode policy; rank 0 decides for every rank")
     args = ap.parse_args(argv)
 
     join_process_group(args.backend, device_type=args.device)
@@ -79,9 +94,9 @@ def main(argv=None) -> int:
     if not (args.check and mesh.rank == 0):
         del whole
     kw = dict(n_slots=args.slots, max_len=args.max_len, cache_layout=args.cache_layout,
-              kv_dtype=args.kv_dtype, block_size=16)
+              kv_dtype=args.kv_dtype, block_size=16, prefill_chunk=args.prefill_chunk,
+              spec_decode=args.spec_decode or None, swap_policy=args.swap_policy)
     if args.disagg:
-        kw["prefill_chunk"] = args.prefill_chunk
         eng = DisaggEngine(cfg, params, prefill_mesh=pools[0], decode_mesh=pools[1], **kw)
         mesh = eng.mesh  # the world: rank 0 admits
     else:

@@ -346,7 +346,7 @@ def _join(args, device: torch.device) -> torch.device:
                                and torch.cuda.device_count() >= _world_size() else "gloo")
     if args.serve:
         raise SystemExit("--serve on a world of ranks: the HTTP front end on a mesh is "
-                         "ROADMAP A.13")
+                         "ROADMAP A.13.9")
     return join_process_group(backend, device_type=device.type)
 
 

@@ -359,6 +359,41 @@ def write_chunk_kv_q(buf, new: torch.Tensor, slot: int, start: int):
                    write_chunk_kv(buf.scale, scale, slot, start))
 
 
+def write_chunk_kv_seq_shard(buf: torch.Tensor, new: torch.Tensor, slot, start, r: int,
+                             lo: int) -> torch.Tensor:
+    """``write_chunk_kv`` into one rank's block of a cache split over the
+    ranks: buf (B_l, L, Hkv, Sl, ·) holds the batch's slots [lo, lo + B_l)
+    and the sequence's rows [r * Sl, (r + 1) * Sl).  Of the chunk's rows
+    [start, start + C) of slot ``slot`` (a slot of the whole batch) only
+    those that fall in the block are written; a row outside it repeats the
+    first written row's write, and with none written (another rank's rows,
+    or another data rank's slot) the first target is rewritten with what it
+    holds.  ``slot`` and ``start`` are ints or 0-d device tensors: no host
+    read, so the write stays inside a CUDA graph."""
+    bl, sl = buf.shape[0], buf.shape[3]
+    c = new.shape[3]
+    dev = buf.device
+    rows = start + torch.arange(c, device=dev)
+    s = torch.as_tensor(slot, device=dev).long().reshape(1) - lo
+    keep = (rows // sl == r) & ((s >= 0) & (s < bl))
+    src = _first_kept(keep)
+    local = torch.clamp(rows - r * sl, 0, sl - 1)[src]
+    s = torch.clamp(s, 0, bl - 1)
+    vals = new[:, 0].movedim(2, 0)[src].to(buf.dtype)  # (C, L, Hkv, ·)
+    buf[s, :, :, local] = torch.where(keep.any(), vals, buf[s, :, :, local])
+    return buf
+
+
+def write_chunk_kv_seq_shard_q(buf, new: torch.Tensor, slot, start, r: int, lo: int):
+    """``write_chunk_kv_seq_shard`` into a possibly quantized leaf (the
+    whole chunk quantized on the way in, as ``write_chunk_kv_q``)."""
+    if not isinstance(buf, QuantKV):
+        return write_chunk_kv_seq_shard(buf, new, slot, start, r, lo)
+    payload, scale = quantize_kv(new, infer_kv_dtype(buf.q))
+    return QuantKV(write_chunk_kv_seq_shard(buf.q, payload, slot, start, r, lo),
+                   write_chunk_kv_seq_shard(buf.scale, scale, slot, start, r, lo))
+
+
 def scatter_new_tokens(buf: torch.Tensor, new: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Write every layer's new token into the decode cache in one in-place
     update.  buf: (B, L, Hkv, Smax, D), batch-leading, or its (B, L, Hkv,
@@ -513,15 +548,23 @@ def _targets(keep: torch.Tensor, dst0: torch.Tensor, dst1: torch.Tensor, w: int)
     return VerifyTargets(dst0[src], dst1[src], src // w, src % w, keep.any())
 
 
-def verify_targets(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int, smax: int) -> VerifyTargets:
+def verify_targets(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int, smax: int,
+                   r: int = 0, sl: Optional[int] = None) -> VerifyTargets:
     """The contiguous cache's targets: row i of slot b at position
     ``lengths[b] + i``, kept iff ``i < n_tokens[b]`` and the position lies
-    in the cache (the JAX package drops the others through ``mode="drop"``)."""
+    in the cache (the JAX package drops the others through ``mode="drop"``).
+    With ``r`` and ``sl`` the cache is rank r's block [r * sl, (r + 1) * sl)
+    of a sequence of ``smax`` rows split over the ranks (``sl`` defaults to
+    ``smax``, the whole cache): a row is kept only where its position lies
+    in the block, at its local row, so a block that straddles two ranks'
+    rows is written part by each."""
+    sl = smax if sl is None else sl
     i = torch.arange(w, device=lengths.device)
     pos = (lengths.long()[:, None] + i).reshape(-1)
-    keep = (i[None, :] < n_tokens.long()[:, None]).reshape(-1) & (pos < smax)
+    keep = ((i[None, :] < n_tokens.long()[:, None]).reshape(-1) & (pos < smax)
+            & (pos // sl == r))
     slot = _block_rows(torch.arange(lengths.shape[0], device=lengths.device), w)
-    return _targets(keep, slot, torch.clamp(pos, max=smax - 1), w)
+    return _targets(keep, slot, torch.clamp(pos - r * sl, 0, sl - 1), w)
 
 
 def verify_page_targets(block_tables: torch.Tensor, lengths: torch.Tensor, n_tokens: torch.Tensor,
@@ -748,12 +791,14 @@ def attention_decode_paged(params: dict, x: torch.Tensor, k_pages, v_pages,
 class VerifyPlan(NamedTuple):
     """A verify round's bookkeeping, the same for every layer, made once a
     round: the block rows' positions (B, W), each row's walk length (B * W,)
-    int32, where the rows land, and (paged) each table row W times."""
+    int32, where the rows land, (paged) each table row W times, and (a
+    sequence shard of a mesh) the group of ranks whose walks merge."""
 
     positions: torch.Tensor
     walk: torch.Tensor
     targets: VerifyTargets
     tables: Optional[torch.Tensor] = None
+    group: object = None
 
 
 def _verify_rows(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int) -> torch.Tensor:
@@ -770,13 +815,19 @@ def _verify_rows(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int) -> torch
 
 def verify_plan(lengths: torch.Tensor, n_tokens: torch.Tensor, w: int, *,
                 smax: Optional[int] = None, block_tables: Optional[torch.Tensor] = None,
-                block_size: Optional[int] = None) -> VerifyPlan:
+                block_size: Optional[int] = None, seq_shard=None) -> VerifyPlan:
     """The plan of a verify round over the contiguous cache (``smax``) or
-    the paged pool (``block_tables``, ``block_size``)."""
+    the paged pool (``block_tables``, ``block_size``).  ``seq_shard`` =
+    (r, Sl, group): the cache is rank r's block [r * Sl, (r + 1) * Sl) of
+    a sequence of ``smax`` rows, whose rows the ranks of ``group`` hold in
+    turn; each row walks its local part ``clamp(walk - r * Sl, 0, Sl)`` and
+    only the rows that land in the block are written."""
     positions = lengths[:, None] + torch.arange(w, device=lengths.device)
     walk = _verify_rows(lengths, n_tokens, w)
     if block_tables is None:
-        return VerifyPlan(positions, walk, verify_targets(lengths, n_tokens, w, smax))
+        r, sl, group = seq_shard or (0, smax, None)
+        return VerifyPlan(positions, torch.clamp(walk - r * sl, 0, sl).to(torch.int32),
+                          verify_targets(lengths, n_tokens, w, smax, r, sl), group=group)
     return VerifyPlan(positions, walk, verify_page_targets(block_tables, lengths, n_tokens, w,
                                                            block_size),
                       _block_rows(block_tables, w))
@@ -790,7 +841,8 @@ def _layer0(leaf):
 
 
 def attention_verify(params: dict, x: torch.Tensor, cache: KVCache, plan: VerifyPlan,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                     cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX
+                     ) -> Tuple[torch.Tensor, KVCache]:
     """The speculative verify pass of one layer over the contiguous cache:
     x (B, W, d), per slot [last token, draft_1..draft_k], block row i at
     position ``lengths[b] + i``; cache: this layer's leaves as (B, 1, Hkv,
@@ -799,24 +851,35 @@ def attention_verify(params: dict, x: torch.Tensor, cache: KVCache, plan: Verify
     write), then every row walks its range through the decode kernel (one
     launch, B * W rows) and merges its own fresh token: step for step what
     decode computes at position ``lengths[b] + i``.  Returns (y (B, W, d),
-    the block's K/V (B, Hkv, W, D), already written)."""
+    the block's K/V (B, Hkv, W, D), already written).
+
+    On a mesh (``pctx``, the decode rules; a ``seq_shard`` plan) the cache
+    is this rank's block of the sequence: the rank writes the block rows
+    that land in it, walks each row's local part, and the ranks of
+    ``plan.group`` merge their partials (``merge_partials``) before each
+    row's fresh token is folded in, as ``attention_decode`` does."""
     w = x.shape[1]
 
     def attend(qd, k, v):
         write_verify_rows_q(cache.k, k.transpose(1, 2)[None], plan.targets)
         write_verify_rows_q(cache.v, v.transpose(1, 2)[None], plan.targets)
         k_arr, v_arr, qkw = _kv_leaf_args(_layer0(cache.k), _layer0(cache.v))
-        return decode_attention(qd, k_arr, v_arr, plan.walk, return_stats=True,
-                                rows_per_slot=w, **qkw)
+        parts = decode_attention(qd, k_arr, v_arr, plan.walk, return_stats=True,
+                                 rows_per_slot=w, **qkw)
+        return parts if plan.group is None else merge_partials(*parts, plan.group)
 
-    return _decode_new_token(params, x, plan.positions, cfg, attend)
+    return _decode_new_token(params, x, plan.positions, cfg, attend, pctx)
 
 
 def attention_verify_paged(params: dict, x: torch.Tensor, k_pages, v_pages, plan: VerifyPlan,
-                           cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                           cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX
+                           ) -> Tuple[torch.Tensor, KVCache]:
     """``attention_verify`` over the paged pool: k_pages/v_pages this
     layer's (N, 1, Hkv, bs, ·) views; the walk takes each slot's table row
-    once for each of its W block rows (``plan.tables``)."""
+    once for each of its W block rows (``plan.tables``).  On a mesh the
+    pool is whole and ``plan`` this rank's slots': the rank writes and
+    walks their rows (the other data ranks' rows come after the layers,
+    ``models.transformer.verify_paged``)."""
 
     def attend(qd, k, v):
         write_verify_rows_q(k_pages, k.transpose(1, 2)[None], plan.targets)
@@ -825,4 +888,4 @@ def attention_verify_paged(params: dict, x: torch.Tensor, k_pages, v_pages, plan
         return paged_decode_attention(qd, k_arr, v_arr, plan.tables, plan.walk,
                                       return_stats=True, rows_per_slot=x.shape[1], **qkw)
 
-    return _decode_new_token(params, x, plan.positions, cfg, attend)
+    return _decode_new_token(params, x, plan.positions, cfg, attend, pctx)

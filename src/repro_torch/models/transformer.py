@@ -44,6 +44,7 @@ from repro_torch.layers.attention import (
     scatter_new_tokens_paged_q,
     scatter_new_tokens_q,
     scatter_new_tokens_seq_shard_q,
+    scatter_verify_tokens_paged_q,
     verify_plan,
     write_chunk_kv_q,
     write_prefill_pages_q,
@@ -488,8 +489,22 @@ def _prefill_chunk_body(params: dict, tokens: torch.Tensor, prefix: KVCache, pre
     return x, tok_k, tok_v, prefix
 
 
+def gather_kv_heads(kv: KVCache, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX) -> KVCache:
+    """Prefill-layout KV (L, B, Hkv / tp, S, D) of this rank's heads made
+    whole over the model axis (``pctx``, the prefill rules): one gather
+    carrying K and V together.  No mesh: ``kv`` as it is."""
+    if pctx.mesh is None:
+        return kv
+    both = torch.stack([kv.k, kv.v])  # (2, L, B, Hkv / tp, S, D)
+    dims = (None, "layers", "batch", "kv_heads", "seq", "head_dim")
+    both = pctx.shard(both, dims, dims[:3] + (None,) + dims[4:],
+                      both.shape[:3] + (cfg.num_kv_heads,) + both.shape[4:])
+    return KVCache(both[0], both[1])
+
+
 def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KVCache, slot,
-                  prefix_len, last_pos, cfg: ModelConfig, prefix_width: Optional[int] = None):
+                  prefix_len, last_pos, cfg: ModelConfig, prefix_width: Optional[int] = None,
+                  pctx: PartitionCtx = NULL_CTX, write=write_chunk_kv_q):
     """One right-padded chunk (1, C) of a prompt installed into slot
     ``slot`` of the contiguous cache at [prefix_len, prefix_len + C)
     (quantized on write under int8/int4).  Returns (logits (1, Vp) of
@@ -498,28 +513,39 @@ def prefill_chunk(params: dict, tokens: torch.Tensor, cache: KVCache, prefix: KV
     0-d integer tensors on the device (then nothing depends on their
     values on the host, and one captured program serves every chunk of its
     shape).  Chunk boundaries are a pure function of the prompt length and
-    the chunk size, so a restart re-prefills through the same chunks."""
-    x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
-                                                  prefix_width)
-    write_chunk_kv_q(cache.k, tok_k, slot, prefix_len)
-    write_chunk_kv_q(cache.v, tok_v, slot, prefix_len)
-    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], cache, prefix
+    the chunk size, so a restart re-prefills through the same chunks.
+
+    On a mesh (``pctx``, the prefill rules) the chunk runs on this rank's
+    heads against the mirror of those heads (L, 1, Hkv / tp, Cap, D), the
+    logits come back whole, and the chunk's KV is gathered over the model
+    axis before ``write(leaf, kv, slot, prefix_len)`` installs it: the
+    phase engine's writer of this rank's block of the cache
+    (``write_chunk_kv_seq_shard_q``)."""
+    logits, kv, prefix = prefill_chunk_kv(params, tokens, prefix, prefix_len, last_pos, cfg,
+                                          prefix_width, pctx)
+    kv = gather_kv_heads(kv, cfg, pctx)
+    write(cache.k, kv.k, slot, prefix_len)
+    write(cache.v, kv.v, slot, prefix_len)
+    return logits, cache, prefix
 
 
 def prefill_chunk_paged(params: dict, tokens: torch.Tensor, pages: KVCache, prefix: KVCache,
                         page_ids: torch.Tensor, prefix_len, last_pos, cfg: ModelConfig,
-                        prefix_width: Optional[int] = None):
+                        prefix_width: Optional[int] = None, pctx: PartitionCtx = NULL_CTX):
     """``prefill_chunk`` into the paged pool: the chunk (C a multiple of
     the page size, starting on a page boundary) writes whole pages
     ``page_ids`` (C / bs,); ids >= N (prefix-cache hits, padding) are
-    skipped.  Returns (logits (1, Vp), pages, prefix)."""
+    skipped.  Returns (logits (1, Vp), pages, prefix).  On a mesh the pool
+    is whole on every rank: each rank gathers the chunk's heads and writes
+    the same pages."""
     leaf = pages.k.q if isinstance(pages.k, QuantKV) else pages.k
     bs = leaf.shape[3]
-    x, tok_k, tok_v, prefix = _prefill_chunk_body(params, tokens, prefix, prefix_len, cfg,
-                                                  prefix_width)
-    write_prefill_pages_q(pages.k, tok_k, page_ids, block_size=bs)
-    write_prefill_pages_q(pages.v, tok_v, page_ids, block_size=bs)
-    return _logits(params, _at(x, last_pos), cfg)[:, -1, :], pages, prefix
+    logits, kv, prefix = prefill_chunk_kv(params, tokens, prefix, prefix_len, last_pos, cfg,
+                                          prefix_width, pctx)
+    kv = gather_kv_heads(kv, cfg, pctx)
+    write_prefill_pages_q(pages.k, kv.k, page_ids, block_size=bs)
+    write_prefill_pages_q(pages.v, kv.v, page_ids, block_size=bs)
+    return logits, pages, prefix
 
 
 def prefill_chunk_kv(params: dict, tokens: torch.Tensor, prefix: KVCache, prefix_len, last_pos,
@@ -698,7 +724,7 @@ def decode_step_paged(params: dict, token: torch.Tensor, pages: KVCache,
 
 
 def verify(params: dict, tokens: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
-           n_tokens: torch.Tensor, cfg: ModelConfig):
+           n_tokens: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """The speculative verify pass over the contiguous cache: tokens (B, W)
     int, per slot [last token, draft_1..draft_k]; cache (B, L, Hkv, Smax,
     ·); lengths (B,) int32 tokens already cached; n_tokens (B,) int32 real
@@ -716,29 +742,61 @@ def verify(params: dict, tokens: torch.Tensor, cache: KVCache, lengths: torch.Te
     n_tokens are dropped and their logits are garbage the engine ignores;
     rejected rows are rolled back by the slot's length (and, paged, by
     releasing overshoot pages).  The rows' targets are found once a round
-    (``verify_plan``), not once a layer."""
+    (``verify_plan``), not once a layer.
+
+    On a mesh (``pctx``, the decode rules) ``tokens``, ``lengths`` and
+    ``n_tokens`` are the whole batch's and ``cache`` is this rank's block,
+    as in ``decode_step``: each rank scores its rows of the batch, writes
+    the block rows that land in its rows of the sequence (a block may
+    straddle two ranks' rows), walks each row's local part with the local
+    per-row lengths, and the ranks of the sequence axis merge their
+    partials.  Returns the whole batch's logits."""
     leaf = cache.k.q if isinstance(cache.k, QuantKV) else cache.k
-    plan = verify_plan(lengths, n_tokens, tokens.shape[1], smax=leaf.shape[3])
+    bg, w = tokens.shape
+    lo, hi = batch_rows(pctx, bg)
+    shard = None
+    smax = leaf.shape[3]
+    if pctx.mesh is not None:
+        ax = pctx.resolve(["kv_seq"])[0]
+        shard = (pctx.index(ax), smax, pctx.mesh.group(ax))
+        smax *= pctx.size(ax)
+    plan = verify_plan(lengths[lo:hi], n_tokens[lo:hi], w, smax=smax, seq_shard=shard)
 
     def attend(lp, h, li):
         layer = KVCache(_layer_view(cache.k, li), _layer_view(cache.v, li))
-        return attention_verify(lp, h, layer, plan, cfg)
+        return attention_verify(lp, h, layer, plan, cfg, pctx)
 
-    return _decode_layers(params, tokens, cfg, attend, apply_norm_blocks)[0], cache
+    logits = _decode_layers(params, tokens[lo:hi], cfg, attend, apply_norm_blocks, pctx)[0]
+    return _gather_rows(logits, pctx, bg), cache
 
 
 def verify_paged(params: dict, tokens: torch.Tensor, pages: KVCache, block_tables: torch.Tensor,
-                 lengths: torch.Tensor, n_tokens: torch.Tensor, cfg: ModelConfig):
+                 lengths: torch.Tensor, n_tokens: torch.Tensor, cfg: ModelConfig,
+                 pctx: PartitionCtx = NULL_CTX):
     """``verify`` over the paged pool (N, L, Hkv, bs, ·) walked through
     ``block_tables`` (B, P) int32: block row i of slot b lands in page
     ``tables[b, (lengths[b] + i) // bs]``; slots of length 0 write nothing.
-    Returns (logits (B, W, Vp), pages)."""
+    Returns (logits (B, W, Vp), pages).
+
+    On a mesh the pool is whole on every rank and each rank scores its
+    rows of the batch over it, writing their block rows layer by layer;
+    after the layers the ranks of the batch axis gather every slot's rows
+    and each writes them all (its own again, the same bytes), so every
+    rank's copy of a page holds the same bytes, as ``decode_step_paged``."""
     leaf = pages.k.q if isinstance(pages.k, QuantKV) else pages.k
-    plan = verify_plan(lengths, n_tokens, tokens.shape[1], block_tables=block_tables,
+    bg, w = tokens.shape
+    lo, hi = batch_rows(pctx, bg)
+    plan = verify_plan(lengths[lo:hi], n_tokens[lo:hi], w, block_tables=block_tables[lo:hi],
                        block_size=leaf.shape[3])
 
     def attend(lp, h, li):
         return attention_verify_paged(lp, h, _layer_view(pages.k, li), _layer_view(pages.v, li),
-                                      plan, cfg)
+                                      plan, cfg, pctx)
 
-    return _decode_layers(params, tokens, cfg, attend, apply_norm_blocks)[0], pages
+    logits, tok_k, tok_v = _decode_layers(params, tokens[lo:hi], cfg, attend, apply_norm_blocks,
+                                          pctx)
+    if hi - lo < bg:  # the other data ranks' rows
+        tok_k, tok_v = (_gather_rows(t, pctx, bg, dim=1) for t in (tok_k, tok_v))
+        scatter_verify_tokens_paged_q(pages.k, tok_k, block_tables, lengths, n_tokens)
+        scatter_verify_tokens_paged_q(pages.v, tok_v, block_tables, lengths, n_tokens)
+    return _gather_rows(logits, pctx, bg), pages

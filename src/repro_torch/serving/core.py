@@ -85,6 +85,7 @@ from repro_torch.serving.slo import LatencyStat
 from repro_torch.serving.spec_decode import find_draft
 
 SWAP_TIMING_WINDOW = 64
+DECISION_LOG = 4096  # EngineCore.decisions keeps the latest this many (on a mesh)
 
 
 @dataclasses.dataclass
@@ -255,8 +256,6 @@ class ModelRunner:
         mesh=None,
     ):
         check_served_family(cfg)
-        if mesh is not None:
-            self._check_mesh_options(prefill_chunk, spec_decode)
         if mode not in ("pdswap", "static"):
             raise ValueError(f"mode must be 'pdswap' or 'static', got {mode!r}")
         if spec_decode == 0:
@@ -322,13 +321,16 @@ class ModelRunner:
         # Chunked prefill keeps an f32 mirror (L, 1, Hkv, Cap, D) of the
         # in-flight prompt's KV, so every chunk attends the values the
         # whole-prompt prefill would (see transformer._prefill_chunk_body);
-        # one buffer, since one chunked prefill runs at a time.
+        # one buffer, since one chunked prefill runs at a time.  On a mesh
+        # it holds this rank's Hkv / tp heads, the ones its chunks compute.
         self.chunk_prefix: Optional[KVCache] = None
         self.chunk_cap = None
         if prefill_chunk is not None:
             self.chunk_cap = (cdiv(max_len, block_size) * block_size
                               if cache_layout == "paged" else max_len)
-            shape = (cfg.num_layers, 1, cfg.num_kv_heads, self.chunk_cap, cfg.head_dim)
+            heads = cfg.num_kv_heads // self.engine.prefill_ctx.tp_size
+            shape = (cfg.num_layers, 1, heads, self.chunk_cap, cfg.head_dim)
+            self._chunk_kv_bytes = 2 * 4 * cfg.num_layers * heads * cfg.head_dim  # a row, f32
             self.chunk_prefix = KVCache(torch.zeros(shape, device=self._kv_device(mirror=True)),
                                         torch.zeros(shape, device=self._kv_device(mirror=True)))
             # a chunk's tokens, its page ids and (slot, prefix_len, last_pos)
@@ -345,12 +347,6 @@ class ModelRunner:
         self._top_ps = torch.ones((n_slots,), dtype=torch.float32, device=dev)
         self._steps_in = StagedTensor((n_slots,), torch.int32, dev)
         self._steps = self._steps_in.dev
-
-    def _check_mesh_options(self, prefill_chunk, spec_decode) -> None:
-        """Refuse on a mesh what the mesh programs do not shard."""
-        if prefill_chunk is not None or spec_decode:
-            raise NotImplementedError("chunked prefill and speculative decoding on a mesh are "
-                                      "ROADMAP A.13.5")
 
     def _kv_device(self, mirror: bool = False) -> torch.device:
         """Where the decode cache or page pool (``mirror``: the chunked
@@ -468,6 +464,8 @@ class ModelRunner:
         else:
             logits, _, _ = prog(self.params, tokens, self.cache, self.chunk_prefix, scalars[0],
                                 scalars[1], scalars[2])
+        if self.mesh is not None:  # the install's gather of the chunk's heads
+            self.engine.count_head_gather(self._chunk_kv_bytes * padded)
         _sync(self.device)
         t1 = time.perf_counter()  # analysis: allow(det:wallclock) — chunk wall time feeds t_prefill/t_replay stats and a trace span only
         if restarted:
@@ -759,6 +757,14 @@ class ModelRunner:
         (valid until the next round)."""
         return self._verify(tokens, n_tokens, self.slots.lengths_array())
 
+    def verify_tokens(self, tokens: np.ndarray, n_tokens: np.ndarray,
+                      inflight: Dict[int, Request]) -> np.ndarray:
+        """One verify pass (``run_verify``) and its targets
+        (``select_targets``), (B, W) on the host: the read waits for the
+        round."""
+        logits = self.run_verify(tokens, n_tokens)
+        return self.select_targets(logits, inflight).cpu().numpy()
+
     def rollback_overshoot(self, slot: int, length: int) -> None:
         """Roll rejected verify rows back.  Contiguous: nothing to do, the
         rows past the slot length are never read and are rewritten before
@@ -979,8 +985,10 @@ class EngineCore:
     its calls, and each ``step`` starts by broadcasting the requests and
     aborts rank 0 took since the last one.  The other ranks call
     ``follow()``, which steps with rank 0 until rank 0 calls
-    ``stop_followers()``.  Only rank 0's outputs are streamed.  The swap
-    policy must decide from host state alone (``DrainPolicy``)."""
+    ``stop_followers()``.  Only rank 0's outputs are streamed.  Rank 0's
+    policy decides for every rank (``_decide``): its sheds, swap decisions
+    and chunk quanta reach the others over the host group, so any policy
+    serves on a mesh, and every rank's ``decisions`` are rank 0's."""
 
     # The runner to build: the one seam a subclass changes to move what is
     # built and where it runs while keeping every scheduling, preemption,
@@ -1011,10 +1019,6 @@ class EngineCore:
     ):
         self.cfg = cfg
         self.mesh = mesh
-        if mesh is not None and swap_policy not in (None, "drain") and not isinstance(
-                swap_policy, DrainPolicy):
-            raise ValueError("on a mesh the swap policy must decide from host state alone "
-                             "(drain): a measured cost or a clock differs from rank to rank")
         kw = {} if mesh is None else self._mesh_runner_options(mesh)
         self.runner = self.runner_cls(
             cfg, params, n_slots=n_slots, max_len=max_len, prompt_len=prompt_len,
@@ -1039,6 +1043,10 @@ class EngineCore:
         self.finished: Dict[str, Request] = {}
         self._metrics_registry = None
         self._gen_seq = 0
+        # on a mesh of more than one rank, the policy's latest decisions,
+        # (kind, value) in order: every rank's are rank 0's (``_decide``)
+        self.decisions: Optional[Deque[tuple]] = (
+            deque(maxlen=DECISION_LOG) if mesh is not None and mesh.size > 1 else None)
 
     def _mesh_runner_options(self, mesh) -> dict:
         """The runner's options on a mesh: the mesh itself (the disaggregated
@@ -1092,6 +1100,33 @@ class EngineCore:
             else:
                 self.abort(x)
         return True
+
+    def _decide(self, kind: str, ask):
+        """One policy decision (``kind``: "shed", "prefill" or "quanta"),
+        ``ask()`` its answer.  On a mesh rank 0 asks its policy and the
+        other ranks take its answer over the host group, at the same point
+        of the same step, instead of asking their own: a measured cost or a
+        clock differs from rank to rank, and the ranks must act alike.  A
+        policy that decides from host state alone (``DrainPolicy``), and a
+        world of one, send nothing: every rank's own answer is rank 0's."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1 or isinstance(self.scheduler.policy, DrainPolicy):
+            value = ask()
+        else:
+            import torch.distributed as dist
+
+            box = torch.tensor([int(ask()) if mesh.rank == 0 else 0], dtype=torch.int64)
+            dist.broadcast(box, src=0, group=mesh.host_group)
+            value = int(box) if kind == "quanta" else bool(box)
+        if self.decisions is not None:
+            self.decisions.append((kind, value))
+        return value
+
+    def _enter_prefill(self, pending_chunks: int = 0) -> bool:
+        """The swap decision (``Scheduler.enter_prefill_phase``), rank 0's
+        on a mesh."""
+        return self._decide("prefill", lambda: self.scheduler.enter_prefill_phase(
+            self.stats, pending_chunks=pending_chunks))
 
     def follow(self) -> None:
         """A rank other than 0: step with rank 0 until it stops its
@@ -1207,7 +1242,7 @@ class EngineCore:
             if head.out_tokens or head.preempted:
                 break  # a restart awaiting replay is no new admission
             wait = (now - head.arrival_time_s) if head.arrival_time_s else 0.0
-            if not sched.policy.should_shed(wait):
+            if not self._decide("shed", lambda: sched.policy.should_shed(wait)):
                 break
             sched.queue.popleft()
             self.stats.sheds += 1
@@ -1225,9 +1260,10 @@ class EngineCore:
                 ran += 1
                 # asked after each chunk: that chunk's should_prefill saw the
                 # current decode set
-                if ran >= max(1, int(sched.policy.prefill_quanta())):
+                quanta = self._decide("quanta", lambda: max(1, int(sched.policy.prefill_quanta())))
+                if ran >= quanta:
                     break
-        elif sched.queue and runner.slots.free_slots() and sched.enter_prefill_phase(self.stats):
+        elif sched.queue and runner.slots.free_slots() and self._enter_prefill():
             admitted = 0
             while sched.queue and runner.slots.free_slots():
                 ok, out = self._admit_one(sched.queue.popleft())
@@ -1311,12 +1347,12 @@ class EngineCore:
         chunk.  Each chunk is one fabric flip (``prefill_bursts``)."""
         sched, runner = self.scheduler, self.runner
         if self._prefilling:
-            if not sched.enter_prefill_phase(self.stats, pending_chunks=self._pending_chunks()):
+            if not self._enter_prefill(self._pending_chunks()):
                 return []
             return self._advance_chunk(next(iter(self._prefilling.values())))
         if not (sched.queue and runner.slots.free_slots()):
             return []
-        if not sched.enter_prefill_phase(self.stats):
+        if not self._enter_prefill():
             return []
         ok, outs = self._admit_one_chunked(sched.queue.popleft())
         if not ok and not sched.inflight:
@@ -1601,9 +1637,7 @@ class EngineCore:
             assert length + n_tokens[slot] - 1 <= runner.max_len - 2, (
                 slot, length, int(n_tokens[slot]), runner.max_len)
         t0 = time.perf_counter()  # analysis: allow(det:wallclock) — verify-round wall time feeds t_decode stats only
-        logits = runner.run_verify(tokens, n_tokens)
-        targets = runner.select_targets(logits, sched.inflight)
-        targets_np = targets.cpu().numpy()  # waits for the round
+        targets_np = runner.verify_tokens(tokens, n_tokens, sched.inflight)  # waits for the round
         t1 = time.perf_counter()  # analysis: allow(det:wallclock) — verify-round wall time feeds t_decode stats only
         stats.t_decode += t1 - t0
         stats.decode_rounds += 1

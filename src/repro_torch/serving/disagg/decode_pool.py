@@ -37,8 +37,10 @@ and pages lie on the ``meta`` device: bookkeeping only) and a decode rank
 no prefill program.  A prefill rank prefills and ships; a decode rank
 receives at the same point of the same step, installs into its rows, and
 runs the decode rounds, whose tokens it broadcasts to the prefill pod.
-Both sample the first token from the same logits.  Speculative decoding
-on the split is ROADMAP A.13.5.
+Both sample the first token from the same logits.  Under speculative
+decoding the decode pod runs the verify rounds and broadcasts their
+targets the same way; every rank drafts from its host state (the prompts
+and the tokens so far), which is the same on every rank.
 
 On a card the pools' CUDA graphs are all captured by ``build_serving_grid``
 before serving: a capture must not run while the other thread launches.  A
@@ -77,13 +79,6 @@ class DisaggRunner(ModelRunner):
     def __init__(self, *args, role: Optional[str] = None, **kw):
         self.role = role
         super().__init__(*args, **kw)
-
-    def _check_mesh_options(self, prefill_chunk, spec_decode) -> None:
-        if self.role is None:
-            super()._check_mesh_options(prefill_chunk, spec_decode)
-        elif spec_decode:
-            raise NotImplementedError("speculative decoding on the pod split of the "
-                                      "disaggregated pools is ROADMAP A.13.5")
 
     def _kv_device(self, mirror: bool = False) -> torch.device:
         """A prefill rank of the split keeps the cache's bookkeeping only (its
@@ -171,20 +166,37 @@ class DisaggRunner(ModelRunner):
         group), so that both pods' host state moves on together."""
         if self.role is None:
             return super().decode_tokens(lengths, inflight)
+        if self.role == "decode":
+            next_tokens, next_np = super().decode_tokens(lengths, inflight)
+            self._from_decode_pod(next_np)
+            return next_tokens, next_np
+        host = self._from_decode_pod(np.zeros((len(self.slots.slots),), np.int64))
+        return torch.from_numpy(host), host
+
+    def verify_tokens(self, tokens: np.ndarray, n_tokens: np.ndarray,
+                      inflight: Dict[int, Request]) -> np.ndarray:
+        """One verify round.  On the split the decode pod runs the verify
+        pass and the first decode rank broadcasts its targets (B, W) to
+        every rank, as ``decode_tokens`` its tokens: the drafts of the next
+        round come from host state (the prompts and the tokens so far),
+        which every rank then holds equal."""
+        if self.role is None:
+            return super().verify_tokens(tokens, n_tokens, inflight)
+        if self.role == "decode":
+            return self._from_decode_pod(super().verify_tokens(tokens, n_tokens, inflight))
+        return self._from_decode_pod(np.zeros(tokens.shape, np.int64))
+
+    def _from_decode_pod(self, host: np.ndarray) -> np.ndarray:
+        """``host`` (int) as the first decode rank holds it, on every rank of
+        the split (one broadcast over the world's host group)."""
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import pods
 
-        if self.role == "decode":
-            next_tokens, next_np = super().decode_tokens(lengths, inflight)
-            host = torch.from_numpy(next_np.astype(np.int64))
-        else:
-            host = torch.zeros((len(self.slots.slots),), dtype=torch.int64)
+        box = torch.from_numpy(np.ascontiguousarray(host, np.int64))
         world = self.mesh.parent
-        dist.broadcast(host, src=pods(world)[1].ranks[0], group=world.host_group)
-        if self.role == "decode":
-            return next_tokens, next_np
-        return host, host.numpy()
+        dist.broadcast(box, src=pods(world)[1].ranks[0], group=world.host_group)
+        return box.numpy()
 
     # ------------------------------------------------------------ the split --
 

@@ -26,7 +26,8 @@ Greedy and sampled streams equal the colocated ``EngineCore``'s on
 {contiguous, paged} x {fp, int8, int4}, chunked prefill included, as in the
 JAX package; on the split, those of the engine on one device (the mesh
 programs' products sum over the ranks in another order where they are
-not exact).  Speculative decoding on the split is ROADMAP A.13.5.
+not exact), speculative decoding and every swap policy included (rank 0
+decides for every rank).
 """
 from __future__ import annotations
 

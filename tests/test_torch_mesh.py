@@ -674,6 +674,9 @@ def test_local_params_takes_a_slice_as_given_and_refuses_another_ranks():
 class _StubMesh(_FakeMesh):
     """A (2, 2) mesh seen from one coordinate, with no process group."""
 
+    capturable = False  # as gloo's: its programs run eagerly
+    size = 4
+
     def __init__(self, coords):
         super().__init__({"data": 2, "model": 2})
         self.coords = coords
@@ -709,10 +712,11 @@ def test_walk_merge_with_an_empty_shard():
 
 
 def test_mesh_refusals():
-    """A mesh refuses what it does not shard, by name: another family,
-    chunked prefill and speculative decoding, a swap policy that reads a
-    clock or a measured cost, and dims the model axis does not divide;
-    the disaggregated pools split a mesh with a pod axis only."""
+    """A mesh refuses what it does not shard, by name: another family and
+    dims the model axis does not divide; the disaggregated pools split a
+    mesh with a pod axis only.  Chunked prefill, speculative decoding and
+    every swap policy are taken (``tests/test_torch_mesh_spec.py`` serves
+    them), and so are the chunk and verify programs."""
     from repro_torch.configs import reduced_config
     from repro_torch.core.phase_engine import PhaseEngine
     from repro_torch.models import transformer as T
@@ -723,11 +727,12 @@ def test_mesh_refusals():
         PhaseEngine(reduced_config("hymba-1.5b"), mesh)
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 0, device="cpu"), cfg)
-    for kw in (dict(prefill_chunk=8), dict(spec_decode=2)):
-        with pytest.raises(NotImplementedError, match="A.13"):
-            EngineCore(cfg, params, mesh=mesh, **ENGINE_BASE, **kw)
-    with pytest.raises(ValueError, match="host state"):
-        EngineCore(cfg, params, mesh=mesh, swap_policy="swap-aware", **ENGINE_BASE)
+    for kw in (dict(prefill_chunk=8, spec_decode=2), dict(swap_policy="swap-aware"),
+               dict(swap_policy="slo-aware", cache_layout="paged", spec_decode=2)):
+        eng = EngineCore(cfg, params, mesh=mesh, **ENGINE_BASE, **kw)
+        assert eng.runner.verify_prog is not None or "spec_decode" not in kw
+        if "prefill_chunk" in kw:  # the mirror holds this rank's heads
+            assert eng.runner.chunk_prefix.k.shape[2] == cfg.num_kv_heads // 2
     from repro_torch.serving import DisaggEngine
 
     with pytest.raises(ValueError, match="spatial disaggregation needs a pod axis"):
@@ -737,8 +742,8 @@ def test_mesh_refusals():
     eng = PhaseEngine(cfg, mesh)
     with pytest.raises(ValueError, match="sequence shards"):
         eng.init_cache(2, 33)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        eng.verify_program(2, 32, 3)
+    assert eng.verify_program(2, 32, 3).name == "verify:2x3@32"
+    assert eng.paged_prefill_chunk_program(16, 4, 8, 0).name == "prefill_chunk_paged:16+0@4x8"
 
 
 def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
@@ -749,15 +754,25 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     sequence half with an empty slot and over a data rank's slots; and
     granite-moe-3b-a800m's: B2 on 12 of 24 heads over 4 KV heads, B3 and
     B6 at G = 3; the pod split's decode pool: B3 over a sequence half at 4
-    slots, B6 over 4 slots of the whole pool.  Here each case's plain
-    version runs and a row shard's B1 returns the exact int32 partial."""
+    slots, B6 over 4 slots of the whole pool; the verify pass's and the
+    chunks': B1 at a data rank's 10 verify rows and a 256-row chunk, B3 and
+    B4 over each sequence half at 5 rows a slot (a block across the
+    halves), B5 and B6 with each table row 5 times, the split's decode rank
+    at 4 slots x 5.  Here each case's plain version runs and a row shard's
+    B1 returns the exact int32 partial."""
     from repro_torch.analysis import kernel_check as K
     from repro_torch.quant.ternary import unpack_ternary
 
     cases = K.mesh_cases()
     assert {c.kernel for c in cases} == set(K.LAUNCHES)
     shards = {c.label.split("tlmm ")[1] for c in cases if c.kernel == "tlmm"}
-    for m in (2, 4):
+    verify = [c for c in cases if "verify rows" in c.label]
+    assert sorted(c.kernel for c in verify) == sorted(
+        ["decode_attention"] * 2 + ["decode_attention_quant"] * 3 + ["paged_decode_attention"]
+        + ["paged_decode_attention_quant"] * 2)
+    assert any("local lengths=[45, 46, 47, 48, 48" in c.label for c in verify)  # across the halves
+    assert all(c.repeat == 5 for c in verify if "sequence half" in c.label)
+    for m in (2, 4, 10, 256):
         for k, n, how in ((1536, 768, "column"), (1536, 2048, "column"), (768, 1536, "row"),
                           (2048, 1536, "row")):
             assert f"M={m} K={k} N={n} (a model rank's {how} shard)" in shards

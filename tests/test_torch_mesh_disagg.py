@@ -64,6 +64,20 @@ CASES4 = dict(CASES, **{
     "preempting": (dict(PAGED_CHUNKED, num_blocks=3), ""),
     "aborts": (PAGED_CHUNKED, "aborts"),
 })
+# speculation and the swap policies on the split, in both worlds (the
+# swap-aware one decides from measured times: its tokens are held, not its
+# counts), and colocated on the 2-rank world's (data 1, model 2) mesh
+SPEC_CASES = {
+    "spec-fp": (dict(spec_decode=2), ""),
+    "spec-paged-int8-chunked": (dict(PAGED_CHUNKED, spec_decode=2), ""),
+    "swap-aware": (dict(PAGED_CHUNKED, swap_policy="swap-aware"), ""),
+}
+TP_CASES = {
+    "tp-spec-fp": (dict(spec_decode=2), ""),
+    "tp-swap-aware": (dict(swap_policy="swap-aware"), ""),
+}
+ALL_CASES = dict(CASES4, **SPEC_CASES, **TP_CASES)
+SPEC_KEYS = ("draft_tokens", "accepted_tokens", "verify_rounds", "prefill_chunks")
 HANDOFF_KEYS = ("segments", "eager_segments", "installs", "bytes_shipped", "discarded",
                 "pending")
 CLI_ARGS = ["--reduced", "--device", "cpu", "--disagg", "--requests", "4", "--prompt-len", "16",
@@ -154,11 +168,22 @@ def _port_params(cfg):
 def case_engine(ctx, case):
     from repro_torch.serving import DisaggEngine
 
-    kw, how = ctx["cases"][case]
+    kw, how = ALL_CASES[case]
     pm, dm = ctx["pools"]
     eng = DisaggEngine(ctx["cfg"], ctx["params"], prefill_mesh=pm, decode_mesh=dm, **BASE, **kw)
     got = serve(eng, how, lead=eng.mesh.rank == 0)
-    return engine_result(eng, got)
+    return dict(engine_result(eng, got), policy=list(eng.decisions))
+
+
+def case_colocated(ctx, case):
+    """``EngineCore`` on the 2-rank world's (data 1, model 2) mesh."""
+    from repro_torch.serving import EngineCore
+
+    kw, how = ALL_CASES[case]
+    mesh = ctx["tp"]
+    eng = EngineCore(ctx["cfg"], ctx["params"], mesh=mesh, device="cpu", **BASE, **kw)
+    got = serve(eng, how, lead=mesh.rank == 0)
+    return {"got": got, "decisions": decisions(eng.snapshot()), "policy": list(eng.decisions)}
 
 
 def case_groups(ctx):
@@ -208,17 +233,10 @@ def case_quant_transfer(ctx):
 
 
 def case_refusals(ctx):
-    """What the split refuses by name: speculative decoding (A.13.5)."""
+    """What the split refuses by name: a device given to a pool."""
     from repro_torch.serving import DisaggEngine
 
     pm, dm = ctx["pools"]
-    try:
-        DisaggEngine(ctx["cfg"], ctx["params"], prefill_mesh=pm, decode_mesh=dm, spec_decode=2,
-                     **BASE)
-    except NotImplementedError as e:
-        spec = str(e)
-    else:
-        spec = None
     try:
         DisaggEngine(ctx["cfg"], ctx["params"], prefill_mesh=pm, decode_mesh=dm, device="cpu",
                      **BASE)
@@ -226,7 +244,7 @@ def case_refusals(ctx):
         device = str(e)
     else:
         device = None
-    return {"spec": spec, "device": device}
+    return {"device": device}
 
 
 def case_data_pools(ctx):
@@ -244,7 +262,9 @@ def case_data_pools(ctx):
 
 def _cases(world):
     cases = [(f"engine-{c}", lambda ctx, c=c: case_engine(ctx, c))
-             for c in (CASES4 if world == 4 else CASES)]
+             for c in list(CASES4 if world == 4 else CASES) + list(SPEC_CASES)]
+    if world == 2:
+        cases += [(c, lambda ctx, c=c: case_colocated(ctx, c)) for c in TP_CASES]
     cases.append(("groups", case_groups))
     if world == 4:
         cases += [("quant_transfer", case_quant_transfer), ("refusals", case_refusals),
@@ -259,14 +279,15 @@ def rank_main(rank: int, world: int, store: str, out: str) -> None:
 
     sys.path.insert(0, str(REPO / "src"))
     torch.set_num_threads(1)
-    from repro_torch.launch.mesh import join_process_group
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
     from repro_torch.serving.disagg import make_disagg_meshes
 
     join_process_group("gloo", device_type="cpu", init_method=f"file://{store}", rank=rank,
                        world_size=world, timeout_s=120)
     cfg = model_config()
-    ctx = {"cfg": cfg, "params": _port_params(cfg), "pools": make_disagg_meshes(tp=world // 2),
-           "cases": CASES4 if world == 4 else CASES}
+    ctx = {"cfg": cfg, "params": _port_params(cfg), "pools": make_disagg_meshes(tp=world // 2)}
+    if world == 2:
+        ctx["tp"] = make_host_mesh(data=1, model=2)
     results = {}
     for name, fn in _cases(world):
         try:
@@ -312,7 +333,8 @@ def run(cls, kw, **extra):
     ho = eng.snapshot().get("disagg")
     return {{"streams": streams,
              "handoff": None if ho is None else {{k: ho["handoff"][k] for k in M.HANDOFF_KEYS}},
-             "pools": None if ho is None else (ho["prefill_pool"], ho["decode_pool"])}}
+             "pools": None if ho is None else (ho["prefill_pool"], ho["decode_pool"]),
+             "spec": {{k: getattr(eng.stats, k) for k in M.SPEC_KEYS}}}}
 
 devs = np.array(jax.devices())
 pods = Mesh(devs[:2].reshape(2, 1), ("pod", "model"))
@@ -321,6 +343,10 @@ out = {{}}
 for case, (kw, _) in M.CASES.items():
     out[case] = {{"disagg": run(DisaggEngine, kw, mesh=pods), "single": run(EngineCore, kw)}}
 out["contiguous-fp"]["colocated_tp"] = run(EngineCore, {{}}, mesh=tp)
+for case, (kw, _) in M.SPEC_CASES.items():
+    out[case] = {{"disagg": run(DisaggEngine, kw, mesh=pods)}}
+for case, (kw, _) in M.TP_CASES.items():
+    out[case] = {{"colocated_tp": run(EngineCore, kw, mesh=tp)}}
 import test_torch_mesh as TM
 eng = EngineCore(cfg, TM.jax_params(cfg, TM.numpy_params(cfg)), **M.BASE)
 out["numpy-fp"] = M.recorded_rows(eng, Request, lambda lg: np.asarray(lg, np.float32))
@@ -366,7 +392,7 @@ def _one_device(case):
     from repro_torch.serving import DisaggEngine
 
     cfg = model_config()
-    kw, how = CASES4[case]
+    kw, how = ALL_CASES[case]
     eng = DisaggEngine(cfg, _port_params(cfg), device="cpu", **BASE, **kw)
     return engine_result(eng, serve(eng, how))
 
@@ -417,7 +443,7 @@ def worlds(tmp_path_factory):
     threads_before = torch.get_num_threads()
     torch.set_num_threads(1)  # the ranks' float order
     try:
-        single = {c: _one_device(c) for c in CASES4}
+        single = {c: _one_device(c) for c in list(CASES4) + list(SPEC_CASES)}
         single["numpy-fp"] = _numpy_weights_rows()
         cli = _cli(CLI_ARGS)
     finally:
@@ -676,13 +702,72 @@ def test_a_quantized_tree_crosses_byte_for_byte(worlds):
 
 
 def test_the_split_refuses_by_name(worlds):
-    """On the split: speculative decoding (ROADMAP A.13.5), a device given
-    to a pool on a mesh, and pools with data > 1 (ROADMAP A.13)."""
+    """On the split: a device given to a pool on a mesh, and pools with
+    data > 1 (ROADMAP A.13).  Speculative decoding is taken (the tests
+    below)."""
     for got in _case(worlds, 4, "refusals"):
-        assert "ROADMAP A.13.5" in got["spec"]
         assert "pass no device" in got["device"]
     for got in _case(worlds, 4, "data_pools"):
         assert "ROADMAP A.13" in got
+
+
+@pytest.mark.parametrize("case", ["spec-fp", "spec-paged-int8-chunked"])
+def test_pod_model1_speculates_as_the_jax_split(worlds, case):
+    """(pod 2, model 1) with ``spec_decode=2`` (paged int8 with 8-token
+    chunks too): the JAX ``DisaggEngine(mesh=)``'s tokens, drafts, accepted
+    tokens, verify rounds and chunks, the verify rounds on the decode pod
+    and their targets broadcast to the prefill pod; every rank's decisions
+    are rank 0's; and the port's one-device ``DisaggEngine``'s tokens."""
+    every = _case(worlds, 2, f"engine-{case}")
+    want = worlds["jax"][case]["disagg"]
+    assert want["streams"] == worlds["single"][case]["got"]["streams"]
+    assert every[0]["got"]["streams"] == want["streams"]
+    assert {k: every[0]["decisions"][k] for k in SPEC_KEYS} == want["spec"]
+    assert want["spec"]["verify_rounds"] > 0
+    _ranks_agree(every)
+
+
+@pytest.mark.parametrize("case", list(SPEC_CASES))
+def test_pod_model2_speculates_and_follows_rank_0_as_one_device(worlds, case):
+    """(pod 2, model 2): speculation on the split, and the swap-cost-aware
+    policy decided by rank 0 for every rank: the port's ``DisaggEngine`` on
+    one device (tokens; counters where no decision reads a clock), every
+    rank's policy decisions rank 0's, the JAX split's tokens on (pod 2,
+    model 1)."""
+    every = _case(worlds, 4, f"engine-{case}")
+    single = worlds["single"][case]
+    assert every[0]["got"]["streams"] == single["got"]["streams"]
+    assert every[0]["got"]["streams"] == worlds["jax"][case]["disagg"]["streams"]
+    for got in every:
+        assert got["policy"] == every[0]["policy"]
+    if case == "swap-aware":
+        assert {k for k, _ in every[0]["policy"]} >= {"prefill", "quanta"}
+        for r, got in enumerate(every):
+            assert got["decisions"] == every[0]["decisions"], f"rank {r}"
+        return
+    assert {k: every[0]["decisions"][k] for k in SPEC_KEYS} == {
+        k: single["decisions"][k] for k in SPEC_KEYS}
+    assert every[0]["handoff"] == dict(single["handoff"],
+                                       pod_bytes=every[0]["handoff"]["pod_bytes"])
+    _ranks_agree(every)
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_colocated_data1_model2_gives_the_jax_mesh_tokens(worlds, case):
+    """``EngineCore`` on the 2-rank world's (data 1, model 2) mesh with
+    ``spec_decode=2``, and under the swap-cost-aware policy: the tokens of
+    the JAX engine on a (data 1, model 2) Auto-axes mesh, and with
+    speculation its drafts, accepted tokens and verify rounds; every
+    rank's decisions rank 0's."""
+    every = _case(worlds, 2, case)
+    ref = worlds["jax"][case]
+    assert every[0]["got"]["streams"] == ref["colocated_tp"]["streams"]
+    if case == "tp-spec-fp":
+        assert {k: every[0]["decisions"][k] for k in SPEC_KEYS} == ref["colocated_tp"]["spec"]
+        assert ref["colocated_tp"]["spec"]["verify_rounds"] > 0
+    for r, got in enumerate(every):
+        assert got["decisions"] == every[0]["decisions"], f"rank {r}"
+        assert got["policy"] == every[0]["policy"], f"rank {r}"
 
 
 def test_cli_disagg_on_a_world_gives_the_colocated_clis_tokens(worlds):
