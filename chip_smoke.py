@@ -248,6 +248,22 @@ Phases (any failure raises and the script exits non-zero):
     expert shard 1's outputs zeroed, the planted fault, breaking the
     limits; phase 3 and the kernel pass also hold B2, B3 and B6 at
     granite's shard shapes (G = 3);
+(MF) training of the other families on a mesh, at full width cut in depth
+    as (T4) cuts them (``MF_CUTS``: hymba 2 of 32 layers at 4 x 2,048
+    tokens, its window masking and its 25 and 5 heads computed whole on
+    every rank; xlstm one group of 8 at 4 x 256; whisper 2 + 2 layers at
+    4 x 64 over 1,500 frames), f32: (MF1) one step of each on a (data 1,
+    model 1) NCCL mesh in a process of its own, run while the kernels
+    build, bit for bit with one card; (MF2) in the 4-rank world, after
+    (ME), each family 3 steps on (data 2, model 2), each rank on its
+    ``shard_params`` slice, within the family's ``MF_LIMITS`` of one card
+    (losses, grad norms, mu and nu after step 3), each rank's MiB of params and moments
+    and the gloo collectives a step and their MiB, then 1 step with the
+    family's planted fault (hymba: the SSM's ``w_bc`` partial sums not
+    summed; xlstm: ``hnorm``'s statistic not summed; whisper: the cross
+    K/V from the other rank's heads) breaking each limit; no kernel;
+    ``--only-family-mesh`` runs the build, (MF1) and (MF2) alone, with no
+    result lines;
 13. how many sentinels the profiler windows kept (see ``_profiled``), the
     results as JSON, the card again, and ``{"ok": true, ...}`` last.
 
@@ -1622,13 +1638,14 @@ def main(only: str | None = None) -> int:
 
     # ---- 2. build, with (MT1) in a process of its own meanwhile (it launches
     # no kernel, and the card is idle while nvcc runs on the host)
-    mt1 = mesh_train_m1_start()
+    mt1, mf1 = mesh_train_m1_start(), mesh_train_m1_start("--mesh-family-m1")
     t0 = time.perf_counter()
     try:
         info = build.build_all()
     except BaseException:
-        mt1.kill()
-        mt1.wait()
+        for proc in (mt1, mf1):
+            proc.kill()
+            proc.wait()
         raise
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
     for name, rec in info.items():
@@ -1637,9 +1654,15 @@ def main(only: str | None = None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
-    mt1_report = mesh_train_m1_wait(mt1)
+    try:
+        mt1_report = mesh_train_m1_wait(mt1)
+    finally:
+        mf1_report = mesh_train_m1_wait(mf1, "(MF1)")
     if only == "mesh-train":  # a development run of phase (MT) alone: no result line
         mesh_world_phase(torch, card, parts=("MT",), mt1_report=mt1_report)
+        return 0
+    if only == "family-mesh":  # a development run of phase (MF) alone: no result line
+        mesh_world_phase(torch, card, parts=("MF",), mf1_report=mf1_report)
         return 0
     if only == "moe-mesh":  # a development run of phase (ME) alone: no result line
         moe_mesh_only(torch, np, card)
@@ -1788,7 +1811,7 @@ def main(only: str | None = None) -> int:
     # ---- 5. the other cache options at full width
     path_launches, path_i = cache_option_paths(torch, np, cfg, params, prompts, max_tokens,
                                                n_slots, max_len, card)
-    _elapsed("(M2), (MT2)-(MT4), (ME2), (ME3)")
+    _elapsed("(M2), (MT2)-(MT4), (ME2), (ME3), (MF2)")
     # ---- the 4-rank world on this card: (M2) the same model on a (data 2,
     # model 2) gloo mesh; (MT) and (ME3) training; (ME2) granite served.
     # Meanwhile this process runs the CPU references that need no earlier
@@ -1817,8 +1840,9 @@ def main(only: str | None = None) -> int:
         lambda: EARLY.take("(M2) cut references", cut_refs)),
         mt1_report=mt1_report, beside=beside,
         md_refs=lambda: EARLY.take("(MD) references", md_refs),
-        ms_refs=lambda: EARLY.take("(MS) references", spec_refs))
+        ms_refs=lambda: EARLY.take("(MS) references", spec_refs), mf1_report=mf1_report)
     (mesh_launches, m2a), mt_launches, me2 = world["M2"], world["MT"], world["ME"]
+    mf_launches = world["MF"]
     ms_launches = world["MS"]
     md_launches, md_parts = world["MD"]
     del world
@@ -1887,7 +1911,8 @@ def main(only: str | None = None) -> int:
     for part in (m1_launches, mesh_launches, path_launches, spec_launches, abort_launches,
                  front_launches, cli_launches, disagg_launches, cli_disagg_launches,
                  family_launches, cli_smollm_launches, other_launches, train_launches,
-                 mt_launches, me2_launches, md_launches, ms_launches, m1s_launches):
+                 mt_launches, me2_launches, md_launches, ms_launches, m1s_launches,
+                 mf_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1943,7 +1968,7 @@ def main(only: str | None = None) -> int:
 
 MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
 MESH_WORLD = 4
-MESH_PARTS = ("M2", "MS", "MD", "MT", "ME")  # the world's phases, in the order its ranks run them
+MESH_PARTS = ("M2", "MS", "MD", "MT", "ME", "MF")  # the world's phases, in the order its ranks run them
 MESH_TIMEOUT_S = 900  # the 4-rank world: (M2), (MT2)-(MT4), (ME2), (ME3)
 # (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
 # options, and the path whose streams it must give
@@ -2111,7 +2136,7 @@ class _RowsRecorder:
 
 
 def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=None, beside=(),
-                     md_refs=None, ms_refs=None):
+                     md_refs=None, ms_refs=None, mf1_report=None):
     """One (data 2, model 2) gloo world of 4 processes on this card
     (``python -m torch.distributed.run --standalone --nproc-per-node 4
     chip_smoke.py --mesh-worker DIR PARTS``; each rank on cuda:0, the
@@ -2123,7 +2148,8 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
     refs), (MT1)'s report and the ranks' reports are printed.  Returns
     {"M2": (rank 0's launches summed over ``MESH_PATHS``, (M2a)'s streams
     and logits rows), "MD": ranks 0's and 2's launches over (MD1) and (MD2),
-    "MT": rank 0's (MT3) launches, "ME": (ME2)'s results (``me2_results``)},
+    "MT": rank 0's (MT3) launches, "ME": (ME2)'s results (``me2_results``), "MF": rank
+    0's launches over (MF2) (none: training), after (MF1)'s report},
     each for the parts run.  ``beside``: [(key, fn)] run in this process
     meanwhile (``EARLY``); ``md_refs()``: (MD)'s one-card references, read
     once the world has ended; ``ms_refs()``: the cut model's one-card runs
@@ -2185,6 +2211,12 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
             from repro_torch.configs import get_config
 
             out["ME"] = me2_results(torch, get_config(ME_ARCH), card)
+        if "MF" in parts:
+            print(mf1_report)
+            result = json.loads((MESH_DIR / "MF_result.json").read_text())
+            for line in result["report"]:
+                print(f"{line}  [{card}]")
+            out["MF"] = result["launches"]
     finally:  # the logits rows (about 100 MB) and the checkpoint never stay behind
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     print(f"(M) the world's phase {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -2423,7 +2455,7 @@ def mesh_worker(out: Path, parts) -> int:
     join the gloo world on this card, build the (2, 2) mesh, and run
     ``parts`` of ``MESH_PARTS`` in turn, each writing its results under
     ``out``: (M2) ``_m2_rank``, (MT2)-(MT4) ``_mt_rank``, (ME2) and (ME3)
-    ``_me_rank``."""
+    ``_me_rank``, (MF2) ``_mf_rank``."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2432,7 +2464,8 @@ def mesh_worker(out: Path, parts) -> int:
     t_start = time.perf_counter()
     join_process_group("gloo")
     mesh = make_host_mesh(data=2, model=2)
-    runs = {"M2": _m2_rank, "MS": _ms_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank}
+    runs = {"M2": _m2_rank, "MS": _ms_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank,
+            "MF": _mf_rank}
     for part in parts:
         t0 = time.perf_counter()
         runs[part](mesh, out)
@@ -6702,15 +6735,16 @@ def mesh_train_m1_main() -> int:
     return 0
 
 
-def mesh_train_m1_start():
-    """Start (MT1) in a process of its own (``chip_smoke.py
-    --mesh-train-m1``), to run while the kernels build."""
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-train-m1"],
+def mesh_train_m1_start(flag: str = "--mesh-train-m1"):
+    """Start (MT1) (or, ``--mesh-family-m1``, (MF1)) in a process of its own
+    (``chip_smoke.py FLAG``), to run while the kernels build."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def mesh_train_m1_wait(proc) -> str:
-    """(MT1)'s report, once its process has ended; raises if it failed."""
+def mesh_train_m1_wait(proc, what: str = "(MT1)") -> str:
+    """The report of (MT1) (or ``what``), once its process has ended;
+    raises if it failed."""
     try:
         out, err = proc.communicate(timeout=MT_TIMEOUT_S)
     finally:
@@ -6718,7 +6752,7 @@ def mesh_train_m1_wait(proc) -> str:
             proc.kill()
             proc.wait()
     if proc.returncode != 0:
-        raise AssertionError(f"(MT1) exited {proc.returncode}:\n{(out + err)[-6000:]}")
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{(out + err)[-6000:]}")
     return out.strip()
 
 
@@ -7056,6 +7090,303 @@ def _mt_rank(mesh, out: Path) -> None:
         (out / "MT_result.json").write_text(json.dumps({"report": report, "launches": mt3}))
 
 
+# ---- phase (MF): training of hymba, xLSTM and whisper on a mesh of processes --
+
+# The families at full width, cut in depth as (T4) cuts them: hymba 2 of 32
+# layers (layer 0 global, layer 1 windowed), 4 x 2,048 tokens so that the
+# 1,024-token window masks (its 25 and 5 heads split on no model axis:
+# every rank computes every head); xlstm one group of its 8 layers (7 mLSTM
+# blocks and the sLSTM), 4 x 256; whisper 2 + 2 layers over 1,500 frames,
+# 4 x 64 decoder tokens
+MF_CUTS = (("hymba-1.5b", dict(num_layers=2), 2048),
+           ("xlstm-1.3b", dict(num_layers=8), 256),
+           ("whisper-large-v3", dict(num_layers=2, encoder_layers=2), 64))
+MF_BATCH, MF_STEPS = 4, 3
+MF_STORE = MT_DIR / "mf1_store"
+# (MF2) against the single card, relative, as MT_LIMITS: loss and grad norm
+# a step, mu and nu after step 3 (each leaf's largest difference over its
+# largest |value|).  f32 with TF32 off and no QAT: the mesh sums its
+# row-parallel products, the FSDP reduce-scatters and the channel sums in
+# other orders than one card.  Read on one H100 80GB HBM3 (700 W; PERF.md
+# §6): hymba loss 1.8e-7, grad norm 7.5e-7, mu 4.0e-6, nu 5.7e-6;
+# whisper 0, 1.7e-7, 1.2e-6, 1.6e-6; their faults (1 step) 3.2e-5 and
+# 4.2e-3, 1.1e-3 and 0.16, moments 1.8-6.0.  xlstm reads steps 0-1 as they
+# do (8.5e-8, 4.0e-6) and step 2 8.1e-6, grad norm 1.1e-3, mu 0.113 (w_og),
+# nu 0.080 (hnorm): step 1, the first at the full rate, clips grad norms of
+# 60-76 and AdamW moves each weight by about the rate whatever its
+# gradient, so rounding noise picks the sign of many moves, and the
+# exponential gates carry it on.  One card reordering its own sums alone
+# (two microbatches of the same rows, the same mean) reads 1.3e-5, 3.6e-4,
+# 0.038, 0.054 there; its fault 2.9e-3, 0.51, 3.1, 6.2.  Each limit lies
+# 4 to 60 times over its sound reading and 6 times or more under its
+# fault's.
+MF_LIMITS = {
+    "hymba-1.5b": {"loss": 3e-6, "grad_norm": 1e-5, "mu": 1e-4, "nu": 1e-4},
+    "xlstm-1.3b": {"loss": 1e-4, "grad_norm": 1e-2, "mu": 0.5, "nu": 0.5},
+    "whisper-large-v3": {"loss": 3e-6, "grad_norm": 1e-5, "mu": 1e-4, "nu": 1e-4},
+}
+MF_FAULTS = {"hymba-1.5b": "the SSM's w_bc partial sums not summed over the model axis",
+             "xlstm-1.3b": "hnorm's mean of squares not summed over the model axis",
+             "whisper-large-v3": "the cross attention's K/V from the other model rank's heads"}
+
+
+def _mf_config(arch, cut):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _mf_batches(np, cfg, seq, n):
+    from repro_torch.data.pipeline import DataConfig, make_source, with_frames
+
+    source = make_source(DataConfig(batch=MF_BATCH, seq_len=seq, vocab_size=cfg.vocab_size,
+                                    seed=0))
+    return [with_frames(source.batch(s), cfg, 0, s) for s in range(n)]
+
+
+def _mf_tcfg():
+    from repro_torch.train.trainer import TrainConfig
+
+    return TrainConfig(schedule="wsd", warmup=1, total_steps=MF_STEPS)
+
+
+def mesh_family_m1(torch, np, card):
+    """(MF1): one step of each family (``MF_CUTS``) on a (data 1, model 1)
+    NCCL mesh in its process against the single card's step on the same
+    weights and batch: every collective is a group of one, so the loss,
+    the grad norm and every leaf of params, mu and nu must be equal, bit
+    for bit; no kernel is launched."""
+    import torch.distributed as dist
+
+    from repro_torch.common.tree import named_leaves
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.mesh import join_process_group, make_host_mesh
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    MT_DIR.mkdir(parents=True, exist_ok=True)
+    MF_STORE.unlink(missing_ok=True)
+    join_process_group("nccl", init_method=f"file://{MF_STORE.resolve()}", rank=0, world_size=1)
+    lines = []
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        for arch, cut, seq in MF_CUTS:
+            cfg = _mf_config(arch, cut)
+            batches = _mf_batches(np, cfg, seq, 1)
+            p1, o1 = init_train_state(cfg, 0, "cuda")
+            p1, o1, ref = _mt_steps(torch, make_train_step(cfg, _mf_tcfg()), p1, o1, batches, 0,
+                                    1, "cuda")
+            reset_counts()
+            p2, o2 = init_train_state(cfg, 0, mesh=mesh)
+            p2, o2, got = _mt_steps(torch, make_train_step(cfg, _mf_tcfg(), mesh), p2, o2,
+                                    batches, 0, 1, mesh.device)
+            torch.cuda.synchronize()
+            _no_launches(f"(MF1) {arch}", dict(COUNTS))
+            differ = [f"{k}: {got[0][k]!r} against {ref[0][k]!r}" for k in ("loss", "grad_norm")
+                      if got[0][k] != ref[0][k]]
+            for what, a, b in (("params", p2, p1), ("mu", o2.mu, o1.mu), ("nu", o2.nu, o1.nu)):
+                for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+                    if not torch.equal(x, y):
+                        differ.append(f"{what} {name}: {float((x - y).abs().max())} apart")
+            if differ:
+                raise AssertionError(f"(MF1) {arch}: the (1, 1) mesh's step differs from the "
+                                     "single card's: " + "; ".join(differ[:8]))
+            lines.append(f"(MF1) {arch} at full width, {cut}, {MF_BATCH} x {seq}: loss "
+                         f"{got[0]['loss']:.6f}, grad norm {got[0]['grad_norm']:.6f}, params, mu "
+                         f"and nu equal to the single card's bit for bit; {got[0]['ms']:.1f} ms "
+                         f"on the mesh against {ref[0]['ms']:.1f} (CUDA events, first step)")
+            del p1, o1, p2, o2
+            _free(torch)
+    finally:
+        dist.destroy_process_group()
+        MF_STORE.unlink(missing_ok=True)
+    print("\n".join(lines) + f"\n(MF1) a (1, 1) NCCL mesh in a process of its own, run while the "
+          f"kernels built: no kernel launched; the phase {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def mesh_family_m1_main() -> int:
+    """(MF1) in a process of its own (``chip_smoke.py --mesh-family-m1``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    mesh_family_m1(torch, np, smi())
+    return 0
+
+
+def _mf_fault(arch, mesh):
+    """Plant ``arch``'s fault on this rank; returns the function that lifts
+    it.  hymba: the SSM's ``xc @ w_bc`` partial sums not summed over the
+    model axis; xlstm: ``hnorm``'s mean of squares not summed; whisper: the
+    cross attention's K/V taken from the other model rank's heads."""
+    import torch.distributed as dist
+
+    from repro_torch.layers import collectives as C
+    from repro_torch.models import encdec as E, ssm as S, xlstm as X
+
+    if arch.startswith("hymba"):
+        real, S._bc = S._bc, lambda xc, w_bc, pctx: xc @ w_bc.float()
+        return lambda: setattr(S, "_bc", real)
+    if arch.startswith("xlstm"):
+        real, X._mean_square = (X._mean_square,
+                                lambda xf, d, pctx: (xf * xf).sum(dim=-1, keepdim=True) / d)
+        return lambda: setattr(X, "_mean_square", real)
+    real = E.project_cross_kv
+
+    def other_shard(cross, enc_out, cfg, pctx):
+        group = pctx.mesh.group(pctx.axes.tp)
+        k = dist.get_world_size(group)
+        nxt = (dist.get_rank(group) + 1) % k
+        return tuple(C.gather_replicated(t, group, dim=1).chunk(k, dim=1)[nxt]
+                     for t in real(cross, enc_out, cfg, pctx))
+
+    E.project_cross_kv = other_shard
+    return lambda: setattr(E, "project_cross_kv", real)
+
+
+def _mf_moments_rel(torch, mesh, cfg, opt, ref):
+    """Rank 0's ``_mt_tree_rel`` of each moment tree of this rank's slices
+    ``opt`` (gathered leaf by leaf onto rank 0's card) against ``ref``
+    ({"mu" | "nu": {leaf name: tensor}}, the single card's on rank 0, which
+    ``_mt_tree_rel`` reads by name as it is): {"mu" | "nu": (value, leaf)}
+    on rank 0, None elsewhere."""
+    from repro_torch.launch.sharding_rules import gather_params
+
+    out = {}
+    for key in ("mu", "nu"):
+        whole = gather_params(getattr(opt, key), cfg, mesh, train=True, only=0)
+        if mesh.rank == 0:
+            out[key] = _mt_tree_rel(torch, whole, ref[key])
+        del whole
+    return out if mesh.rank == 0 else None
+
+
+def _mf_rank(mesh, out: Path) -> None:
+    """(MF2) on this rank of the world: each family of ``MF_CUTS`` 3 steps
+    on the (2, 2) mesh, each rank on its ``shard_params`` slice, held to
+    the single card's steps (run first on rank 0; the others wait) within
+    the family's ``MF_LIMITS``; then 1 step with the family's planted fault
+    from the same slice, which must break each limit.  Rank 0 writes the
+    report to ``MF_result.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.tree import named_leaves, tree_map
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import trainer as TR
+
+    t_start = time.perf_counter()
+    rank, dev = mesh.rank, mesh.device
+    report, failures = [], []
+
+    def say(line):
+        if rank == 0:
+            report.append(line)
+            print(line, flush=True)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            say(f"FAILED: {what}")
+
+    def moments(opt):
+        return {k: {n: v.clone() for n, v in named_leaves(getattr(opt, k))} for k in ("mu", "nu")}
+
+    tally, restore = _tally_collectives(dist)
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(dict(tally))
+
+    reset_counts()
+    for arch, cut, seq in MF_CUTS:
+        t0 = time.perf_counter()
+        cfg, limits = _mf_config(arch, cut), MF_LIMITS[arch]
+        batches = _mf_batches(np, cfg, seq, MF_STEPS)
+        ref, first, last = None, None, None
+        if rank == 0:  # the single card's steps; its moments after steps 1 and 3 kept
+            p1, o1 = TR.init_train_state(cfg, 0, dev)
+            one = TR.make_train_step(cfg, _mf_tcfg())
+            p1, o1, ref = _mt_steps(torch, one, p1, o1, batches, 0, 1, dev)
+            first = moments(o1)
+            p1, o1, more = _mt_steps(torch, one, p1, o1, batches, 1, MF_STEPS, dev)
+            ref, last = ref + more, moments(o1)
+            del p1, o1
+            _free(torch)
+        ref = _bcast_obj(dist, ref)
+        params, opt = TR.init_train_state(cfg, 0, mesh=mesh)
+        start = tree_map(lambda t: t.clone(), params)  # the planted fault's first step starts here
+        mib = [None] * mesh.size
+        dist.all_gather_object(mib, (_tree_bytes(params) / 2**20,
+                                     (_tree_bytes(opt.mu) + _tree_bytes(opt.nu)) / 2**20))
+        marks.clear()
+        step = TR.make_train_step(cfg, _mf_tcfg(), mesh)
+        params, opt, hist = _mt_steps(torch, step, params, opt, batches, 0, MF_STEPS, dev, mark)
+        mark()
+        per_step = [(b["calls"] - a["calls"], b["bytes"] - a["bytes"])
+                    for a, b in zip(marks, marks[1:])]
+        del params
+        state_rel = _bcast_obj(dist, _mf_moments_rel(torch, mesh, cfg, opt, last))
+        del opt, last
+        _free(torch)
+        faults = _mt_faults(hist, ref, state_rel, limits=limits)
+        check(not faults, f"(MF2) {arch} against the single card: " + "; ".join(faults))
+        lift = _mf_fault(arch, mesh)
+        try:
+            of = adamw_init(start)
+            pf, of, hf = _mt_steps(torch, TR.make_train_step(cfg, _mf_tcfg(), mesh), start, of,
+                                   batches, 0, 1, dev)
+        finally:
+            lift()
+        del pf, start
+        fault_rel = _bcast_obj(dist, _mf_moments_rel(torch, mesh, cfg, of, first))
+        del of, first
+        _free(torch)
+        worst = _mt_worst(hf, ref[:1], fault_rel, limits=limits)
+        unbroken = [k for k, v in worst.items() if v <= limits[k]]
+        check(not unbroken, f"(MF2) {arch}: the planted fault passes the limits of {unbroken}: "
+                            f"{worst}")
+        calls = [c for c, _ in per_step]
+        say(f"(MF2) {arch} at full width, {cut}, {MF_BATCH} x {seq}"
+            f"{f' over {cfg.encoder_seq:,} frames' if cfg.family == 'encdec' else ''}, f32, on a "
+            f"(data 2, model 2) gloo mesh of 4 processes on this card, {MF_STEPS} steps: losses "
+            + " ".join(f"{h['loss']:.6f}" for h in hist) + " against the single card's "
+            + " ".join(f"{h['loss']:.6f}" for h in ref) + "; relative loss "
+            + " ".join(f"{_mt_rel(h['loss'], r['loss']):.3g}" for h, r in zip(hist, ref))
+            + ", grad norm " + " ".join(f"{_mt_rel(h['grad_norm'], r['grad_norm']):.3g}"
+                                        for h, r in zip(hist, ref))
+            + f"; after step {MF_STEPS}: " + ", ".join(f"{k} {v:.3g} ({name})"
+                                                      for k, (v, name) in state_rel.items())
+            + f" of a leaf's largest |value|; limits {limits}")
+        say(f"(MF2) {arch} rank 0: {statistics.median(h['ms'] for h in hist[1:]):.1f} ms a step "
+            f"(CUDA events, median of steps 1-{MF_STEPS - 1}; step 0 {hist[0]['ms']:.1f}) against "
+            f"the single card's {statistics.median(h['ms'] for h in ref[1:]):.1f}; "
+            f"{calls[-1]} gloo collectives a step ({', '.join(map(str, calls))}; each broadcast "
+            f"of a gather counted), {per_step[-1][1] / 2**20:.1f} MiB through them a step; the "
+            f"family's part {time.perf_counter() - t0:.1f} s")
+        say(f"(MF2) {arch} per rank, params / moments MiB: "
+            + ", ".join(f"rank {r} {p_mib:.1f} / {m_mib:.1f}" for r, (p_mib, m_mib) in enumerate(mib))
+            + f" (the whole tree's {_tree_bytes_cfg(cfg) / 2**20:.1f} / "
+            f"{2 * _tree_bytes_cfg(cfg) / 2**20:.1f})")
+        verdict = "breaks every limit" if not unbroken else f"passes {unbroken}"
+        say(f"(MF2) {arch} planted fault ({MF_FAULTS[arch]}), 1 step: loss {hf[0]['loss']:.6f} "
+            f"(relative {_mt_rel(hf[0]['loss'], ref[0]['loss']):.3g}), grad norm relative "
+            f"{_mt_rel(hf[0]['grad_norm'], ref[0]['grad_norm']):.3g}, after it "
+            + ", ".join(f"{k} {v:.3g} ({name})" for k, (v, name) in fault_rel.items())
+            + f": {verdict}")
+    launches = dict(COUNTS)
+    check(not any(launches.values()), f"(MF2): training launched kernels {launches}")
+    restore()
+    say(f"(MF2) rank 0's seconds {time.perf_counter() - t_start:.1f}")
+    if failures:
+        raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+    if rank == 0:
+        (out / "MF_result.json").write_text(json.dumps({"report": report, "launches": launches}))
+
+
 def _tally_collectives(dist):
     """Count the calls and bytes that reach ``torch.distributed``'s
     collectives (each gloo broadcast of a gather counted).  Returns (the
@@ -7112,7 +7443,9 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(Path(sys.argv[2]), sys.argv[3].split(",")))
     if sys.argv[1:] == ["--mesh-train-m1"]:  # (MT1), in its own process
         sys.exit(mesh_train_m1_main())
+    if sys.argv[1:] == ["--mesh-family-m1"]:  # (MF1), in its own process
+        sys.exit(mesh_family_m1_main())
     if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"], ["--only-disagg-mesh"],
-                        ["--only-spec-mesh"]):  # for development
+                        ["--only-spec-mesh"], ["--only-family-mesh"]):  # for development
         sys.exit(main(only=sys.argv[1][len("--only-"):]))
     sys.exit(main())

@@ -59,7 +59,7 @@ def split_pod_meshes(mesh) -> Tuple[object, object]:
     (it builds the pools' groups).  A rank of a pod past the first two has
     no pool and raises, as do pools with a data axis wider than 1: the
     split puts a prompt's KV on the decode rank at the prefill rank's
-    coordinates, and a data row of its own is ROADMAP A.13."""
+    coordinates, and a data row of its own is ROADMAP A.13.9."""
     from repro_torch.launch.mesh import pod_submesh, pods
 
     if "pod" not in mesh.axis_names:
@@ -69,7 +69,7 @@ def split_pod_meshes(mesh) -> Tuple[object, object]:
         raise ValueError("need >= 2 pods")
     if mesh.shape.get("data", 1) > 1:
         raise NotImplementedError(f"pools of data {mesh.shape['data']} on the pod split: a pool "
-                                  "with data > 1 is ROADMAP A.13")
+                                  "with data > 1 is ROADMAP A.13.9")
     mine = mesh.coordinate("pod")
     if mine > 1:
         raise ValueError(f"rank {mesh.rank} is in pod {mine}: the split's pools are pods 0 and 1")

@@ -12,6 +12,7 @@ Two sources behind one interface:
 
 Batches are (tokens, targets) int32 and mask f32 arrays of shape (B, S);
 the loader yields numpy so the caller controls device placement.
+``with_frames`` adds an encoder-decoder's stub frames.
 """
 from __future__ import annotations
 
@@ -77,6 +78,21 @@ class TextFileSource:
             "targets": rows[:, 1:],
             "mask": np.ones((b_loc, cfg.seq_len), np.float32),
         }
+
+
+def with_frames(batch: dict, cfg, seed: int, step: int) -> dict:
+    """``batch`` with the encoder input of an encoder-decoder ``cfg``
+    (whisper): ``frames`` (B, encoder_seq, d_model) f32, N(0, 1) drawn from
+    (seed, step).  The conv frontend is a stub in both packages (the model
+    takes precomputed frame embeddings) and the JAX pipeline makes none, so
+    every training path of the port adds them here; other families' batches
+    are returned as they are."""
+    if cfg.family != "encdec":
+        return batch
+    rng = np.random.default_rng((seed, step, 1 << 20))
+    n = next(iter(batch.values())).shape[0]
+    frames = rng.standard_normal((n, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return {**batch, "frames": frames}
 
 
 def make_source(cfg: DataConfig):

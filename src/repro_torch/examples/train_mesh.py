@@ -28,7 +28,7 @@ import torch.distributed as dist
 
 from repro_torch.common.tree import leaves
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.data.pipeline import DataConfig, make_source, with_frames
 from repro_torch.launch.mesh import BACKENDS, join_process_group, make_host_mesh
 from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
 
@@ -75,7 +75,8 @@ def main(argv=None) -> int:
     step_fn = make_train_step(cfg, tcfg, mesh)
     got = []
     for s in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in source.batch(s).items()}
+        batch = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in with_frames(source.batch(s), cfg, args.seed, s).items()}
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch, s)
         got.append((float(m["loss"]), float(m["grad_norm"])))  # waits for the step
@@ -89,7 +90,8 @@ def main(argv=None) -> int:
         one = make_train_step(cfg, tcfg)
         worst = 0.0
         for s in range(args.steps):
-            batch = {k: torch.from_numpy(v).to(mesh.device) for k, v in source.batch(s).items()}
+            batch = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in with_frames(source.batch(s), cfg, args.seed, s).items()}
             p1, o1, m = one(p1, o1, batch, s)
             for a, b in zip(got[s], (float(m["loss"]), float(m["grad_norm"]))):
                 worst = max(worst, abs(a - b) / abs(b))

@@ -169,18 +169,77 @@ def local_params(params: Any, cfg: ModelConfig, mesh, *, train: bool = False) ->
     return shard_params(params, cfg, mesh, train=train)
 
 
+def whole_shapes(cfg: ModelConfig) -> dict:
+    """Each leaf's name -> its whole shape, for the hymba, xlstm and encdec
+    families (the JAX ``init``'s tree, as ``init_like_jax`` draws it),
+    with no draw."""
+    d, h, hkv, hd, f = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    vp = cfg.padded_vocab()
+
+    def attn(pre, n):
+        return {f"{pre}/wq/w": (n, d, h * hd), f"{pre}/wk/w": (n, d, hkv * hd),
+                f"{pre}/wv/w": (n, d, hkv * hd), f"{pre}/wo/w": (n, h * hd, d)}
+
+    def norm(pre, lead, bias=False):
+        return {f"{pre}/scale": lead + (d,), **({f"{pre}/bias": lead + (d,)} if bias else {})}
+
+    if cfg.family == "hymba":
+        L, n = cfg.num_layers, cfg.ssm_state
+        out = {"emb": (vp, d), **attn("layers/attn", L), "layers/ssm/w_in": (L, d, 2 * d),
+               "layers/ssm/conv": (L, cfg.ssm_conv, d), "layers/ssm/w_bc": (L, d, 2 * n),
+               "layers/ssm/w_dt": (L, d, 1), "layers/ssm/dt_bias": (L, d),
+               "layers/ssm/a_log": (L, d, n), "layers/ssm/d_skip": (L, d),
+               "layers/ssm/w_out": (L, d, d), "layers/gate_a": (L,), "layers/gate_s": (L,),
+               "layers/mlp/w_gate/w": (L, d, f), "layers/mlp/w_up/w": (L, d, f),
+               "layers/mlp/w_down/w": (L, f, d), **norm("ln_f", ())}
+        for nm in ("ln1", "ln2", "attn_norm", "ssm_norm"):
+            out.update(norm(f"layers/{nm}", (L,)))
+        return out
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import _group_counts
+
+        g, nm = _group_counts(cfg)
+        m, s, hd = "groups/mlstm", "groups/slstm", d // h
+        return {"emb": (vp, d), "lm_head": (d, vp), **norm("ln_f", ()),
+                **norm(f"{m}/ln", (g, nm)), f"{m}/w_qkv": (g, nm, d, 3 * d),
+                f"{m}/w_if": (g, nm, d, 2 * h), f"{m}/w_og": (g, nm, d, d),
+                f"{m}/w_out": (g, nm, d, d), **norm(f"{m}/hnorm", (g, nm)),
+                **norm(f"{s}/ln", (g,)), f"{s}/w": (g, d, 4 * d), f"{s}/r": (g, h, hd, 4 * hd),
+                f"{s}/b": (g, 4 * d), f"{s}/w_out": (g, d, d), **norm(f"{s}/hnorm", (g,))}
+    if cfg.family == "encdec":
+        out = {"emb": (vp, d), "pos_dec": (cfg.max_position_embeddings, d),
+               **norm("ln_enc", (), True), **norm("ln_f", (), True)}
+        for pre, n, parts in (("enc_layers", cfg.encoder_layers, ("attn",)),
+                              ("dec_layers", cfg.num_layers, ("attn", "cross"))):
+            for part in parts:
+                out.update(attn(f"{pre}/{part}", n))
+            for nm in ("ln1", "ln2") + (("lnx",) if pre == "dec_layers" else ()):
+                out.update(norm(f"{pre}/{nm}", (n,), True))
+            out.update({f"{pre}/mlp/w_in/w": (n, d, f), f"{pre}/mlp/w_in/b": (n, f),
+                        f"{pre}/mlp/w_out/w": (n, f, d), f"{pre}/mlp/w_out/b": (n, d)})
+        return out
+    raise ValueError(f"{cfg.name}: whole_shapes covers the hymba, xlstm and encdec families")
+
+
 def leaf_specs(local: Any, cfg: ModelConfig, mesh, *, train: bool) -> dict:
     """The spec each leaf of a latent slice was cut under, keyed by the
-    leaf's name (``common.tree.named_leaves``): the ``param_pspec`` rules
-    unsanitized.  A slice's shapes cannot tell a sharded dim from one its
-    axis did not divide, so this needs a tree whose every sharded dim
-    divides (``check_mesh_model`` makes sure of that for the mesh
-    programs); then sanitizing changes nothing."""
+    leaf's name (``common.tree.named_leaves``).  A slice's shapes cannot
+    tell a sharded dim from one its axis did not divide, so the rules are
+    sanitized against the whole leaf's shape: for the hymba, xlstm and
+    encdec families from ``whole_shapes`` (hymba-1.5b's 25 heads, say, on
+    any model axis: its ``wq`` columns still split, mid-head); for the
+    transformer family they are taken unsanitized, ``check_mesh_model``
+    making sure every sharded dim divides (and a packed ``TernaryWeight``'s
+    leaves have no whole shape of their own)."""
     from repro_torch.common.tree import named_leaves
 
     tp, fsdp, ep = _axes(cfg, mesh, train, "model", "data")
-    return {name: param_pspec(name, leaf, tp=tp, fsdp=fsdp, ep=ep)
-            for name, leaf in named_leaves(local)}
+    whole = None if cfg.family == "transformer" else whole_shapes(cfg)
+    out = {}
+    for name, leaf in named_leaves(local):
+        spec = param_pspec(name, leaf, tp=tp, fsdp=fsdp, ep=ep)
+        out[name] = spec if whole is None else sanitize_spec(spec, whole[name], mesh)
+    return out
 
 
 def gather_params(local: Any, cfg: ModelConfig, mesh, *, train: bool, device=None,

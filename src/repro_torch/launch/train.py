@@ -39,7 +39,9 @@ timeout, and a restart with ``--restore`` resumes.  A checkpoint is the
 whole tree, gathered and written by rank 0 in the single-process format;
 ``--restore`` reads it on every rank and keeps each rank's slice for the
 mesh it runs on now, whatever mesh saved it (JAX's elastic restore).
-Rank 0 prints.  ``train(args)`` is the loop, returning the final state
+Every family trains on a mesh (hymba, xLSTM and whisper under the same
+FSDP x TP rules); an encoder-decoder's batches carry the stub's frames
+(``data.pipeline.with_frames``).  Rank 0 prints.  ``train(args)`` is the loop, returning the final state
 and each step's metrics; ``main`` prints as the JAX launcher does.
 """
 from __future__ import annotations
@@ -57,7 +59,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ALL_ARCHS, ModelConfig, get_config, reduced_config
-from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.data.pipeline import DataConfig, make_source, with_frames
 from repro_torch.launch.mesh import BACKENDS, join_process_group, make_host_mesh, make_production_mesh
 from repro_torch.launch.sharding_rules import gather_params, leaf_specs
 from repro_torch.layers.sharding import P
@@ -195,7 +197,8 @@ def _train(args: argparse.Namespace, mesh) -> TrainResult:
 
     def run_step():
         nonlocal params, opt, metrics
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in source.batch(step).items()}
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in with_frames(source.batch(step), cfg, args.seed, step).items()}
         if dev.type == "cuda":
             events[step] = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))

@@ -65,7 +65,9 @@ from repro_torch.layers.linear import (
     linear_apply,
     linear_apply_row_parallel,
     linear_apply_train_sharded,
+    linear_apply_train_whole,
     linear_init,
+    train_weight,
 )
 from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.layers.rotary import apply_rope
@@ -123,21 +125,50 @@ def _gather_heads(pctx: PartitionCtx, *parts: torch.Tensor):
             for ranks in both.split(widths, dim=-1)]
 
 
+def heads_split(cfg: ModelConfig, pctx: PartitionCtx) -> bool:
+    """Whether the training pass on ``pctx``'s mesh gives each model rank
+    its own H/tp query and Hkv/tp KV heads: the model axis divides both
+    counts.  Else (hymba-1.5b's 25 and 5 heads on 2 or 4 ranks) every rank
+    computes every head; the rules still split ``wq``/``wk``/``wv``'s
+    columns and ``wo``'s rows where the axis divides them, mid-head, and
+    the step gathers them."""
+    return cfg.num_heads % pctx.tp_size == 0 and cfg.num_kv_heads % pctx.tp_size == 0
+
+
+def train_projections(params: dict, x: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx,
+                      names) -> list:
+    """The training pass's column projections ``names`` (of "wq", "wk",
+    "wv") of x (B, S, d) on a mesh, each (B, S, heads, D): this rank's
+    heads where the model axis splits them (column-parallel, x entering
+    through ``copy_to_tp``), else every head (the weights gathered whole,
+    ``linear_apply_train_whole``)."""
+    b, s, d = x.shape
+    hd = cfg.head_dim
+    if heads_split(cfg, pctx):
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+        outs = [linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
+                for n in names]
+    else:
+        width = {"wq": cfg.num_heads * hd, "wk": cfg.num_kv_heads * hd, "wv": cfg.num_kv_heads * hd}
+        outs = [linear_apply_train_whole(params[n], x, cfg.quant, pctx, (d, width[n]))
+                for n in names]
+    return [t.reshape(b, s, -1, hd) for t in outs]
+
+
 def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False,
                  pctx: PartitionCtx = NULL_CTX):
     """q (B, S, H, D) and k, v (B, S, Hkv, D), RoPE applied.  On a mesh
     the heads are this rank's (prefill: H/tp of them) or, where the phase
-    keeps them whole (decode), gathered from the column-parallel shards."""
+    keeps them whole (decode), gathered from the column-parallel shards;
+    in training as ``train_projections`` gives them."""
     b, s, _ = x.shape
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     if pctx.mesh is None:
         q = _project_q(params, x, cfg, positions, training=training)
         k = linear_apply(params["wk"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
         v = linear_apply(params["wv"], x, cfg.quant, training=training).reshape(b, s, hkv, hd)
-    elif training:  # this rank's heads, the weights gathered over data
-        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
-        q, k, v = (linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
-                   .reshape(b, s, -1, hd) for n in ("wq", "wk", "wv"))
+    elif training:  # the weights gathered over data
+        q, k, v = train_projections(params, x, cfg, pctx, ("wq", "wk", "wv"))
         if cfg.rope_theta > 0:
             q = apply_rope(q, positions, cfg.rope_theta)
     else:
@@ -159,13 +190,46 @@ def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx,
     it holds in prefill, its slice of the whole heads in decode)."""
     if pctx.mesh is None:
         return linear_apply(params["wo"], y, cfg.quant, training=training)
-    if training:
+    if training and heads_split(cfg, pctx):
         return linear_apply_train_sharded(params["wo"], y, cfg.quant, pctx, parallel="row")
+    if training:  # every head on every rank: wo's rows as the rule cut them
+        return _out_whole_heads(params, y, cfg, pctx)
     group = pctx.mesh.group(pctx.axes.tp)
     if not _heads_whole(pctx):
         return linear_apply_row_parallel(params["wo"], y, cfg.quant, group)
     return linear_apply_row_parallel(params["wo"], pctx.axis_slice(y, -1, pctx.axes.tp), cfg.quant,
                                      group, whole_row=y)
+
+
+def _out_whole_heads(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx):
+    """The training pass's output projection of every head ``y`` (B, S,
+    H * D), whole and alike on every model rank: row-parallel over the rows
+    the rule gave this rank (a row-parallel product is right for any split
+    of its rows; y's slice through ``slice_replicated``, so every rank's
+    gradient of y is the whole one), or, where the model axis does not
+    divide the rows, the whole weight on every rank."""
+    rows = cfg.num_heads * cfg.head_dim
+    if rows % pctx.tp_size == 0:
+        y = C.slice_replicated(y, pctx.mesh.group(pctx.axes.tp), dim=-1)
+        return linear_apply_train_sharded(params["wo"], y, cfg.quant, pctx, parallel="row")
+    w = train_weight(params["wo"]["w"], pctx, (rows, cfg.d_model), fsdp_dim=1)
+    return linear_apply({**params["wo"], "w": w}, y, cfg.quant, training=True)
+
+
+def project_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig,
+                     pctx: PartitionCtx = NULL_CTX):
+    """The cross K/V (B, Hkv, Senc, D) of the encoder output through a
+    cross-attention layer's ``wk``/``wv`` (no RoPE): the inference linears
+    with no mesh, as the JAX package computes them; on a training mesh
+    this rank's heads (``train_projections``), the ones its queries attend
+    with."""
+    b, s, _ = enc_out.shape
+    if pctx.mesh is None:
+        hkv, hd = cfg.num_kv_heads, cfg.head_dim
+        return tuple(linear_apply(params[n], enc_out, cfg.quant).reshape(b, s, hkv, hd)
+                     .transpose(1, 2) for n in ("wk", "wv"))
+    return tuple(t.transpose(1, 2) for t in train_projections(params, enc_out, cfg, pctx,
+                                                              ("wk", "wv")))
 
 
 DENSE_MAX = 1024  # the dense masked softmax takes up to this many queries and keys
@@ -269,10 +333,17 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
     views in cache layout (the cross K/V where given).  On a mesh
     (``pctx``) the heads are over the model axis: the kernel runs on this
     rank's H/tp and Hkv/tp heads, k/v are those heads, and the output
-    projection sums over the ranks."""
+    projection sums over the ranks.  In training on a mesh the weights are
+    gathered over data, and where the model axis does not split the heads
+    (``heads_split``) every rank computes every head; ``cross_kv`` is then
+    the heads this rank's queries take (``project_cross_kv``)."""
     b, s, _ = x.shape
     if cross_kv is not None:
-        qt = _project_q(params, x, cfg, positions, rope=False, training=training).transpose(1, 2)
+        if pctx.mesh is not None and training:  # this rank's heads, or every head
+            (q,) = train_projections(params, x, cfg, pctx, ("wq",))
+            qt = q.transpose(1, 2)
+        else:
+            qt = _project_q(params, x, cfg, positions, rope=False, training=training).transpose(1, 2)
         kt, vt = cross_kv
         causal = False
     else:

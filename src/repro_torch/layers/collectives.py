@@ -186,6 +186,30 @@ class _Exchange(torch.autograd.Function):
         return all_to_all(g, ctx.group, split_dim=ctx.cat_dim, cat_dim=ctx.split_dim), None, None, None
 
 
+class _SumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        k = dist.get_world_size(group)
+        per = x.shape[dim] // k
+        return x.narrow(dim, dist.get_rank(group) * per, per).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, dim=ctx.dim), None, None
+
+
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -231,3 +255,22 @@ def gather_replicated(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:
     shards of a chunk's logits): backward this rank's slice of the
     gradient, which every rank holds whole."""
     return x if _trivial(group) else _GatherReplicated.apply(x, group, dim)
+
+
+def sum_shared(x: torch.Tensor, group) -> torch.Tensor:
+    """(f) The SUM over ``group`` of partial results that each rank then
+    uses for its own part (the SSM's ``w_bc`` and ``w_dt`` contractions over
+    a rank's channels, a norm's mean of squares over channels split across
+    the ranks): backward the SUM too, since each rank's use gives a
+    different gradient of the sum.  ``reduce_from_tp`` followed by
+    ``copy_to_tp``."""
+    return x if _trivial(group) else _SumShared.apply(x, group)
+
+
+def slice_replicated(x: torch.Tensor, group, *, dim: int) -> torch.Tensor:
+    """(g) This rank's 1/k along ``dim`` of a tensor every rank of
+    ``group`` holds whole (a replicated norm scale over the channels a rank
+    holds, whole heads feeding a row-parallel product): backward the
+    ranks' gradient slices gathered, so every rank holds the whole
+    gradient.  ``gather_replicated``'s conjugate."""
+    return x if _trivial(group) else _SliceReplicated.apply(x, group, dim)

@@ -100,6 +100,50 @@ def linear_apply_train_sharded(params: dict, x: torch.Tensor, quant: QuantConfig
     return y
 
 
+def train_weight(w: torch.Tensor, pctx, whole, *, fsdp_dim: Optional[int] = None,
+                 tp_dim: Optional[int] = None, tp: str = "keep") -> torch.Tensor:
+    """This rank's copy of a weight for the training pass on a mesh
+    (``pctx``, the train rules).  ``w`` is the leaf's FSDP x TP block under
+    the sanitized rules, ``whole`` the whole weight's shape.  Along
+    ``fsdp_dim`` it is gathered over the fsdp axis (``fsdp_gather``: the
+    gradient reduce-scattered back, summed over the data ranks' batches),
+    where the axis divides that dim; elsewhere it is whole there already.
+    Along ``tp_dim``, over the model axis, ``tp`` says what the ranks do
+    with it: ``"keep"`` this rank's block; ``"sum"`` gathered whole, each
+    rank then using its own part of it (``fsdp_gather``: the summing
+    reduce-scatter, since the ranks' gradients differ); ``"same"``
+    gathered whole, every rank using all of it alike (``gather_replicated``:
+    this rank's slice of the gradient every rank holds whole)."""
+    if tp not in ("keep", "sum", "same"):
+        raise ValueError(f"tp must be 'keep', 'sum' or 'same', got {tp!r}")
+    mesh = pctx.mesh
+
+    def split(dim, ax):
+        return ax is not None and dim is not None and whole[dim] % pctx.size(ax) == 0
+
+    if split(fsdp_dim, pctx.axes.fsdp):
+        w = C.fsdp_gather(w, mesh.group(pctx.axes.fsdp), dim=fsdp_dim % w.dim())
+    if tp != "keep" and split(tp_dim, pctx.axes.tp):
+        gather = C.fsdp_gather if tp == "sum" else C.gather_replicated
+        w = gather(w, mesh.group(pctx.axes.tp), dim=tp_dim % w.dim())
+    return w
+
+
+def linear_apply_train_whole(params: dict, x: torch.Tensor, quant: QuantConfig, pctx,
+                             whole) -> torch.Tensor:
+    """A linear of the training pass on a mesh that every model rank
+    computes whole (hymba's heads where the model axis does not split
+    them): the (K, N) weight of whole shape ``whole`` under the (fsdp,
+    model) rule, gathered over both (``train_weight(tp="same")``), and its
+    bias, multiplied as ``linear_apply(training=True)``.  ``x`` is whole on
+    every rank and takes no ``copy_to_tp``: every rank's gradient of it is
+    the whole one already."""
+    out = {"w": train_weight(params["w"], pctx, whole, fsdp_dim=0, tp_dim=1, tp="same")}
+    if "b" in params:
+        out["b"] = train_weight(params["b"], pctx, whole[1:], tp_dim=0, tp="same")
+    return linear_apply(out, x, quant, training=True)
+
+
 def linear_apply(params: dict, x: torch.Tensor, quant: QuantConfig, *,
                  training: bool = False) -> torch.Tensor:
     w = params["w"]

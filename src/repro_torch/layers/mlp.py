@@ -34,7 +34,9 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     are column-parallel (this rank's d_ff / tp columns) and w_down is
     row-parallel over them: the ranks sum its partial products.  In
     training on a mesh each weight is also gathered over data
-    (``linear_apply_train_sharded``)."""
+    (``linear_apply_train_sharded``), and so is the GELU MLP's (whisper):
+    w_in column-parallel with its bias's columns, w_out row-parallel, its
+    bias added once the ranks' partial products are summed."""
     if cfg.act == "silu" and training and pctx.mesh is not None:
         x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
         g, u = (linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
@@ -49,8 +51,14 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             return linear_apply_row_parallel(params["w_down"], h, cfg.quant,
                                              pctx.mesh.group(pctx.axes.tp))
         return linear_apply(params["w_down"], h, cfg.quant, training=training)
+    if training and pctx.mesh is not None:  # column- and row-parallel, as SwiGLU
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+        h = linear_apply_train_sharded(params["w_in"], x, cfg.quant, pctx, parallel="column")
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return linear_apply_train_sharded(params["w_out"], h, cfg.quant, pctx, parallel="row")
     if pctx.mesh is not None:
-        raise NotImplementedError(f"{cfg.act} MLP on a mesh: only SwiGLU is tensor-parallel")
+        raise NotImplementedError(f"{cfg.act} MLP on a serving mesh: the other families' "
+                                  "prefill and decode on a mesh are ROADMAP A.13.11")
     h = linear_apply(params["w_in"], x, cfg.quant, training=training)
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)

@@ -32,14 +32,22 @@ from repro_torch.layers.attention import (
     KVCache,
     attention_decode,
     attention_prefill,
+    project_cross_kv,
     scatter_new_tokens,
 )
-from repro_torch.layers.linear import linear_apply
 from repro_torch.layers.mlp import mlp_apply
 from repro_torch.layers.norm import apply_norm
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.models.jax_init import init_like_jax
-from repro_torch.models.transformer import layer_params, remat, unbind_layers
-from repro_torch.train.losses import chunked_ce_loss
+from repro_torch.models.transformer import (
+    _embed,
+    _train_top,
+    check_mesh_model,
+    layer_params,
+    remat,
+    unbind_layers,
+    vocab_parallel_loss,
+)
 
 
 class EncDecCache(NamedTuple):
@@ -65,61 +73,71 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
     return init_like_jax(cfg, seed, dev, draw_device=dev, dtype=dtype)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """frames (B, Senc, d), the conv frontend's stub -> the encoder's output."""
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+           pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
+    """frames (B, Senc, d), the conv frontend's stub -> the encoder's
+    output.  The inference linears, as the JAX package's ``encode`` runs
+    them, even in training; on a training mesh (``pctx``; ``frames`` this
+    data rank's rows) the layers' weights are gathered over data and their
+    heads and d_ff are over the model axis, as the decoder's."""
     b, s, d = frames.shape
+    train_mesh = pctx.mesh is not None
     x = frames + _sinusoids(s, d, frames.device).to(frames.dtype)[None]
     positions = torch.arange(s, device=frames.device).expand(b, s)
     for lp in unbind_layers(params["enc_layers"]):
         h = apply_norm(lp["ln1"], x, "layernorm", cfg.norm_eps)
-        attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, causal=False)
+        attn_out, _ = attention_prefill(lp["attn"], h, positions, cfg, causal=False,
+                                        training=train_mesh, pctx=pctx)
         x = x + attn_out
         h = apply_norm(lp["ln2"], x, "layernorm", cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h, cfg)
+        x = x + mlp_apply(lp["mlp"], h, cfg, training=train_mesh, pctx=pctx)
     return apply_norm(params["ln_enc"], x, "layernorm", cfg.norm_eps)
 
 
-def compute_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> KVCache:
+def compute_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig,
+                     pctx: PartitionCtx = NULL_CTX) -> KVCache:
     """Every decoder layer's cross K/V of the encoder output, once:
-    (L, B, Hkv, Senc, D) each."""
-    b, s, _ = enc_out.shape
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    ks, vs = [], []
-    for lp in unbind_layers(params["dec_layers"]):
-        cross = lp["cross"]
-        ks.append(linear_apply(cross["wk"], enc_out, cfg.quant).reshape(b, s, hkv, hd).transpose(1, 2))
-        vs.append(linear_apply(cross["wv"], enc_out, cfg.quant).reshape(b, s, hkv, hd).transpose(1, 2))
+    (L, B, Hkv, Senc, D) each (on a training mesh this rank's heads, each
+    layer's ``wk``/``wv`` gathered over data)."""
+    ks, vs = zip(*(project_cross_kv(lp["cross"], enc_out, cfg, pctx)
+                   for lp in unbind_layers(params["dec_layers"])))
     return KVCache(torch.stack(ks), torch.stack(vs))
 
 
 def _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg: ModelConfig,
-                       training: bool = False):
+                       training: bool = False, pctx: PartitionCtx = NULL_CTX):
     h = apply_norm(lp["ln1"], x, "layernorm", cfg.norm_eps)
-    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, training=training)
+    attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, training=training, pctx=pctx)
     x = x + attn_out
     h = apply_norm(lp["lnx"], x, "layernorm", cfg.norm_eps)
     cross_out, _ = attention_prefill(lp["cross"], h, positions, cfg, cross_kv=(cross_k, cross_v),
-                                     training=training)
+                                     training=training, pctx=pctx)
     x = x + cross_out
     h = apply_norm(lp["ln2"], x, "layernorm", cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg, training=training), kv
+    return x + mlp_apply(lp["mlp"], h, cfg, training=training, pctx=pctx), kv
 
 
-def _dec_block_train(x, lp, positions, cross_k, cross_v, cfg: ModelConfig):
-    return _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg, training=True)[0]
+def _dec_block_train(x, lp, positions, cross_k, cross_v, cfg: ModelConfig,
+                     pctx: PartitionCtx = NULL_CTX):
+    return _dec_block_prefill(x, lp, positions, cross_k, cross_v, cfg, training=True,
+                              pctx=pctx)[0]
 
 
-def _decoder_hidden(params: dict, tokens: torch.Tensor, cross: KVCache,
-                    cfg: ModelConfig) -> torch.Tensor:
+def _decoder_hidden(params: dict, tokens: torch.Tensor, cross: KVCache, cfg: ModelConfig,
+                    pctx: PartitionCtx = NULL_CTX, *, emb=None) -> torch.Tensor:
     """The training pass of the decoder over tokens (B, S) against the
-    cross K/V: the final normed hidden state (B, S, d)."""
+    cross K/V: the final normed hidden state (B, S, d).  ``emb`` is the
+    gathered embedding shard (``_train_top``) on a mesh, where given;
+    ``pos_dec`` and the LayerNorms are whole on every rank."""
     b, s = tokens.shape
-    x = params["emb"][tokens] + params["pos_dec"][:s][None]
+    if emb is None:
+        emb = _train_top(params, cfg, pctx)[0]
+    x = _embed(emb, tokens, pctx) + params["pos_dec"][:s][None]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     body = remat(_dec_block_train, cfg.remat)
     for lp, ck, cv in zip(unbind_layers(params["dec_layers"]), cross.k.unbind(0),
                           cross.v.unbind(0)):
-        x = body(x, lp, positions, ck, cv, cfg)
+        x = body(x, lp, positions, ck, cv, cfg, pctx)
     return apply_norm(params["ln_f"], x, "layernorm", cfg.norm_eps)
 
 
@@ -131,12 +149,19 @@ def forward_train(params: dict, batch_inputs: dict, cfg: ModelConfig):
     return x.float() @ params["emb"].float().T, torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0,
+            pctx: PartitionCtx = NULL_CTX):
     """batch: frames (B, Senc, d), tokens, targets, mask (B, S).  The
-    chunked loss over the tied head: (nll, {"nll", "aux": 0})."""
-    enc_out = encode(params, batch["frames"], cfg)
-    x = _decoder_hidden(params, batch["tokens"], compute_cross_kv(params, enc_out, cfg), cfg)
-    loss = chunked_ce_loss(x, params["emb"].T, batch["targets"], batch["mask"])
+    chunked loss over the tied head: (nll, {"nll", "aux": 0}).  On a mesh
+    (``pctx``, the train rules; the batch this data rank's rows, its frames
+    too) the encoder, the cross K/V and the decoder run on the mesh and
+    the loss is vocab-parallel over the embedding shard."""
+    check_mesh_model(cfg, pctx, train=True)
+    emb, head = _train_top(params, cfg, pctx)
+    enc_out = encode(params, batch["frames"], cfg, pctx)
+    cross = compute_cross_kv(params, enc_out, cfg, pctx)
+    x = _decoder_hidden(params, batch["tokens"], cross, cfg, pctx, emb=emb)
+    loss = vocab_parallel_loss(x, head, batch, pctx)
     return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 

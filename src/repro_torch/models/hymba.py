@@ -35,10 +35,18 @@ from repro_torch.layers.attention import (
 )
 from repro_torch.layers.mlp import mlp_apply
 from repro_torch.layers.norm import apply_norm
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.models.jax_init import init_like_jax
 from repro_torch.models.ssm import ssm_decode, ssm_prefill
-from repro_torch.models.transformer import layer_params, remat, unbind_layers
-from repro_torch.train.losses import chunked_ce_loss
+from repro_torch.models.transformer import (
+    _embed,
+    _train_top,
+    check_mesh_model,
+    layer_params,
+    remat,
+    unbind_layers,
+    vocab_parallel_loss,
+)
 
 FULL_WINDOW = 1 << 30
 
@@ -81,30 +89,43 @@ def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
     return x.float() @ params["emb"].float().T
 
 
-def _block(x, lp, window: int, positions, cfg: ModelConfig, training: bool = False):
-    """One layer over the whole sequence: (x, (k, v), (SSM state, conv state))."""
+def _block(x, lp, window: int, positions, cfg: ModelConfig, training: bool = False,
+           pctx: PartitionCtx = NULL_CTX):
+    """One layer over the whole sequence: (x, (k, v), (SSM state, conv
+    state)).  On a training mesh (``pctx``) the attention runs this rank's
+    heads, or every head where the model axis does not split them, and
+    the SSM this rank's channels; both outputs are whole, so the fusion
+    runs on the whole d on every rank."""
     h = apply_norm(lp["ln1"], x, "rmsnorm", cfg.norm_eps)
     attn_out, kv = attention_prefill(lp["attn"], h, positions, cfg, window=window,
-                                     training=training)
-    ssm_out, ssm_state = ssm_prefill(lp["ssm"], h, cfg)
+                                     training=training, pctx=pctx)
+    ssm_out, ssm_state = ssm_prefill(lp["ssm"], h, cfg, pctx=pctx)
     x = x + _fuse(lp, attn_out, ssm_out, cfg)
     h2 = apply_norm(lp["ln2"], x, "rmsnorm", cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h2, cfg, training=training), kv, ssm_state
+    return x + mlp_apply(lp["mlp"], h2, cfg, training=training, pctx=pctx), kv, ssm_state
 
 
-def _block_train(x, lp, window: int, positions, cfg: ModelConfig):
-    return _block(x, lp, window, positions, cfg, training=True)[0]
+def _block_train(x, lp, window: int, positions, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
+    return _block(x, lp, window, positions, cfg, training=True, pctx=pctx)[0]
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   pctx: PartitionCtx = NULL_CTX, *, emb=None) -> torch.Tensor:
     """The final normed hidden state (B, S, d) of tokens (B, S) for the
-    chunked loss, each layer under ``cfg.remat``."""
+    chunked loss, each layer under ``cfg.remat``.  On a mesh (``pctx``,
+    the train rules; ``tokens`` this data rank's rows) the weights are
+    gathered over data inside each layer, the vocabulary rows of ``emb``
+    (the gathered embedding shard, ``_train_top``, where given) are this
+    model rank's."""
+    check_mesh_model(cfg, pctx, train=True)
     b, s = tokens.shape
-    x = params["emb"][tokens]
+    if emb is None:
+        emb = _train_top(params, cfg, pctx)[0]
+    x = _embed(emb, tokens, pctx)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     body = remat(_block_train, cfg.remat)
     for lp, w in zip(unbind_layers(params["layers"]), layer_windows(cfg)):
-        x = body(x, lp, w, positions, cfg)
+        x = body(x, lp, w, positions, cfg, pctx)
     return apply_norm(params["ln_f"], x, "rmsnorm", cfg.norm_eps)
 
 
@@ -114,10 +135,15 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     return x.float() @ params["emb"].float().T, torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
-    """The chunked loss over the tied head: (nll, {"nll", "aux": 0})."""
-    x = forward_hidden(params, batch["tokens"], cfg)
-    loss = chunked_ce_loss(x, params["emb"].T, batch["targets"], batch["mask"])
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0,
+            pctx: PartitionCtx = NULL_CTX):
+    """The chunked loss over the tied head: (nll, {"nll", "aux": 0}).  On a
+    mesh the head is this rank's vocabulary shard of the embedding,
+    gathered over data (``P(model, data)``), and the loss vocab-parallel,
+    as the transformer family's."""
+    emb, head = _train_top(params, cfg, pctx)
+    x = forward_hidden(params, batch["tokens"], cfg, pctx, emb=emb)
+    loss = vocab_parallel_loss(x, head, batch, pctx)
     return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 

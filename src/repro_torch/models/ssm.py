@@ -18,17 +18,77 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.layers import collectives as C
+from repro_torch.layers.linear import train_weight
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 
 CHUNK = 128  # prefill steps a chunk: the scan's working set is (B, CHUNK, d_in, N)
 
 
-def _ssm_inputs(p, x, cfg: ModelConfig, conv_state: Optional[torch.Tensor] = None):
+def _in_proj(p, x, cfg: ModelConfig, pctx: PartitionCtx):
+    """(x_in, z) (B, S, d_in) f32.  On a training mesh each model rank
+    takes its d_in / tp channels of both: the rule cuts ``w_in``'s columns
+    x | z contiguously (at tp 2 one rank holds all of x, the other all of
+    z), so the weight is gathered whole over data and model and this
+    rank's channels of each half are cut from it; each rank uses its own,
+    so the gather's backward is the summing reduce-scatter."""
+    if pctx.mesh is None:
+        return (x.float() @ p["w_in"].float()).chunk(2, dim=-1)
+    d_in = cfg.d_model
+    w = train_weight(p["w_in"], pctx, (cfg.d_model, 2 * d_in), fsdp_dim=0, tp_dim=1, tp="sum")
+    if pctx.tp_size > 1:
+        lo, hi = _channels(cfg, pctx)
+        w = torch.cat([w[:, lo:hi], w[:, d_in + lo:d_in + hi]], dim=1)
+    x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+    return (x.float() @ w.float()).chunk(2, dim=-1)
+
+
+def _channels(cfg: ModelConfig, pctx: PartitionCtx):
+    """[lo, hi) of this model rank's SSM channels."""
+    per = cfg.d_model // pctx.tp_size
+    lo = pctx.index(pctx.axes.tp) * per
+    return lo, lo + per
+
+
+def _channel_sum(partial: torch.Tensor, pctx: PartitionCtx) -> torch.Tensor:
+    """A contraction over the SSM's channels, from this rank's partial
+    product over its own: summed over the model axis, and each rank uses
+    the sum for its own channels (``sum_shared``)."""
+    if pctx.mesh is None:
+        return partial
+    return C.sum_shared(partial, pctx.mesh.group(pctx.axes.tp))
+
+
+def _dt_in(xc: torch.Tensor, w_dt: torch.Tensor, pctx: PartitionCtx) -> torch.Tensor:
+    """``xc @ w_dt`` (B, S, 1) over every channel."""
+    return _channel_sum(xc @ w_dt.float(), pctx)
+
+
+def _bc(xc: torch.Tensor, w_bc: torch.Tensor, pctx: PartitionCtx) -> torch.Tensor:
+    """``xc @ w_bc`` (B, S, 2N) over every channel: B and C."""
+    return _channel_sum(xc @ w_bc.float(), pctx)
+
+
+def _out_proj(p, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx) -> torch.Tensor:
+    """``y @ w_out`` (B, S, d) f32: on a training mesh row-parallel over
+    this rank's channels (``w_out`` gathered over data), the ranks' partial
+    products summed."""
+    if pctx.mesh is None:
+        return y @ p["w_out"].float()
+    w = train_weight(p["w_out"], pctx, (cfg.d_model, cfg.d_model), fsdp_dim=1)
+    return C.reduce_from_tp(y @ w.float(), pctx.mesh.group(pctx.axes.tp))
+
+
+def _ssm_inputs(p, x, cfg: ModelConfig, conv_state: Optional[torch.Tensor] = None,
+                pctx: PartitionCtx = NULL_CTX):
     """x (B, S, d) -> (xc, z, dt, b_mat, c_mat, new_conv_state), all f32;
     the conv state is the last ``ssm_conv - 1`` inputs of the depthwise
-    causal conv, for streaming decode."""
+    causal conv, for streaming decode.  On a training mesh (``pctx``) the
+    d_in tensors hold this rank's channels, as the rules cut ``conv``,
+    ``a_log``, ``dt_bias``, ``d_skip`` and the rows of ``w_bc``, ``w_dt``
+    and ``w_out``; the contractions over the channels are summed."""
     s = x.shape[1]
-    xz = x.float() @ p["w_in"].float()
-    x_in, z = xz.chunk(2, dim=-1)  # (B, S, d_in)
+    x_in, z = _in_proj(p, x, cfg, pctx)  # (B, S, d_in)
     w = cfg.ssm_conv
     if conv_state is None:
         ctx = F.pad(x_in, (0, 0, w - 1, 0))
@@ -39,9 +99,9 @@ def _ssm_inputs(p, x, cfg: ModelConfig, conv_state: Optional[torch.Tensor] = Non
     xc = sum(ctx[:, i:i + s, :] * conv[i] for i in range(w))
     new_conv_state = ctx[:, -(w - 1):, :] if w > 1 else None
     xc = F.silu(xc)
-    dt = F.softplus(xc @ p["w_dt"].float() + p["dt_bias"])  # (B, S, d_in)
+    dt = F.softplus(_dt_in(xc, p["w_dt"], pctx) + p["dt_bias"])  # (B, S, d_in)
     dt = dt.expand(xc.shape)
-    b_mat, c_mat = (xc @ p["w_bc"].float()).chunk(2, dim=-1)  # (B, S, N)
+    b_mat, c_mat = _bc(xc, p["w_bc"], pctx).chunk(2, dim=-1)  # (B, S, N)
     return xc, z, dt, b_mat, c_mat, new_conv_state
 
 
@@ -59,12 +119,13 @@ def _scan_chunk(a: torch.Tensor, u: torch.Tensor):
 
 
 def ssm_prefill(p, x, cfg: ModelConfig, h0: Optional[torch.Tensor] = None,
-                conv_state: Optional[torch.Tensor] = None):
+                conv_state: Optional[torch.Tensor] = None, pctx: PartitionCtx = NULL_CTX):
     """Returns (y (B, S, d) in x's dtype, (h_last (B, d_in, N) f32, conv
-    state (B, ssm_conv - 1, d_in) f32))."""
+    state (B, ssm_conv - 1, d_in) f32)).  On a training mesh (``pctx``)
+    channel-parallel: the states are this rank's channels, y is whole."""
     b, s, _ = x.shape
     n = cfg.ssm_state
-    xc, z, dt, b_mat, c_mat, conv_state = _ssm_inputs(p, x, cfg, conv_state)
+    xc, z, dt, b_mat, c_mat, conv_state = _ssm_inputs(p, x, cfg, conv_state, pctx)
     a_cont = -torch.exp(p["a_log"].float())  # (d_in, N)
     h = torch.zeros((b, xc.shape[-1], n), device=x.device) if h0 is None else h0.float()
     c = min(CHUNK, s)
@@ -85,7 +146,7 @@ def ssm_prefill(p, x, cfg: ModelConfig, h0: Optional[torch.Tensor] = None,
     y = torch.cat(ys, dim=1)[:, :s]
     y = y + p["d_skip"] * xc
     y = y * F.silu(z)
-    out = y @ p["w_out"].float()
+    out = _out_proj(p, y, cfg, pctx)
     return out.to(x.dtype), (h, conv_state)
 
 

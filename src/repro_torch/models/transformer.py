@@ -252,17 +252,21 @@ def _gather_rows(t: torch.Tensor, pctx: PartitionCtx, n: int, dim: int = 0) -> t
 
 def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = False) -> None:
     """Refuse, by name, a model the mesh programs do not shard: another
-    family, a sliding window, or dims the model axis does not divide
-    (heads, KV heads, d_ff, vocabulary rows, packed K rows; an MoE's
-    experts are over it where it divides their count, else its d_ff).  In
-    training (``train``) the data axis shards every weight's d_model dim
-    (FSDP) and must divide it too."""
+    family served on a mesh, a sliding window, or dims the model axis does
+    not divide (heads, KV heads, d_ff, vocabulary rows, packed K rows; an
+    MoE's experts are over it where it divides their count, else its
+    d_ff).  In training (``train``) the data axis shards every weight's
+    d_model dim (FSDP) and must divide it too; the hymba, xlstm and encdec
+    families train on a mesh under their own checks
+    (``_check_family_train_mesh``)."""
     if pctx.mesh is None:
         return
     if cfg.family != "transformer":
-        raise NotImplementedError(
-            f"{cfg.name}: the mesh programs shard the transformer family; the other families "
-            "on a mesh are ROADMAP A.13")
+        if not train:
+            raise NotImplementedError(
+                f"{cfg.name}: the serving mesh programs shard the transformer family; the "
+                f"{cfg.family} family's prefill and decode on a mesh are ROADMAP A.13.11")
+        return _check_family_train_mesh(cfg, pctx)
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             f"{cfg.name}: a sliding window on a mesh is ROADMAP A.13")
@@ -282,6 +286,46 @@ def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = Fals
         if cfg.d_model % fsdp:
             raise ValueError(f"{cfg.name}: the data axis ({fsdp}) does not divide d_model "
                              f"{cfg.d_model}")
+
+
+def _check_family_train_mesh(cfg: ModelConfig, pctx: PartitionCtx) -> None:
+    """The train step of the hymba, xlstm and encdec families on a mesh.
+    Heads the model axis does not divide are computed whole on every rank
+    (``layers.attention.heads_split``), and hymba's sliding window is
+    taken.  What each rank must hold its own part of is refused where the
+    axis does not divide it: the vocabulary rows, d_ff, hymba's SSM
+    channels (d_model), xLSTM's heads (its gates and states are head-major);
+    the data axis shards every weight's d_model dim (FSDP).  A ternary
+    encoder-decoder is refused: the JAX encoder runs the inference linears,
+    and on a mesh the port's encoder runs the training ones."""
+    tp = pctx.tp_size
+    dims = {"padded_vocab": cfg.padded_vocab()}
+    if cfg.family in ("hymba", "encdec"):
+        dims["d_ff"] = cfg.d_ff
+    if cfg.family == "hymba":
+        dims["d_model (the SSM's channels)"] = cfg.d_model
+    if cfg.family == "xlstm":
+        dims["num_heads"] = cfg.num_heads
+        dims["4 * head_dim (sLSTM gates a head)"] = 4 * (cfg.d_model // cfg.num_heads)
+    bad = {k: v for k, v in dims.items() if v % tp}
+    if bad:
+        raise ValueError(f"{cfg.name}: the model axis ({tp}) does not divide {bad}")
+    fsdp = pctx.size(pctx.axes.fsdp)
+    if cfg.d_model % fsdp:
+        raise ValueError(f"{cfg.name}: the data axis ({fsdp}) does not divide d_model "
+                         f"{cfg.d_model}")
+    if cfg.family == "encdec" and cfg.quant.ternary:
+        raise NotImplementedError(f"{cfg.name}: a ternary encoder-decoder on a mesh")
+
+
+def vocab_parallel_loss(x: torch.Tensor, head: torch.Tensor, batch: dict,
+                        pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
+    """The chunked loss of the final hidden state x over ``head`` (this
+    rank's vocabulary columns on a mesh: the head is a column-parallel
+    product, so x enters through ``copy_to_tp``)."""
+    if pctx.mesh is not None and pctx.axes.tp:
+        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+    return chunked_ce_loss(x, head, batch["targets"], batch["mask"], pctx=pctx)
 
 
 def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -367,9 +411,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0
     global ones; the head is vocab-parallel (``chunked_ce_loss``)."""
     emb, head = _train_top(params, cfg, pctx)
     x, aux = forward_hidden(params, batch["tokens"], cfg, pctx, emb=emb)
-    if pctx.mesh is not None and pctx.axes.tp:  # the head is a column-parallel product
-        x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
-    loss = chunked_ce_loss(x, head, batch["targets"], batch["mask"], pctx=pctx)
+    loss = vocab_parallel_loss(x, head, batch, pctx)
     return loss + aux_weight * aux / max(cfg.num_layers, 1), {"nll": loss, "aux": aux}
 
 

@@ -19,17 +19,27 @@ untied ``lm_head``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.layers import collectives as C
+from repro_torch.layers.linear import train_weight
 from repro_torch.layers.norm import apply_norm
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 from repro_torch.models.jax_init import init_like_jax
-from repro_torch.models.transformer import layer_params, remat, unbind_layers
-from repro_torch.train.losses import chunked_ce_loss
+from repro_torch.models.transformer import (
+    _embed,
+    _train_top,
+    check_mesh_model,
+    layer_params,
+    remat,
+    unbind_layers,
+    vocab_parallel_loss,
+)
 
 STATE_INIT_M = -1e30
 CHUNK = 64  # the mLSTM prefill's steps a chunk
@@ -107,34 +117,117 @@ def _mlstm_step(q, k, v, it, ft, state: MLSTMState):
     return h, MLSTMState(c_new, n_new, m_new)
 
 
-def _mlstm_project(p, x, cfg: ModelConfig):
+# ---- the training pass on a mesh: each model rank runs its H / tp heads,
+# and the (B, S, d) streams after the heads hold its d / tp channels (the
+# heads' own, head-major).  ``w_og``, ``w_out`` and the sLSTM's ``w`` and
+# ``b`` align with the heads as the rules cut them; ``w_qkv`` (q | k | v),
+# ``w_if`` (i | f) and the sLSTM's ``r`` (the gates inside each head) do
+# not, and are gathered whole inside the step, each rank cutting its heads'
+# columns (the summing reduce-scatter backward: the ranks' parts differ).
+
+
+def _heads_of(pctx: PartitionCtx, h: int):
+    """[lo, hi) of this model rank's heads of ``h``; all of them off a mesh."""
+    if pctx.mesh is None:
+        return 0, h
+    per = h // pctx.tp_size
+    lo = pctx.index(pctx.axes.tp) * per
+    return lo, lo + per
+
+
+def _cut(w: torch.Tensor, parts: int, lo: int, hi: int, n: int) -> torch.Tensor:
+    """Columns [lo, hi) of each of the ``parts`` contiguous n-column parts
+    of ``w`` (..., parts * n), side by side; ``w`` itself where that is all
+    of it."""
+    if hi - lo == n:
+        return w
+    return torch.cat([w[..., i * n + lo:i * n + hi] for i in range(parts)], dim=-1)
+
+
+def _tp_in(x: torch.Tensor, pctx: PartitionCtx) -> torch.Tensor:
+    """A whole stream into the ranks' own heads (``copy_to_tp``)."""
+    return x if pctx.mesh is None else C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
+
+
+def _whole_cols(w: torch.Tensor, pctx: PartitionCtx, shape) -> torch.Tensor:
+    """A (d, n) weight under the (data, model) rule, gathered whole on a
+    mesh (each rank then cutting its own heads' columns)."""
+    if pctx.mesh is None:
+        return w
+    return train_weight(w, pctx, shape, fsdp_dim=0, tp_dim=1, tp="sum")
+
+
+def _own_cols(w: torch.Tensor, pctx: PartitionCtx, shape) -> torch.Tensor:
+    """A (d, n) weight under the (data, model) rule whose columns align
+    with the heads: this rank's columns, gathered over data."""
+    return w if pctx.mesh is None else train_weight(w, pctx, shape, fsdp_dim=0)
+
+
+def _row_out(y: torch.Tensor, w: torch.Tensor, pctx: PartitionCtx, shape) -> torch.Tensor:
+    """``y @ w`` for a (d, d) weight under the (model, data) rule: on a mesh
+    row-parallel over this rank's channels, the partial products summed."""
+    if pctx.mesh is None:
+        return y @ w.to(y.dtype)
+    w = train_weight(w, pctx, shape, fsdp_dim=1)
+    return C.reduce_from_tp(y @ w.to(y.dtype), pctx.mesh.group(pctx.axes.tp))
+
+
+def _mean_square(xf: torch.Tensor, d: int, pctx: PartitionCtx) -> torch.Tensor:
+    """The mean of squares over all d channels of a stream whose last dim
+    holds this rank's d / tp of them: the ranks' partial sums summed
+    (``sum_shared``: each rank normalizes its own channels with it)."""
+    return C.sum_shared((xf * xf).sum(dim=-1, keepdim=True), pctx.mesh.group(pctx.axes.tp)) / d
+
+
+def _head_norm(scale: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+               pctx: PartitionCtx) -> torch.Tensor:
+    """``hnorm``, the RMSNorm over all of d across the heads, of x (B, S,
+    d or this rank's d / tp channels).  On a mesh the statistic is summed
+    over the model axis and the scale (whole on every rank) is cut to this
+    rank's channels (``slice_replicated``: its gradient gathered back
+    whole)."""
+    if pctx.mesh is None or pctx.tp_size == 1:
+        return apply_norm({"scale": scale}, x, "rmsnorm", cfg.norm_eps)
+    xf = x.float()
+    own = C.slice_replicated(scale, pctx.mesh.group(pctx.axes.tp), dim=-1)
+    y = xf * torch.rsqrt(_mean_square(xf, cfg.d_model, pctx) + cfg.norm_eps) * own.float()
+    return y.to(x.dtype)
+
+
+def _mlstm_project(p, x, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """The projections in the weight dtype (the (B, S, d) streams stay
-    bf16 under bf16 weights); the (B, H, S) gate pre-activations in f32."""
-    b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    bf16 under bf16 weights); the (B, H, S) gate pre-activations in f32.
+    On a training mesh this rank's heads of q, k, v, i, f and its channels
+    of the output gate."""
+    b, s, d = x.shape
+    h, hd = cfg.num_heads, d // cfg.num_heads
+    h0, h1 = _heads_of(pctx, h)
     xn = apply_norm(p["ln"], x, "rmsnorm", cfg.norm_eps).to(p["w_qkv"].dtype)
-    q, k, v = (xn @ p["w_qkv"]).chunk(3, dim=-1)
-    heads = lambda t: t.reshape(b, s, h, hd).transpose(1, 2)
+    xt = _tp_in(xn, pctx)
+    w_qkv = _cut(_whole_cols(p["w_qkv"], pctx, (d, 3 * d)), 3, h0 * hd, h1 * hd, d)
+    q, k, v = (xt @ w_qkv).chunk(3, dim=-1)
+    heads = lambda t: t.reshape(b, s, h1 - h0, hd).transpose(1, 2)
     q, k, v = heads(q), heads(k / hd**0.5), heads(v)
-    gates = (xn @ p["w_if"]).float()  # (B, S, 2H)
-    it = gates[..., :h].transpose(1, 2)  # (B, H, S) input gate (exp)
-    ft = F.logsigmoid(gates[..., h:]).transpose(1, 2)  # log f in (-inf, 0)
-    og = torch.sigmoid((xn @ p["w_og"]).float()).to(xn.dtype)  # (B, S, d)
+    w_if = _cut(_whole_cols(p["w_if"], pctx, (d, 2 * h)), 2, h0, h1, h)
+    gates = (xt @ w_if).float()  # (B, S, 2H)
+    it = gates[..., :h1 - h0].transpose(1, 2)  # (B, H, S) input gate (exp)
+    ft = F.logsigmoid(gates[..., h1 - h0:]).transpose(1, 2)  # log f in (-inf, 0)
+    og = torch.sigmoid((xt @ _own_cols(p["w_og"], pctx, (d, d))).float()).to(xn.dtype)  # (B, S, d)
     return q, k, v, it, ft, og
 
 
-def _mlstm_finish(p, x, h_seq, og, cfg: ModelConfig):
+def _mlstm_finish(p, x, h_seq, og, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """h_seq (B, H, S, hd) -> the block's residual output."""
     b, _, s, _ = h_seq.shape
-    h_flat = h_seq.transpose(1, 2).reshape(b, s, cfg.d_model)
-    h_flat = apply_norm(p["hnorm"], h_flat.to(x.dtype), "rmsnorm", cfg.norm_eps)
-    out = (og.to(h_flat.dtype) * h_flat) @ p["w_out"]
+    h_flat = h_seq.transpose(1, 2).reshape(b, s, -1)
+    h_flat = _head_norm(p["hnorm"]["scale"], h_flat.to(x.dtype), cfg, pctx)
+    out = _row_out(og.to(h_flat.dtype) * h_flat, p["w_out"], pctx, (cfg.d_model, cfg.d_model))
     return x + out.to(x.dtype)
 
 
-def mlstm_prefill(p, x, state: MLSTMState, cfg: ModelConfig):
+def mlstm_prefill(p, x, state: MLSTMState, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     s = x.shape[1]
-    q, k, v, it, ft, og = _mlstm_project(p, x, cfg)
+    q, k, v, it, ft, og = _mlstm_project(p, x, cfg, pctx)
     c = min(CHUNK, s)
     pad = (-s) % c
     if pad:  # padded steps: input gate -1e30 (no write), forget gate log 1 = 0
@@ -148,7 +241,7 @@ def mlstm_prefill(p, x, state: MLSTMState, cfg: ModelConfig):
                                     ft[..., sl], state)
         hs.append(h_out.to(x.dtype))  # the output stream in the activation dtype
     h_seq = torch.cat(hs, dim=2)[:, :, :s]
-    return _mlstm_finish(p, x, h_seq, og, cfg), state
+    return _mlstm_finish(p, x, h_seq, og, cfg, pctx), state
 
 
 def mlstm_decode(p, x, state: MLSTMState, cfg: ModelConfig):
@@ -161,9 +254,11 @@ def mlstm_decode(p, x, state: MLSTMState, cfg: ModelConfig):
 
 
 def _slstm_step(p, wx_t, state: SLSTMState, cfg: ModelConfig) -> SLSTMState:
-    """wx_t: the precomputed W x_t (B, 4d) f32; R h_{t-1} is added here."""
+    """wx_t: the precomputed W x_t (B, 4d) f32; R h_{t-1} is added here.
+    ``p["r"]`` (H, hd, 4hd) and ``p["b"]`` (4d) hold the heads the step
+    runs (on a training mesh this rank's, with wx_t's)."""
     b = wx_t.shape[0]
-    h_, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    h_, hd = p["r"].shape[0], cfg.d_model // cfg.num_heads
     rh = torch.einsum("bhd,hde->bhe", state.h.float(), p["r"].float())
     pre = wx_t.reshape(b, h_, 4 * hd) + rh + p["b"].reshape(h_, 4 * hd)
     zt, it, ft, ot = pre.chunk(4, dim=-1)  # (B, H, hd) each
@@ -179,21 +274,38 @@ def _slstm_step(p, wx_t, state: SLSTMState, cfg: ModelConfig) -> SLSTMState:
     return SLSTMState(c_new, n_new, h_new, m_new)
 
 
-def slstm_forward(p, x, state: SLSTMState, cfg: ModelConfig):
+def _slstm_heads(p, cfg: ModelConfig, pctx: PartitionCtx) -> dict:
+    """The sLSTM weights of this rank's heads on a training mesh: ``w``
+    and ``b`` as the rules cut them (head-major, so they align), ``r``
+    (H, hd, 4hd), whose rule cuts the gates inside each head, gathered
+    whole over the model axis and cut to this rank's heads."""
+    if pctx.mesh is None:
+        return p
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    h0, h1 = _heads_of(pctx, h)
+    r = train_weight(p["r"], pctx, (h, hd, 4 * hd), tp_dim=2, tp="sum")
+    return {**p, "w": _own_cols(p["w"], pctx, (d, 4 * d)), "r": r[h0:h1]}
+
+
+def slstm_forward(p, x, state: SLSTMState, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """Sequential over S, one ``_slstm_step`` a token (the sLSTM has no
     parallel form).  The (B, S, 4d) pre-activation stream and the stacked h
     outputs stay in the weight dtype; each step's gate and state math runs
-    in f32."""
+    in f32.  On a training mesh each rank runs its heads (no collective a
+    token: R is whole per head), ``hnorm``'s statistic summed over the
+    model axis and ``w_out`` row-parallel."""
     b, s, d = x.shape
+    p = _slstm_heads(p, cfg, pctx)
     xn = apply_norm(p["ln"], x, "rmsnorm", cfg.norm_eps).to(p["w"].dtype)
-    wx = xn @ p["w"]  # (B, S, 4d)
+    wx = _tp_in(xn, pctx) @ p["w"]  # (B, S, 4d)
     hs = []
     for t in range(s):
         state = _slstm_step(p, wx[:, t].float(), state, cfg)
         hs.append(state.h.to(x.dtype))
-    h_seq = torch.stack(hs, dim=1).reshape(b, s, d)
-    h_seq = apply_norm(p["hnorm"], h_seq, "rmsnorm", cfg.norm_eps)
-    out = h_seq @ p["w_out"].to(h_seq.dtype)
+    h_seq = torch.stack(hs, dim=1).reshape(b, s, -1)
+    h_seq = _head_norm(p["hnorm"]["scale"], h_seq, cfg, pctx)
+    out = _row_out(h_seq, p["w_out"], pctx, (d, d))
     return x + out.to(x.dtype), state
 
 
@@ -217,13 +329,14 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, dtype=torch.float32,
-               device=None) -> XLSTMCache:
+               device=None, heads: Optional[int] = None) -> XLSTMCache:
     """The fresh recurrent state (no KV at all; ``max_len`` is unused):
-    zeros, stabilizers at -1e30."""
+    zeros, stabilizers at -1e30; of ``heads`` heads (a training mesh
+    rank's), all of them by default."""
     dev = resolve_device(device)
     ng, nm = _group_counts(cfg)
-    h = cfg.num_heads
-    hd = cfg.d_model // h
+    h = cfg.num_heads if heads is None else heads
+    hd = cfg.d_model // cfg.num_heads
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     m = MLSTMState(z(ng, nm, batch, h, hd, hd), z(ng, nm, batch, h, hd),
                    torch.full((ng, nm, batch, h), STATE_INIT_M, dtype=dtype, device=dev))
@@ -262,24 +375,33 @@ def _forward(params, tokens, cfg: ModelConfig, cache: XLSTMCache, *, decode: boo
     return x.float() @ params["lm_head"].float(), cache
 
 
-def _group_train(x, gp: dict, mstates, sstate: SLSTMState, cfg: ModelConfig):
+def _group_train(x, gp: dict, mstates, sstate: SLSTMState, cfg: ModelConfig,
+                 pctx: PartitionCtx = NULL_CTX):
     """One group of the training pass from the fresh states ``mstates``
     (one a block) and ``sstate``: its mLSTM blocks, then its sLSTM block."""
     for mp, st in zip(unbind_layers(gp["mlstm"]), mstates):
-        x, _ = mlstm_prefill(mp, x, st, cfg)
-    return slstm_forward(gp["slstm"], x, sstate, cfg)[0]
+        x, _ = mlstm_prefill(mp, x, st, cfg, pctx)
+    return slstm_forward(gp["slstm"], x, sstate, cfg, pctx)[0]
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   pctx: PartitionCtx = NULL_CTX, *, emb=None) -> torch.Tensor:
     """The final normed hidden state (B, S, d) of tokens (B, S) for the
-    chunked loss, each group under ``cfg.remat``."""
-    x = params["emb"][tokens]
-    fresh = init_cache(cfg, tokens.shape[0], device=tokens.device)
+    chunked loss, each group under ``cfg.remat``.  On a mesh (``pctx``,
+    the train rules; ``tokens`` this data rank's rows) each model rank runs
+    its H / tp heads from fresh states of its heads; ``emb`` is the
+    gathered embedding shard (``_train_top``), where given."""
+    check_mesh_model(cfg, pctx, train=True)
+    if emb is None:
+        emb = _train_top(params, cfg, pctx)[0]
+    x = _embed(emb, tokens, pctx)
+    h0, h1 = _heads_of(pctx, cfg.num_heads)
+    fresh = init_cache(cfg, tokens.shape[0], device=tokens.device, heads=h1 - h0)
     body = remat(_group_train, cfg.remat)
     for g, gp in enumerate(unbind_layers(params["groups"])):
         mstates = [MLSTMState(*(t[g, j] for t in fresh.mlstm))
                    for j in range(fresh.mlstm.c.shape[1])]
-        x = body(x, gp, mstates, SLSTMState(*(t[g] for t in fresh.slstm)), cfg)
+        x = body(x, gp, mstates, SLSTMState(*(t[g] for t in fresh.slstm)), cfg, pctx)
     return apply_norm(params["ln_f"], x, "rmsnorm", cfg.norm_eps)
 
 
@@ -289,10 +411,14 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
     return x.float() @ params["lm_head"].float(), torch.zeros((), device=x.device)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0):
-    """The chunked loss over ``lm_head``: (nll, {"nll", "aux": 0})."""
-    x = forward_hidden(params, batch["tokens"], cfg)
-    loss = chunked_ce_loss(x, params["lm_head"], batch["targets"], batch["mask"])
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0,
+            pctx: PartitionCtx = NULL_CTX):
+    """The chunked loss over ``lm_head``: (nll, {"nll", "aux": 0}).  On a
+    mesh vocab-parallel over this rank's ``lm_head`` columns (``P(data,
+    model)``, gathered over data)."""
+    emb, head = _train_top(params, cfg, pctx)
+    x = forward_hidden(params, batch["tokens"], cfg, pctx, emb=emb)
+    loss = vocab_parallel_loss(x, head, batch, pctx)
     return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 

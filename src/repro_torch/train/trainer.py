@@ -16,7 +16,11 @@ replicated over a batch axis (norms and biases over ``data``, every leaf
 over ``pod``) are all-reduced after backward.  That is JAX's
 ``jit_train_step`` with its FSDP x TP in/out shardings: the step takes the
 global batch and returns params, opt and metrics, each rank's slices
-updated in place.
+updated in place.  Every family trains so: hymba, xLSTM and whisper (its
+``frames`` split by rows with the batch) under the same rules, sanitized
+as JAX's (a dim its axis does not divide stays whole); each family's
+``loss_fn`` gathers inside the step what the rules cut across what it
+computes whole.
 """
 from __future__ import annotations
 
@@ -69,7 +73,9 @@ def _group_over(mesh, axes):
 
 def local_rows(pctx: PartitionCtx, batch: dict) -> dict:
     """This data rank's rows of a global ``batch`` (``batch_rows`` of every
-    leaf's dim 0); the batch axes must divide the rows."""
+    leaf's dim 0: tokens, targets, mask, and an encoder-decoder's frames,
+    as JAX's ``batch_sh`` shards them); the batch axes must divide the
+    rows."""
     if pctx.mesh is None:
         return batch
     n = next(iter(batch.values())).shape[0]

@@ -37,6 +37,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from launcher import run_launcher
 
 REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
@@ -799,10 +800,10 @@ def test_serve_mesh_example_over_the_launcher():
     with 4 processes and the backend named, a reduced model on the CPU;
     rank 0's streams equal the unsharded engine's."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
-    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                          "--nproc-per-node", "4", "-m", "repro_torch.examples.serve_mesh",
-                          "--backend", "gloo", "--device", "cpu", "--reduced", "--check"],
-                         env=env, capture_output=True, text=True, timeout=300)
+    run = run_launcher([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "4", "-m", "repro_torch.examples.serve_mesh",
+                        "--backend", "gloo", "--device", "cpu", "--reduced", "--check"],
+                       env=env, timeout=300)
     assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
     assert "streams equal the unsharded engine's" in run.stdout
     assert run.stdout.count("KV 0.12 MiB") == 4  # a quarter of the cache on each rank

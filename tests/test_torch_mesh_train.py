@@ -54,6 +54,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from launcher import run_launcher
 
 REPO = Path(__file__).resolve().parent.parent
 WORLD = 4
@@ -638,10 +639,10 @@ def test_train_mesh_example_over_the_launcher():
     4 processes and the backend named, reduced bitnet-730m on the CPU;
     rank 0's losses and grad norms match the single-device step's."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
-    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                          "--nproc-per-node", "4", "-m", "repro_torch.examples.train_mesh",
-                          "--backend", "gloo", "--device", "cpu", "--reduced", "--check"],
-                         env=env, capture_output=True, text=True, timeout=300)
+    run = run_launcher([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "4", "-m", "repro_torch.examples.train_mesh",
+                        "--backend", "gloo", "--device", "cpu", "--reduced", "--check"],
+                       env=env, timeout=300)
     assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
     assert "match the single-device step's" in run.stdout
     # a quarter of the 1.03 MiB tree's params (the norms are whole on each rank)
