@@ -974,6 +974,117 @@ def other_family_kernel_checks(torch, ops, refs, flush, gen):
     return out
 
 
+# the other families' shard shapes on a (data 2, model 2) mesh ((MFS2),
+# (MFS3)): hymba's windowed walk over each model rank's half of its
+# 4,096-row cache, whisper's cross halves (768 and 732 of 768 rows) and self
+# halves (a data rank's 2 slots over 128 rows), B2 on 10 of whisper's 20
+# decoder heads, hymba's long-context walk over a quarter of 524,288 rows
+MFS_HYMBA_LENGTHS = [1000, 2048, 3000, 4000]
+MFS_WHISPER_SELF = [79, 72]  # a data rank's 2 slots after 64-token prompts and 16 steps
+
+
+def family_mesh_kernel_checks(torch, ops, refs, flush, gen):
+    """Phase 3 at the shard shapes of (MFS2) and (MFS3): B3 over each of
+    hymba's sequence halves from the window's start moved onto the half
+    (rank 0's half of the 4,000-token slot wholly before its window, rank
+    1's of the 1,000- and 2,048-token slots past their lengths), over
+    whisper's cross halves (NaN in the pad) and self halves, each pair of
+    halves merged as the ranks merge them against the whole walk; B2 at
+    (1, 10, 64, 64); B3 over the last quarter of hymba's 524,288-row cache
+    at batch 1.  Each against its plain version, timed beside its bound
+    and SDPA.  Returns [(kernel, case)]."""
+    from repro_torch.kernels import costs
+    from repro_torch.layers.attention import combine_partials
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+
+    def halves(what, q, planes, lengths, starts, pad=None):
+        """B3 over each half of ``planes`` (B, Hkv, S, D), merged against
+        the whole walk; ``pad``: the valid rows of the whole (NaN past)."""
+        b, hkv = q.shape[:2]
+        half = planes[0].shape[2] // 2
+        parts = []
+        for r in range(2):
+            off = r * half
+            ln = torch.clamp(lengths - off, 0, half).to(torch.int32)
+            st = None if starts is None else torch.clamp(starts - off, 0, half).to(torch.int32)
+            kv = [t[:, :, off:off + half] for t in planes]
+            view = None if pad is None else [t[:, :, :max(min(pad - off, half), 0)] for t in kv]
+            got = ops["decode"](q, *kv, ln, st)
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"B3 {what} half {r}: a NaN (the pad, or an empty half)")
+            parts.append(got)
+            if view is not None and view[0].shape[2] == 0:  # nothing valid: the kernel alone
+                continue
+            case = _walk_case(torch, ops, refs, flush,
+                              f"{what}, model rank {r}'s half: B={b} Hkv={hkv} G={q.shape[2]} "
+                              f"D={q.shape[3]} local lengths {ln.tolist()}"
+                              + ("" if st is None else f" starts {st.tolist()}")
+                              + f" of {half} rows bf16", q, *kv, ln, st, view=view)
+            out.append(("decode_attention", case))
+        merged = combine_partials(*(torch.stack([p_[i] if i == 0 else p_[i][..., None]
+                                                 for p_ in parts]) for i in range(3)))
+        whole_kv = planes if pad is None else [t[:, :, :pad] for t in planes]
+        full = refs["decode"](q, *whole_kv, lengths, starts)
+        err = (merged[0] - full[0]).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"B3 {what}: the two halves merge {err} off the whole walk")
+        print(f"kernel decode_attention: {what}, the two model ranks' halves merged = the whole "
+              f"walk within {err:.3g}")
+
+    hkv, g, d, _, smax, window = HYMBA_WALK
+    b = len(MFS_HYMBA_LENGTHS)
+    lengths = torch.tensor(MFS_HYMBA_LENGTHS, dtype=torch.int32, device=dev)
+    starts = torch.clamp(lengths + 1 - window, min=0).to(torch.int32)
+    planes = [torch.randn((b, hkv, smax, d), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2)]
+    halves(f"hymba-1.5b's window {window} (global starts {starts.tolist()}) over {smax} rows",
+           torch.randn((b, hkv, g, d), generator=gen, device=dev), planes, lengths, starts)
+    hkv, g, d, _, rows, enc = CROSS_WALK
+    planes = [torch.randn((2, hkv, rows, d), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2)]
+    for t in planes:
+        t[:, :, enc:] = float("nan")
+    q = torch.randn((2, hkv, g, d), generator=gen, device=dev)
+    halves(f"whisper-large-v3 cross, {enc} of {rows} rows (NaN pad)", q, planes,
+           torch.full((2,), enc, dtype=torch.int32, device=dev), None, pad=enc)
+    planes = [torch.randn((2, hkv, WHISPER_MAX_LEN, d), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2)]
+    halves(f"whisper-large-v3 self over {WHISPER_MAX_LEN} rows", q, planes,
+           torch.tensor(MFS_WHISPER_SELF, dtype=torch.int32, device=dev), None)
+    del planes
+    h, d = 10, 64
+    for b in (1, 2):  # a prompt; (MFS2)'s batch, a data rank's 2 rows
+        q, k, v = (torch.randn((b, h, 64, d), generator=gen, device=dev) for _ in range(3))
+        err = (ops["prefill"](q, k, v) - refs["prefill"](q, k, v)).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"prefill attention kernel off by {err} at ({b},{h},64,{d})")
+        cost = costs.prefill_attention_cost(b, h, h, 64, d)
+        b_ms, b_by = bound(cost.min_bytes, 3 * cost.flops, "tf32")
+        out.append(("prefill_attention", {
+            "shape": f"({b},{h},64,{d}) f32 (10 of whisper-large-v3's 20 decoder heads)",
+            "max_abs_err": err, "ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush),
+            "call_ms": timed_ms(torch, lambda: ops["prefill"](q, k, v), flush, busy=False),
+            "plain_ms": timed_ms(torch, lambda: refs["prefill"](q, k, v), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_f32_fma_ms": bound(cost.min_bytes, cost.flops, "f32")[0],
+            "library_ms": timed_ms(torch, lambda: sdpa(q, k, v, is_causal=True), flush)}))
+    hkv, g, d = HYMBA_WALK[:3]
+    quarter = LONG_ROWS // 4
+    planes = [torch.randn((1, hkv, quarter, d), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2)]
+    n = torch.full((1,), LONG_ROWS - 1 - 3 * quarter, dtype=torch.int32, device=dev)
+    out.append(("decode_attention", _walk_case(
+        torch, ops, refs, flush,
+        f"hymba-1.5b long context on (2, 2), the last quarter of {LONG_ROWS} rows: B=1 Hkv={hkv} "
+        f"G={g} D={d} local length {int(n)} of {quarter} bf16",
+        torch.randn((1, hkv, g, d), generator=gen, device=dev), *planes, n, None)))
+    del planes
+    return out
+
+
 # the shard shapes of phase (M): bitnet-730m on a (data 2, model 2) mesh
 MESH_TLMM = ((1536, 768), (1536, 2048), (768, 1536), (2048, 1536))  # (K, N): column / row shards
 MESH_PREFILL = (12, 64)  # heads a model rank prefills (24 / 2), D
@@ -1696,6 +1807,26 @@ def main(only: str | None = None) -> int:
             "paged": paged_decode_attention_reference,
             "paged_quant": paged_decode_attention_quant_reference,
             "unpack": lambda w: unpack_ternary(w).contiguous()}
+    if only == "family-serve":  # phase 3's (MFS) shapes, (MFS2), (FFS), (MFS3), then (w)-(y)
+        # with (MFS1): a development run, no result line
+        print(mt1_report, mf1_report, sep="\n", flush=True)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        for name, c in family_mesh_kernel_checks(torch, ops, refs, flush,
+                                                 torch.Generator(device="cuda").manual_seed(6)):
+            print(f"kernel {name} {c['shape']}: err {c['max_abs_err']:.3g}  kernel {c['ms']:.4f} "
+                  f"ms (call {c['call_ms']:.4f})  plain {c['plain_ms']:.4f}  library "
+                  f"{c['library_ms']:.4f}  bound {c['bound_ms']:.4f} ({c['bound_by']})  [{card}]")
+        del flush
+        try:
+            m1_mesh = open_m1_world()
+            for path in (hymba_path, xlstm_path, whisper_path):
+                _elapsed(path.__name__)
+                print(f"launches {path(torch, np, card, m1_mesh=m1_mesh)}")
+        finally:
+            close_m1_world()
+        _elapsed("the world's (MFS)")
+        mesh_world_phase(torch, card, parts=("MFS",))
+        return 0
     checks = kernel_checks(torch, ops, refs)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for name, case in (family_kernel_checks(torch, ops, refs, flush,
@@ -1707,7 +1838,9 @@ def main(only: str | None = None) -> int:
                        + moe_mesh_kernel_checks(torch, ops, refs, flush,
                                                 torch.Generator(device="cuda").manual_seed(4))
                        + split_kernel_checks(torch, ops, refs, flush,
-                                             torch.Generator(device="cuda").manual_seed(5))):
+                                             torch.Generator(device="cuda").manual_seed(5))
+                       + family_mesh_kernel_checks(torch, ops, refs, flush,
+                                                   torch.Generator(device="cuda").manual_seed(6))):
         r = checks[name]
         r.setdefault("cases", [dict(r)]).append(case)
         r["max_abs_err"] = max(r["max_abs_err"], case["max_abs_err"])
@@ -1834,7 +1967,8 @@ def main(only: str | None = None) -> int:
     beside = ([("(MD) references", md_refs), ("(M2) cut references", cut_refs),
                ("(MS) references", spec_refs), ("main references", main_references)]
               + family_reference_jobs(torch)
-              + [("(T4)", lambda: family_gradients(torch, np, card))])
+              + [("(T4)", lambda: family_gradients(torch, np, card))]
+              + other_family_reference_jobs(torch, np))
     world = mesh_world_phase(torch, card, m2_args=(
         cfg, main_kv, {"a": {"streams": main_streams, "recorder": main_rec}},
         lambda: EARLY.take("(M2) cut references", cut_refs)),
@@ -1842,7 +1976,7 @@ def main(only: str | None = None) -> int:
         md_refs=lambda: EARLY.take("(MD) references", md_refs),
         ms_refs=lambda: EARLY.take("(MS) references", spec_refs), mf1_report=mf1_report)
     (mesh_launches, m2a), mt_launches, me2 = world["M2"], world["MT"], world["ME"]
-    mf_launches = world["MF"]
+    mf_launches, mfs_launches = world["MF"], world["MFS"]
     ms_launches = world["MS"]
     md_launches, md_parts = world["MD"]
     del world
@@ -1889,21 +2023,25 @@ def main(only: str | None = None) -> int:
     _free(torch)
 
     _elapsed("phase 10")
-    # ---- 10. the transformer family at full width; (ME1), (E4), (F2) beside (t)
+    # ---- 10. the transformer family at full width; (ME1), (E4), (F2) beside (t).
+    # (M1)'s world stays up through phase 11 for (MFS1): a second NCCL world in
+    # this process crashes it
     try:
         family_launches = family_phase(torch, np, card, me2=me2, m1_mesh=m1_mesh)
+        me2_launches = {}  # rank 0's, over the (ME2) configurations
+        for path in me2.values():
+            for name, n in path["launches"].items():
+                me2_launches[name] = me2_launches.get(name, 0) + n
+        del me2
+        cli_smollm_launches, _ = cli_phase(torch, np, card, arch="smollm-135m")
+
+        _elapsed("phase 11")
+        # ---- 11. the other families at full width, and the long_500k context;
+        # (MFS1) on (M1)'s (data 1, model 1) NCCL world of one beside (w), (x), (y)
+        other_launches = other_families_phase(torch, np, card, m1_mesh=m1_mesh)
     finally:
         close_m1_world()
-    me2_launches = {}  # rank 0's, over the (ME2) configurations
-    for path in me2.values():
-        for name, n in path["launches"].items():
-            me2_launches[name] = me2_launches.get(name, 0) + n
-    del me2, m1_mesh
-    cli_smollm_launches, _ = cli_phase(torch, np, card, arch="smollm-135m")
-
-    _elapsed("phase 11")
-    # ---- 11. the other families at full width, and the long_500k context
-    other_launches = other_families_phase(torch, np, card)
+    del m1_mesh
 
     _elapsed("phase 12")
     # ---- 12. training
@@ -1912,7 +2050,7 @@ def main(only: str | None = None) -> int:
                  front_launches, cli_launches, disagg_launches, cli_disagg_launches,
                  family_launches, cli_smollm_launches, other_launches, train_launches,
                  mt_launches, me2_launches, md_launches, ms_launches, m1s_launches,
-                 mf_launches):
+                 mf_launches, mfs_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1968,7 +2106,7 @@ def main(only: str | None = None) -> int:
 
 MESH_DIR = Path("chiprun_out") / "mesh"  # the (M) phases' stores and the ranks' results
 MESH_WORLD = 4
-MESH_PARTS = ("M2", "MS", "MD", "MT", "ME", "MF")  # the world's phases, in the order its ranks run them
+MESH_PARTS = ("M2", "MS", "MD", "MT", "ME", "MF", "MFS")  # the world's phases, in the order its ranks run them
 MESH_TIMEOUT_S = 900  # the 4-rank world: (M2), (MT2)-(MT4), (ME2), (ME3)
 # (M2)'s configurations: key, what, the prompts (shared: (c)'s), the engine's
 # options, and the path whose streams it must give
@@ -2149,7 +2287,8 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
     {"M2": (rank 0's launches summed over ``MESH_PATHS``, (M2a)'s streams
     and logits rows), "MD": ranks 0's and 2's launches over (MD1) and (MD2),
     "MT": rank 0's (MT3) launches, "ME": (ME2)'s results (``me2_results``), "MF": rank
-    0's launches over (MF2) (none: training), after (MF1)'s report},
+    0's launches over (MF2) (none: training), after (MF1)'s report, "MFS": rank 0's
+    launches over (MFS2), (FFS) and (MFS3)},
     each for the parts run.  ``beside``: [(key, fn)] run in this process
     meanwhile (``EARLY``); ``md_refs()``: (MD)'s one-card references, read
     once the world has ended; ``ms_refs()``: the cut model's one-card runs
@@ -2217,6 +2356,11 @@ def mesh_world_phase(torch, card, parts=MESH_PARTS, m2_args=None, mt1_report=Non
             for line in result["report"]:
                 print(f"{line}  [{card}]")
             out["MF"] = result["launches"]
+        if "MFS" in parts:
+            result = json.loads((MESH_DIR / "MFS_result.json").read_text())
+            for line in result["report"]:
+                print(f"{line}  [{card}]")
+            out["MFS"] = result["launches"]
     finally:  # the logits rows (about 100 MB) and the checkpoint never stay behind
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     print(f"(M) the world's phase {time.perf_counter() - t0:.1f} s  [{card}]")
@@ -2455,7 +2599,8 @@ def mesh_worker(out: Path, parts) -> int:
     join the gloo world on this card, build the (2, 2) mesh, and run
     ``parts`` of ``MESH_PARTS`` in turn, each writing its results under
     ``out``: (M2) ``_m2_rank``, (MT2)-(MT4) ``_mt_rank``, (ME2) and (ME3)
-    ``_me_rank``, (MF2) ``_mf_rank``."""
+    ``_me_rank``, (MF2) ``_mf_rank``, (MFS2), (FFS) and (MFS3)
+    ``_mfs_rank``."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2465,7 +2610,7 @@ def mesh_worker(out: Path, parts) -> int:
     join_process_group("gloo")
     mesh = make_host_mesh(data=2, model=2)
     runs = {"M2": _m2_rank, "MS": _ms_rank, "MD": _md_rank, "MT": _mt_rank, "ME": _me_rank,
-            "MF": _mf_rank}
+            "MF": _mf_rank, "MFS": _mfs_rank}
     for part in parts:
         t0 = time.perf_counter()
         runs[part](mesh, out)
@@ -5267,15 +5412,15 @@ def _launch_check(what, launches, want):
         raise AssertionError(f"{what}: launches {launches} != expected {expect}")
 
 
-def hymba_path(torch, np, card):
+def hymba_path(torch, np, card, m1_mesh=None):
     """(w) hymba-1.5b at full width and depth on bf16 weights drawn on the
     card by ``init_like_jax`` from seed 0: 4 prompts of 2,048 tokens
     prefilled (the windowed plain path on every layer), installed into a
     batch-leading cache of 4,096 rows, 32 greedy decode steps (B3 a layer a
-    step, the 29 windowed layers from a start past 0).  The 2-layer logits
-    (prefill and 2 decode steps) against the CPU port on prompt 0; the
-    logits after 8 steps against a fresh prefill of prompt + 8 tokens.
-    Returns the launches."""
+    step, the 29 windowed layers from a start past 0).  The logits after 8
+    steps against a fresh prefill of prompt + 8 tokens; then (MFS1) on
+    ``m1_mesh``, and the 2-layer references (``hymba_reference``, run
+    beside the 4-rank world).  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import COUNTS, reset_counts
     from repro_torch.layers import attention as A
@@ -5352,20 +5497,57 @@ def hymba_path(torch, np, card):
     print(f"path (w): decode logits after {HYMBA_CHECK_STEP} steps vs a fresh prefill of the "
           f"prompt + {HYMBA_CHECK_STEP} tokens on the card: max abs err {err:.3g} (max |logit| "
           f"{scale:.3g})")
-    del cache, outs, fresh
+    del cache, fresh
     _free(torch)
-    # full width at 2 layers (layer 0 global, layer 1 windowed) against the CPU port, prompt 0
+    mfs1 = {} if m1_mesh is None else mesh_family_serve_m1(
+        torch, "w", cfg, params, m1_mesh, tokens, None, HYMBA_MAX_LEN, logits, outs, toks, ms, card)
+    del params, outs
+    _free(torch)
+    EARLY.take("references (w)", lambda: hymba_reference(torch, np))
+    return _sum_launches(launches, prefill_launches, mfs1)
+
+
+def _sum_launches(*parts):
+    total = {}
+    for part in parts:
+        for name, n in part.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _reference_feed(np, cfg, n):
+    """Tokens (1, n) a path's card-against-CPU reference feeds its decode
+    steps: drawn from seed 5, not the card's greedy tokens, so the
+    reference runs beside the 4-rank world."""
+    return np.random.default_rng(5).integers(0, cfg.vocab_size, (1, n))
+
+
+def hymba_reference(torch, np):
+    """(w)'s reference: hymba-1.5b at full width, (w)'s bf16 weights cut to
+    2 layers (layer 0 global, layer 1 windowed), (w)'s prompt 0 prefilled
+    and 2 decode steps fed ``_reference_feed``, on the card against the CPU
+    port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hymba as H
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("hymba-1.5b")
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (HYMBA_BATCH, HYMBA_PROMPT))[:1])
+    feed = torch.from_numpy(_reference_feed(np, cfg, 2))
     cfg2 = dataclasses.replace(cfg, num_layers=2, global_attn_layers=(0,))
     p2 = {**params, "layers": _first_layers(params["layers"], 2)}
     runs = []
     for dev, p in (("cuda", p2), ("cpu", _to_cpu(p2))):
-        lg, pre = H.forward_prefill(p, tokens[:1].to(dev), cfg2)
+        lg, pre = H.forward_prefill(p, tokens.to(dev), cfg2)
         c2 = H.install_prefill(H.init_cache(cfg2, 1, HYMBA_PROMPT + 8, device=dev), pre)
         out = [lg]
         for t in range(2):
             ln = torch.full((1,), HYMBA_PROMPT + t, dtype=torch.int32, device=dev)
-            out.append(H.decode_step(p, toks[:1, t].to(dev), c2, ln, cfg2)[0])
+            out.append(H.decode_step(p, feed[:, t].to(dev), c2, ln, cfg2)[0])
         runs.append(out)
+        del p
     for what, got, want in zip(("prefill", "decode step 1", "decode step 2"), *runs):
         err, scale = _held(f"path (w) 2-layer {what}", got, want, FAMILY_CPU_TOL)
         print(f"reference (w): full-width 2-layer hymba {what} logits vs CPU plain versions: max "
@@ -5373,7 +5555,14 @@ def hymba_path(torch, np, card):
               f"tolerance {FAMILY_CPU_TOL})")
     del params, p2, runs
     _free(torch)
-    return {name: n + prefill_launches[name] for name, n in launches.items()}
+
+
+def other_family_reference_jobs(torch, np):
+    """Phase 11's card-against-CPU references as (key, fn) jobs for
+    ``EARLY``: they read none of the card paths' results."""
+    return [("references (w)", lambda: hymba_reference(torch, np)),
+            ("references (x)", lambda: xlstm_reference(torch, np)),
+            ("references (y)", lambda: whisper_reference(torch, np))]
 
 
 def _clone_cache(cache):
@@ -5382,11 +5571,13 @@ def _clone_cache(cache):
     return cache.clone()
 
 
-def xlstm_path(torch, np, card):
+def xlstm_path(torch, np, card, m1_mesh=None):
     """(x) xlstm-1.3b at full width and depth on bf16 weights drawn on the
     card: 4 prompts of 512 tokens prefilled (the sLSTM's share of the
-    wall time timed apart), 32 greedy decode steps; no kernel.  One group
-    (8 layers) against the CPU port on prompt 0.  Returns the launches."""
+    wall time timed apart), 32 greedy decode steps; no kernel.  Then
+    (MFS1) on ``m1_mesh``, and one group (8 layers) against the CPU port
+    (``xlstm_reference``, run beside the 4-rank world).  Returns the
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.examples.long_context_decode import state_bytes
     from repro_torch.kernels import COUNTS, reset_counts
@@ -5442,8 +5633,30 @@ def xlstm_path(torch, np, card):
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{launches}; a decode step's largest device operations:  [{card}]")
     _print_top(top)
-    del cache, outs
+    del cache
     _free(torch)
+    mfs1 = {} if m1_mesh is None else mesh_family_serve_m1(
+        torch, "x", cfg, params, m1_mesh, tokens, None, 8, logits, outs, toks, ms, card)
+    del params, outs
+    _free(torch)
+    EARLY.take("references (x)", lambda: xlstm_reference(torch, np))
+    return _sum_launches(launches, mfs1)
+
+
+def xlstm_reference(torch, np):
+    """(x)'s reference: xlstm-1.3b at full width, (x)'s weights cut to one
+    group (8 layers), (x)'s prompt 0 prefilled and a decode step fed
+    ``_reference_feed``, on bf16 and on f32 weights, on the card against
+    the CPU port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("xlstm-1.3b")
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT))[:1])
+    feed = torch.from_numpy(_reference_feed(np, cfg, 1))
     cfg_g = dataclasses.replace(cfg, num_layers=cfg.slstm_every)
     p_g = {**params, "groups": _first_layers(params["groups"], 1)}
     for dtype, tol in (("bf16", XLSTM_TOL), ("f32", XLSTM_F32_TOL)):
@@ -5451,9 +5664,9 @@ def xlstm_path(torch, np, card):
         for dev, p in (("cuda", p_g), ("cpu", _to_cpu(p_g))):
             if dtype == "f32":
                 p = _to_f32(p)
-            lg, st = X.forward_prefill(p, tokens[:1].to(dev), cfg_g)
+            lg, st = X.forward_prefill(p, tokens.to(dev), cfg_g)
             ln = torch.full((1,), XLSTM_PROMPT, dtype=torch.int32, device=dev)
-            runs.append([lg, X.decode_step(p, toks[:1, 0].to(dev), st, ln, cfg_g)[0]])
+            runs.append([lg, X.decode_step(p, feed[:, 0].to(dev), st, ln, cfg_g)[0]])
         for what, got, want in zip(("prefill", "decode step"), *runs):
             err, scale = _held(f"path (x) one-group {dtype} {what}", got, want, tol)
             print(f"reference (x): full-width one-group ({cfg_g.num_layers} layers) xlstm {what} "
@@ -5461,17 +5674,17 @@ def xlstm_path(torch, np, card):
                   f"|logit| {scale:.3g}, {err / max(scale, 1.0):.3g} of it; tolerance {tol})")
     del params, p_g, runs
     _free(torch)
-    return launches
 
 
-def whisper_path(torch, np, card):
+def whisper_path(torch, np, card, m1_mesh=None):
     """(y) whisper-large-v3 at full width and depth on bf16 weights drawn
     on the card: frames (4, 1,500, 1,280) from seed 0, a 64-token decoder
     prompt (B2 a decoder layer), the swap into a batch-leading cache, 32
     greedy decode steps (B3 twice a layer a step: the self walk and the
-    cross walk over 1,500 of 1,536 rows).  2 encoder and 2 decoder layers
-    against the CPU port on request 0.  Returns the launches of the
-    prefill and the decode steps."""
+    cross walk over 1,500 of 1,536 rows).  Then (MFS1) on ``m1_mesh``, and
+    2 encoder and 2 decoder layers against the CPU port
+    (``whisper_reference``, run beside the 4-rank world).  Returns the
+    launches of the prefill and the decode steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import COUNTS, reset_counts
     from repro_torch.models import encdec as E
@@ -5516,17 +5729,42 @@ def whisper_path(torch, np, card):
           f"{2 * cfg.num_layers} a step: self and cross); a decode step's largest device "
           f"operations:  [{card}]")
     _print_top(top)
-    del cache, outs
+    del cache
     _free(torch)
+    mfs1 = {} if m1_mesh is None else mesh_family_serve_m1(
+        torch, "y", cfg, params, m1_mesh, tokens, frames, WHISPER_MAX_LEN, logits, outs, toks, ms,
+        card)
+    del params, outs, frames
+    _free(torch)
+    EARLY.take("references (y)", lambda: whisper_reference(torch, np))
+    return _sum_launches(launches, prefill_launches, mfs1)
+
+
+def whisper_reference(torch, np):
+    """(y)'s reference: whisper-large-v3 at full width, (y)'s weights cut
+    to 2 + 2 layers, (y)'s request 0 (its frames and prompt) prefilled and
+    a decode step fed ``_reference_feed``, on the card against the CPU
+    port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as E
+    from repro_torch.models.jax_init import init_like_jax
+
+    cfg = get_config("whisper-large-v3")
+    params = init_like_jax(cfg, 0, "cuda", draw_device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, cfg.encoder_seq, cfg.d_model), dtype=np.float32))[:1].to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT))[:1])
+    feed = torch.from_numpy(_reference_feed(np, cfg, 1))
     cfg2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
     p2 = {**params, "enc_layers": _first_layers(params["enc_layers"], 2),
           "dec_layers": _first_layers(params["dec_layers"], 2)}
     runs = []
     for dev, p in (("cuda", p2), ("cpu", _to_cpu(p2))):
-        lg, pre = E.forward_prefill(p, tokens[:1].to(dev), cfg2, frames=frames[:1].to(dev))
+        lg, pre = E.forward_prefill(p, tokens.to(dev), cfg2, frames=frames.to(dev))
         c2 = E.install_prefill(E.init_cache(cfg2, 1, WHISPER_MAX_LEN, device=dev), pre)
         ln = torch.full((1,), WHISPER_PROMPT, dtype=torch.int32, device=dev)
-        runs.append([lg, E.decode_step(p, toks[:1, 0].to(dev), c2, ln, cfg2)[0]])
+        runs.append([lg, E.decode_step(p, feed[:, 0].to(dev), c2, ln, cfg2)[0]])
     for what, got, want in zip(("prefill", "decode step"), *runs):
         err, scale = _held(f"path (y) 2+2-layer {what}", got, want, FAMILY_CPU_TOL)
         print(f"reference (y): full-width 2+2-layer whisper {what} logits vs CPU plain versions: "
@@ -5534,7 +5772,6 @@ def whisper_path(torch, np, card):
               f"tolerance {FAMILY_CPU_TOL})")
     del params, p2, runs, frames
     _free(torch)
-    return {name: n + prefill_launches[name] for name, n in launches.items()}
 
 
 def long_context_path(torch, np, card):
@@ -5609,15 +5846,70 @@ def long_context_path(torch, np, card):
     return total
 
 
-def other_families_phase(torch, np, card):
+def other_families_phase(torch, np, card, m1_mesh=None):
     """Phase 11: paths (w)-(z), each driven with the counts set to 0 just
-    before and read just after.  Returns the launches summed."""
+    before and read just after, and (w)-(y) again on ``m1_mesh`` ((MFS1),
+    where given).  Returns the launches summed."""
     total = {}
     for path in (hymba_path, xlstm_path, whisper_path, long_context_path):
         _elapsed(path.__name__)
-        for name, n in path(torch, np, card).items():
+        kw = {} if path is long_context_path else {"m1_mesh": m1_mesh}
+        for name, n in path(torch, np, card, **kw).items():
             total[name] = total.get(name, 0) + n
     return total
+
+
+MFS1_STEPS = 8  # (MFS1): decode steps held bit for bit to the one-card path's first
+
+
+def mesh_family_serve_m1(torch, key, cfg, params, m1_mesh, tokens, frames, max_len, first, outs, toks,
+                   one_ms, card):
+    """(MFS1): path ``key``'s model, weights and prompts through the
+    family's phase programs on a (data 1, model 1) NCCL mesh (every
+    collective a group of one): the prefill's logits and the first
+    ``MFS1_STEPS`` decode steps' (fed the path's greedy tokens ``toks``)
+    must equal the one-card registry path's (``first``, ``outs``) bit for
+    bit, and so the greedy tokens.  Prints the mesh's ms a step against
+    the one card's ``one_ms`` (CUDA events).  Returns the launches."""
+    from repro_torch.core.phase_engine import PhaseEngine
+    from repro_torch.kernels import COUNTS, reset_counts
+
+    eng = PhaseEngine(cfg, m1_mesh)
+    b, s = tokens.shape
+    reset_counts()
+    with torch.no_grad():
+        cache = eng.init_cache(b, max_len, device="cuda")
+        args = (params, tokens) + (() if frames is None else (frames,))
+        lg, pre = eng.prefill_program(b, s, frames=frames is not None)(*args)
+        eng.install_program(b, s, max_len)(pre, cache, list(range(b)))
+        del pre
+        lengths = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        dec = eng.decode_program(b, max_len)
+        got = [lg]
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for t in range(MFS1_STEPS):
+            lg, cache = dec(params, toks[:, t], cache, lengths + t)
+            got.append(lg)
+        e1.record()
+        e1.synchronize()
+    launches = dict(COUNTS)
+    want = [first] + list(outs[:MFS1_STEPS])
+    differ = [t for t, (g, w) in enumerate(zip(got, want)) if not torch.equal(g, w)]
+    if differ or not torch.equal(torch.stack([g.argmax(-1) for g in got], 1),
+                                 toks[:, :MFS1_STEPS + 1]):
+        worst = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        raise AssertionError(f"(MFS1) {key}: the (1, 1) mesh's logits differ from the one-card "
+                             f"path's at steps {differ} (by {worst} at most)")
+    ms = e0.elapsed_time(e1) / MFS1_STEPS
+    print(f"(MFS1) path ({key}) {cfg.name} at full width and depth on a (data 1, model 1) NCCL "
+          f"mesh (PhaseEngine's prefill, install and decode programs): the prefill's and "
+          f"{MFS1_STEPS} decode steps' logits and tokens equal the one-card registry path's bit "
+          f"for bit; {ms:.3f} ms a step against the one card's {one_ms:.3f} (CUDA events, "
+          f"eager); launches {launches}  [{card}]")
+    del cache, got
+    _free(torch)
+    return launches
 
 
 # ---- training: paths (T1)-(T4) --
@@ -6663,16 +6955,31 @@ def _mt_steps(torch, step_fn, params, opt, batches, lo, hi, dev, on_step=None):
     return params, opt, hist
 
 
+def _mt_differ(torch, got, ref, state, ref_state):
+    """Where two runs of (MT1)'s steps part: the loss and grad norm a step,
+    and every leaf of (params, AdamWState) after the last, bit for bit."""
+    from repro_torch.common.tree import named_leaves
+
+    out = [f"step {i} {k}: {g[k]!r} against {r[k]!r}" for i, (g, r) in enumerate(zip(got, ref))
+           for k in ("loss", "grad_norm") if g[k] != r[k]]
+    (pa, oa), (pb, ob) = state, ref_state
+    for what, a, b in (("params", pa, pb), ("mu", oa.mu, ob.mu), ("nu", oa.nu, ob.nu)):
+        for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+            if not torch.equal(x, y):
+                out.append(f"{what} {name}: {float((x - y).abs().max())} apart")
+    return out
+
+
 def mesh_train_m1(torch, np, card):
     """(MT1): bitnet-730m QAT at full width and depth, f32 latent weights,
     8 x 256 (T2's batches), 3 steps on a (data 1, model 1) NCCL mesh in its
     process against the single-card step on the same weights and batches:
     every collective is a group of one, so the loss, the grad norm and every
-    leaf of params, mu and nu after step 3 must be equal, bit for bit; no
+    leaf of params, mu and nu after step 3 must be equal, bit for bit, as
+    the single card's must be to its own steps from a fresh state; no
     kernel is launched."""
     import torch.distributed as dist
 
-    from repro_torch.common.tree import named_leaves
     from repro_torch.configs import get_config
     from repro_torch.kernels import COUNTS, reset_counts
     from repro_torch.launch.mesh import join_process_group, make_host_mesh
@@ -6685,8 +6992,18 @@ def mesh_train_m1(torch, np, card):
     cfg = get_config("bitnet-730m")
     tcfg = TrainConfig(schedule="wsd", warmup=1, total_steps=MT_STEPS + MT_MORE)
     batches = _mt_batches(np, cfg, MT_STEPS)
-    p1, o1 = init_train_state(cfg, 0, "cuda")
-    p1, o1, ref = _mt_steps(torch, make_train_step(cfg, tcfg), p1, o1, batches, 0, MT_STEPS, "cuda")
+
+    def one_card():
+        p, o = init_train_state(cfg, 0, "cuda")
+        return _mt_steps(torch, make_train_step(cfg, tcfg), p, o, batches, 0, MT_STEPS, "cuda")
+
+    p1, o1, ref = one_card()
+    p0, o0, again = one_card()  # the single card against itself
+    differ = _mt_differ(torch, again, ref, (p0, o0), (p1, o1))
+    del p0, o0
+    if differ:
+        raise AssertionError("(MT1): the single card's steps differ from its own, under "
+                             "deterministic algorithms: " + "; ".join(differ[:8]))
     join_process_group("nccl", init_method=f"file://{store.resolve()}", rank=0, world_size=1)
     try:
         mesh = make_host_mesh(data=1, model=1)
@@ -6699,12 +7016,7 @@ def mesh_train_m1(torch, np, card):
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
-    differ = [f"step {i} {k}: {g[k]!r} against {r[k]!r}" for i, (g, r) in enumerate(zip(got, ref))
-              for k in ("loss", "grad_norm") if g[k] != r[k]]
-    for what, a, b in (("params", p2, p1), ("mu", o2.mu, o1.mu), ("nu", o2.nu, o1.nu)):
-        for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
-            if not torch.equal(x, y):
-                differ.append(f"{what} {name}: {float((x - y).abs().max())} apart")
+    differ = _mt_differ(torch, got, ref, (p2, o2), (p1, o1))
     if differ:
         raise AssertionError("(MT1): the (1, 1) mesh's steps differ from the single card's: "
                              + "; ".join(differ[:8]))
@@ -6714,7 +7026,8 @@ def mesh_train_m1(torch, np, card):
           + " ".join(f"{h['loss']:.6f}" for h in got) + ", grad norms "
           + " ".join(f"{h['grad_norm']:.6f}" for h in got)
           + "; equal to the single card's bit for bit, and every leaf of params, mu and nu after "
-          f"step {MT_STEPS}; {statistics.median(h['ms'] for h in got[1:]):.1f} ms a step on the "
+          f"step {MT_STEPS}, as the single card's steps are to its own from a fresh state (both "
+          f"under deterministic algorithms); {statistics.median(h['ms'] for h in got[1:]):.1f} ms a step on the "
           f"mesh against {statistics.median(h['ms'] for h in ref[1:]):.1f} (CUDA events, median "
           f"of steps 1-{MT_STEPS - 1}); no kernel launched; the phase "
           f"{time.perf_counter() - t0:.1f} s, run while the kernels built (nvcc on the host's "
@@ -6726,10 +7039,18 @@ def mesh_train_m1(torch, np, card):
 def mesh_train_m1_main() -> int:
     """(MT1) in a process of its own (``chip_smoke.py --mesh-train-m1``): a
     second NCCL world in the process that ran (M1) and destroyed its own
-    crashed it (a segmentation fault on an H100 80GB HBM3)."""
+    crashed it (a segmentation fault on an H100 80GB HBM3).  Both sides of
+    its bit-for-bit gate run under ``torch.use_deterministic_algorithms``,
+    cuBLAS on a fixed workspace (set before torch loads it): an op with a
+    nondeterministic form on the path takes its deterministic one, or
+    raises by name (the single card's step parted once, ROADMAP C)."""
+    import os
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import numpy as np
     import torch
 
+    torch.use_deterministic_algorithms(True)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     mesh_train_m1(torch, np, smi())
     return 0
@@ -7387,6 +7708,495 @@ def _mf_rank(mesh, out: Path) -> None:
         (out / "MF_result.json").write_text(json.dumps({"report": report, "launches": launches}))
 
 
+# ---- phase (MFS): hymba, xLSTM and whisper served on the mesh --
+
+# (MFS2): each family at full width, cut in depth: hymba 4 of 32 layers
+# (layer 0 global, 1-3 windowed at 1,024) over prompts of 1,000-4,000 tokens
+# in a 4,096-row cache, so a window's start falls in model rank 0's half, in
+# rank 1's, and a half lies wholly before a window or past a length; xLSTM
+# one group (8 layers), 4 x 256; whisper 2 + 2 layers, 4 x 64 over 4 x 1,500
+# frames.  Bf16 weights from seed 0 (``init_like_jax``), as paths (w)-(y).
+MFS_CUTS = (("hymba-1.5b", dict(num_layers=4, global_attn_layers=(0,))),
+            ("xlstm-1.3b", dict(num_layers=8)),
+            ("whisper-large-v3", dict(num_layers=2, encoder_layers=2)))
+MFS_NEW = 17  # (MFS2): the prefill's greedy token and 16 decode steps
+MFS_FAULT_STEPS = 4  # steps of each planted fault (FFS)
+MFS_LONG = (4, 8)  # (MFS3): hymba layers, decode steps over LONG_ROWS rows at batch 1
+MFS_XLSTM_PROMPT, MFS_WHISPER_PROMPT = 256, 64
+# (MFS2), (MFS3) against one-card runs of the same cut models, the mesh fed
+# the one card's tokens: each step's logits within "logits" of the one
+# card's max |logit|, and where the mesh's greedy token parts from the one
+# card's, the one card's margin between the two within "margin".  Set from
+# the readings of sound runs and of the planted faults (PERF.md §6;
+# H100 80GB HBM3, 700 W): hymba 0.0092 / 0.0097 (faults 0.71 / 1.93),
+# whisper 0.0058 / none (0.21 / 0.16), hymba long 0.0123 (1.11 / 2.29); xlstm
+# 0.113 / 0.077 (0.66 / 1.25).  xlstm's bf16 limits are loose by nature: its
+# exponential input gates carry any rounding on, block by block (the mesh
+# first rounds block 0's gate product, 4 columns a rank against one card's
+# 8, and its row-parallel w_out otherwise than one card; one card taking
+# only w_out in the mesh's order reads 0.087 itself: examples/
+# xlstm_mesh_gap.py).  What holds xLSTM's mesh logic is the f32 run, within
+# MFS_F32_LIMIT (read 3.23e-5).
+MFS_LIMITS = {
+    "hymba-1.5b": {"logits": 0.03, "margin": 0.04},
+    "xlstm-1.3b": {"logits": 0.2, "margin": 0.15},
+    "whisper-large-v3": {"logits": 0.02, "margin": 0.04},
+    "hymba-1.5b long": {"logits": 0.04, "margin": 0.04},
+}
+# (MFS2)'s xlstm again on f32 weights, the mesh against one card: f32
+# roundings (1e-7) carried through 8 layers' gates, a bf16 one (4e-3) over it
+MFS_F32_LIMIT = 1e-3
+MFS_FAULTS = {
+    "hymba-1.5b": "each windowed walk started at the global start on every rank",
+    "xlstm-1.3b": "each model rank's copy of the other model rank's mLSTM heads left at the "
+                  "fresh state (the install's gather of the states left out)",
+    "whisper-large-v3": "the cross walk blind to the mesh: each rank over min(1,500, 768) "
+                        "rows of its block, the halves never merged",
+    "hymba-1.5b long": "the last quarter's partials dropped from every merge",
+}
+
+
+def _mfs_config(arch, cut):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def _mfs_inputs(np, torch, cfg, dev):
+    """(MFS2)'s prompts of ``cfg`` (a list of ragged hymba prompts, or a
+    (4, S) batch) and whisper's frames (4, 1,500, d) bf16, from seed 0."""
+    rng = np.random.default_rng(0)
+    if cfg.family == "hymba":
+        return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in MFS_HYMBA_LENGTHS], None
+    if cfg.family == "xlstm":
+        return rng.integers(0, cfg.vocab_size, (4, MFS_XLSTM_PROMPT)).astype(np.int32), None
+    frames = torch.from_numpy(rng.standard_normal((4, cfg.encoder_seq, cfg.d_model),
+                                                  dtype=np.float32)).to(dev, torch.bfloat16)
+    return rng.integers(0, cfg.vocab_size, (4, MFS_WHISPER_PROMPT)).astype(np.int32), frames
+
+
+def _mfs_readings(np, got, want, want_toks):
+    """The mesh's step logits ``got`` against the one card's ``want`` (each
+    a list of (B, Vp) arrays), the mesh fed ``want_toks`` (the one card's
+    greedy tokens (steps, B)): {"logits": the largest |difference| of a
+    step over that step's largest |logit|, "margin": the largest one-card
+    margin where the mesh's greedy token parts from the one card's (0
+    with no parting)}, and the partings [(step, slot)]."""
+    logits, margin, parts = 0.0, 0.0, []
+    for t, (g, w) in enumerate(zip(got, want)):
+        logits = max(logits, float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)))
+        for b_, tok in enumerate(g.argmax(-1)):
+            if tok != want_toks[t, b_]:
+                parts.append((t, b_))
+                margin = max(margin, float(w[b_, want_toks[t, b_]] - w[b_, tok]))
+    return {"logits": logits, "margin": margin}, parts
+
+
+def _mfs_plant(arch, mesh):
+    """Plant (FFS)'s fault of ``arch`` on this rank; returns the function
+    that lifts it."""
+    from repro_torch.core import kv_cache as KV
+    from repro_torch.layers import attention as A
+
+    if arch == "hymba-1.5b":
+        real = A.local_starts
+        A.local_starts = lambda starts, walk, sl: torch_clamp_global(starts, sl)
+        return lambda: setattr(A, "local_starts", real)
+    if arch == "whisper-large-v3":
+        real = A.cross_walk
+
+        def alone(qd, cache, cross_len, walk):  # the cross walk blind to the mesh
+            n = torch_full(qd, min(cross_len, cache.k.shape[2]))
+            return A.decode_attention(qd, cache.k, cache.v, n)
+
+        A.cross_walk = alone
+        return lambda: setattr(A, "cross_walk", real)
+    if arch == "xlstm-1.3b":
+        from repro_torch.models import xlstm as X
+
+        real = KV.MeshInstall.state
+
+        def stale(self, t, dim, n):
+            whole = real(self, t, dim, n)
+            if dim == 3:  # an mLSTM leaf: the other model rank's heads stay fresh
+                fresh = X.STATE_INIT_M if whole.dim() == 4 else 0.0  # the stabilizer m, or c / n
+                half = whole.shape[3] // 2
+                whole = whole.clone()
+                whole.narrow(3, (1 - mesh.coordinate("model")) * half, half).fill_(fresh)
+            return whole
+
+        KV.MeshInstall.state = stale
+        return lambda: setattr(KV.MeshInstall, "state", real)
+    real = A.merge_partials  # "hymba-1.5b long": the last quarter weighs nothing
+
+    def dropped(out, l, m, group):
+        import torch.distributed as dist
+
+        if dist.get_world_size(group) == 4 and dist.get_rank(group) == 3:
+            l = l * 0
+        return real(out, l, m, group)
+
+    A.merge_partials = dropped
+    return lambda: setattr(A, "merge_partials", real)
+
+
+def torch_full(like, n):
+    """(B,) int32 of ``n`` beside ``like`` (B, ...)."""
+    import torch
+
+    return torch.full((like.shape[0],), n, dtype=torch.int32, device=like.device)
+
+
+def torch_clamp_global(starts, sl):
+    """(FFS)'s hymba fault: a window's global start clamped to a rank's rows
+    with no offset (the start every rank would take without the move)."""
+    import torch
+
+    return torch.clamp(starts, 0, sl).to(torch.int32)
+
+
+def _params_mib(torch, whole, cfg, mesh):
+    """The MiB of a rank's slice as the serving rules reckon it from the
+    whole tree (``params_shardings(train=False)``, equal to JAX's specs,
+    ``tests/test_torch_mesh_families.py``)."""
+    from repro_torch.launch.sharding_rules import params_shardings
+
+    flat = params_shardings(whole, cfg, mesh, train=False)
+    total = 0
+
+    def walk(tree, spec):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], spec[k])
+            return
+        n = tree.element_size()
+        for d, ax in zip(tree.shape, tuple(spec) + (None,) * tree.dim()):
+            k = 1
+            for a in (() if ax is None else ax if isinstance(ax, tuple) else (ax,)):
+                k *= mesh.shape[a]
+            n *= d // k
+        total += n
+
+    walk(whole, flat)
+    return total / 2**20
+
+
+def _cache_mib(eng, batch, max_len, dtypes):
+    """The MiB of a rank's cache block as ``cache_blocks`` reckons it."""
+    total = 0
+    for name, (_, shape) in eng.cache_blocks(batch, max_len).items():
+        n = dtypes(name)
+        for d in shape:
+            n *= d
+        total += n
+    return total / 2**20
+
+
+def _mfs_rank(mesh, out: Path) -> None:
+    """(MFS2), (FFS) and (MFS3) on this rank of the world: each family of
+    ``MFS_CUTS`` served on the (2, 2) mesh (``examples.serve_mesh.
+    serve_family``, each rank on its ``shard_params`` slice), fed the
+    tokens of the same cut model's one-card run (on rank 0 first; the
+    others wait), held to it within ``MFS_LIMITS``; then the family's
+    planted fault for ``MFS_FAULT_STEPS`` steps, which must break a limit;
+    then hymba under the long-context rules at batch 1 over ``LONG_ROWS``
+    random rows (``MFS_LONG``), the same.  Rank 0 writes the report to
+    ``MFS_result.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.phase_engine import PhaseEngine
+    from repro_torch.examples.serve_mesh import serve_family, tree_mib
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.sharding_rules import shard_params
+    from repro_torch.models import hymba as H
+    from repro_torch.models.jax_init import init_like_jax
+
+    t_start = time.perf_counter()
+    rank, dev = mesh.rank, mesh.device
+    report, failures, launches = [], [], {}
+
+    def say(line):
+        if rank == 0:
+            report.append(line)
+            print(line, flush=True)
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            say(f"FAILED: {what}")
+
+    def tally_launches():
+        for name, n in COUNTS.items():
+            launches[name] = launches.get(name, 0) + n
+
+    tally, restore = _tally_collectives(dist)
+
+    def run(eng, params, prompts, frames, max_len, steps, feed=None, record=None, cache=None):
+        """serve_family with each step's logits kept (on the host) and each
+        decode step's collectives and seconds."""
+        kept, marks = [], []
+
+        def on_step(i, logits):
+            torch.cuda.synchronize()
+            marks.append((dict(tally), time.perf_counter()))
+            kept.append(logits.float().cpu().numpy())
+
+        toks, c = serve_family(eng, params, prompts, steps, max_len, frames, on_step=on_step,
+                               feed=feed)
+        if record is not None:
+            record["cache"] = c
+        rounds = [(b[0]["calls"] - a[0]["calls"], b[0]["bytes"] - a[0]["bytes"], b[1] - a[1])
+                  for a, b in zip(marks, marks[1:])]
+        return toks, kept, rounds
+
+    for arch, cut in MFS_CUTS:
+        t0 = time.perf_counter()
+        cfg, limits = _mfs_config(arch, cut), MFS_LIMITS[arch]
+        max_len = {"hymba": HYMBA_MAX_LEN, "xlstm": 8, "encdec": WHISPER_MAX_LEN}[cfg.family]
+        whole = init_like_jax(cfg, 0, dev, draw_device=dev, dtype=torch.bfloat16)
+        prompts, frames = _mfs_inputs(np, torch, cfg, dev)
+        ref = witness = None
+        if rank == 0:  # the cut model on one card
+            t1 = time.perf_counter()
+            ref = run(PhaseEngine(cfg), whole, prompts, frames, max_len, MFS_NEW)
+            ref_s = time.perf_counter() - t1
+            if cfg.family != "hymba":  # one card against itself: each prompt prefilled alone
+                _, alone, _ = run(PhaseEngine(cfg), whole, list(prompts), frames, max_len,
+                                  MFS_NEW, feed=ref[0][:-1])
+                witness = _mfs_readings(np, alone, ref[1], ref[0])[0]
+        ref = _bcast_obj(dist, ref)
+        want_toks, want_logits, one_rounds = ref
+        params = shard_params(whole, cfg, mesh)
+        mib_rules = _params_mib(torch, whole, cfg, mesh)
+        del whole
+        _free(torch)
+        eng = PhaseEngine(cfg, mesh)
+        reset_counts()
+        rec = {}
+        gathers, untally = _tally_state_gathers(H)
+        try:
+            got_toks, got_logits, rounds = run(eng, params, prompts, frames, max_len, MFS_NEW,
+                                               feed=want_toks[:-1], record=rec)
+        finally:
+            untally()
+        torch.cuda.synchronize()
+        tally_launches()
+        part_launches = dict(COUNTS)
+        cache_mib = tree_mib(rec["cache"])
+        rules_cache = _cache_mib(eng, 4, max_len, lambda n: 4 if ("ssm" in n or "conv" in n
+                                                                   or "lstm" in n) else 2)
+        mibs = [None] * mesh.size
+        dist.all_gather_object(mibs, (tree_mib(params), mib_rules, cache_mib, rules_cache,
+                                      eng.exchanges, eng.exchange_bytes))
+        reading, parts = _mfs_readings(np, got_logits, want_logits, want_toks)
+        over = {k: v for k, v in reading.items() if v > limits[k]}
+        check(not over, f"(MFS2) {arch} against the cut model on one card: {reading} over "
+                        f"{limits}")
+        del rec
+        # the planted fault, from a fresh cache (prefill again), MFS_FAULT_STEPS steps
+        lift = _mfs_plant(arch, mesh)
+        try:
+            _, fault_logits, _ = run(PhaseEngine(cfg, mesh), params, prompts, frames, max_len,
+                                     MFS_FAULT_STEPS, feed=want_toks[:MFS_FAULT_STEPS - 1])
+        finally:
+            lift()
+        fault, fparts = _mfs_readings(np, fault_logits, want_logits[:MFS_FAULT_STEPS], want_toks)
+        broken = {k: v for k, v in fault.items() if v > limits[k]}
+        check(broken, f"(FFS) {arch}: the planted fault ({MFS_FAULTS[arch]}) passes the limits: "
+                      f"{fault}")
+        f32 = None
+        if cfg.family == "xlstm":  # the same on f32 weights: the mesh's logic, bf16 aside
+            w32 = init_like_jax(cfg, 0, dev, draw_device=dev, dtype=torch.float32)
+            ref32 = None
+            if rank == 0:
+                ref32 = run(PhaseEngine(cfg), w32, prompts, frames, max_len, MFS_NEW)
+            ref32 = _bcast_obj(dist, ref32)
+            p32 = shard_params(w32, cfg, mesh)
+            del w32
+            _, got32, _ = run(PhaseEngine(cfg, mesh), p32, prompts, frames, max_len, MFS_NEW,
+                              feed=ref32[0][:-1])
+            f32, f32_parts = _mfs_readings(np, got32, ref32[1], ref32[0])
+            check(f32["logits"] <= MFS_F32_LIMIT and not f32_parts,
+                  f"(MFS2) {arch} on f32 weights against one card: {f32}, partings "
+                  f"{f32_parts} (limit {MFS_F32_LIMIT}, no parting)")
+            del p32, ref32, got32
+            _free(torch)
+        per = rounds[1:] if len(rounds) > 1 else rounds
+        b = len(prompts)
+        say(f"(MFS2) {arch} at full width, {cut}, "
+            + (f"prompts of {MFS_HYMBA_LENGTHS} tokens" if cfg.family == "hymba"
+               else f"{b} x {len(prompts[0])}")
+            + (f" over {cfg.encoder_seq:,} frames" if cfg.family == "encdec" else "")
+            + f", bf16 weights, on the (data 2, model 2) gloo mesh of 4 processes on this card, "
+            f"{MFS_NEW - 1} decode steps fed the one card's tokens: logits within "
+            f"{reading['logits']:.3g} of max |logit|, greedy partings {parts or 'none'} (largest "
+            f"one-card margin {reading['margin']:.3g}); limits {limits}"
+            + ("" if witness is None else
+               f"; one card against itself (each prompt prefilled alone, the same tokens fed): "
+               f"logits within {witness['logits']:.3g}, largest parting margin "
+               f"{witness['margin']:.3g}")
+            + ("" if f32 is None else
+               f"; on f32 weights the mesh against one card: logits within "
+               f"{f32['logits']:.3g}, no parting (limit {MFS_F32_LIMIT})"))
+        say(f"(MFS2) {arch} rank 0: decode {statistics.median(r[2] for r in per) * 1e3:.1f} ms a "
+            f"step (median, host clock, eager) against the one card's "
+            f"{statistics.median(r[2] for r in one_rounds[1:]) * 1e3:.1f}; "
+            f"{per[-1][0]} gloo collectives a step, {per[-1][1] / 2**20:.2f} MiB through them "
+            f"(each broadcast of a gather counted)"
+            + (f", of them {gathers['calls'] / (MFS_NEW - 1):g} the all-gathers that keep the "
+               f"SSM and conv states whole ({gathers['bytes'] / (MFS_NEW - 1) / 2**20:.3f} MiB "
+               "sent a step)" if cfg.family == "hymba" else "")
+            + f"; launches {part_launches}; the family's part "
+            f"{time.perf_counter() - t0:.1f} s" + (f" (the one card's run {ref_s:.1f} s)"
+                                                   if rank == 0 else ""))
+        say(f"(MFS2) {arch} per rank, params / cache MiB against the rules' reckoning (the JAX "
+            "specs'): " + ", ".join(f"rank {r} {p_:.1f} / {c_:.2f} ({pr:.1f} / {cr:.2f})"
+                                    for r, (p_, pr, c_, cr, _, _) in enumerate(mibs))
+            + "; the install's exchanges and gathers "
+            + ", ".join(f"{x} ({xb / 2**20:.1f} MiB)" for *_, x, xb in mibs))
+        say(f"(FFS) {arch} planted fault ({MFS_FAULTS[arch]}), {MFS_FAULT_STEPS - 1} steps: "
+            f"{fault}, partings {fparts or 'none'}: "
+            + ("breaks " + ", ".join(broken) if broken else "passes every limit"))
+        del params, eng
+        _free(torch)
+    _mfs_long(torch, np, dist, mesh, say, check, tally_launches, tally)
+    restore()
+    say(f"(MFS) rank 0's seconds {time.perf_counter() - t_start:.1f}")
+    if failures:
+        raise AssertionError(f"rank {rank}: " + "; ".join(failures))
+    if rank == 0:
+        (out / "MFS_result.json").write_text(json.dumps({"report": report,
+                                                          "launches": launches}))
+
+
+def _mfs_long(torch, np, dist, mesh, say, check, tally_launches, tally):
+    """(MFS3): hymba cut to ``MFS_LONG``'s layers at batch 1 under the
+    long-context rules over a cache of ``LONG_ROWS`` random bf16 rows (and
+    random SSM and conv states), each rank holding its quarter of the
+    sequence (131,072 rows) and its half of the SSM's channels, decoded
+    ``MFS_LONG[1]`` steps fed the one card's tokens, held to the one card's
+    walk of the same cache; then (FFS) with the last quarter's partials
+    dropped."""
+    from repro_torch.common.tree import named_leaves, tree_map
+    from repro_torch.core.phase_engine import PhaseEngine
+    from repro_torch.examples.serve_mesh import tree_mib
+    from repro_torch.kernels import COUNTS, reset_counts
+    from repro_torch.launch.sharding_rules import local_slice, shard_params
+    from repro_torch.models.jax_init import init_like_jax
+
+    t0 = time.perf_counter()
+    arch = "hymba-1.5b long"
+    layers, steps = MFS_LONG
+    cfg = _mfs_config("hymba-1.5b", dict(num_layers=layers, global_attn_layers=(0,)))
+    rank, dev = mesh.rank, mesh.device
+    whole = init_like_jax(cfg, 0, dev, draw_device=dev, dtype=torch.bfloat16)
+    start = LONG_ROWS - steps
+
+    def filled(eng):
+        """The engine's cache of 1 slot: its block of the same random whole
+        cache on every rank (the whole drawn from one seed, then cut)."""
+        gen = torch.Generator(device=dev).manual_seed(7)
+        cache = eng.init_cache(1, LONG_ROWS, device=dev)
+        blocks = eng.cache_blocks(1, LONG_ROWS)
+        for name, leaf in named_leaves(cache):
+            w = torch.empty(_whole_shape(blocks[name], mesh), dtype=leaf.dtype, device=dev)
+            w.normal_(generator=gen)
+            if leaf.dtype == torch.float32:
+                w.mul_(0.1)
+            leaf.copy_(w if eng.mesh is None else local_slice(w, blocks[name][0], mesh))
+            del w
+        return cache
+
+    def decode(eng, params, cache, feed, n):
+        lengths = torch.full((1,), start, dtype=torch.int32, device=dev)
+        tok = torch.zeros((1,), dtype=torch.long, device=dev)
+        dec = eng.decode_program(1, LONG_ROWS)
+        kept, toks, marks = [], [], []
+        with torch.no_grad():
+            for t in range(n):
+                torch.cuda.synchronize()
+                marks.append((dict(tally), time.perf_counter()))
+                logits, cache = dec(params, tok if feed is None else feed[t], cache, lengths + t)
+                kept.append(logits.float().cpu().numpy())
+                toks.append(logits.argmax(-1))
+                tok = toks[-1]
+            torch.cuda.synchronize()
+            marks.append((dict(tally), time.perf_counter()))
+        rounds = [(b[0]["calls"] - a[0]["calls"], b[0]["bytes"] - a[0]["bytes"], b[1] - a[1])
+                  for a, b in zip(marks, marks[1:])]
+        return torch.stack(toks).cpu().numpy(), kept, rounds
+
+    ref = None
+    if rank == 0:
+        one = PhaseEngine(cfg, long_context=True)
+        c1 = filled(one)
+        ref = decode(one, whole, c1, None, steps)
+        del c1
+        _free(torch)
+    ref = _bcast_obj(dist, ref)
+    want_toks, want_logits, one_rounds = ref
+    # the token fed at step t: the one card's greedy token of step t - 1 (0 first)
+    feed = [torch.zeros((1,), dtype=torch.long, device=dev)] + [
+        torch.as_tensor(want_toks[t], device=dev) for t in range(steps - 1)]
+    params = shard_params(whole, cfg, mesh)
+    del whole
+    eng = PhaseEngine(cfg, mesh, long_context=True)
+    cache = filled(eng)
+    backup = tree_map(lambda t: t.clone(), cache)
+    reset_counts()
+    _, got_logits, rounds = decode(eng, params, cache, feed, steps)
+    torch.cuda.synchronize()
+    tally_launches()
+    part_launches = dict(COUNTS)
+    limits = MFS_LIMITS[arch]
+    reading, parts = _mfs_readings(np, got_logits, want_logits, want_toks)
+    check(not {k for k, v in reading.items() if v > limits[k]},
+          f"(MFS3) against the one card's walk: {reading} over {limits}")
+    mibs = [None] * mesh.size
+    dist.all_gather_object(mibs, (tree_mib(params), tree_mib(cache)))
+    del cache
+    lift = _mfs_plant(arch, mesh)
+    try:
+        _, fault_logits, _ = decode(eng, params, backup, feed, MFS_FAULT_STEPS)
+    finally:
+        lift()
+    fault, _ = _mfs_readings(np, fault_logits, want_logits[:MFS_FAULT_STEPS], want_toks)
+    broken = [k for k, v in fault.items() if v > limits[k]]
+    check(broken, f"(FFS) {arch}: the planted fault passes the limits: {fault}")
+    per = rounds[1:]
+    say(f"(MFS3) hymba-1.5b at full width, {layers} of 32 layers (layer 0 global), batch 1 over "
+        f"{LONG_ROWS:,} random bf16 rows under the long-context rules on the (data 2, model 2) "
+        f"gloo mesh: each rank {LONG_ROWS // 4:,} rows and {cfg.d_model // 2} of {cfg.d_model} SSM "
+        f"channels; {steps} steps from length {start:,} fed the one card's tokens: logits within "
+        f"{reading['logits']:.3g} of max |logit|, partings {parts or 'none'}; limits {limits}; "
+        f"decode {statistics.median(r[2] for r in per) * 1e3:.1f} ms a step (host clock) against "
+        f"the one card's {statistics.median(r[2] for r in one_rounds[1:]) * 1e3:.1f}, "
+        f"{per[-1][0]} gloo collectives a step, {per[-1][1] / 2**20:.2f} MiB through them; "
+        f"launches {part_launches}; per rank params / cache MiB "
+        + ", ".join(f"rank {r} {p_:.1f} / {c_:.1f}" for r, (p_, c_) in enumerate(mibs))
+        + f"; the part {time.perf_counter() - t0:.1f} s")
+    say(f"(FFS) {arch} planted fault ({MFS_FAULTS[arch]}), {MFS_FAULT_STEPS} steps: {fault}: "
+        + ("breaks " + ", ".join(broken) if broken else "passes every limit"))
+    del params, backup, eng
+    _free(torch)
+
+
+def _whole_shape(block, mesh):
+    """The whole shape of a cache leaf from its (spec, block shape)."""
+    spec, shape = block
+    out = []
+    for n, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        k = 1
+        for a in (() if ax is None else ax if isinstance(ax, tuple) else (ax,)):
+            k *= mesh.shape[a]
+        out.append(n * k)
+    return tuple(out)
+
+
 def _tally_collectives(dist):
     """Count the calls and bytes that reach ``torch.distributed``'s
     collectives (each gloo broadcast of a gather counted).  Returns (the
@@ -7408,6 +8218,26 @@ def _tally_collectives(dist):
     def restore():
         for name, fn in real.items():
             setattr(dist, name, fn)
+    return tally, restore
+
+
+def _tally_state_gathers(hymba):
+    """Count the calls of hymba's ``_gather_states`` (the all-gathers that
+    keep the SSM and conv states whole under the decode rules) and the
+    bytes this rank sends through them.  Returns (the tally, a function
+    putting the real one back)."""
+    tally = {"calls": 0, "bytes": 0}
+    real = hymba._gather_states
+
+    def counted(h, conv, pctx):
+        tally["calls"] += 1
+        tally["bytes"] += (h.numel() + conv.numel()) * h.element_size()
+        return real(h, conv, pctx)
+
+    hymba._gather_states = counted
+
+    def restore():
+        hymba._gather_states = real
     return tally, restore
 
 
@@ -7446,6 +8276,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh-family-m1"]:  # (MF1), in its own process
         sys.exit(mesh_family_m1_main())
     if sys.argv[1:] in (["--only-mesh-train"], ["--only-moe-mesh"], ["--only-disagg-mesh"],
-                        ["--only-spec-mesh"], ["--only-family-mesh"]):  # for development
+                        ["--only-spec-mesh"], ["--only-family-mesh"],
+                        ["--only-family-serve"]):  # for development
         sys.exit(main(only=sys.argv[1][len("--only-"):]))
     sys.exit(main())

@@ -645,7 +645,90 @@ def mesh_cases(kernels: Optional[Sequence[str]] = None) -> List[KernelCase]:
     cases += _granite_mesh_cases(rng, tables, lengths, live)
     cases += _split_pool_cases(rng)
     cases += _verify_mesh_cases(rng)
+    cases += _family_mesh_cases(rng)
     return [c for c in cases if kernels is None or c.kernel in kernels]
+
+
+# the other families served on a (data 2, model 2) mesh: hymba's windowed
+# walk over a model rank's half of a 4,096-row cache (the prompts of 1,000
+# to 4,000 tokens), whisper's self and cross walks over their halves, and
+# hymba's long-context walk over a quarter of 524,288 rows
+HYMBA_MESH_WALK = (5, 5, 64, 4096, 1024)  # Hkv, G, D, Smax, window
+HYMBA_MESH_LENGTHS = [1000, 2048, 3000, 4000]
+WHISPER_MESH = (20, 64, 1536, 1500)  # Hkv = H, D, cross rows, encoder_seq
+WHISPER_SELF = (128, [70, 79])  # max_len, a data rank's 2 slots' lengths
+LONG_MESH_ROWS = (524288, 4)  # the long_500k cache over data x model
+
+
+def _window_half(lengths, starts, half: int, r: int):
+    """Rank r's local (lengths, starts) of a walk from ``starts`` over the
+    ``half`` rows [r * half, (r + 1) * half) it holds."""
+    off = r * half
+    return ([min(max(n - off, 0), half) for n in lengths],
+            [min(max(a - off, 0), half) for a in starts])
+
+
+def _family_mesh_cases(rng) -> List[KernelCase]:
+    """The launches of hymba, xLSTM and whisper served on a (data 2, model
+    2) mesh (xLSTM launches none): B3 over each model rank's half of
+    hymba's 4,096-row cache from the window's start (Hkv 5, G 5, D 64,
+    window 1,024; rank 0's half of the 4,000-token slot lies wholly before
+    its window, rank 1's of the 1,000- and 2,048-token slots past their
+    lengths), over whisper's cross halves (768 and 732 valid of 768 rows,
+    the pad dead) and self halves (a data rank's 2 slots over 128 rows),
+    B2 on 10 of whisper's 20 decoder heads, and B3 over the last quarter
+    of hymba's 524,288-row long-context cache at batch 1."""
+    cases = []
+
+    def walk(label, hkv, g, d, rows, lengths, starts, slots):
+        lo = [0] * len(lengths) if starts is None else starts
+        live = np.zeros((slots, rows), bool)
+        for b_, (a, n_) in enumerate(zip(lo, lengths)):
+            live[b_, a:n_] = True
+        dead = np.broadcast_to(~live[:, None, :], (slots, hkv, rows)).copy()
+        ops = _walk_tensors(rng, (slots, hkv, rows), "bf16", d, dead, EXTRA_ROWS)
+        ops["q"] = Operand(rng.standard_normal((slots, hkv, g, d)).astype(np.float32),
+                           torch.float32, "float")
+        ops["lengths"] = Operand(np.array(lengths, np.int32), torch.int32, "index")
+        st = None
+        if starts is not None:
+            ops["starts"] = Operand(np.array(starts, np.int32), torch.int32, "index")
+            st = "starts"
+        cases.append(KernelCase("decode_attention", label, ops, ("q", "k", "v", "lengths", st),
+                                {}, ("q", "k_r", "v_r", "lengths", st), {}))
+
+    hkv, g, d, smax, window = HYMBA_MESH_WALK
+    half = smax // 2
+    starts = [max(0, n + 1 - window) for n in HYMBA_MESH_LENGTHS]
+    for r in (0, 1):
+        lens, st = _window_half(HYMBA_MESH_LENGTHS, starts, half, r)
+        walk(f"decode_attention bf16 D={d} G={g} Hkv={hkv} hymba's window {window} over model "
+             f"rank {r}'s half of {smax}: local lengths={lens} starts={st}",
+             hkv, g, d, half, lens, st, len(lens))
+    hkv, d, rows, enc = WHISPER_MESH
+    for r in (0, 1):
+        n_ = min(max(enc - r * rows // 2, 0), rows // 2)
+        walk(f"decode_attention bf16 D={d} G=1 Hkv={hkv} whisper's cross half {r}: {n_} of "
+             f"{rows // 2} rows", hkv, 1, d, rows // 2, [n_, n_], None, 2)
+    max_len, lengths = WHISPER_SELF
+    for r in (0, 1):
+        lens, _ = _window_half(lengths, [0, 0], max_len // 2, r)
+        walk(f"decode_attention bf16 D={d} G=1 Hkv={hkv} whisper's self half {r} of {max_len}: "
+             f"local lengths={lens}", hkv, 1, d, max_len // 2, lens, None, 2)
+    q, k, v = (rng.standard_normal((1, 10, 64, 64)).astype(np.float32) for _ in range(3))
+    ops = {n: Operand(a, torch.float32, "float", extra_rows=EXTRA_ROWS)
+           for n, a in (("q", q), ("k", k), ("v", v))}
+    cases.append(KernelCase("prefill_attention", "prefill H=10 Hkv=10 S=64 D=64 (10 of "
+                            "whisper's 20 decoder heads)", ops, ("q", "k", "v"), {},
+                            ("q", "k", "v"), {}))
+    hkv, g, d = HYMBA_MESH_WALK[:3]
+    total, parts = LONG_MESH_ROWS
+    quarter = total // parts
+    n_ = total - 1 - (parts - 1) * quarter
+    walk(f"decode_attention bf16 D={d} G={g} Hkv={hkv} hymba's long context, B=1: the last "
+         f"quarter of {total} rows, local length {n_} of {quarter}", hkv, g, d, quarter, [n_],
+         None, 1)
+    return cases
 
 
 VERIFY_ROWS = 5  # a verify block's rows a slot (spec_decode 4)

@@ -27,6 +27,10 @@ as the JAX package keys its compiled programs:
     W = k + 1 token block a slot against the decode cache
   * ``verify_paged:{B}x{W}@{P}``      — the same over the paged pool
   * ``block_sampler:{B}x{W}``         — the verify targets' sampler
+  * ``prefill:{B}x{S}``               — any family's registry prefill (whisper
+    with its encoder's frames), the hymba, xlstm and encdec families' too
+  * ``install:{B}x{S}->{max_len}``    — such a family's swap: a prefill's
+    cache into the slots of ``init_cache``'s (its ``install_prefill``)
 
 Weights are never touched by the swap: both phases use the same tensors.
 
@@ -45,9 +49,13 @@ every program runs eagerly.
 On a mesh (``PhaseEngine(cfg, mesh)``, one process a rank) every program
 runs under the rules of ``make_pctx``: prefill with the heads over the
 model axis, decode with the batch over data and the KV sequence over
-model.  The relayout is then the exchange from heads-sharded prefill KV to
-sequence-sharded decode KV, one all-to-all over the model axis: the
-counterpart of the paper's bitstream load.  The programs capture as graphs
+model (with ``long_context`` the sequence over data x model and the
+states' channels over model).  A hymba, xlstm or encdec cache is cut by
+``layers.sharding.cache_spec`` (each family's ``init_cache`` cutting its
+own leaves), as the JAX ``_cache_shardings`` lays it out; those families'
+programs run eagerly.  The relayout is then the exchange from
+heads-sharded prefill KV to sequence-sharded decode KV, one all-to-all
+over the model axis: the counterpart of the paper's bitstream load.  The programs capture as graphs
 only where the mesh's collectives can be captured (NCCL,
 ``Mesh.capturable``); on a gloo mesh they run eagerly.
 """
@@ -60,7 +68,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.kv_cache import insert_prefill_kv, relay_prefill_kv
+from repro_torch.core.kv_cache import (
+    MeshInstall,
+    heads_to_rows,
+    insert_prefill_kv,
+    relay_prefill_kv,
+)
 from repro_torch.core.sampling import sample_block_tokens, sample_tokens
 from repro_torch.kernels import COUNTS
 from repro_torch.layers import collectives as C
@@ -70,14 +83,18 @@ from repro_torch.layers.attention import (
     write_chunk_kv_seq_shard_q,
     write_prefill_pages_q,
 )
+from repro_torch.common.tree import named_leaves
 from repro_torch.layers.sharding import (
     DECODE_RULES,
     LONG_DECODE_RULES,
     PREFILL_RULES,
     MeshAxes,
     PartitionCtx,
+    cache_spec,
+    local_shape,
 )
 from repro_torch.models import transformer as T
+from repro_torch.models.registry import get_model
 from repro_torch.quant.kv_quant import QuantKV, assert_kv_dtype
 
 
@@ -340,13 +357,18 @@ class PhaseEngine:
         assert_kv_dtype(kv_dtype)
         if long_context and cache_layout == "paged":
             raise NotImplementedError("long-context decode walks the contiguous cache")
+        if cfg.family != "transformer" and (cache_layout != "contiguous" or kv_dtype != "fp"):
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's programs take the "
+                                      "contiguous fp cache, as the JAX package's")
         self.cfg = cfg
         self.mesh = mesh
+        self.api = get_model(cfg)
         self.kv_dtype = kv_dtype
         self.decode_phase = "long_decode" if long_context else "decode"
         self.prefill_ctx = make_pctx(mesh, "prefill")
         self.decode_ctx = make_pctx(mesh, self.decode_phase)
         T.check_mesh_model(cfg, self.prefill_ctx)
+        T.check_mesh_model(cfg, self.decode_ctx)
         # bytes the swap's exchange (relayout or page write) sent from this
         # rank, and its calls
         self.exchange_bytes = 0
@@ -366,48 +388,47 @@ class PhaseEngine:
 
     # ------------------------------------------------------ mesh shards --
 
-    def init_cache(self, batch: int, max_len: int, device=None) -> KVCache:
-        """This rank's block of the (batch, L, Hkv, max_len, D) decode cache:
-        its rows of the batch and max_len / k rows of the sequence, k the
-        ranks of the sequence axis; the whole cache without a mesh."""
+    def init_cache(self, batch: int, max_len: int, device=None, dtype=None):
+        """This rank's block of the decode cache of ``batch`` slots: its rows
+        of the batch and max_len / k rows of the sequence, k the ranks of
+        the sequence axis (the whole cache without a mesh).  The
+        transformer family's is the (batch, L, Hkv, max_len, D) KV in
+        ``kv_dtype``; another family's is its registry cache cut by the
+        decode rules (``cache_blocks``), in ``dtype`` where given (the
+        family's own default otherwise)."""
         k = self.decode_ctx.size(self.decode_ctx.resolve(["kv_seq"])[0])
         if max_len % k:
             raise ValueError(f"max_len {max_len} does not split over {k} sequence shards")
-        lo, hi = T.batch_rows(self.decode_ctx, batch)
         self.n_slots = batch
-        return T.init_cache(self.cfg, hi - lo, max_len // k, kv_dtype=self.kv_dtype,
-                            device=device)
+        if self.cfg.family == "transformer":
+            lo, hi = T.batch_rows(self.decode_ctx, batch)
+            return T.init_cache(self.cfg, hi - lo, max_len // k, kv_dtype=self.kv_dtype,
+                                device=device)
+        kw = {} if dtype is None else {"dtype": dtype}
+        return self.api.init_cache(self.cfg, batch, max_len, device=device, pctx=self.decode_ctx,
+                                   **kw)
+
+    def cache_blocks(self, batch: int, max_len: int) -> Dict[str, tuple]:
+        """{leaf name: (its spec, this rank's block shape)} of a family's
+        decode cache of ``batch`` slots under the decode rules: each leaf of
+        the whole cache (the registry's ``init_cache``, on no device) cut by
+        ``layers.sharding.cache_spec``, as the JAX ``_cache_shardings``
+        lays it out."""
+        whole = self.api.init_cache(self.cfg, batch, max_len, device="meta")
+        out = {}
+        for name, leaf in named_leaves(whole):
+            spec = cache_spec(self.decode_ctx, name, tuple(leaf.shape))
+            out[name] = (spec, local_shape(self.decode_ctx, spec, tuple(leaf.shape)))
+        return out
 
     def _exchange(self, kv: KVCache, sl: int) -> KVCache:
         """The swap on a mesh: one prompt's prefill KV (L, 1, Hkv / tp, S,
-        D) of this rank's heads becomes this rank's rows [i * Sl, i * Sl +
-        n) of every head (n = what of the prompt falls in them), i its index
-        on the decode sequence axis, by one all-to-all over the model axis
-        that carries K and V together.  Each model rank gets a chunk of c =
-        min(Sl, S) rows from each; rows past the prompt are zeros."""
-        pctx = self.decode_ctx
-        tp = pctx.axes.tp
-        seq_ax = pctx.resolve(["kv_seq"])[0]
-        seq_axes = seq_ax if isinstance(seq_ax, tuple) else (seq_ax,)
-        if seq_axes[-1] != tp:
-            raise NotImplementedError(f"the decode sequence axis {seq_ax} must end in {tp!r}")
-        k = pctx.size(tp)
-        i = pctx.index(seq_ax)
-        base = i - pctx.index(tp)  # the sequence index of model rank 0 of this group
-        both = torch.stack([kv.k, kv.v])  # (2, L, 1, Hkv / tp, S, D)
-        s = both.shape[4]
-        c = min(sl, s)
-        send = both.new_zeros(both.shape[:4] + (k * c,) + both.shape[5:])
-        for j in range(k):
-            a = (base + j) * sl
-            n = max(0, min(s - a, c))
-            if n:
-                send[:, :, :, :, j * c:j * c + n] = both[:, :, :, :, a:a + n]
-        recv = C.all_to_all(send, self.mesh.group(tp), split_dim=4, cat_dim=3)
-        self.exchange_bytes += send.numel() * send.element_size() * (k - 1) // k
-        self.exchanges += 1
-        n_mine = max(0, min(s - i * sl, c))
-        return KVCache(recv[0, :, :, :, :n_mine], recv[1, :, :, :, :n_mine])
+        D) of this rank's heads becomes this rank's rows of every head
+        (``core.kv_cache.heads_to_rows``), counted in the exchange's bytes
+        and calls."""
+        rows, nbytes = heads_to_rows(kv, sl, self.decode_ctx)
+        self.count_head_gather(nbytes)
+        return rows
 
     def _gather_kv_heads(self, kv: KVCache) -> KVCache:
         """Prefill KV of this rank's heads made whole over the model axis
@@ -549,14 +570,58 @@ class PhaseEngine:
 
     def decode_program(self, batch: int, max_len: int) -> PhaseProgram:
         """``fn(params, token, cache, lengths) -> (logits, cache)``; the cache
-        is updated in place (the JAX program donates it)."""
-        cfg, pctx = self.cfg, self.decode_ctx
+        is updated in place (the JAX program donates it).  Another family's
+        is its registry ``decode_step`` on its cache (``init_cache``), run
+        eagerly."""
+        cfg, pctx, api = self.cfg, self.decode_ctx, self.api
 
         def fn(params, token, cache, lengths):
-            return T.decode_step(params, token, cache, lengths, cfg, pctx)
+            return api.decode_step(params, token, cache, lengths, cfg, pctx)
 
-        return self._program(f"decode:{batch}x{max_len}", fn, phase="decode", capturable=True,
-                             pinned=(0, 2))
+        family = cfg.family != "transformer"
+        return self._program(f"decode:{batch}x{max_len}", fn, phase="decode",
+                             capturable=not family, pinned=(0, 2))
+
+    def prefill_program(self, batch: int, seq: int, *, frames: bool = False) -> PhaseProgram:
+        """The registry's prefill of any family: ``fn(params, tokens (B, S)
+        [, frames (B, Senc, d)]) -> (logits (B, Vp), the family's prefill
+        cache)``, eager; whisper takes its encoder's ``frames``.  On a mesh
+        (the prefill rules) every rank takes the whole batch and returns
+        its rows' cache (``forward_prefill``'s mesh contract)."""
+        cfg, pctx, api = self.cfg, self.prefill_ctx, self.api
+
+        if frames:
+            def fn(params, tokens, frame_emb):
+                return api.forward_prefill(params, tokens, cfg, pctx, frames=frame_emb)
+        else:
+            def fn(params, tokens):
+                return api.forward_prefill(params, tokens, cfg, pctx=pctx)
+
+        return self._program(f"prefill:{batch}x{seq}", fn, phase="prefill")
+
+    def install_program(self, batch: int, seq: int, max_len: int) -> PhaseProgram:
+        """A family's swap: ``fn(prefilled, cache, slots) -> cache`` puts
+        prompt i of a ``prefill_program`` result into slot ``slots[i]`` of
+        ``init_cache``'s cache, in place (the family's
+        ``install_prefill``).  On a mesh each rank installs into its block
+        (``core.kv_cache.MeshInstall``): the data rank whose rows hold a
+        slot takes its prompt, the KV moves from heads to rows, the states
+        are gathered whole over the model axis where the decode rules keep
+        them whole; every exchange and gather is counted in the exchange's
+        bytes and calls."""
+        install = self.api.module.install_prefill
+
+        def fn(prefilled, cache, slots):
+            if self.mesh is None:
+                return install(cache, prefilled, slots)
+            if self.n_slots is None:
+                raise RuntimeError("on a mesh the install writes into PhaseEngine.init_cache's "
+                                   "cache")
+            mesh = MeshInstall(self.cfg.num_kv_heads, self.prefill_ctx, self.decode_ctx,
+                               self.n_slots, list(slots), self.count_head_gather)
+            return install(cache, prefilled, mesh=mesh)
+
+        return self._program(f"install:{batch}x{seq}->{max_len}", fn, phase="swap", pinned=(1,))
 
     def paged_decode_program(self, n_slots: int, max_pages: int) -> PhaseProgram:
         """``fn(params, token, pages, block_tables, lengths) -> (logits,

@@ -35,7 +35,8 @@ def decode_attention_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out (B,Hkv,G,D) f32 normalized, l (B,Hkv,G) f32, m (B,Hkv,G)
     f32) over positions [starts, lengths).  An empty range gives out 0,
-    l 0 and m -1e30."""
+    l 0 and m -1e30.  What the rows outside the range hold (a padded cross
+    cache's NaN, say) reaches nothing, as in the kernel."""
     d = q.shape[-1]
     s = k.shape[2]
     if sm_scale is None:
@@ -49,7 +50,8 @@ def decode_attention_reference(
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(scores - m), torch.zeros_like(scores))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / torch.clamp(l, min=1e-30)
+    vf = torch.where(mask[:, :, 0, :, None], v.float(), torch.zeros((), device=v.device))
+    out = torch.einsum("bhgs,bhsd->bhgd", p, vf) / torch.clamp(l, min=1e-30)
     return out, l[..., 0], m[..., 0]
 
 

@@ -103,16 +103,20 @@ def _project_q(params, x, cfg: ModelConfig, positions, rope: bool = True,
                training: bool = False):
     b, s, _ = x.shape
     q = linear_apply(params["wq"], x, cfg.quant, training=training)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
     if rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
 
 
-def _heads_whole(pctx: PartitionCtx) -> bool:
-    """Whether the phase keeps every head on every rank (decode) while the
-    projections' weights hold this rank's columns only."""
-    return pctx.mesh is not None and pctx.resolve(["heads"])[0] is None
+def _heads_whole(cfg: ModelConfig, pctx: PartitionCtx) -> bool:
+    """Whether a serving phase keeps every head on every rank while the
+    projections' weights hold this rank's columns only: in decode, and
+    wherever the model axis does not split the heads (``heads_split``:
+    hymba-1.5b's 25 and 5 heads, whose columns the rules still cut
+    mid-head)."""
+    return pctx.mesh is not None and (pctx.resolve(["heads"])[0] is None
+                                      or not heads_split(cfg, pctx))
 
 
 def _gather_heads(pctx: PartitionCtx, *parts: torch.Tensor):
@@ -173,7 +177,7 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, training: bool = False,
             q = apply_rope(q, positions, cfg.rope_theta)
     else:
         q, k, v = (linear_apply(params[n], x, cfg.quant) for n in ("wq", "wk", "wv"))
-        if _heads_whole(pctx):
+        if _heads_whole(cfg, pctx):
             q, k, v = _gather_heads(pctx, q, k, v)
         q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
         if cfg.rope_theta > 0:
@@ -195,7 +199,7 @@ def _out_proj(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx,
     if training:  # every head on every rank: wo's rows as the rule cut them
         return _out_whole_heads(params, y, cfg, pctx)
     group = pctx.mesh.group(pctx.axes.tp)
-    if not _heads_whole(pctx):
+    if not _heads_whole(cfg, pctx):
         return linear_apply_row_parallel(params["wo"], y, cfg.quant, group)
     return linear_apply_row_parallel(params["wo"], pctx.axis_slice(y, -1, pctx.axes.tp), cfg.quant,
                                      group, whole_row=y)
@@ -219,17 +223,32 @@ def _out_whole_heads(params, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionC
 def project_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig,
                      pctx: PartitionCtx = NULL_CTX):
     """The cross K/V (B, Hkv, Senc, D) of the encoder output through a
-    cross-attention layer's ``wk``/``wv`` (no RoPE): the inference linears
-    with no mesh, as the JAX package computes them; on a training mesh
-    this rank's heads (``train_projections``), the ones its queries attend
-    with."""
+    cross-attention layer's ``wk``/``wv`` (no RoPE): the inference linears,
+    as the JAX package computes them; on a training mesh this rank's heads
+    (``train_projections``), the ones its queries attend with; on a
+    serving mesh this rank's heads where the model axis splits them, else
+    every head (gathered from the column shards)."""
     b, s, _ = enc_out.shape
-    if pctx.mesh is None:
-        hkv, hd = cfg.num_kv_heads, cfg.head_dim
-        return tuple(linear_apply(params[n], enc_out, cfg.quant).reshape(b, s, hkv, hd)
-                     .transpose(1, 2) for n in ("wk", "wv"))
-    return tuple(t.transpose(1, 2) for t in train_projections(params, enc_out, cfg, pctx,
-                                                              ("wk", "wv")))
+    hd = cfg.head_dim
+    if pctx.mesh is not None and pctx.fsdp_axis is not None and cfg.quant.ternary:
+        # the inference linears of a ternary config quantize each weight by
+        # its whole tensor's absmean: the weights gathered whole, the rank
+        # taking its own heads of the products
+        width = cfg.num_kv_heads * hd
+        x = C.copy_to_tp(enc_out, pctx.mesh.group(pctx.axes.tp))
+        kv = [linear_apply({"w": train_weight(params[n]["w"], pctx, (cfg.d_model, width),
+                                              fsdp_dim=0, tp_dim=1, tp="sum")}, x, cfg.quant)
+              for n in ("wk", "wv")]
+        if heads_split(cfg, pctx):
+            kv = [pctx.axis_slice(t, -1, pctx.axes.tp) for t in kv]
+        return tuple(t.reshape(b, s, -1, hd).transpose(1, 2) for t in kv)
+    if pctx.mesh is not None and pctx.fsdp_axis is not None:
+        return tuple(t.transpose(1, 2) for t in train_projections(params, enc_out, cfg, pctx,
+                                                                  ("wk", "wv")))
+    k, v = (linear_apply(params[n], enc_out, cfg.quant) for n in ("wk", "wv"))
+    if _heads_whole(cfg, pctx):
+        k, v = _gather_heads(pctx, k, v)
+    return tuple(t.reshape(b, s, -1, hd).transpose(1, 2) for t in (k, v))
 
 
 DENSE_MAX = 1024  # the dense masked softmax takes up to this many queries and keys
@@ -343,7 +362,11 @@ def attention_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
             (q,) = train_projections(params, x, cfg, pctx, ("wq",))
             qt = q.transpose(1, 2)
         else:
-            qt = _project_q(params, x, cfg, positions, rope=False, training=training).transpose(1, 2)
+            q = _project_q(params, x, cfg, positions, rope=False, training=training)
+            if _heads_whole(cfg, pctx):
+                (q,) = _gather_heads(pctx, q.flatten(2))
+                q = q.reshape(b, s, -1, cfg.head_dim)
+            qt = q.transpose(1, 2)
         kt, vt = cross_kv
         causal = False
     else:
@@ -801,10 +824,62 @@ def _decode_new_token(params: dict, x: torch.Tensor, positions: torch.Tensor, cf
     return y, KVCache(k.transpose(1, 2), v.transpose(1, 2))
 
 
+class Walk(NamedTuple):
+    """A decode walk over this rank's rows of a sequence-split cache:
+    ``lengths`` the local ones, ``clamp(len - offset, 0, Sl)``; ``group``
+    the ranks of the sequence axis, which hold the other rows and merge
+    their partials; ``offset`` the position of this rank's first row
+    (``r * Sl``), which moves a window's start onto the local rows."""
+
+    lengths: torch.Tensor
+    group: object
+    offset: int = 0
+
+
+def seq_walk(lengths: torch.Tensor, sl: int, pctx: PartitionCtx) -> Optional[Walk]:
+    """The ``Walk`` of this rank's block of ``sl`` rows of a cache whose
+    sequence is split over ``pctx``'s "kv_seq" axis (None where it is
+    not): global ``lengths`` cut to the local rows."""
+    ax = pctx.resolve(["kv_seq"])[0]
+    if pctx.mesh is None or ax is None:
+        return None
+    off = pctx.index(ax) * sl
+    return Walk(torch.clamp(lengths - off, 0, sl).to(torch.int32), pctx.mesh.group(ax), off)
+
+
+def local_starts(starts: torch.Tensor, walk: Walk, sl: int) -> torch.Tensor:
+    """A window's global ``starts`` moved onto the ``sl`` rows a rank's
+    walk holds: ``clamp(start - offset, 0, Sl)`` (Sl for a block wholly
+    before the window: it walks nothing)."""
+    return torch.clamp(starts - walk.offset, 0, sl).to(torch.int32)
+
+
+def cross_walk(qd: torch.Tensor, cache: KVCache, cross_len: int,
+               walk: Optional[Walk]) -> torch.Tensor:
+    """The cross attention of the queries qd (B, H, D) over the first
+    ``cross_len`` rows of a cross cache (leaves (B, Hkv, S, D)), in qd's
+    dtype.  On a mesh (``walk``) this rank's block walks its rows of them,
+    ``clamp(cross_len - offset, 0, Sl)`` (the rest of the block is the
+    pad), and the ranks merge their partials."""
+    b = qd.shape[0]
+    if walk is None:
+        eff = torch.full((b,), cross_len, dtype=torch.int32, device=qd.device)
+        return decode_attention(qd, cache.k, cache.v, eff)
+    n = min(max(cross_len - walk.offset, 0), cache.k.shape[2])
+    eff = torch.full((b,), n, dtype=torch.int32, device=qd.device)
+    return merge_partials(*decode_attention(qd, cache.k, cache.v, eff, return_stats=True),
+                          walk.group)[0].to(qd.dtype)
+
+
+def walk_ranks(pctx: PartitionCtx) -> int:
+    """The ranks a decode cache's sequence is split over (1 with none)."""
+    return pctx.size(pctx.resolve(["kv_seq"])[0]) if pctx.mesh is not None else 1
+
+
 def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: torch.Tensor,
                      cfg: ModelConfig, *, window: Optional[int] = None,
                      cross_len: Optional[int] = None, pctx: PartitionCtx = NULL_CTX,
-                     walk: Optional[Tuple[torch.Tensor, object]] = None,
+                     walk: Optional[Walk] = None,
                      ) -> Tuple[torch.Tensor, KVCache]:
     """The decode engine: one token (x (B,1,d)) against this layer's cache
     (leaves (B, Hkv, Smax, ·), possibly strided views, possibly QuantKV).
@@ -817,18 +892,27 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
     ``cross_len`` rows, no fresh token is merged, and the cache comes back
     as it was, in place of the new token's K/V.
 
-    On a mesh the cache is this rank's rows of the sequence and ``walk`` =
-    (local lengths, group): the kernel walks the local rows [0, local
-    length), and the ranks of ``group``, which hold the other rows, merge
-    their partials (``merge_partials``) before the fresh token is folded
-    in.  ``lengths`` stay the global ones (positions, the fresh token)."""
+    On a mesh the cache is this rank's rows of the sequence and ``walk``
+    (``Walk``: local lengths, group, offset) says which: the kernel walks
+    the local rows [local start, local length), the window's start moved
+    by the offset and clamped to [0, Sl) (a block wholly before the window
+    walks nothing), and the ranks of the group, which hold the other rows,
+    merge their partials (``merge_partials``) before the fresh token is
+    folded in.  ``lengths`` stay the global ones (positions, the fresh
+    token).  A cross cache's walk takes its local rows of ``cross_len``,
+    ``clamp(cross_len - offset, 0, Sl)``; the heads are whole on every
+    rank and the output projection row-parallel."""
     if cross_len is not None:
         b = x.shape[0]
-        h, hd = cfg.num_heads, cfg.head_dim
-        qd = _project_q(params, x, cfg, None, rope=False).reshape(b, h, hd)
-        eff = torch.full((b,), cross_len, dtype=torch.int32, device=x.device)
-        out = decode_attention(qd, cache.k, cache.v, eff)
-        return linear_apply(params["wo"], out.reshape(b, 1, h * hd), cfg.quant), cache
+        hd = cfg.head_dim
+        q = _project_q(params, x, cfg, None, rope=False)
+        if _heads_whole(cfg, pctx):
+            (q,) = _gather_heads(pctx, q.flatten(2))
+        qd = q.reshape(b, -1, hd)
+        y = cross_walk(qd, cache, cross_len, walk).reshape(b, 1, -1)
+        if pctx.mesh is None:
+            return linear_apply(params["wo"], y, cfg.quant), cache
+        return _out_proj(params, y, cfg, pctx), cache
     starts = (None if window is None
               else torch.clamp(lengths + 1 - window, min=0).to(torch.int32))
 
@@ -836,9 +920,9 @@ def attention_decode(params: dict, x: torch.Tensor, cache: KVCache, lengths: tor
         k_arr, v_arr, qkw = _kv_leaf_args(cache.k, cache.v)
         if walk is None:
             return decode_attention(qd, k_arr, v_arr, lengths, starts, return_stats=True, **qkw)
-        local, group = walk
-        return merge_partials(*decode_attention(qd, k_arr, v_arr, local, return_stats=True,
-                                                **qkw), group)
+        local = None if starts is None else local_starts(starts, walk, k_arr.shape[2])
+        return merge_partials(*decode_attention(qd, k_arr, v_arr, walk.lengths, local,
+                                                return_stats=True, **qkw), walk.group)
 
     return _decode_new_token(params, x, lengths[:, None], cfg, attend, pctx)
 

@@ -76,7 +76,7 @@ def linear_apply_train_sharded(params: dict, x: torch.Tensor, quant: QuantConfig
         raise ValueError(f"parallel must be 'column' or 'row', got {parallel!r}")
     mesh = pctx.mesh
     tp = mesh.group(pctx.axes.tp) if pctx.axes.tp else None
-    fsdp = pctx.axes.fsdp
+    fsdp = pctx.fsdp_axis
     w = params["w"]
     if isinstance(w, TernaryWeight):
         raise ValueError("a packed TernaryWeight has no latent weights to train; "
@@ -103,7 +103,8 @@ def linear_apply_train_sharded(params: dict, x: torch.Tensor, quant: QuantConfig
 def train_weight(w: torch.Tensor, pctx, whole, *, fsdp_dim: Optional[int] = None,
                  tp_dim: Optional[int] = None, tp: str = "keep") -> torch.Tensor:
     """This rank's copy of a weight for the training pass on a mesh
-    (``pctx``, the train rules).  ``w`` is the leaf's FSDP x TP block under
+    (``pctx``, the train rules; under the serving rules, whose weights are
+    whole over data, the model axis's part alone).  ``w`` is the leaf's FSDP x TP block under
     the sanitized rules, ``whole`` the whole weight's shape.  Along
     ``fsdp_dim`` it is gathered over the fsdp axis (``fsdp_gather``: the
     gradient reduce-scattered back, summed over the data ranks' batches),
@@ -121,8 +122,8 @@ def train_weight(w: torch.Tensor, pctx, whole, *, fsdp_dim: Optional[int] = None
     def split(dim, ax):
         return ax is not None and dim is not None and whole[dim] % pctx.size(ax) == 0
 
-    if split(fsdp_dim, pctx.axes.fsdp):
-        w = C.fsdp_gather(w, mesh.group(pctx.axes.fsdp), dim=fsdp_dim % w.dim())
+    if split(fsdp_dim, pctx.fsdp_axis):
+        w = C.fsdp_gather(w, mesh.group(pctx.fsdp_axis), dim=fsdp_dim % w.dim())
     if tp != "keep" and split(tp_dim, pctx.axes.tp):
         gather = C.fsdp_gather if tp == "sum" else C.gather_replicated
         w = gather(w, mesh.group(pctx.axes.tp), dim=tp_dim % w.dim())

@@ -30,13 +30,12 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               training: bool = False, pctx: PartitionCtx = NULL_CTX) -> torch.Tensor:
-    """The FFN of x (..., d).  On a mesh (``pctx``, SwiGLU) w_gate and w_up
-    are column-parallel (this rank's d_ff / tp columns) and w_down is
-    row-parallel over them: the ranks sum its partial products.  In
-    training on a mesh each weight is also gathered over data
-    (``linear_apply_train_sharded``), and so is the GELU MLP's (whisper):
-    w_in column-parallel with its bias's columns, w_out row-parallel, its
-    bias added once the ranks' partial products are summed."""
+    """The FFN of x (..., d).  On a mesh (``pctx``) w_gate and w_up
+    (SwiGLU), or the GELU MLP's w_in with its bias's columns (whisper),
+    are column-parallel (this rank's d_ff / tp columns) and w_down or
+    w_out is row-parallel over them: the ranks sum its partial products,
+    and a bias is added once they are summed.  In training on a mesh each
+    weight is also gathered over data (``linear_apply_train_sharded``)."""
     if cfg.act == "silu" and training and pctx.mesh is not None:
         x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
         g, u = (linear_apply_train_sharded(params[n], x, cfg.quant, pctx, parallel="column")
@@ -56,10 +55,10 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         h = linear_apply_train_sharded(params["w_in"], x, cfg.quant, pctx, parallel="column")
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         return linear_apply_train_sharded(params["w_out"], h, cfg.quant, pctx, parallel="row")
-    if pctx.mesh is not None:
-        raise NotImplementedError(f"{cfg.act} MLP on a serving mesh: the other families' "
-                                  "prefill and decode on a mesh are ROADMAP A.13.11")
     h = linear_apply(params["w_in"], x, cfg.quant, training=training)
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    if pctx.mesh is not None:  # serving: w_out row-parallel, its bias added once summed
+        return linear_apply_row_parallel(params["w_out"], h, cfg.quant,
+                                         pctx.mesh.group(pctx.axes.tp))
     return linear_apply(params["w_out"], h, cfg.quant, training=training)

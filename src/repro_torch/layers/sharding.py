@@ -129,6 +129,15 @@ class PartitionCtx:
     def with_rules(self, rules: Mapping[str, Axis]) -> "PartitionCtx":
         return dataclasses.replace(self, rules=rules)
 
+    @property
+    def fsdp_axis(self) -> Axis:
+        """The axis the rules shard every weight's d_model dim over (the
+        train rules' FSDP), or None: the serving rules keep the weights
+        whole over data."""
+        if self.mesh is None or self.rules.get("param_embed") != "__fsdp__":
+            return None
+        return self.axes.fsdp
+
     # ------------------------------------------------ one rank's shards --
 
     def size(self, ax: Axis) -> int:
@@ -203,6 +212,56 @@ class PartitionCtx:
 
 
 NULL_CTX = PartitionCtx()
+
+
+def cache_logical(name: str, ndim: int) -> tuple:
+    """The logical dims of a decode-cache leaf named ``name`` (its path in
+    the family's cache, ``common.tree.named_leaves``), as the JAX
+    ``PhaseEngine._cache_shardings`` names them: the mLSTM state (G, nm,
+    B, H, dk[, dv]) and the sLSTM's (G, B, H, hd) by batch, their last dim
+    the "state"; a quantized KV's scale plane (B, L, Hkv, S); the KV (B, L,
+    Hkv, S, D), batch-leading; hymba's conv state (L, B, w - 1, d_in) and
+    SSM state (L, B, d_in, N), their channels the "state"."""
+    p = name.lower()
+    if "mlstm" in p:
+        names = [None] * ndim
+        if ndim >= 3:
+            names[2] = "batch"
+        if ndim >= 5:
+            names[-1] = "state"
+        return tuple(names)
+    if "slstm" in p:
+        return (None, "batch", None, "state")
+    if "scale" in p and ndim == 4:
+        return ("batch", "layers", "kv_heads", "kv_seq")
+    if ndim == 5:
+        return ("batch", "layers", "kv_heads", "kv_seq", "head_dim")
+    if "conv" in p and ndim == 4:
+        return ("layers", "batch", None, "state")
+    if ndim == 4:
+        return ("layers", "batch", "state", None)
+    if ndim == 3:
+        return ("layers", "batch", None)
+    return (None,) * ndim
+
+
+def cache_spec(pctx: PartitionCtx, name: str, shape: Sequence[int]) -> PartitionSpec:
+    """The sanitized spec of the decode-cache leaf ``name`` of whole
+    ``shape`` under ``pctx``'s rules: what ``PhaseEngine.init_cache`` cuts
+    a rank's block by."""
+    return pctx.spec(shape, *cache_logical(name, len(shape)))
+
+
+def local_shape(pctx: PartitionCtx, spec: PartitionSpec, shape: Sequence[int]) -> tuple:
+    """A rank's block of a tensor of whole ``shape`` cut by ``spec``."""
+    return tuple(n // pctx.size(ax) for n, ax in zip(shape, spec))
+
+
+def cache_block(pctx: PartitionCtx, name: str, shape: Sequence[int]) -> tuple:
+    """This rank's block of the decode-cache leaf ``name`` of whole
+    ``shape``, cut by ``cache_spec`` (the whole shape off a mesh): what
+    each family's ``init_cache`` allocates."""
+    return local_shape(pctx, cache_spec(pctx, name, shape), shape)
 
 
 def sanitize_spec(spec: PartitionSpec, shape: Sequence[int], mesh) -> PartitionSpec:

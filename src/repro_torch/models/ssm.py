@@ -25,25 +25,31 @@ from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
 CHUNK = 128  # prefill steps a chunk: the scan's working set is (B, CHUNK, d_in, N)
 
 
-def _in_proj(p, x, cfg: ModelConfig, pctx: PartitionCtx):
-    """(x_in, z) (B, S, d_in) f32.  On a training mesh each model rank
-    takes its d_in / tp channels of both: the rule cuts ``w_in``'s columns
-    x | z contiguously (at tp 2 one rank holds all of x, the other all of
-    z), so the weight is gathered whole over data and model and this
+def _in_proj(p, x, cfg: ModelConfig, pctx: PartitionCtx, step: bool = False):
+    """(x_in, z) (B, S, d_in) f32.  On a mesh each model rank takes its
+    d_in / tp channels of both: the rule cuts ``w_in``'s columns x | z
+    contiguously (at tp 2 one rank holds all of x, the other all of z), so
+    the weight is gathered whole (over data too in training) and this
     rank's channels of each half are cut from it; each rank uses its own,
-    so the gather's backward is the summing reduce-scatter."""
+    so the gather's backward is the summing reduce-scatter.  A decode
+    ``step`` gathers the column-parallel product instead (a token's 2 d_in
+    values, not the weight) and cuts the channels from it."""
     if pctx.mesh is None:
         return (x.float() @ p["w_in"].float()).chunk(2, dim=-1)
     d_in = cfg.d_model
+    if step:
+        xz = C.all_gather(x.float() @ p["w_in"].float(), pctx.mesh.group(pctx.axes.tp), dim=-1)
+        lo, hi = ssm_channels(cfg, pctx)
+        return xz[..., lo:hi], xz[..., d_in + lo:d_in + hi]
     w = train_weight(p["w_in"], pctx, (cfg.d_model, 2 * d_in), fsdp_dim=0, tp_dim=1, tp="sum")
     if pctx.tp_size > 1:
-        lo, hi = _channels(cfg, pctx)
+        lo, hi = ssm_channels(cfg, pctx)
         w = torch.cat([w[:, lo:hi], w[:, d_in + lo:d_in + hi]], dim=1)
     x = C.copy_to_tp(x, pctx.mesh.group(pctx.axes.tp))
     return (x.float() @ w.float()).chunk(2, dim=-1)
 
 
-def _channels(cfg: ModelConfig, pctx: PartitionCtx):
+def ssm_channels(cfg: ModelConfig, pctx: PartitionCtx):
     """[lo, hi) of this model rank's SSM channels."""
     per = cfg.d_model // pctx.tp_size
     lo = pctx.index(pctx.axes.tp) * per
@@ -80,15 +86,16 @@ def _out_proj(p, y: torch.Tensor, cfg: ModelConfig, pctx: PartitionCtx) -> torch
 
 
 def _ssm_inputs(p, x, cfg: ModelConfig, conv_state: Optional[torch.Tensor] = None,
-                pctx: PartitionCtx = NULL_CTX):
+                pctx: PartitionCtx = NULL_CTX, step: bool = False):
     """x (B, S, d) -> (xc, z, dt, b_mat, c_mat, new_conv_state), all f32;
     the conv state is the last ``ssm_conv - 1`` inputs of the depthwise
     causal conv, for streaming decode.  On a training mesh (``pctx``) the
     d_in tensors hold this rank's channels, as the rules cut ``conv``,
     ``a_log``, ``dt_bias``, ``d_skip`` and the rows of ``w_bc``, ``w_dt``
-    and ``w_out``; the contractions over the channels are summed."""
+    and ``w_out``; the contractions over the channels are summed (a decode
+    ``step``: see ``_in_proj``)."""
     s = x.shape[1]
-    x_in, z = _in_proj(p, x, cfg, pctx)  # (B, S, d_in)
+    x_in, z = _in_proj(p, x, cfg, pctx, step)  # (B, S, d_in)
     w = cfg.ssm_conv
     if conv_state is None:
         ctx = F.pad(x_in, (0, 0, w - 1, 0))
@@ -121,8 +128,9 @@ def _scan_chunk(a: torch.Tensor, u: torch.Tensor):
 def ssm_prefill(p, x, cfg: ModelConfig, h0: Optional[torch.Tensor] = None,
                 conv_state: Optional[torch.Tensor] = None, pctx: PartitionCtx = NULL_CTX):
     """Returns (y (B, S, d) in x's dtype, (h_last (B, d_in, N) f32, conv
-    state (B, ssm_conv - 1, d_in) f32)).  On a training mesh (``pctx``)
-    channel-parallel: the states are this rank's channels, y is whole."""
+    state (B, ssm_conv - 1, d_in) f32)).  On a mesh (``pctx``, training or
+    serving) channel-parallel: the states are this rank's channels, y is
+    whole."""
     b, s, _ = x.shape
     n = cfg.ssm_state
     xc, z, dt, b_mat, c_mat, conv_state = _ssm_inputs(p, x, cfg, conv_state, pctx)
@@ -150,10 +158,13 @@ def ssm_prefill(p, x, cfg: ModelConfig, h0: Optional[torch.Tensor] = None,
     return out.to(x.dtype), (h, conv_state)
 
 
-def ssm_decode(p, x, cfg: ModelConfig, h_prev: torch.Tensor, conv_state: torch.Tensor):
+def ssm_decode(p, x, cfg: ModelConfig, h_prev: torch.Tensor, conv_state: torch.Tensor,
+               pctx: PartitionCtx = NULL_CTX):
     """x (B, 1, d); h_prev (B, d_in, N); conv_state (B, ssm_conv - 1, d_in).
-    Returns (y (B, 1, d), (h_new, conv_state))."""
-    xc, z, dt, b_mat, c_mat, conv_state = _ssm_inputs(p, x, cfg, conv_state)
+    Returns (y (B, 1, d), (h_new, conv_state)).  On a serving mesh
+    (``pctx``) channel-parallel: the states are this rank's channels, y is
+    whole."""
+    xc, z, dt, b_mat, c_mat, conv_state = _ssm_inputs(p, x, cfg, conv_state, pctx, step=True)
     a_cont = -torch.exp(p["a_log"].float())
     a = torch.exp(dt[:, 0, :, None] * a_cont)  # (B, d_in, N)
     u = (dt[:, 0] * xc[:, 0])[..., None] * b_mat[:, 0, None, :]
@@ -161,5 +172,5 @@ def ssm_decode(p, x, cfg: ModelConfig, h_prev: torch.Tensor, conv_state: torch.T
     y = torch.einsum("bdn,bn->bd", h_new, c_mat[:, 0])[:, None, :]
     y = y + p["d_skip"] * xc
     y = y * F.silu(z)
-    out = y @ p["w_out"].float()
+    out = _out_proj(p, y, cfg, pctx)
     return out.to(x.dtype), (h_new, conv_state)

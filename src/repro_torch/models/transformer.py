@@ -45,6 +45,7 @@ from repro_torch.layers.attention import (
     scatter_new_tokens_q,
     scatter_new_tokens_seq_shard_q,
     scatter_verify_tokens_paged_q,
+    seq_walk,
     verify_plan,
     write_chunk_kv_q,
     write_prefill_pages_q,
@@ -251,22 +252,18 @@ def _gather_rows(t: torch.Tensor, pctx: PartitionCtx, n: int, dim: int = 0) -> t
 
 
 def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = False) -> None:
-    """Refuse, by name, a model the mesh programs do not shard: another
-    family served on a mesh, a sliding window, or dims the model axis does
-    not divide (heads, KV heads, d_ff, vocabulary rows, packed K rows; an
+    """Refuse, by name, a model the mesh programs do not shard: a sliding
+    window in the transformer family, or dims the model axis does not
+    divide (heads, KV heads, d_ff, vocabulary rows, packed K rows; an
     MoE's experts are over it where it divides their count, else its
     d_ff).  In training (``train``) the data axis shards every weight's
     d_model dim (FSDP) and must divide it too; the hymba, xlstm and encdec
-    families train on a mesh under their own checks
-    (``_check_family_train_mesh``)."""
+    families serve and train on a mesh under their own checks
+    (``_check_family_mesh``)."""
     if pctx.mesh is None:
         return
     if cfg.family != "transformer":
-        if not train:
-            raise NotImplementedError(
-                f"{cfg.name}: the serving mesh programs shard the transformer family; the "
-                f"{cfg.family} family's prefill and decode on a mesh are ROADMAP A.13.11")
-        return _check_family_train_mesh(cfg, pctx)
+        return _check_family_mesh(cfg, pctx, train)
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             f"{cfg.name}: a sliding window on a mesh is ROADMAP A.13")
@@ -288,20 +285,25 @@ def check_mesh_model(cfg: ModelConfig, pctx: PartitionCtx, *, train: bool = Fals
                              f"{cfg.d_model}")
 
 
-def _check_family_train_mesh(cfg: ModelConfig, pctx: PartitionCtx) -> None:
-    """The train step of the hymba, xlstm and encdec families on a mesh.
-    Heads the model axis does not divide are computed whole on every rank
+def _check_family_mesh(cfg: ModelConfig, pctx: PartitionCtx, train: bool) -> None:
+    """The hymba, xlstm and encdec families on a mesh, served (``pctx``
+    under the prefill or decode rules) or trained.  Heads the model axis
+    does not divide are computed whole on every rank
     (``layers.attention.heads_split``), and hymba's sliding window is
     taken.  What each rank must hold its own part of is refused where the
     axis does not divide it: the vocabulary rows, d_ff, hymba's SSM
-    channels (d_model), xLSTM's heads (its gates and states are head-major);
-    the data axis shards every weight's d_model dim (FSDP).  A ternary
-    encoder-decoder is refused: the JAX encoder runs the inference linears,
-    and on a mesh the port's encoder runs the training ones."""
+    channels (d_model), xLSTM's heads (its gates and states are
+    head-major); serving, also the projections' columns (H * D, Hkv * D)
+    that a rank gathers whole heads from; in training the data axis shards
+    every weight's d_model dim (FSDP).  xLSTM under the long-context
+    decode rules (its states split inside a head) is refused."""
     tp = pctx.tp_size
     dims = {"padded_vocab": cfg.padded_vocab()}
     if cfg.family in ("hymba", "encdec"):
         dims["d_ff"] = cfg.d_ff
+        if not train:
+            dims["num_heads * head_dim"] = cfg.num_heads * cfg.head_dim
+            dims["num_kv_heads * head_dim"] = cfg.num_kv_heads * cfg.head_dim
     if cfg.family == "hymba":
         dims["d_model (the SSM's channels)"] = cfg.d_model
     if cfg.family == "xlstm":
@@ -310,12 +312,16 @@ def _check_family_train_mesh(cfg: ModelConfig, pctx: PartitionCtx) -> None:
     bad = {k: v for k, v in dims.items() if v % tp}
     if bad:
         raise ValueError(f"{cfg.name}: the model axis ({tp}) does not divide {bad}")
+    if not train:
+        if cfg.family == "xlstm" and pctx.resolve(["state"])[0] is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: xLSTM under the long-context decode rules (the mLSTM's dv and the "
+                "sLSTM's hd split over the model axis inside a head) is ROADMAP A.13.12")
+        return
     fsdp = pctx.size(pctx.axes.fsdp)
     if cfg.d_model % fsdp:
         raise ValueError(f"{cfg.name}: the data axis ({fsdp}) does not divide d_model "
                          f"{cfg.d_model}")
-    if cfg.family == "encdec" and cfg.quant.ternary:
-        raise NotImplementedError(f"{cfg.name}: a ternary encoder-decoder on a mesh")
 
 
 def vocab_parallel_loss(x: torch.Tensor, head: torch.Tensor, batch: dict,
@@ -722,9 +728,7 @@ def _decode_step_sharded(params: dict, token: torch.Tensor, cache: KVCache,
     sl = leaf.shape[3]
     ax = pctx.resolve(["kv_seq"])[0]
     r = pctx.index(ax)
-    walk = None
-    if ax is not None:
-        walk = (torch.clamp(lens - r * sl, 0, sl).to(torch.int32), pctx.mesh.group(ax))
+    walk = seq_walk(lens, sl, pctx)
 
     def attend(lp, h, li):
         layer = KVCache(_slice_layer(cache.k, li), _slice_layer(cache.v, li))

@@ -26,14 +26,17 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.kv_cache import MeshInstall
 from repro_torch.layers import collectives as C
 from repro_torch.layers.linear import train_weight
 from repro_torch.layers.norm import apply_norm
-from repro_torch.layers.sharding import NULL_CTX, PartitionCtx
+from repro_torch.layers.sharding import NULL_CTX, PartitionCtx, cache_block
 from repro_torch.models.jax_init import init_like_jax
 from repro_torch.models.transformer import (
     _embed,
+    _gather_rows,
     _train_top,
+    batch_rows,
     check_mesh_model,
     layer_params,
     remat,
@@ -165,11 +168,16 @@ def _own_cols(w: torch.Tensor, pctx: PartitionCtx, shape) -> torch.Tensor:
 
 def _row_out(y: torch.Tensor, w: torch.Tensor, pctx: PartitionCtx, shape) -> torch.Tensor:
     """``y @ w`` for a (d, d) weight under the (model, data) rule: on a mesh
-    row-parallel over this rank's channels, the partial products summed."""
+    row-parallel over this rank's channels, the partial products summed
+    (serving: in f32, rounded once to y's dtype, as the transformer's
+    row-parallel linears; a group of one takes the plain product)."""
     if pctx.mesh is None:
         return y @ w.to(y.dtype)
     w = train_weight(w, pctx, shape, fsdp_dim=1)
-    return C.reduce_from_tp(y @ w.to(y.dtype), pctx.mesh.group(pctx.axes.tp))
+    group = pctx.mesh.group(pctx.axes.tp)
+    if pctx.fsdp_axis is None and not C._trivial(group):
+        return C.all_reduce(y.float() @ w.float(), group).to(y.dtype)
+    return C.reduce_from_tp(y @ w.to(y.dtype), group)
 
 
 def _mean_square(xf: torch.Tensor, d: int, pctx: PartitionCtx) -> torch.Tensor:
@@ -244,23 +252,73 @@ def mlstm_prefill(p, x, state: MLSTMState, cfg: ModelConfig, pctx: PartitionCtx 
     return _mlstm_finish(p, x, h_seq, og, cfg, pctx), state
 
 
-def mlstm_decode(p, x, state: MLSTMState, cfg: ModelConfig):
-    q, k, v, it, ft, og = _mlstm_project(p, x, cfg)  # S = 1
-    h, state = _mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], it[:, :, 0], ft[:, :, 0], state)
-    return _mlstm_finish(p, x, h[:, :, None, :], og, cfg), state
+def _gather_cols(pctx: PartitionCtx, parts, wholes):
+    """Column-parallel products' local outputs (..., n_i / tp) made whole
+    (..., n_i) on every model rank, in one all-gather; a part whose weight
+    the rules left whole (sanitized: ``n_i`` wide already) as it is."""
+    if pctx.mesh is None or pctx.tp_size == 1:
+        return list(parts)
+    cut = [i for i, (t, n) in enumerate(zip(parts, wholes)) if t.shape[-1] != n]
+    out = list(parts)
+    if cut:
+        every = C.all_gather(torch.cat([parts[i] for i in cut], dim=-1)[None],
+                             pctx.mesh.group(pctx.axes.tp), dim=0)
+        widths = [parts[i].shape[-1] for i in cut]
+        for i, ranks in zip(cut, every.split(widths, dim=-1)):
+            out[i] = torch.cat(ranks.unbind(0), dim=-1)
+    return out
+
+
+def _row_out_whole(y: torch.Tensor, w: torch.Tensor, pctx: PartitionCtx) -> torch.Tensor:
+    """``y @ w`` for a (d, d) weight whose rows the serving rules split over
+    the model axis, ``y`` (..., d) whole on every rank: this rank's slice
+    of y against its rows (``_row_out``)."""
+    if pctx.mesh is None or w.shape[0] == y.shape[-1]:
+        return y @ w.to(y.dtype)
+    return _row_out(pctx.axis_slice(y, -1, pctx.axes.tp), w, pctx, (y.shape[-1],) * 2)
+
+
+def mlstm_decode(p, x, state: MLSTMState, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
+    """One token (x (B, 1, d)) through an mLSTM block, its state (every
+    head) updated.  On a serving mesh (``pctx``, the decode rules) every
+    model rank runs every head: the column-parallel projections' outputs
+    are gathered (one all-gather), the step updates the whole state, which
+    the decode rules keep whole on every model rank, and ``w_out`` is
+    row-parallel.  Off a mesh (or on a model axis of one) the gather and
+    the row split pass straight through."""
+    b, d, nh = x.shape[0], cfg.d_model, cfg.num_heads
+    hd = d // nh
+    xn = apply_norm(p["ln"], x, "rmsnorm", cfg.norm_eps).to(p["w_qkv"].dtype)
+    qkv, gates, og = _gather_cols(pctx, [xn @ p[n] for n in ("w_qkv", "w_if", "w_og")],
+                                  (3 * d, 2 * nh, d))
+    q, k, v = qkv.chunk(3, dim=-1)
+    heads = lambda t: t.reshape(b, nh, hd)  # noqa: E731  (S = 1)
+    gates = gates.float()
+    h, state = _mlstm_step(heads(q), heads(k / hd**0.5), heads(v), gates[:, 0, :nh],
+                           F.logsigmoid(gates[:, 0, nh:]), state)
+    og = torch.sigmoid(og.float()).to(xn.dtype)
+    h_flat = apply_norm(p["hnorm"], h.reshape(b, 1, d).to(x.dtype), "rmsnorm", cfg.norm_eps)
+    return x + _row_out_whole(og.to(h_flat.dtype) * h_flat, p["w_out"], pctx).to(x.dtype), state
 
 
 # ---------------------------------------------------------------- sLSTM ----
 
 
-def _slstm_step(p, wx_t, state: SLSTMState, cfg: ModelConfig) -> SLSTMState:
-    """wx_t: the precomputed W x_t (B, 4d) f32; R h_{t-1} is added here.
-    ``p["r"]`` (H, hd, 4hd) and ``p["b"]`` (4d) hold the heads the step
-    runs (on a training mesh this rank's, with wx_t's)."""
+def _slstm_step(p, wx_t, state: SLSTMState, cfg: ModelConfig,
+                rh: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None
+                ) -> SLSTMState:
+    """wx_t: the precomputed W x_t (B, 4d) f32; R h_{t-1} is added here
+    (``rh`` (B, H, 4hd) where the caller has it: a serving mesh's decode
+    step gathers it).  ``p["r"]`` (H, hd, 4hd) and ``p["b"]`` (4d) hold the
+    heads the step runs (on a training mesh this rank's, with wx_t's);
+    ``bias`` takes b's place where given."""
     b = wx_t.shape[0]
-    h_, hd = p["r"].shape[0], cfg.d_model // cfg.num_heads
-    rh = torch.einsum("bhd,hde->bhe", state.h.float(), p["r"].float())
-    pre = wx_t.reshape(b, h_, 4 * hd) + rh + p["b"].reshape(h_, 4 * hd)
+    hd = cfg.d_model // cfg.num_heads
+    h_ = wx_t.shape[1] // (4 * hd)
+    if rh is None:
+        rh = torch.einsum("bhd,hde->bhe", state.h.float(), p["r"].float())
+    bias = p["b"] if bias is None else bias
+    pre = wx_t.reshape(b, h_, 4 * hd) + rh + bias.reshape(h_, 4 * hd)
     zt, it, ft, ot = pre.chunk(4, dim=-1)  # (B, H, hd) each
     z = torch.tanh(zt)
     o = torch.sigmoid(ot)
@@ -286,6 +344,29 @@ def _slstm_heads(p, cfg: ModelConfig, pctx: PartitionCtx) -> dict:
     h0, h1 = _heads_of(pctx, h)
     r = train_weight(p["r"], pctx, (h, hd, 4 * hd), tp_dim=2, tp="sum")
     return {**p, "w": _own_cols(p["w"], pctx, (d, 4 * d)), "r": r[h0:h1]}
+
+
+def slstm_decode(p, x, state: SLSTMState, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
+    """One token through an sLSTM block, its state (every head) updated.
+    On a serving mesh (``pctx``, the decode rules) every model rank runs
+    every head: W x (``w``'s columns: this rank's heads), R h (``r``'s
+    columns inside each head) and the bias are this rank's columns,
+    gathered whole in one all-gather; the step and ``hnorm`` run on the
+    whole heads, ``w_out`` row-parallel.  Off a mesh the gather and the
+    row split pass straight through."""
+    b, d, nh = x.shape[0], cfg.d_model, cfg.num_heads
+    hd = d // nh
+    xn = apply_norm(p["ln"], x, "rmsnorm", cfg.norm_eps).to(p["w"].dtype)
+    rh = torch.einsum("bhd,hde->bhe", state.h.float(), p["r"].float())
+    wx, rh, bias = _gather_cols(
+        pctx, [(xn @ p["w"])[:, 0].float(), rh.reshape(b, -1),
+               p["b"].float().expand(b, p["b"].shape[-1])], (4 * d, 4 * d, 4 * d))
+    if p["r"].shape[-1] != 4 * hd:  # r's columns were cut inside each head: rank-major
+        k = 4 * hd // p["r"].shape[-1]
+        rh = rh.reshape(b, k, nh, 4 * hd // k).transpose(1, 2)
+    state = _slstm_step(p, wx, state, cfg, rh=rh.reshape(b, nh, 4 * hd), bias=bias[0])
+    h_seq = apply_norm(p["hnorm"], state.h.to(x.dtype).reshape(b, 1, d), "rmsnorm", cfg.norm_eps)
+    return x + _row_out_whole(h_seq, p["w_out"], pctx).to(x.dtype), state
 
 
 def slstm_forward(p, x, state: SLSTMState, cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
@@ -329,19 +410,25 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, dtype=torch.float32,
-               device=None, heads: Optional[int] = None) -> XLSTMCache:
+               device=None, heads: Optional[int] = None,
+               pctx: PartitionCtx = NULL_CTX) -> XLSTMCache:
     """The fresh recurrent state (no KV at all; ``max_len`` is unused):
     zeros, stabilizers at -1e30; of ``heads`` heads (a training mesh
-    rank's), all of them by default."""
+    rank's), all of them by default.  On a serving mesh (``pctx``, the
+    decode rules) this rank's block of each leaf
+    (``layers.sharding.cache_block``: its rows of the batch)."""
     dev = resolve_device(device)
     ng, nm = _group_counts(cfg)
     h = cfg.num_heads if heads is None else heads
     hd = cfg.d_model // cfg.num_heads
-    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
-    m = MLSTMState(z(ng, nm, batch, h, hd, hd), z(ng, nm, batch, h, hd),
-                   torch.full((ng, nm, batch, h), STATE_INIT_M, dtype=dtype, device=dev))
-    s = SLSTMState(z(ng, batch, h, hd), z(ng, batch, h, hd), z(ng, batch, h, hd),
-                   torch.full((ng, batch, h, hd), STATE_INIT_M, dtype=dtype, device=dev))
+
+    def leaf(name, *shape, fill=0.0):
+        return torch.full(cache_block(pctx, name, shape), fill, dtype=dtype, device=dev)
+
+    m = MLSTMState(leaf("mlstm/c", ng, nm, batch, h, hd, hd), leaf("mlstm/n", ng, nm, batch, h, hd),
+                   leaf("mlstm/m", ng, nm, batch, h, fill=STATE_INIT_M))
+    s = SLSTMState(*(leaf(f"slstm/{n}", ng, batch, h, hd) for n in "cnh"),
+                   leaf("slstm/m", ng, batch, h, hd, fill=STATE_INIT_M))
     return XLSTMCache(m, s)
 
 
@@ -351,10 +438,14 @@ def _put_state(dst: NamedTuple, idx, src: NamedTuple) -> None:
 
 
 def _forward(params, tokens, cfg: ModelConfig, cache: XLSTMCache, *, decode: bool,
-             last_only: bool = False):
+             last_only: bool = False, pctx: PartitionCtx = NULL_CTX):
     """The layer walk over tokens (B, S), the states in ``cache`` updated in
-    place.  Returns (logits (B, S or 1, Vp), cache)."""
-    x = params["emb"][tokens]
+    place.  Returns (logits (B, S or 1, Vp), cache).  On a serving mesh
+    (``pctx``) a prefill runs this rank's heads (the training pass's
+    head-parallel blocks) from a cache of those heads, a decode step every
+    head (``mlstm_decode``, ``slstm_decode``) on the whole state; the
+    vocabulary columns of ``lm_head`` are gathered."""
+    x = _embed(params["emb"], tokens, pctx)
     ng, nm = _group_counts(cfg)
     groups = params["groups"]
     for g in range(ng):
@@ -362,17 +453,24 @@ def _forward(params, tokens, cfg: ModelConfig, cache: XLSTMCache, *, decode: boo
             mp = layer_params(layer_params(groups["mlstm"], g), j)
             st = MLSTMState(*(t[g, j] for t in cache.mlstm))
             if decode:
-                x, st = mlstm_decode(mp, x, st, cfg)
+                x, st = mlstm_decode(mp, x, st, cfg, pctx)
             else:
-                x, st = mlstm_prefill(mp, x, st, cfg)
+                x, st = mlstm_prefill(mp, x, st, cfg, pctx)
             _put_state(cache.mlstm, (g, j), st)
+        sp = layer_params(groups["slstm"], g)
         sst = SLSTMState(*(t[g] for t in cache.slstm))
-        x, sst = slstm_forward(layer_params(groups["slstm"], g), x, sst, cfg)
+        if decode:
+            x, sst = slstm_decode(sp, x, sst, cfg, pctx)
+        else:
+            x, sst = slstm_forward(sp, x, sst, cfg, pctx)
         _put_state(cache.slstm, g, sst)
     x = apply_norm(params["ln_f"], x, "rmsnorm", cfg.norm_eps)
     if last_only:
         x = x[:, -1:, :]
-    return x.float() @ params["lm_head"].float(), cache
+    logits = x.float() @ params["lm_head"].float()
+    if pctx.mesh is not None:
+        logits = C.all_gather(logits, pctx.mesh.group(pctx.axes.tp), dim=-1)
+    return logits, cache
 
 
 def _group_train(x, gp: dict, mstates, sstate: SLSTMState, cfg: ModelConfig,
@@ -422,18 +520,56 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, aux_weight: float = 0.0
     return loss, {"nll": loss, "aux": torch.zeros((), device=x.device)}
 
 
-def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
+def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    pctx: PartitionCtx = NULL_CTX):
     """The prefill program from a fresh state: tokens (B, S).  Returns
-    (last-position logits (B, Vp), XLSTMCache)."""
-    cache = init_cache(cfg, tokens.shape[0], device=tokens.device)
-    logits, cache = _forward(params, tokens, cfg, cache, decode=False, last_only=True)
-    return logits[:, -1, :], cache
+    (last-position logits (B, Vp), XLSTMCache).  On a serving mesh
+    (``pctx``, the prefill rules) every rank takes the whole ``tokens``,
+    runs its rows of the batch on its H / tp heads and returns the whole
+    batch's logits and its rows' states of its heads."""
+    check_mesh_model(cfg, pctx)
+    b = tokens.shape[0]
+    lo, hi = batch_rows(pctx, b)
+    h0, h1 = _heads_of(pctx, cfg.num_heads)
+    cache = init_cache(cfg, hi - lo, device=tokens.device, heads=h1 - h0)
+    logits, cache = _forward(params, tokens[lo:hi], cfg, cache, decode=False, last_only=True,
+                             pctx=pctx)
+    return _gather_rows(logits[:, -1, :], pctx, b), cache
+
+
+# the head dim of each state leaf: mLSTM (G, nm, B, H, ...), sLSTM (G, B, H, hd)
+_HEAD_DIM = {"mlstm": 3, "slstm": 2}
+
+
+def install_prefill(cache: XLSTMCache, prefilled: XLSTMCache, slots=None,
+                    mesh: Optional[MeshInstall] = None) -> XLSTMCache:
+    """The logic swap: each prompt's states into its slot of the decode
+    cache (prompt i into ``slots[i]``, slot i by default), in place.  On a
+    mesh (``mesh``) ``cache`` is this rank's block (its rows of the batch,
+    every head: the decode rules) and ``prefilled`` its prefill's rows of
+    its heads, gathered whole over the model axis (one all-gather a
+    leaf); each prompt goes to the data rank whose rows hold its slot."""
+    rows = (list(enumerate(range(prefilled.slstm.h.shape[1]) if slots is None else slots))
+            if mesh is None else mesh.rows())
+    for part, (dst_part, src_part) in zip(_HEAD_DIM, zip(cache, prefilled)):
+        bdim = _HEAD_DIM[part] - 1
+        for dst, src in zip(dst_part, src_part):
+            if mesh is not None:
+                src = mesh.state(src, _HEAD_DIM[part], dst.shape[_HEAD_DIM[part]])
+            for i, slot in rows:
+                dst.select(bdim, slot).copy_(src.select(bdim, i))
+    return cache
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: XLSTMCache, lengths: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, pctx: PartitionCtx = NULL_CTX):
     """One recurrent step for every sequence: token (B,); ``lengths`` is
     unused (the state carries the position).  Returns (logits (B, Vp),
-    cache), the states updated in place."""
-    logits, cache = _forward(params, token[:, None], cfg, cache, decode=True)
-    return logits[:, 0, :], cache
+    cache), the states updated in place.  On a serving mesh (``pctx``, the
+    decode rules) ``token`` is the whole batch's and ``cache`` this rank's
+    rows of it (every head); the logits are the whole batch's."""
+    check_mesh_model(cfg, pctx)
+    bg = token.shape[0]
+    lo, hi = batch_rows(pctx, bg)
+    logits, cache = _forward(params, token[lo:hi, None], cfg, cache, decode=True, pctx=pctx)
+    return _gather_rows(logits[:, 0, :], pctx, bg), cache

@@ -713,19 +713,22 @@ def test_walk_merge_with_an_empty_shard():
 
 
 def test_mesh_refusals():
-    """A mesh refuses what it does not shard, by name: another family and
-    dims the model axis does not divide; the disaggregated pools split a
-    mesh with a pod axis only.  Chunked prefill, speculative decoding and
-    every swap policy are taken (``tests/test_torch_mesh_spec.py`` serves
-    them), and so are the chunk and verify programs."""
+    """A mesh refuses what it does not shard, by name: xLSTM under the
+    long-context decode rules (ROADMAP A.13.12; the other families serve,
+    ``tests/test_torch_mesh_family_serve.py``) and dims the model axis does
+    not divide; the disaggregated pools split a mesh with a pod axis only.
+    Chunked prefill, speculative decoding and every swap policy are taken
+    (``tests/test_torch_mesh_spec.py`` serves them), and so are the chunk
+    and verify programs."""
     from repro_torch.configs import reduced_config
     from repro_torch.core.phase_engine import PhaseEngine
     from repro_torch.models import transformer as T
     from repro_torch.serving import EngineCore
 
     mesh = _StubMesh({"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="A.13"):
-        PhaseEngine(reduced_config("hymba-1.5b"), mesh)
+    with pytest.raises(NotImplementedError, match="A.13.12"):
+        PhaseEngine(reduced_config("xlstm-1.3b"), mesh, long_context=True)
+    PhaseEngine(reduced_config("hymba-1.5b"), mesh, long_context=True)
     cfg = reduced_config("bitnet-730m")
     params = T.convert_for_inference(T.init(cfg, 0, device="cpu"), cfg)
     for kw in (dict(prefill_chunk=8, spec_decode=2), dict(swap_policy="swap-aware"),
@@ -759,8 +762,15 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     chunks': B1 at a data rank's 10 verify rows and a 256-row chunk, B3 and
     B4 over each sequence half at 5 rows a slot (a block across the
     halves), B5 and B6 with each table row 5 times, the split's decode rank
-    at 4 slots x 5.  Here each case's plain version runs and a row shard's
-    B1 returns the exact int32 partial."""
+    at 4 slots x 5; and the other families' on (2, 2): B3 over each half
+    of hymba's 4,096-row cache from the window's start (a half wholly
+    before the window, a half past every length), over whisper's cross
+    halves (768 and 732 valid rows, the pad dead) and self halves, B2 on
+    10 of whisper's 20 heads, B3 over a quarter of hymba's 524,288
+    long-context rows.  Here each case's plain version runs, a row shard's
+    B1 returns the exact int32 partial, and a walk's dead rows holding NaN
+    change nothing (the plain version masks them as the kernel skips
+    them)."""
     from repro_torch.analysis import kernel_check as K
     from repro_torch.quant.ternary import unpack_ternary
 
@@ -783,6 +793,14 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
     assert any("lengths=[0, 48]" in c.label for c in cases if c.kernel == "decode_attention_quant")
     split = [c.kernel for c in cases if "the split's decode pool" in c.label]
     assert split == ["decode_attention", "paged_decode_attention_quant"], split
+    family = [c.label for c in cases if "hymba" in c.label or "whisper" in c.label]
+    assert len(family) == 8, family
+    assert any("rank 0's half of 4096: local lengths=[1000, 2048, 2048, 2048] starts=[0, 1025, "
+               "1977, 2048]" in x for x in family)  # slot 3: wholly before its window
+    assert any("rank 1's half of 4096: local lengths=[0, 0, 952, 1952]" in x for x in family)
+    assert any("cross half 1: 732 of 768 rows" in x for x in family)
+    assert any("10 of whisper's 20 decoder heads" in x for x in family)
+    assert any("local length 131071 of 131072" in x for x in family)
     plains = K._plains()
     for case in cases:
         named = K._plain_named(case)
@@ -793,6 +811,11 @@ def test_kernel_pass_holds_the_kernels_at_the_shard_shapes():
         if case.kernel == "tlmm" and "row shard" in case.label:
             acc = named["x_q"].double() @ unpack_ternary(named["w"]).double()
             assert torch.equal(outs[0].double(), acc), case.label
+        if case.label in family and case.kernel == "decode_attention":
+            junk = K._plain_named(case, fill="a")  # NaN in the dead rows
+            again = plains[case.kernel](*K._resolve(case.plain_args, junk),
+                                        **K._resolve_kw(case.plain_kwargs, junk))
+            assert all(torch.equal(a, b) for a, b in zip(outs, again)), case.label
 
 
 def test_serve_mesh_example_over_the_launcher():
